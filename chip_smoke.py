@@ -1,0 +1,504 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch + CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA GPU (built for the H100: the kernels compile for
+``sm_90a``) and the CUDA toolkit.  It builds both CUDA kernels from
+``src/repro_torch/kernels/csrc`` with ``nvcc``, then runs these phases,
+one line each:
+
+  1. device   the card's name and power limit (``nvidia-smi``); TF32 off
+  2. node_mlp kernel vs plain PyTorch version on the card, GIN's five
+              linear shapes at M = 4096 and ragged M, every activation
+              (|kernel - plain| <= 1e-5 + 1e-5 |plain|: the same fp32
+              FMAs summed in another order)
+  3. fused_mp kernel vs plain version for every fp32 gamma at the paper
+              widths, N = 4096, E = 12288, with isolated nodes, padding
+              edges and an all-padding edge list (same tolerance; PNA
+              5e-3, whose std amplifies one rounding of sqsum/c - mean^2)
+  4. GIN      served at paper width through ``GNNEngine(fused=True)``:
+              32 streamed MolHIV-like graphs and one packed batch of 128
+              (the k=64 rung of the (64, 192) ladder), checked against
+              the same engine in ``mode="reference"``, the unfused engine
+              and the CPU path (rtol 1e-4, atol 1e-5)
+  5. GCN      the same, streamed
+  6. kernels  launch counts of the main path (counters reset just before
+              phase 4 / 5 and read just after), and at the packed batch's
+              shapes each kernel's time beside its plain version's, the
+              library call's (node_mlp: ``torch.addmm`` + relu) and the
+              card's bound
+
+It prints the card line and a JSON object of the kernels before the last
+line, and ends with ``{"ok": true, "device": {...}}``.  Any mismatch or
+exception exits non-zero; without CUDA it exits 1 and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): fp32 on CUDA cores, HBM3
+PEAK_FP32_FLOP_S = 67e12
+PEAK_HBM_BYTES_S = 3.35e12
+TOL = dict(rtol=1e-5, atol=1e-5)
+PNA_TOL = dict(rtol=5e-3, atol=5e-3)
+SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+TIMING_REPS = 50
+# GIN's linears as (K, N): encoder, edge embedding, MLP in/out, head
+GIN_LINEARS = ((9, 100), (3, 100), (100, 200), (200, 100), (100, 1))
+PACKED = dict(n_pad=4096, e_pad=12288, g_pad=128)
+
+
+def device_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def build_kernels() -> None:
+    """Build every CUDA source in parallel; print nvcc's resource usage."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    dt = time.perf_counter() - t0
+    for name, log in logs.items():
+        usage = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        print(f"[build] {name}.cu: {'; '.join(usage) or 'built'}")
+    print(f"[build] {len(logs)} kernel sources built in {dt:.1f}s")
+
+
+def close(a, b, tol) -> bool:
+    import torch
+
+    return bool(torch.all((a - b).abs() <= tol["atol"] + tol["rtol"] * b.abs()))
+
+
+def max_err(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def device_ms(fn, reps: int = TIMING_REPS):
+    """Median per-call device time of ``fn`` in ms, and the timer used.
+
+    ``torch.profiler`` records the CUDA activity of ``reps`` calls; each
+    call issues the same number of device operations, so the records
+    split into per-call sums.  If it records no device activity, CUDA
+    events around each call stand in (they include launch overhead)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in
+            sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                   key=lambda e: e.time_range.start)]
+    if not durs:
+        return call_ms(fn, reps), "events"
+    per_call, rem = divmod(len(durs), reps)
+    if rem:
+        return sum(durs) / reps / 1e3, "profiler-mean"
+    calls = [sum(durs[i * per_call:(i + 1) * per_call]) for i in range(reps)]
+    return statistics.median(calls) / 1e3, "profiler-median"
+
+
+def call_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Median per-call time in ms from CUDA events around each call
+    (includes the host's launch overhead when the card is idle)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def busy_share(fn):
+    """(share of wall time the card is busy while ``fn`` runs, device
+    operations it issued): device time summed by ``torch.profiler`` over
+    the wall time of a second, unprofiled run (both end at a synchronise)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return sum(dev) / 1e6 / (time.perf_counter() - t0), len(dev)
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms, "bytes" | "operations") on an H100 SXM."""
+    t_mem = nbytes / PEAK_HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------ phase 2
+
+
+def check_node_mlp(device) -> None:
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(1)
+    worst, count = 0.0, 0
+    for k, n in GIN_LINEARS:
+        for m in (4096, 1, 37, 4097):
+            x = torch.randn((m, k), generator=gen).to(device)
+            w = (torch.randn((k, n), generator=gen)
+                 * (2.0 / (k + n)) ** 0.5).to(device)
+            b = (0.1 * torch.randn((n,), generator=gen)).to(device)
+            for act in ("relu", "gelu", "none"):
+                got = kops.node_mlp(x, w, b, act, mode="kernel")
+                want = kops.node_mlp(x, w, b, act, mode="reference")
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                if got.shape != (m, n) or not close(got, want, TOL):
+                    raise AssertionError(
+                        f"node_mlp ({m},{k})x({k},{n}) {act}: max err "
+                        f"{max_err(got, want):.3g}")
+                worst = max(worst, max_err(got, want))
+                count += 1
+    print(f"[node_mlp] {count} cases (GIN shapes x M in 4096,1,37,4097 x "
+          f"relu/gelu/none) match the plain version; max abs err {worst:.3g}")
+
+
+# ------------------------------------------------------------ phase 3
+
+
+def fused_operands(gen, gamma: str, n: int, e: int, f: int, device):
+    """(MPSpec, operands) for ``gamma`` at width ``f``; weights are glorot
+    scaled like the models' (GIN's hidden width is 2f)."""
+    import torch
+    from repro_torch.core import message_passing as mp
+
+    rnd = lambda *s: torch.randn(s, generator=gen)
+    glorot = lambda a, b: rnd(a, b) * (2.0 / (a + b)) ** 0.5
+    kw = dict(msrc=rnd(n, f), x_res=rnd(n, f))
+    if gamma == "gcn":
+        spec = mp.MPSpec("copy", ("sum",), "gcn")
+        kw["nop"] = rnd(n, 1).abs() + 0.1
+    elif gamma == "gin":
+        spec = mp.MPSpec("add_relu", ("sum",), "gin")
+        kw.update(eop=rnd(e, f), w1=glorot(f, 2 * f), b1=0.1 * rnd(2 * f),
+                  w2=glorot(2 * f, f), b2=0.1 * rnd(f))
+    elif gamma == "pna":
+        spec = mp.MPSpec("copy", ("sum", "sqsum", "max", "min"), "pna")
+        kw.update(nop=rnd(n, 3).abs() + 0.5, w1=glorot(12 * f, f),
+                  b1=0.1 * rnd(f))
+    else:
+        spec = mp.MPSpec("copy", ("sum", "wsum"), "dgn")
+        kw.update(nop=rnd(n, 1).abs() + 0.1, ew=rnd(e, 1),
+                  w1=glorot(3 * f, f), b1=0.1 * rnd(f))
+    return spec, {k: v.to(device) for k, v in kw.items()}
+
+
+def plan_graph(rng, n_pad: int, e_pad: int, all_padding: bool, device):
+    """A padded graph with isolated nodes and padding edges (or no real
+    edge at all) and its layout plan on ``device``."""
+    from repro_torch.core import graph as G
+    from repro_torch.core import layout as LY
+
+    n_real = n_pad - 96
+    e_real = 0 if all_padding else e_pad - 2048
+    # destinations avoid the last 400 real nodes: isolated, but live
+    s = rng.integers(0, n_real, e_real).astype(np.int32)
+    r = rng.integers(0, n_real - 400, e_real).astype(np.int32)
+    nf = rng.normal(size=(n_real, 9)).astype(np.float32)
+    ef = rng.normal(size=(e_real, 3)).astype(np.float32)
+    g = G.from_numpy(s, r, nf, ef, n_pad=n_pad, e_pad=e_pad, device=device)
+    return g, LY.build_layout(g)
+
+
+def check_fused_mp(device) -> None:
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    rng = np.random.default_rng(2)
+    gen = torch.Generator().manual_seed(3)
+    cases = []
+    widths = {"gcn": 100, "gin": 100, "pna": 80, "dgn": 100}
+    for all_padding in (False, True):
+        g, lay = plan_graph(rng, 4096, 12288, all_padding, device)
+        for gamma, f in widths.items():
+            spec, kw = fused_operands(gen, gamma, g.num_nodes, g.num_edges,
+                                      f, device)
+            args = (spec, lay.ids_sorted, lay.offsets, lay.src_sorted,
+                    lay.in_degree, g.node_mask)
+            got = kops.fused_mp(*args, mode="kernel", **kw)
+            want = kops.fused_mp(*args, mode="reference", **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            tol = PNA_TOL if gamma == "pna" else TOL
+            padded = ~g.node_mask
+            if (not close(got, want, tol) or not torch.isfinite(got).all()
+                    or bool(got[padded].abs().max() != 0)):
+                raise AssertionError(
+                    f"fused_mp {gamma} (all_padding={all_padding}): max err "
+                    f"{max_err(got, want):.3g}")
+            cases.append(f"{gamma}:{max_err(got, want):.2g}")
+    print(f"[fused_mp] gcn/gin(F=100,H=200)/pna(F=80)/dgn(F=100) at N=4096, "
+          f"E=12288 (+ all-padding edges) match the plain version: "
+          f"{' '.join(cases)}")
+
+
+# ------------------------------------------------------------ phases 4-5
+
+
+def reset_launches():
+    from repro_torch.kernels import fused_mp as FM
+    from repro_torch.kernels import node_mlp as NM
+
+    NM.launches = 0
+    FM.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import fused_mp as FM
+    from repro_torch.kernels import node_mlp as NM
+
+    return {"node_mlp": NM.launches, "fused_mp": FM.launches}
+
+
+def checked_err(name: str, got, want, tol) -> float:
+    """Max abs error of a kernel's output against its plain version's;
+    raises if they disagree beyond ``tol`` or the output is not finite."""
+    import torch
+
+    torch.cuda.synchronize()
+    if (got.shape != want.shape or not torch.isfinite(got).all()
+            or not close(got, want, tol)):
+        raise AssertionError(f"{name}: max err {max_err(got, want):.3g}")
+    return max_err(got, want)
+
+
+def agree(name: str, got, want) -> None:
+    import torch
+
+    a, b = torch.as_tensor(np.asarray(got)), torch.as_tensor(np.asarray(want))
+    if a.shape != b.shape or not torch.isfinite(a).all() or not close(a, b, SERVE_TOL):
+        raise AssertionError(f"{name}: shapes {tuple(a.shape)}/{tuple(b.shape)}, "
+                             f"max err {max_err(a, b):.3g}")
+
+
+def serve_model(model: str, device, packed_too: bool) -> dict:
+    """Drive the port's main path for ``model`` and check what comes out."""
+    import torch
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.core import batching as B
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import init
+    from repro_torch.serve.gnn_engine import GNNEngine
+
+    cfg = get_gnn_config(model)
+    params = init(torch.Generator().manual_seed(0), cfg)
+    stream = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(32)]
+    batch = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(128)]
+    budget = B.BucketBudget(**PACKED)
+
+    def run(engine):
+        outs, lats, warm = engine.infer_stream(stream)
+        res = {"stream": np.concatenate(outs), "lats": lats, "warm": warm}
+        if packed_too:
+            packed, meta = B.pack_graphs(batch, budget, device=engine.device)
+            out, dt = engine.infer_packed(packed, budget)
+            res["packed"], res["packed_s"] = out[: meta.num_graphs], dt
+        return res
+
+    engine = GNNEngine(cfg, params, fused=True, device=device)
+    reset_launches()
+    main = run(engine)
+    launches = read_launches()
+    for kernel, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{model}: {kernel} was never launched")
+    ref_cfg = dataclasses.replace(cfg, kernel_mode="reference")
+    checks = {
+        "reference": run(GNNEngine(ref_cfg, params, fused=True, device=device)),
+        "unfused": run(GNNEngine(cfg, params, fused=False, device=device)),
+        "cpu": run(GNNEngine(cfg, params, fused=True, device="cpu")),
+    }
+    for what, res in checks.items():
+        for key in ("stream", "packed") if packed_too else ("stream",):
+            agree(f"{model} {key} vs {what}", main[key], res[key])
+    busy = {}
+    if device.type == "cuda":
+        busy["stream"] = busy_share(lambda: engine.infer_stream(stream))
+        if packed_too:
+            packed, _ = B.pack_graphs(batch, budget, device=device)
+            busy["packed"] = busy_share(lambda: engine.infer_packed(packed, budget))
+    lats = main["lats"] * 1e3
+    line = (f"[{model}] fused serve: 32 graphs streamed, p50 "
+            f"{np.percentile(lats, 50):.3f} ms p99 {np.percentile(lats, 99):.3f} ms "
+            f"(warm {main['warm']:.2f}s excluded)")
+    if packed_too:
+        line += (f"; packed 128 graphs ({PACKED['n_pad']}x{PACKED['e_pad']}) "
+                 f"in {main['packed_s'] * 1e3:.3f} ms")
+    shares = ", ".join(f"{k} {v:.3f} ({ops} device ops)"
+                       for k, (v, ops) in busy.items())
+    print(line + f"; matches reference/unfused/cpu; launches {launches}; "
+          f"device busy share: {shares or 'not measured'}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 6
+
+
+def packed_plan(device):
+    from repro_torch.core import batching as B
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+
+    batch = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(128)]
+    packed, _ = B.pack_graphs(batch, B.BucketBudget(**PACKED), device=device)
+    return packed, B.pack_layout(packed)
+
+
+def time_node_mlp(device, packed, launches: int) -> dict:
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(4)
+    # the shapes the packed GIN forward gives node_mlp (fused path:
+    # encoder, edge embedding x5, head) plus the unfused MLP's first layer
+    shapes = [(PACKED["n_pad"], 9, 100, "none"), (PACKED["e_pad"], 3, 100, "none"),
+              (PACKED["g_pad"], 100, 1, "none"), (PACKED["n_pad"], 100, 200, "relu")]
+    rows = []
+    for m, k, n, act in shapes:
+        x = torch.randn((m, k), generator=gen).to(device)
+        w = (torch.randn((k, n), generator=gen) * (2.0 / (k + n)) ** 0.5).to(device)
+        b = (0.1 * torch.randn((n,), generator=gen)).to(device)
+        err = checked_err(f"node_mlp {(m, k, n, act)}",
+                          kops.node_mlp(x, w, b, act, mode="kernel"),
+                          kops.node_mlp(x, w, b, act, mode="reference"), TOL)
+        ms, timer = device_ms(lambda: kops.node_mlp(x, w, b, act, mode="kernel"))
+        plain_ms, _ = device_ms(lambda: kops.node_mlp(x, w, b, act, mode="reference"))
+        lib = (lambda: torch.relu(torch.addmm(b, x, w))) if act == "relu" \
+            else (lambda: torch.addmm(b, x, w))
+        library_ms, _ = device_ms(lib)
+        bound_ms, bound_by = bound(4.0 * (m * k + k * n + n + m * n),
+                                   2.0 * m * k * n + 2.0 * m * n)
+        rows.append(dict(shape=[m, k, n, act], max_abs_err=err, ms=ms, timer=timer,
+                         call_ms=call_ms(lambda: kops.node_mlp(x, w, b, act, mode="kernel")),
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+    for r in rows:
+        print(f"[time] node_mlp {r['shape']}: err {r['max_abs_err']:.3g}; "
+              f"{r['ms']:.4f} ms ({r['timer']}; "
+              f"per call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f}, "
+              f"addmm {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']})")
+    main = rows[1]  # the edge embedding: five of the seven launches per forward
+    return dict(name="node_mlp", route="cuda",
+                source="src/repro_torch/kernels/csrc/node_mlp.cu",
+                replaces="src/repro/kernels/node_mlp.py:55",
+                launches=launches, **main,
+                all_shapes=rows)
+
+
+def time_fused_mp(device, packed, lay, launches: int) -> dict:
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(5)
+    n, e, f, h = packed.num_nodes, packed.num_edges, 100, 200
+    spec, kw = fused_operands(gen, "gin", n, e, f, device)
+    args = (spec, lay.ids_sorted, lay.offsets, lay.src_sorted, lay.in_degree,
+            packed.node_mask)
+    kern = lambda: kops.fused_mp(*args, mode="kernel", **kw)
+    plain = lambda: kops.fused_mp(*args, mode="reference", **kw)
+    err = checked_err("fused_mp gin (packed shapes)", kern(), plain(), TOL)
+    ms, timer = device_ms(kern)
+    plain_ms, _ = device_ms(plain)
+    n_real = int(packed.node_mask.sum())
+    e_real = int(lay.offsets[-1])
+    nbytes = 4.0 * ((n + 1) + e_real + 2 * n * f + e_real * f + n
+                    + f * h + h + h * f + f + n * f) + n
+    flops = (3.0 * e_real * f + n_real * f + 2.0 * n_real * f * h
+             + 2.0 * n_real * h + 2.0 * n_real * h * f + n_real * f)
+    bound_ms, bound_by = bound(nbytes, flops)
+    row = dict(name="fused_mp", route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_mp.cu",
+               replaces="src/repro/kernels/fused_mp.py:210",
+               launches=launches, max_abs_err=err, ms=ms, timer=timer,
+               call_ms=call_ms(kern), plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None,
+               shape=dict(gamma="gin", n=n, e_pad=e, e_real=e_real, f=f, h=h))
+    print(f"[time] fused_mp gin N={n} E={e_real}/{e} F={f} H={h}: err {err:.3g}; "
+          f"{ms:.4f} ms "
+          f"({timer}; per call {row['call_ms']:.4f} ms), plain {plain_ms:.4f}, "
+          f"bound {bound_ms:.5f} ({bound_by})")
+    return row
+
+
+# ------------------------------------------------------------ entry point
+
+
+def run(device) -> list:
+    """Phases 2-6 on ``device``; returns the kernels' JSON rows."""
+    check_node_mlp(device)
+    check_fused_mp(device)
+    gin_launches = serve_model("gin", device, packed_too=True)
+    serve_model("gcn", device, packed_too=False)
+    packed, lay = packed_plan(device)
+    return [time_node_mlp(device, packed, gin_launches["node_mlp"]),
+            time_fused_mp(device, packed, lay, gin_launches["fused_mp"])]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    build_kernels()
+    card = device_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    rows = run(torch.device("cuda"))
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

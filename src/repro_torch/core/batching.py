@@ -1,0 +1,103 @@
+"""Multi-graph packing: many small graphs -> one padded ``Graph``
+(numpy port of ``repro.core.batching``).
+
+A ``BucketBudget`` is the static capacity of one packed batch:
+``(N_pad, E_pad, G_pad)``.  ``pack_graphs`` concatenates raw COO graphs
+against a budget and returns the padded ``Graph`` plus a ``PackMeta`` that
+makes unpacking exact.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core import graph as G
+from repro_torch.core import layout as LY
+
+RawGraph = tuple  # (senders, receivers, node_feat[, edge_feat])
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class BucketBudget:
+    """Static capacity of one packed batch."""
+
+    n_pad: int  # total padded node rows
+    e_pad: int  # total padded edge rows
+    g_pad: int  # graph slots (sizes the pooled buffer)
+
+    def admits(self, n_used: int, e_used: int, g_used: int,
+               n: int, e: int) -> bool:
+        """Would a graph of (n nodes, e edges) still fit?"""
+        return (
+            g_used + 1 <= self.g_pad
+            and n_used + n <= self.n_pad
+            and e_used + e <= self.e_pad
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PackMeta:
+    """Exact bookkeeping for unpacking a packed batch."""
+
+    budget: BucketBudget
+    node_counts: Tuple[int, ...]
+    edge_counts: Tuple[int, ...]
+
+    @property
+    def num_graphs(self) -> int:
+        return len(self.node_counts)
+
+    @property
+    def node_offsets(self) -> Tuple[int, ...]:
+        return tuple(np.concatenate([[0], np.cumsum(self.node_counts)]))
+
+
+def graph_sizes(raw: RawGraph) -> Tuple[int, int]:
+    """(num_nodes, num_edges) of a raw COO tuple."""
+    s, nf = raw[0], raw[2]
+    return nf.shape[0], s.shape[0]
+
+
+def pack_graphs(graphs: Sequence[RawGraph], budget: BucketBudget,
+                device="cpu") -> Tuple[G.Graph, PackMeta]:
+    """Concatenate raw graphs into one padded ``Graph`` against ``budget``."""
+    if not graphs:
+        raise ValueError("pack_graphs needs at least one graph")
+    sizes = [graph_sizes(g) for g in graphs]
+    n_tot = sum(n for n, _ in sizes)
+    e_tot = sum(e for _, e in sizes)
+    if len(graphs) > budget.g_pad or n_tot > budget.n_pad or e_tot > budget.e_pad:
+        raise ValueError(
+            f"pack of {len(graphs)} graphs ({n_tot} nodes, {e_tot} edges) "
+            f"exceeds budget {budget}"
+        )
+    gs = [(g[0], g[1], g[2], g[3] if len(g) > 3 else None) for g in graphs]
+    packed = G.batch_graphs(gs, n_pad=budget.n_pad, e_pad=budget.e_pad,
+                            device=device)
+    meta = PackMeta(
+        budget=budget,
+        node_counts=tuple(n for n, _ in sizes),
+        edge_counts=tuple(e for _, e in sizes),
+    )
+    return packed, meta
+
+
+def pack_layout(packed: G.Graph) -> LY.GraphLayout:
+    """The packed batch's ``GraphLayout`` plan, built on the host at pack
+    time so the forward itself runs no sort."""
+    return LY.host_layout(packed)
+
+
+def unpack_outputs(outputs: np.ndarray, meta: PackMeta,
+                   level: str = "graph") -> List[np.ndarray]:
+    """Exact inverse of packing: one array per real graph (``graph``:
+    slot i of (G_pad, F); ``node``: node-offset slices of (N_pad, F))."""
+    outputs = np.asarray(outputs)
+    if level == "graph":
+        return [outputs[i : i + 1] for i in range(meta.num_graphs)]
+    if level == "node":
+        offs = meta.node_offsets
+        return [outputs[offs[i] : offs[i + 1]] for i in range(meta.num_graphs)]
+    raise ValueError(f"unknown level {level!r}; expected 'graph' or 'node'")

@@ -1,0 +1,138 @@
+"""Generic message-passing layer (paper §3.3), PyTorch port of
+``repro.core.message_passing``.
+
+    x_i^{l+1} = gamma( x_i^l , A_{j in N(i)} ( phi(x_j^l, e_ij^l) ) )
+
+Masking contract (as in the JAX package): padding edges are masked by the
+plan — they carry the out-of-range destination id ``N_pad``, which the
+segment reductions drop — so per-edge messages are never masked by value.
+Padded node rows are zeroed on the way out of every layer.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.core import layout as LY
+from repro_torch.core import scatter_gather as sg
+from repro_torch.core.graph import Graph
+from repro_torch.kernels import ops as kops
+
+PhiFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+GammaFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+AGGREGATORS = ("sum", "mean", "max", "min", "std", "var")
+
+FUSED_AGGREGATORS = ("sum", "sqsum", "max", "min", "wsum")
+FUSED_PHIS = ("copy", "add_relu")
+FUSED_GAMMAS = ("gcn", "gin", "pna", "dgn")
+FUSED_PRECISIONS = ("fp32", "int8")
+
+
+@dataclasses.dataclass(frozen=True)
+class MPSpec:
+    """Declarative (phi, A, gamma) layer contract for the fused kernel.
+
+      phi:        "copy" or "add_relu" (GIN: relu(x_src + edge operand))
+      ops:        accumulator tuple, a non-empty subset of
+                  ``FUSED_AGGREGATORS``
+      gamma:      "gcn", "gin", "pna" or "dgn"
+      precision:  "fp32" or "int8" (int8 runs in a later slice)
+    """
+
+    phi: str = "copy"
+    ops: tuple = ("sum",)
+    gamma: str = "gcn"
+    precision: str = "fp32"
+
+    def __post_init__(self):
+        if self.phi not in FUSED_PHIS:
+            raise ValueError(f"unknown phi {self.phi!r}; expected {FUSED_PHIS}")
+        bad = [op for op in self.ops if op not in FUSED_AGGREGATORS]
+        if bad or not self.ops:
+            raise ValueError(
+                f"fused aggregators {self.ops!r} must be a non-empty subset "
+                f"of {FUSED_AGGREGATORS}"
+            )
+        if self.gamma not in FUSED_GAMMAS:
+            raise ValueError(
+                f"unknown gamma {self.gamma!r}; expected {FUSED_GAMMAS}"
+            )
+        if self.precision not in FUSED_PRECISIONS:
+            raise ValueError(
+                f"unknown precision {self.precision!r}; "
+                f"expected {FUSED_PRECISIONS}"
+            )
+
+
+def gather_scatter(
+    graph: Graph,
+    messages: torch.Tensor,
+    ops: Sequence[str] = ("sum",),
+    layout: Optional[LY.GraphLayout] = None,
+) -> torch.Tensor:
+    """Reduce (E_pad, F) COO-order messages into (N_pad, len(ops) * F)
+    per-destination aggregates.  Plain PyTorch (``index_add_`` /
+    ``scatter_reduce_``), as the JAX package leaves it to XLA.  Without a
+    plan every op sorts privately (the per-call-sort path)."""
+    if layout is not None:
+        msg_sorted = messages[layout.perm.long()]
+        outs = [LY.segment_reduce(layout, msg_sorted, op, presorted=True)
+                for op in ops]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+    n = graph.num_nodes
+    dst = torch.where(graph.edge_mask, graph.dst, torch.full_like(graph.dst, n))
+    outs = [sg.sorted_segment_reduce(messages, dst, n, op) for op in ops]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+def mp_layer(
+    graph: Graph,
+    x: torch.Tensor,
+    phi: Optional[PhiFn] = None,
+    gamma: Optional[GammaFn] = None,
+    ops: Sequence[str] = ("sum",),
+    edge_feat: torch.Tensor | None = None,
+    layout: Optional[LY.GraphLayout] = None,
+    spec: Optional[MPSpec] = None,
+    operands: Optional[Dict[str, torch.Tensor]] = None,
+    mode: str = "auto",
+) -> torch.Tensor:
+    """One message-passing layer: the closure form (``phi``/``gamma``
+    callables; gather, transform, reduce, update as separate ops) or the
+    spec form (``spec`` + ``operands``; one ``kernels.ops.fused_mp`` pass
+    over the layout plan, which it requires)."""
+    if spec is not None:
+        if layout is None:
+            raise ValueError(
+                "fused mp_layer (spec=...) requires a GraphLayout plan; "
+                "pass layout= or use the closure form"
+            )
+        return kops.fused_mp(
+            spec, layout.ids_sorted, layout.offsets, layout.src_sorted,
+            layout.in_degree, graph.node_mask, mode=mode, **operands,
+        )
+    e = graph.edge_feat if edge_feat is None else edge_feat
+    x_src = x[graph.src.long()]
+    x_dst = x[graph.dst.long()]
+    messages = phi(x_src, x_dst, e)
+    agg = gather_scatter(graph, messages, ops=ops, layout=layout)
+    out = gamma(x, agg)
+    return torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))
+
+
+def global_pool(
+    graph: Graph,
+    x: torch.Tensor,
+    op: str = "mean",
+    num_graphs: int | None = None,
+) -> torch.Tensor:
+    """Pool node embeddings per graph id -> (num_graphs, F).  Padded nodes
+    get id ``num_graphs`` and land in the dropped sink row."""
+    m = graph.num_nodes if num_graphs is None else num_graphs
+    gid = torch.where(graph.node_mask, graph.graph_id,
+                      torch.full_like(graph.graph_id, m))
+    xm = torch.where(graph.node_mask[:, None], x, torch.zeros_like(x))
+    return sg.segment_reduce(xm, gid, m, op)

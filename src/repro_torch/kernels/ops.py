@@ -1,0 +1,99 @@
+"""Dispatching wrappers over the port's CUDA kernels (port of
+``repro.kernels.ops``).
+
+``mode``:
+
+  * "auto":      the CUDA kernel for CUDA tensors, the plain PyTorch
+                 version (``kernels/ref.py``) for CPU tensors;
+  * "kernel":    the CUDA kernel; raises for CPU tensors;
+  * "reference": the plain version on any device — the explicit request
+                 ``chip_smoke.py`` uses to build the values it compares
+                 the kernels against.
+
+The ``REPRO_KERNEL_MODE`` environment variable, when set, overrides the
+per-call ``mode``, as in the JAX package.  There is no fallback: on a CUDA
+tensor the kernel launches or raises, and a kernel that fails to build
+raises.  The TPU package's VMEM-budget fallback has no counterpart here.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+from repro_torch.kernels import fused_mp as _fused_mp_kernel
+from repro_torch.kernels import node_mlp as _node_mlp_kernel
+from repro_torch.kernels import ref
+
+MODES = ("auto", "kernel", "reference")
+
+
+def _resolve(mode: str, t: torch.Tensor) -> bool:
+    """-> whether the CUDA kernel runs for tensor ``t``."""
+    env = os.environ.get("REPRO_KERNEL_MODE", "")
+    if env:
+        if env not in MODES:
+            raise ValueError(
+                f"REPRO_KERNEL_MODE={env!r} invalid; expected one of {MODES}"
+            )
+        mode = env
+    if mode not in MODES:
+        raise ValueError(f"unknown kernel mode {mode!r}; expected one of {MODES}")
+    if mode == "reference":
+        return False
+    on_cuda = t.device.type == "cuda"
+    if mode == "kernel" and not on_cuda:
+        raise RuntimeError(
+            f"kernel mode needs CUDA tensors; got a tensor on {t.device} "
+            "(the CUDA kernels have no CPU or interpret mode)"
+        )
+    return on_cuda
+
+
+def node_mlp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             activation: str = "relu", mode: str = "auto") -> torch.Tensor:
+    """Fused linear + bias + activation (the NE PE)."""
+    if not _resolve(mode, x):
+        return ref.node_mlp_ref(x, w, b, activation)
+    return _node_mlp_kernel.node_mlp(
+        x.contiguous(), w.contiguous(), b.contiguous(), activation
+    )
+
+
+def fused_mp(
+    spec,
+    ids_sorted: torch.Tensor,
+    offsets: torch.Tensor,
+    src_sorted: torch.Tensor,
+    in_degree: torch.Tensor,
+    node_mask: torch.Tensor,
+    msrc: torch.Tensor,
+    x_res: torch.Tensor,
+    nop: torch.Tensor | None = None,
+    eop: torch.Tensor | None = None,
+    ew: torch.Tensor | None = None,
+    w1: torch.Tensor | None = None,
+    b1: torch.Tensor | None = None,
+    w1_scale: torch.Tensor | None = None,
+    w2: torch.Tensor | None = None,
+    b2: torch.Tensor | None = None,
+    mode: str = "auto",
+) -> torch.Tensor:
+    """One fused (phi, A, gamma) message-passing layer (the megakernel).
+
+    Operands follow ``kernels.ref.fused_mp_ref``, plus the plan's CSR
+    ``offsets`` (``core.layout.GraphLayout.offsets``): the CUDA kernel
+    walks those ranges, the plain version reads ``ids_sorted``.
+    """
+    if not _resolve(mode, msrc):
+        return ref.fused_mp_ref(
+            spec, ids_sorted, src_sorted, in_degree, node_mask, msrc, x_res,
+            nop=nop, eop=eop, ew=ew, w1=w1, b1=b1, w1_scale=w1_scale,
+            w2=w2, b2=b2,
+        )
+    c = lambda t: None if t is None else t.contiguous()
+    return _fused_mp_kernel.fused_mp(
+        spec, c(offsets), c(src_sorted), c(in_degree), c(node_mask),
+        c(msrc), c(x_res), nop=c(nop), eop=c(eop), ew=c(ew), w1=c(w1),
+        b1=c(b1), w1_scale=w1_scale, w2=c(w2), b2=c(b2),
+    )

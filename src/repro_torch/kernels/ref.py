@@ -1,0 +1,138 @@
+"""Plain PyTorch versions of the port's kernels (the correctness contract).
+
+Port of the fp32 parts of ``repro.kernels.ref``.  Each ``*_ref`` defines
+the exact semantics its CUDA kernel must match; on CPU tensors the
+wrappers in ``kernels/ops.py`` run these, and ``chip_smoke.py`` holds the
+kernels against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as Fn
+
+from repro_torch.core import scatter_gather as sg
+
+
+def segment_reduce_sorted_ref(
+    values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+    op: str = "sum",
+) -> torch.Tensor:
+    """Segment reduction over sorted ids; ids >= num_segments are padding,
+    empty segments produce 0 for every op."""
+    valid = segment_ids < num_segments
+    v = torch.where(valid[:, None], values, torch.zeros_like(values)).float()
+    count = sg.segment_sum(valid.float(), segment_ids, num_segments)[:, None]
+    if op == "sum":
+        out = sg.segment_sum(v, segment_ids, num_segments)
+    elif op == "mean":
+        out = sg.segment_sum(v, segment_ids, num_segments) / torch.clamp(count, min=1.0)
+    elif op == "sqsum":
+        out = sg.segment_sum(v * v, segment_ids, num_segments)
+    elif op in ("max", "min"):
+        out = sg._segment_extremum(values.float(), segment_ids, num_segments, op)
+        out = torch.where(count > 0, out, torch.zeros_like(out))
+    else:
+        raise ValueError(f"unknown op {op!r}")
+    return out.to(values.dtype)
+
+
+def _activate(y: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "relu":
+        return torch.clamp(y, min=0.0)
+    if activation == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        return Fn.gelu(y, approximate="tanh")
+    if activation != "none":
+        raise ValueError(f"unknown activation {activation!r}")
+    return y
+
+
+def node_mlp_ref(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, activation: str = "relu"
+) -> torch.Tensor:
+    """Fused linear + bias + activation: x (M, K), w (K, N), b (N,)."""
+    y = torch.matmul(x.float(), w.float()) + b.float()
+    return _activate(y, activation).to(x.dtype)
+
+
+def fused_mp_ref(
+    spec,
+    ids_sorted: torch.Tensor,
+    src_sorted: torch.Tensor,
+    in_degree: torch.Tensor,
+    node_mask: torch.Tensor,
+    msrc: torch.Tensor,
+    x_res: torch.Tensor,
+    nop: torch.Tensor | None = None,
+    eop: torch.Tensor | None = None,
+    ew: torch.Tensor | None = None,
+    w1: torch.Tensor | None = None,
+    b1: torch.Tensor | None = None,
+    w1_scale: torch.Tensor | None = None,
+    w2: torch.Tensor | None = None,
+    b2: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fused (phi, A, gamma) message-passing pass, fp32 (the operand
+    contract of ``repro.kernels.ref.fused_mp_ref``).
+
+      msrc  (N, F)  per-source message operand, gathered via src_sorted
+      x_res (N, Fr) gamma's residual/self operand
+      nop           per-node operand: gcn (N,1) 1/sqrt(d+1); pna (N,3)
+                    degree scalers; dgn (N,1) sum of w_e
+      eop   (E, F)  phi="add_relu" edge operand (plan order)
+      ew    (E, 1)  "wsum" edge weights (plan order)
+      w1/b1, w2/b2  gamma's linears (w2/b2: gin only)
+
+    Empty segments contribute 0; padded node rows come out 0.
+    """
+    if spec.precision != "fp32":
+        raise NotImplementedError(
+            "int8 fused_mp arrives with the int8 serving slice"
+        )
+    del w1_scale
+    n = in_degree.shape[0]
+    msg = msrc.float()[src_sorted.long()]
+    if spec.phi == "add_relu":
+        msg = torch.clamp(msg + eop.float(), min=0.0)
+    elif spec.phi != "copy":
+        raise ValueError(f"unknown phi {spec.phi!r}")
+    valid = ids_sorted < n
+    deg = in_degree.float()[:, None]
+    c = torch.clamp(deg, min=1.0)
+    agg = {}
+    for op in spec.ops:
+        if op == "sum":
+            agg[op] = sg.segment_sum(msg, ids_sorted, n)
+        elif op == "sqsum":
+            agg[op] = sg.segment_sum(msg * msg, ids_sorted, n)
+        elif op == "wsum":
+            agg[op] = sg.segment_sum(msg * ew, ids_sorted, n)
+        elif op in ("max", "min"):
+            fill = float("-inf") if op == "max" else float("inf")
+            vm = torch.where(valid[:, None], msg, torch.full_like(msg, fill))
+            red = sg._segment_extremum(vm, ids_sorted, n, op)
+            agg[op] = torch.where(deg > 0, red, torch.zeros_like(red))
+        else:
+            raise ValueError(f"unknown aggregator {op!r}")
+    x_res = x_res.float()
+    if spec.gamma == "gcn":
+        out = (agg["sum"] + x_res) * nop
+    elif spec.gamma == "gin":
+        h = torch.clamp(torch.matmul(x_res + agg["sum"], w1.float()) + b1, min=0.0)
+        out = torch.matmul(h, w2.float()) + b2
+    elif spec.gamma == "pna":
+        mean = agg["sum"] / c
+        std = torch.sqrt(torch.clamp(agg["sqsum"] / c - mean * mean, min=0.0))
+        agg4 = torch.cat([mean, std, agg["max"], agg["min"]], dim=-1)
+        tower = torch.cat(
+            [agg4 * nop[:, 0:1], agg4 * nop[:, 1:2], agg4 * nop[:, 2:3]], dim=-1
+        )
+        out = torch.clamp(torch.matmul(tower, w1.float()) + b1, min=0.0) + x_res
+    elif spec.gamma == "dgn":
+        mean = agg["sum"] / c
+        dx = torch.abs(agg["wsum"] - x_res * nop)
+        tower = torch.cat([x_res, mean, dx], dim=-1)
+        out = torch.clamp(torch.matmul(tower, w1.float()) + b1, min=0.0) + x_res
+    else:
+        raise ValueError(f"unknown gamma {spec.gamma!r}")
+    return torch.where(node_mask[:, None], out, torch.zeros_like(out))

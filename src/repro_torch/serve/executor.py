@@ -1,0 +1,255 @@
+"""The serving executor (reduced port of ``repro.serve.executor``).
+
+    prepare  ->  warm  ->  run
+
+* **prepare** — ``prepare_stream`` / ``prepare_batched`` /
+  ``prepare_packed`` pad raw input into a ``PreparedBatch`` on the
+  executor's device: padded graph, optional layout plan (packed batches
+  carry their host-built plan), bucket key and warm signature.  DGN's
+  eigenvector input arrives with the DGN slice.
+* **warm** — every (tenant, program, signature) executes once untimed
+  before it may be timed.  On the card that first run builds the CUDA
+  kernels (at first use) and sets up the libraries, so neither leaks into
+  a reported latency.
+* **run** — the one timed region: the forward, ended by
+  ``torch.cuda.synchronize()``, then the copy of the result to the host
+  (outside the timed region).
+
+Programs are cached by ``(program_key, bucket_key, num_graphs)`` with
+``program_key = (cfg, precision, fused)``, so tenants of one
+architecture share them.  PyTorch runs eagerly: a program is the
+``gnn.models.forward_program`` closure, and there is no compile step.
+``torch.compile``, CUDA graphs, the AOT cache, the mesh and telemetry
+arrive with later slices.  The executor runs on ``device="cuda"`` unless
+the caller asks for the CPU, and raises if CUDA is missing.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import batching as B
+from repro_torch.core import graph as G
+from repro_torch.core import layout as LY
+from repro_torch.device import resolve_device
+from repro_torch.gnn import models as M
+from repro_torch.serve.clock import Clock, RealClock
+
+DEFAULT_BUCKETS: Sequence[tuple] = ((32, 96), (64, 192), (128, 384), (256, 768))
+
+
+def _tensor_leaves(obj):
+    """Every tensor in a nest of dataclasses / dicts / lists / tuples."""
+    if obj is None:
+        return
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for fld in dataclasses.fields(obj):
+            yield from _tensor_leaves(getattr(obj, fld.name))
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensor_leaves(v)
+
+
+def trace_signature(graph: G.Graph, layout=None) -> tuple:
+    """Warm signature of one prepared input: whether it carries a plan,
+    plus (shape, dtype) of every tensor."""
+    leaves = _tensor_leaves((graph, layout))
+    return (("lay", layout is not None),) + tuple(
+        (tuple(v.shape), str(v.dtype)) for v in leaves
+    )
+
+
+def params_signature(params) -> tuple:
+    """Structural signature of a parameter tree (leaf shapes / dtypes)."""
+    return tuple((tuple(v.shape), str(v.dtype)) for v in _tensor_leaves(params))
+
+
+def _params_to(params, device: torch.device):
+    if isinstance(params, dict):
+        return {k: _params_to(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_params_to(v, device) for v in params)
+    return params.to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedBatch:
+    """One batch staged for the executor: padded (possibly packed) graph,
+    optional layout plan, and its routing facts."""
+
+    graph: G.Graph
+    layout: Optional[LY.GraphLayout]
+    bucket_key: tuple
+    num_graphs: int
+    signature: tuple
+
+
+def prepared(graph: G.Graph, layout, bucket_key: tuple,
+             num_graphs: int) -> PreparedBatch:
+    return PreparedBatch(graph=graph, layout=layout,
+                         bucket_key=bucket_key, num_graphs=num_graphs,
+                         signature=trace_signature(graph, layout))
+
+
+@dataclasses.dataclass
+class _Program:
+    """Program-cache record: the forward closure plus warm bookkeeping."""
+
+    fn: Callable
+    num_graphs: Optional[int]
+    warm: Set[tuple] = dataclasses.field(default_factory=set)
+    warm_s: float = 0.0
+
+
+@dataclasses.dataclass
+class Tenant:
+    """One registered model: config, params (on the executor's device),
+    and the derived program key / params signature."""
+
+    name: str
+    cfg: M.GNNConfig
+    params: dict
+    precision: str = "fp32"
+    fused: bool = False
+    params_sig: tuple = ()
+
+    @property
+    def program_key(self) -> tuple:
+        return (self.cfg, self.precision, self.fused)
+
+
+class Executor:
+    """The single program-cache / warm / timing path of the port."""
+
+    def __init__(self, buckets: Sequence[tuple] = DEFAULT_BUCKETS,
+                 clock: Optional[Clock] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.buckets = sorted(buckets)
+        self.clock = clock if clock is not None else RealClock()
+        self.tenants: Dict[str, Tenant] = {}
+        self._programs: Dict[tuple, _Program] = {}
+
+    # ---------------------------------------------------------- tenants
+
+    def register(self, name: str, cfg: M.GNNConfig, params: dict,
+                 precision: str = "fp32", fused: bool = False) -> Tenant:
+        """Admit a model; its params move to the executor's device."""
+        if name in self.tenants:
+            raise ValueError(f"tenant {name!r} already registered")
+        if precision != "fp32":
+            raise NotImplementedError(
+                f"precision {precision!r} arrives with the int8 serving slice"
+            )
+        params = _params_to(params, self.device)
+        tenant = Tenant(name=name, cfg=cfg, params=params, precision=precision,
+                        fused=fused,
+                        params_sig=params_signature(params))
+        self.tenants[name] = tenant
+        return tenant
+
+    def tenant(self, model: Optional[str] = None) -> Tenant:
+        """Resolve a tenant by name; ``None`` means the sole tenant."""
+        if model is not None:
+            if model not in self.tenants:
+                raise KeyError(f"no tenant {model!r}; registered: {sorted(self.tenants)}")
+            return self.tenants[model]
+        if len(self.tenants) == 1:
+            return next(iter(self.tenants.values()))
+        raise KeyError(f"model name required: tenants {sorted(self.tenants)}")
+
+    @property
+    def warm_seconds(self) -> float:
+        """Total untimed first-run time across programs (kernel build and
+        library set-up included); excluded from every reported latency."""
+        return sum(p.warm_s for p in self._programs.values())
+
+    def bucket_for(self, n: int, e: int) -> tuple:
+        """Smallest configured (N_pad, E_pad) bucket holding (n, e)."""
+        for nb, eb in self.buckets:
+            if n <= nb and e <= eb:
+                return nb, eb
+        raise ValueError(f"graph ({n},{e}) exceeds largest bucket {self.buckets[-1]}")
+
+    def _program(self, tenant: Tenant, bucket_key: tuple,
+                 num_graphs: Optional[int]) -> _Program:
+        key = (tenant.program_key, bucket_key, num_graphs)
+        prog = self._programs.get(key)
+        if prog is None:
+            fn = M.forward_program(tenant.cfg, num_graphs=num_graphs,
+                                   fused=tenant.fused)
+            prog = self._programs[key] = _Program(fn=fn, num_graphs=num_graphs)
+        return prog
+
+    def _synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _warm(self, prog: _Program, sig: tuple, tenant: Tenant,
+              p: PreparedBatch) -> float:
+        """Run ``sig`` once untimed (0.0 when already warm)."""
+        if sig in prog.warm:
+            return 0.0
+        t0 = self.clock.now()
+        prog.fn(tenant.params, p.graph, p.layout)
+        self._synchronize()
+        dt = self.clock.now() - t0
+        prog.warm.add(sig)
+        prog.warm_s += dt
+        return dt
+
+    # ---------------------------------------------------------- prepare
+
+    def prepare_stream(self, raw: tuple) -> PreparedBatch:
+        """One raw COO graph padded into the smallest bucket; no layout
+        plan (the forward builds it on the device: one sort)."""
+        s, r, nf, ef = raw[:4]
+        nb, eb = self.bucket_for(nf.shape[0], len(s))
+        g = G.from_numpy(s, r, nf, ef, n_pad=nb, e_pad=eb, device=self.device)
+        return prepared(g, None, ("stream", nb, eb), 1)
+
+    def prepare_batched(self, chunk: Sequence[tuple], batch_size: int,
+                        n_pad: int, e_pad: int) -> PreparedBatch:
+        """One fixed-size padded batch of the chunk's raw graphs."""
+        gs = [(g[0], g[1], g[2], g[3]) for g in chunk]
+        g = G.batch_graphs(gs, n_pad=n_pad, e_pad=e_pad, device=self.device)
+        return prepared(g, None, ("batched", n_pad, e_pad, batch_size),
+                        batch_size)
+
+    def prepare_packed(self, packed: G.Graph, budget,
+                       layout=None) -> PreparedBatch:
+        """One already-packed batch (``core.batching``); without a plan
+        the host plan is built here."""
+        if packed.device != self.device:
+            raise ValueError(
+                f"packed graph is on {packed.device}, executor on {self.device}"
+            )
+        if layout is None:
+            layout = B.pack_layout(packed)
+        return prepared(packed, layout,
+                        ("packed", budget.n_pad, budget.e_pad, budget.g_pad),
+                        budget.g_pad)
+
+    # --------------------------------------------------------- warm/run
+
+    def run(self, p: PreparedBatch,
+            model: Optional[str] = None) -> Tuple[np.ndarray, float]:
+        """The one timed execution: warm (untimed) first, then time one
+        forward that ends at a device synchronise; returns the outputs on
+        the host and the seconds."""
+        tenant = self.tenant(model)
+        prog = self._program(tenant, p.bucket_key, p.num_graphs)
+        with torch.inference_mode():
+            self._warm(prog, (tenant.params_sig,) + p.signature, tenant, p)
+            t0 = self.clock.now()
+            out = prog.fn(tenant.params, p.graph, p.layout)
+            self._synchronize()
+            dt = self.clock.now() - t0
+        return out.cpu().numpy(), dt

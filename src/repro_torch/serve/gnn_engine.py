@@ -1,0 +1,79 @@
+"""GNN serving engine — the single-tenant facade over ``serve.executor``
+(port of ``repro.serve.gnn_engine``).
+
+  * ``infer_stream``  — batch-size-1, per-graph latency (paper Fig. 7)
+  * ``infer_batched`` — fixed-size padded batching
+  * ``infer_packed``  — one already-packed multi-graph batch
+
+Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``;
+raises if CUDA is missing.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List, Sequence
+
+import numpy as np
+
+from repro_torch.gnn import models as M
+from repro_torch.serve.executor import DEFAULT_BUCKETS, Executor
+
+__all__ = ["GNNEngine", "DEFAULT_BUCKETS"]
+
+
+class GNNEngine:
+    def __init__(
+        self,
+        cfg: M.GNNConfig,
+        params: dict,
+        buckets: Sequence[tuple] = DEFAULT_BUCKETS,
+        precision: str = "fp32",
+        fused: bool = False,
+        device="cuda",
+    ):
+        """``fused`` runs every GCN / GIN layer as one ``fused_mp`` pass."""
+        self.executor = Executor(buckets=buckets, device=device)
+        self._tenant = self.executor.register(
+            "default", cfg, params, precision=precision, fused=fused,
+        )
+        self.cfg = cfg
+
+    @property
+    def device(self):
+        return self.executor.device
+
+    @property
+    def warm_seconds(self) -> float:
+        return self.executor.warm_seconds
+
+    def infer_stream(self, graphs: Iterable[tuple]):
+        """graphs: raw (senders, receivers, node_feat, edge_feat[, label])
+        tuples.  Returns (outputs, per-graph latencies in seconds, untimed
+        warm seconds)."""
+        ex = self.executor
+        outs: List[np.ndarray] = []
+        lats: List[float] = []
+        warm_before = ex.warm_seconds
+        for graph in graphs:
+            out, dt = ex.run(ex.prepare_stream(graph))
+            lats.append(dt)
+            outs.append(out[:1])
+        return outs, np.asarray(lats), ex.warm_seconds - warm_before
+
+    def infer_batched(self, graphs: Sequence[tuple], batch_size: int,
+                      n_pad: int, e_pad: int):
+        """Padded-batch mode.  Returns (outputs (n_graphs, out), seconds/graph)."""
+        ex = self.executor
+        outs = []
+        total = 0.0
+        for i in range(0, len(graphs), batch_size):
+            chunk = graphs[i : i + batch_size]
+            out, dt = ex.run(ex.prepare_batched(chunk, batch_size, n_pad, e_pad))
+            total += dt
+            outs.append(out[: len(chunk)])
+        return np.concatenate(outs), total / len(graphs)
+
+    def infer_packed(self, packed, budget, layout=None):
+        """Run one packed batch (``core.batching.pack_graphs`` on this
+        engine's device).  Returns (outputs (G_pad, out), seconds)."""
+        ex = self.executor
+        return ex.run(ex.prepare_packed(packed, budget, layout=layout))

@@ -1,0 +1,193 @@
+"""The port's kernel modules on the CPU: plain versions against the JAX
+oracles, dispatch rules and the build.
+
+  * ``node_mlp_ref`` and ``fused_mp_ref`` (every fp32 gamma, random
+    operands in the style of ``tests/test_fused_mp.py``) match
+    ``repro.kernels.ref`` at |a - b| <= 1e-5 + 1e-5 |b| (PNA: 5e-3, whose
+    std amplifies one rounding of ``sqsum/c - mean^2``).
+  * ``kernels.ops`` sends CPU tensors to the plain version, raises for
+    ``mode="kernel"`` on a CPU tensor, and honours ``REPRO_KERNEL_MODE``.
+  * The kernel wrappers refuse CPU tensors and int8 without launching.
+  * The CUDA kernels themselves are held against the plain versions in
+    ``tests/test_torch_on_card.py`` (it skips without a card) and, at full
+    size, by ``python3 chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import message_passing as JMP
+from repro.kernels import ref as JREF
+from repro_torch.core import message_passing as TMP
+from repro_torch.kernels import _build
+from repro_torch.kernels import fused_mp as FM
+from repro_torch.kernels import node_mlp as NM
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as TREF
+from test_torch_on_card import (GAMMAS, PLAN_ARGS, PNA_TOL, TOL,
+                                assert_close, plan_arrays, spec_operands,
+                                to_t)
+
+torch.set_num_threads(1)
+
+# ------------------------------------------------------ plain vs JAX oracle
+
+
+@pytest.mark.parametrize("activation", ["relu", "gelu", "none"])
+@pytest.mark.parametrize("shape", [(37, 9, 100), (64, 100, 200), (5, 200, 1)])
+def test_node_mlp_ref_matches_jax(activation, shape):
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * (2.0 / (k + n)) ** 0.5).astype(np.float32)
+    b = rng.normal(size=(n,)).astype(np.float32)
+    want = JREF.node_mlp_ref(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                             activation)
+    got = TREF.node_mlp_ref(to_t(x), to_t(w), to_t(b), activation)
+    assert_close(got.numpy(), want, TOL)
+    # ops dispatch: a CPU tensor takes the plain version
+    auto = kops.node_mlp(to_t(x), to_t(w), to_t(b), activation)
+    assert torch.equal(auto, got)
+
+
+@pytest.mark.parametrize("gamma", GAMMAS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_mp_ref_matches_jax(gamma, seed):
+    rng = np.random.default_rng(seed)
+    plan = plan_arrays(rng)
+    n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
+    (phi, ops, _), kw = spec_operands(rng, gamma, n, e)
+    jspec = JMP.MPSpec(phi, ops, gamma)
+    tspec = TMP.MPSpec(phi, ops, gamma)
+    names = ("ids_sorted", "src_sorted", "in_degree", "node_mask")
+    want = JREF.fused_mp_ref(jspec, *(jnp.asarray(plan[k]) for k in names),
+                             **{k: jnp.asarray(v) for k, v in kw.items()})
+    got = kops.fused_mp(tspec, *(to_t(plan[k]) for k in PLAN_ARGS),
+                        **{k: to_t(v) for k, v in kw.items()})
+    assert_close(got.numpy(), want, PNA_TOL if gamma == "pna" else TOL)
+    padded = ~plan["node_mask"]
+    assert (got.numpy()[padded] == 0).all()
+
+
+def test_fused_mp_ref_all_padding_edges():
+    """No real edge at all: every accumulator is empty, max/min give 0."""
+    rng = np.random.default_rng(3)
+    n, e = 16, 24
+    (phi, ops, gamma), kw = spec_operands(rng, "pna", n, e)
+    ids = np.full((e,), n, np.int32)
+    src = np.zeros((e,), np.int32)
+    deg = np.zeros((n,), np.int32)
+    mask = np.arange(n) < 13
+    want = JREF.fused_mp_ref(JMP.MPSpec(phi, ops, gamma), jnp.asarray(ids),
+                             jnp.asarray(src), jnp.asarray(deg),
+                             jnp.asarray(mask),
+                             **{k: jnp.asarray(v) for k, v in kw.items()})
+    got = TREF.fused_mp_ref(TMP.MPSpec(phi, ops, gamma), to_t(ids), to_t(src),
+                            to_t(deg), to_t(mask), **{k: to_t(v) for k, v in kw.items()})
+    assert_close(got.numpy(), want, PNA_TOL)
+    assert np.isfinite(got.numpy()).all()
+
+
+def test_mpspec_validation():
+    with pytest.raises(ValueError):
+        TMP.MPSpec(phi="gather")
+    with pytest.raises(ValueError):
+        TMP.MPSpec(ops=())
+    with pytest.raises(ValueError):
+        TMP.MPSpec(ops=("mean",))
+    with pytest.raises(ValueError):
+        TMP.MPSpec(gamma="gat")
+    with pytest.raises(ValueError):
+        TMP.MPSpec(precision="fp16")
+    assert TMP.MPSpec("add_relu", ("sum",), "gin") == TMP.MPSpec(
+        "add_relu", ("sum",), "gin")
+
+
+# ------------------------------------------------------------- dispatch
+
+
+def _node_mlp_args():
+    rng = np.random.default_rng(0)
+    return (to_t(rng.normal(size=(4, 3)).astype(np.float32)),
+            to_t(rng.normal(size=(3, 2)).astype(np.float32)),
+            to_t(np.zeros(2, np.float32)))
+
+
+def test_kernel_mode_on_cpu_tensor_raises():
+    x, w, b = _node_mlp_args()
+    before = NM.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kops.node_mlp(x, w, b, mode="kernel")
+    rng = np.random.default_rng(1)
+    plan = plan_arrays(rng)
+    (phi, ops, gamma), kw = spec_operands(rng, "gcn", 40, 96)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kops.fused_mp(TMP.MPSpec(phi, ops, gamma),
+                      *(to_t(plan[k]) for k in PLAN_ARGS), mode="kernel",
+                      **{k: to_t(v) for k, v in kw.items()})
+    assert NM.launches == before
+
+
+def test_env_override(monkeypatch):
+    x, w, b = _node_mlp_args()
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "kernel")
+    with pytest.raises(RuntimeError):
+        kops.node_mlp(x, w, b)
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "reference")
+    assert torch.equal(kops.node_mlp(x, w, b, mode="kernel"),
+                       TREF.node_mlp_ref(x, w, b))
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "bogus")
+    with pytest.raises(ValueError):
+        kops.node_mlp(x, w, b)
+    monkeypatch.delenv("REPRO_KERNEL_MODE")
+    with pytest.raises(ValueError):
+        kops.node_mlp(x, w, b, mode="interpret")
+
+
+def test_wrappers_refuse_cpu_tensors_and_int8():
+    x, w, b = _node_mlp_args()
+    n_before, f_before = NM.launches, FM.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        NM.node_mlp(x, w, b)
+    spec = TMP.MPSpec("copy", ("sum",), "gcn")
+    z = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        FM.fused_mp(spec, z, z, z, z.bool(), x, x)
+    with pytest.raises(NotImplementedError):
+        FM.fused_mp(TMP.MPSpec("copy", ("sum",), "gcn", "int8"), z, z, z,
+                    z.bool(), x, x)
+    with pytest.raises(NotImplementedError):
+        TREF.fused_mp_ref(TMP.MPSpec("copy", ("sum",), "gcn", "int8"), z, z,
+                          z, z.bool(), x, x)
+    assert (NM.launches, FM.launches) == (n_before, f_before)
+
+
+@pytest.mark.parametrize("gamma, f, n_ops, k1, h1, want", [
+    ("gcn", 100, 1, 0, 0, 6_400),
+    ("gin", 100, 1, 100, 200, 25_600),
+    ("pna", 80, 4, 12 * 80, 0, 81_920),
+    ("dgn", 100, 2, 3 * 100, 0, 32_000),
+])
+def test_fused_mp_shared_memory_fits_paper_widths(gamma, f, n_ops, k1, h1, want):
+    """Every fp32 gamma at its paper width fits one block's shared memory."""
+    got = FM.smem_bytes(f, n_ops, k1, h1)
+    assert got == want <= FM.MAX_SMEM_BYTES
+
+
+# ---------------------------------------------------------------- build
+
+
+def test_build_targets_hopper_and_names_by_content():
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR and path == _build.library_path(name)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc_path()

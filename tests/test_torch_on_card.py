@@ -1,0 +1,181 @@
+"""The port's CUDA kernels on an NVIDIA GPU, against their plain versions.
+
+This file imports no JAX, so it also runs on a machine with a card and no
+JAX.  Every test takes the ``cuda`` fixture, which skips when no CUDA
+device is present (decided inside the test run, never at import):
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_on_card.py
+
+Tolerance: |kernel - plain| <= 1e-5 + 1e-5 |plain| (the same fp32 FMAs
+summed in another order); PNA 5e-3, whose std amplifies one rounding of
+``sqsum/c - mean^2``.  The numpy operand helpers are shared with
+``tests/test_torch_kernels.py``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import graph as TG
+from repro_torch.core import layout as TLY
+from repro_torch.core import message_passing as TMP
+from repro_torch.kernels import fused_mp as FM
+from repro_torch.kernels import node_mlp as NM
+from repro_torch.kernels import ops as kops
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+PNA_TOL = dict(rtol=5e-3, atol=5e-3)
+GAMMAS = ("gcn", "gin", "pna", "dgn")
+# the plan arrays ``kernels.ops.fused_mp`` takes, in its order
+PLAN_ARGS = ("ids_sorted", "offsets", "src_sorted", "in_degree", "node_mask")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run on the card (see chip_smoke.py)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def to_t(a, device="cpu"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def plan_arrays(rng, n_pad=40, e_pad=96):
+    """Numpy plan arrays (ids_sorted, src_sorted, in_degree, offsets,
+    node_mask) of a random padded batch with isolated nodes (the last node
+    of every graph receives no edge) and padding edges."""
+    gs = []
+    for n in (7, 12, 5):
+        e = int(rng.integers(n, 2 * n))
+        gs.append((rng.integers(0, n, e).astype(np.int32),
+                   rng.integers(0, n - 1, e).astype(np.int32),
+                   rng.normal(size=(n, 9)).astype(np.float32),
+                   rng.normal(size=(e, 3)).astype(np.float32)))
+    g = TG.batch_graphs(gs, n_pad=n_pad, e_pad=e_pad)
+    lay = TLY.host_layout(g)
+    plan = {k: getattr(lay, k).numpy() for k in
+            ("ids_sorted", "src_sorted", "in_degree", "offsets")}
+    plan["node_mask"] = g.node_mask.numpy()
+    return plan
+
+
+def spec_operands(rng, gamma, n, e, f=12):
+    """((phi, ops, gamma), numpy operands) exercising every slot of
+    ``gamma`` in fp32."""
+    kw = dict(msrc=rng.normal(size=(n, f)), x_res=rng.normal(size=(n, f)),
+              b1=rng.normal(size=(f,)))
+    if gamma == "gcn":
+        kw = dict(msrc=kw["msrc"], x_res=kw["x_res"],
+                  nop=rng.normal(size=(n, 1)))
+    elif gamma == "gin":
+        kw.update(w1=rng.normal(size=(f, 2 * f)) * 0.3,
+                  b1=rng.normal(size=(2 * f,)),
+                  eop=rng.normal(size=(e, f)),
+                  w2=rng.normal(size=(2 * f, f)) * 0.3,
+                  b2=rng.normal(size=(f,)))
+    elif gamma == "pna":
+        kw.update(w1=rng.normal(size=(12 * f, f)) * 0.2,
+                  nop=np.abs(rng.normal(size=(n, 3))) + 0.5)
+    else:
+        kw.update(w1=rng.normal(size=(3 * f, f)) * 0.2,
+                  nop=np.abs(rng.normal(size=(n, 1))) + 0.1,
+                  ew=rng.normal(size=(e, 1)))
+    kw = {k: v.astype(np.float32) for k, v in kw.items()}
+    phi = "add_relu" if gamma == "gin" else "copy"
+    ops = {"gcn": ("sum",), "gin": ("sum",),
+           "pna": ("sum", "sqsum", "max", "min"), "dgn": ("sum", "wsum")}[gamma]
+    return (phi, ops, gamma), kw
+
+
+def assert_close(got, want, tol):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert np.all(np.abs(got - want) <= tol["atol"] + tol["rtol"] * np.abs(want)), \
+        float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("activation", ["relu", "gelu", "none"])
+def test_node_mlp_kernel_matches_plain(cuda, activation):
+    gen = torch.Generator().manual_seed(0)
+    for m, k, n in ((37, 9, 100), (4097, 100, 200), (1, 200, 1), (65, 3, 63)):
+        x = torch.randn((m, k), generator=gen).to(cuda)
+        w = (torch.randn((k, n), generator=gen) * (2.0 / (k + n)) ** 0.5).to(cuda)
+        b = torch.randn((n,), generator=gen).to(cuda)
+        before = NM.launches
+        got = kops.node_mlp(x, w, b, activation, mode="kernel")
+        assert NM.launches == before + 1
+        want = kops.node_mlp(x, w, b, activation, mode="reference")
+        assert NM.launches == before + 1
+        assert_close(got.cpu().numpy(), want.cpu().numpy(), TOL)
+
+
+@pytest.mark.parametrize("gamma", GAMMAS)
+def test_fused_mp_kernel_matches_plain(cuda, gamma):
+    rng = np.random.default_rng(5)
+    plan = plan_arrays(rng)
+    n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
+    (phi, ops, _), kw = spec_operands(rng, gamma, n, e)
+    spec = TMP.MPSpec(phi, ops, gamma)
+    args = [to_t(plan[k], cuda) for k in PLAN_ARGS]
+    kw = {k: to_t(v, cuda) for k, v in kw.items()}
+    before = FM.launches
+    got = kops.fused_mp(spec, *args, mode="kernel", **kw)
+    assert FM.launches == before + 1
+    want = kops.fused_mp(spec, *args, mode="reference", **kw)
+    assert_close(got.cpu().numpy(), want.cpu().numpy(),
+                 PNA_TOL if gamma == "pna" else TOL)
+    assert (got.cpu().numpy()[~plan["node_mask"]] == 0).all()
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn((8, 4), device=cuda)
+    w = torch.randn((4, 3), device=cuda)
+    b = torch.zeros(3, device=cuda)
+    before = NM.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        NM.node_mlp(x.t().contiguous().t(), w, b)
+    with pytest.raises(TypeError):
+        NM.node_mlp(x.double(), w, b)
+    with pytest.raises(ValueError, match="chain"):
+        NM.node_mlp(x, w.t().contiguous(), b)
+    assert NM.launches == before
+    z = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        kops.fused_mp(TMP.MPSpec("copy", ("sum",), "gcn", "int8"), z, z, z,
+                      z, z.bool(), x, x)
+
+
+def test_empty_outputs_launch_nothing(cuda):
+    w = torch.randn((4, 3), device=cuda)
+    b = torch.zeros(3, device=cuda)
+    before = (NM.launches, FM.launches)
+    assert NM.node_mlp(torch.empty((0, 4), device=cuda), w, b).shape == (0, 3)
+    z = torch.zeros(0, dtype=torch.int32, device=cuda)
+    x = torch.empty((0, 4), device=cuda)
+    out = FM.fused_mp(TMP.MPSpec("copy", ("sum",), "gcn"),
+                      torch.zeros(1, dtype=torch.int32, device=cuda), z, z,
+                      z.bool(), x, x, nop=torch.empty((0, 1), device=cuda))
+    assert out.shape == (0, 4)
+    assert (NM.launches, FM.launches) == before
+
+
+def test_gin_engine_on_card_matches_reference(cuda):
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import models as TM
+    from repro_torch.serve.gnn_engine import GNNEngine
+
+    cfg = TM.paper_config("gin", num_layers=2, hidden=32)
+    params = TM.init(torch.Generator().manual_seed(0), cfg)
+    graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=1).take(4)]
+    before = (NM.launches, FM.launches)
+    outs, _, _ = GNNEngine(cfg, params, fused=True, device=cuda).infer_stream(graphs)
+    assert NM.launches > before[0] and FM.launches > before[1]
+    ref_cfg = dataclasses.replace(cfg, kernel_mode="reference")
+    refs, _, _ = GNNEngine(ref_cfg, params, fused=True, device=cuda).infer_stream(graphs)
+    np.testing.assert_allclose(np.concatenate(outs), np.concatenate(refs),
+                               rtol=1e-4, atol=1e-5)
