@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (built for the H100: the kernels compile for
-``sm_90a``) and the CUDA toolkit.  It builds both CUDA kernels from
-``src/repro_torch/kernels/csrc`` with ``nvcc``, then runs these phases,
-one line each:
+``sm_90a``) and the CUDA toolkit.  It builds the four CUDA kernels from
+``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel), then runs
+these phases, one line each:
 
   1. device   the card's name and power limit (``nvidia-smi``); TF32 off
   2. node_mlp kernel vs plain PyTorch version on the card, GIN's five
@@ -17,17 +17,28 @@ one line each:
               widths, N = 4096, E = 12288, with isolated nodes, padding
               edges and an all-padding edge list (same tolerance; PNA
               5e-3, whose std amplifies one rounding of sqsum/c - mean^2)
+  3b. segment_reduce  kernel vs plain version, all five ops at F in
+              {1, 3, 64, 100} on the same graphs (same tolerance)
+  3c. edge_softmax    kernel vs plain version at H in {1, 4}, logits
+              spread +-1 and +-80, on the same graphs (same tolerance);
+              each segment's weights sum to 1 within 1e-5, padding rows
+              are exactly 0
   4. GIN      served at paper width through ``GNNEngine(fused=True)``:
               32 streamed MolHIV-like graphs and one packed batch of 128
               (the k=64 rung of the (64, 192) ladder), checked against
               the same engine in ``mode="reference"``, the unfused engine
               and the CPU path (rtol 1e-4, atol 1e-5)
   5. GCN      the same, streamed
-  6. kernels  launch counts of the main path (counters reset just before
-              phase 4 / 5 and read just after), and at the packed batch's
+  5b. GAT     the same, streamed and packed (node_mlp, edge_softmax,
+              segment_reduce: 7, 5 and 5 launches per forward)
+  5c. PNA, DGN (with its eigenvector input), GIN+VN: the same, streamed
+              (PNA rtol 5e-3)
+  6. kernels  launch counts of each path (counters reset just before each
+              serve phase and read just after), and at the packed batch's
               shapes each kernel's time beside its plain version's, the
-              library call's (node_mlp: ``torch.addmm`` + relu) and the
-              card's bound
+              library call's (node_mlp: ``torch.addmm`` + relu;
+              segment_reduce: ``torch.segment_reduce``) and the card's
+              bound
 
 It prints the card line and a JSON object of the kernels before the last
 line, and ends with ``{"ok": true, "device": {...}}``.  Any mismatch or
@@ -58,6 +69,12 @@ TIMING_REPS = 50
 # GIN's linears as (K, N): encoder, edge embedding, MLP in/out, head
 GIN_LINEARS = ((9, 100), (3, 100), (100, 200), (200, 100), (100, 1))
 PACKED = dict(n_pad=4096, e_pad=12288, g_pad=128)
+SEGMENT_OPS = ("sum", "mean", "sqsum", "max", "min")
+# the kernels each served path must launch
+PATH_KERNELS = {"gin": ("node_mlp", "fused_mp"), "gcn": ("node_mlp", "fused_mp"),
+                "gat": ("node_mlp", "edge_softmax", "segment_reduce"),
+                "pna": ("node_mlp", "fused_mp"), "dgn": ("node_mlp", "fused_mp"),
+                "gin_vn": ("node_mlp", "fused_mp")}
 
 
 def device_line() -> str:
@@ -275,22 +292,85 @@ def check_fused_mp(device) -> None:
           f"{' '.join(cases)}")
 
 
-# ------------------------------------------------------------ phases 4-5
+# ------------------------------------------------------------ phase 3b-c
+
+
+def check_segment_reduce(device) -> None:
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    rng = np.random.default_rng(6)
+    gen = torch.Generator().manual_seed(7)
+    worst = {op: 0.0 for op in SEGMENT_OPS}
+    for all_padding in (False, True):
+        g, lay = plan_graph(rng, 4096, 12288, all_padding, device)
+        n = g.num_nodes
+        for f in (1, 3, 64, 100):
+            values = torch.randn((g.num_edges, f), generator=gen).to(device)
+            for op in SEGMENT_OPS:
+                args = (values, lay.ids_sorted, lay.offsets, n, op)
+                err = checked_err(
+                    f"segment_reduce {op} F={f} (all_padding={all_padding})",
+                    kops.segment_reduce(*args, mode="kernel"),
+                    kops.segment_reduce(*args, mode="reference"), TOL)
+                worst[op] = max(worst[op], err)
+    print(f"[segment_reduce] sum/mean/sqsum/max/min at F in 1,3,64,100, N=4096, "
+          f"E=12288 (+ all-padding edges) match the plain version: "
+          f"{' '.join(f'{op}:{e:.2g}' for op, e in worst.items())}")
+
+
+def check_edge_softmax(device) -> None:
+    import torch
+    from repro_torch.core import scatter_gather as sg
+    from repro_torch.kernels import ops as kops
+
+    rng = np.random.default_rng(8)
+    gen = torch.Generator().manual_seed(9)
+    worst = 0.0
+    for all_padding in (False, True):
+        g, lay = plan_graph(rng, 4096, 12288, all_padding, device)
+        n, e_real = g.num_nodes, int(lay.offsets[-1])
+        for heads in (1, 4):
+            for spread in (1.0, 80.0):
+                logits = ((torch.rand((g.num_edges, heads), generator=gen) * 2 - 1)
+                          * spread).to(device)
+                args = (logits, lay.ids_sorted, lay.offsets, n)
+                name = f"edge_softmax H={heads} spread {spread} (all_padding={all_padding})"
+                got = kops.edge_softmax(*args, mode="kernel")
+                worst = max(worst, checked_err(
+                    name, got, kops.edge_softmax(*args, mode="reference"), TOL))
+                if bool(got[e_real:].ne(0).any()):
+                    raise AssertionError(f"{name}: a padding row is not 0")
+                sums = sg.segment_sum(got, lay.ids_sorted, n)
+                live = lay.in_degree > 0
+                if (not torch.all((sums[live] - 1).abs() <= 1e-5)
+                        or bool(sums[~live].abs().max() != 0)):
+                    raise AssertionError(f"{name}: weights do not sum to 1")
+    print(f"[edge_softmax] H in 1,4, logits +-1 and +-80, N=4096, E=12288 "
+          f"(+ all-padding edges) match the plain version (max abs err "
+          f"{worst:.3g}); weights sum to 1 within 1e-5; padding rows are 0")
+
+
+# ------------------------------------------------------------ phases 4-5c
+
+
+def _kernel_modules() -> dict:
+    from repro_torch.kernels import edge_softmax as ES
+    from repro_torch.kernels import fused_mp as FM
+    from repro_torch.kernels import node_mlp as NM
+    from repro_torch.kernels import segment_reduce as SR
+
+    return {"node_mlp": NM, "fused_mp": FM, "segment_reduce": SR,
+            "edge_softmax": ES}
 
 
 def reset_launches():
-    from repro_torch.kernels import fused_mp as FM
-    from repro_torch.kernels import node_mlp as NM
-
-    NM.launches = 0
-    FM.launches = 0
+    for mod in _kernel_modules().values():
+        mod.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import fused_mp as FM
-    from repro_torch.kernels import node_mlp as NM
-
-    return {"node_mlp": NM.launches, "fused_mp": FM.launches}
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
 def checked_err(name: str, got, want, tol) -> float:
@@ -305,11 +385,11 @@ def checked_err(name: str, got, want, tol) -> float:
     return max_err(got, want)
 
 
-def agree(name: str, got, want) -> None:
+def agree(name: str, got, want, tol) -> None:
     import torch
 
     a, b = torch.as_tensor(np.asarray(got)), torch.as_tensor(np.asarray(want))
-    if a.shape != b.shape or not torch.isfinite(a).all() or not close(a, b, SERVE_TOL):
+    if a.shape != b.shape or not torch.isfinite(a).all() or not close(a, b, tol):
         raise AssertionError(f"{name}: shapes {tuple(a.shape)}/{tuple(b.shape)}, "
                              f"max err {max_err(a, b):.3g}")
 
@@ -328,9 +408,11 @@ def serve_model(model: str, device, packed_too: bool) -> dict:
     stream = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(32)]
     batch = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(128)]
     budget = B.BucketBudget(**PACKED)
+    with_eigvec = model == "dgn"
+    tol = PNA_TOL if model == "pna" else SERVE_TOL
 
     def run(engine):
-        outs, lats, warm = engine.infer_stream(stream)
+        outs, lats, warm = engine.infer_stream(stream, with_eigvec=with_eigvec)
         res = {"stream": np.concatenate(outs), "lats": lats, "warm": warm}
         if packed_too:
             packed, meta = B.pack_graphs(batch, budget, device=engine.device)
@@ -342,9 +424,13 @@ def serve_model(model: str, device, packed_too: bool) -> dict:
     reset_launches()
     main = run(engine)
     launches = read_launches()
-    for kernel, count in launches.items():
-        if count <= 0:
+    for kernel in PATH_KERNELS[model]:
+        if launches[kernel] <= 0:
             raise AssertionError(f"{model}: {kernel} was never launched")
+    if model == "gat" and not (
+            launches["edge_softmax"] == launches["segment_reduce"]
+            and 5 * launches["node_mlp"] == 7 * launches["edge_softmax"]):
+        raise AssertionError(f"gat: launches {launches} are not 7:5:5 per forward")
     ref_cfg = dataclasses.replace(cfg, kernel_mode="reference")
     checks = {
         "reference": run(GNNEngine(ref_cfg, params, fused=True, device=device)),
@@ -353,15 +439,17 @@ def serve_model(model: str, device, packed_too: bool) -> dict:
     }
     for what, res in checks.items():
         for key in ("stream", "packed") if packed_too else ("stream",):
-            agree(f"{model} {key} vs {what}", main[key], res[key])
+            agree(f"{model} {key} vs {what}", main[key], res[key], tol)
     busy = {}
     if device.type == "cuda":
-        busy["stream"] = busy_share(lambda: engine.infer_stream(stream))
+        busy["stream"] = busy_share(
+            lambda: engine.infer_stream(stream, with_eigvec=with_eigvec))
         if packed_too:
             packed, _ = B.pack_graphs(batch, budget, device=device)
             busy["packed"] = busy_share(lambda: engine.infer_packed(packed, budget))
     lats = main["lats"] * 1e3
-    line = (f"[{model}] fused serve: 32 graphs streamed, p50 "
+    line = (f"[{model}] {'serve' if model == 'gat' else 'fused serve'}: "
+            f"32 graphs streamed, p50 "
             f"{np.percentile(lats, 50):.3f} ms p99 {np.percentile(lats, 99):.3f} ms "
             f"(warm {main['warm']:.2f}s excluded)")
     if packed_too:
@@ -463,6 +551,73 @@ def time_fused_mp(device, packed, lay, launches: int) -> dict:
     return row
 
 
+def time_segment_reduce(device, packed, lay, launches: int) -> dict:
+    """GAT's weighted sum: (E_pad, H * F_head) = (12288, 64) plan-ordered
+    values into (4096, 64); the yardstick is ``torch.segment_reduce``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(10)
+    n, e, f = packed.num_nodes, packed.num_edges, 64
+    e_real = int(lay.offsets[-1])
+    values = torch.randn((e, f), generator=gen).to(device)
+    args = (values, lay.ids_sorted, lay.offsets, n, "sum")
+    kern = lambda: kops.segment_reduce(*args, mode="kernel")
+    plain = lambda: kops.segment_reduce(*args, mode="reference")
+    lib = lambda: torch.segment_reduce(values[:e_real], "sum", offsets=lay.offsets,
+                                       axis=0)
+    err = checked_err("segment_reduce sum (packed GAT shapes)", kern(), plain(), TOL)
+    checked_err("torch.segment_reduce (packed GAT shapes)", lib(), plain(), TOL)
+    ms, timer = device_ms(kern)
+    plain_ms, _ = device_ms(plain)
+    library_ms, _ = device_ms(lib)
+    bound_ms, bound_by = bound(4.0 * (e_real * f + (n + 1) + n * f), 1.0 * e_real * f)
+    row = dict(name="segment_reduce", route="cuda",
+               source="src/repro_torch/kernels/csrc/segment_reduce.cu",
+               replaces="src/repro/kernels/segment_reduce.py:112",
+               launches=launches, max_abs_err=err, ms=ms, timer=timer,
+               call_ms=call_ms(kern), plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms,
+               shape=dict(op="sum", n=n, e_pad=e, e_real=e_real, f=f))
+    print(f"[time] segment_reduce sum N={n} E={e_real}/{e} F={f}: err {err:.3g}; "
+          f"{ms:.4f} ms ({timer}; per call {row['call_ms']:.4f} ms), plain "
+          f"{plain_ms:.4f}, torch.segment_reduce {library_ms:.4f}, bound "
+          f"{bound_ms:.5f} ({bound_by})")
+    return row
+
+
+def time_edge_softmax(device, packed, lay, launches: int) -> dict:
+    """GAT's softmax: (12288, 4) plan-ordered logits; no single library
+    call computes it."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(11)
+    n, e, h = packed.num_nodes, packed.num_edges, 4
+    e_real = int(lay.offsets[-1])
+    logits = torch.randn((e, h), generator=gen).to(device)
+    args = (logits, lay.ids_sorted, lay.offsets, n)
+    kern = lambda: kops.edge_softmax(*args, mode="kernel")
+    plain = lambda: kops.edge_softmax(*args, mode="reference")
+    err = checked_err("edge_softmax (packed GAT shapes)", kern(), plain(), TOL)
+    ms, timer = device_ms(kern)
+    plain_ms, _ = device_ms(plain)
+    # read the real logits and the offsets, write every row; per real
+    # logit: max, subtract, exp, add, subtract, exp, divide
+    bound_ms, bound_by = bound(4.0 * (e_real * h + (n + 1) + e * h), 7.0 * e_real * h)
+    row = dict(name="edge_softmax", route="cuda",
+               source="src/repro_torch/kernels/csrc/edge_softmax.cu",
+               replaces="src/repro/kernels/edge_softmax.py:28",
+               launches=launches, max_abs_err=err, ms=ms, timer=timer,
+               call_ms=call_ms(kern), plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None,
+               shape=dict(n=n, e_pad=e, e_real=e_real, heads=h))
+    print(f"[time] edge_softmax N={n} E={e_real}/{e} H={h}: err {err:.3g}; "
+          f"{ms:.4f} ms ({timer}; per call {row['call_ms']:.4f} ms), plain "
+          f"{plain_ms:.4f}, bound {bound_ms:.5f} ({bound_by})")
+    return row
+
+
 # ------------------------------------------------------------ entry point
 
 
@@ -470,11 +625,22 @@ def run(device) -> list:
     """Phases 2-6 on ``device``; returns the kernels' JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
-    gin_launches = serve_model("gin", device, packed_too=True)
-    serve_model("gcn", device, packed_too=False)
+    check_segment_reduce(device)
+    check_edge_softmax(device)
+    paths = {"gin": serve_model("gin", device, packed_too=True),
+             "gcn": serve_model("gcn", device, packed_too=False),
+             "gat": serve_model("gat", device, packed_too=True)}
+    for model in ("pna", "dgn", "gin_vn"):
+        paths[model] = serve_model(model, device, packed_too=False)
     packed, lay = packed_plan(device)
-    return [time_node_mlp(device, packed, gin_launches["node_mlp"]),
-            time_fused_mp(device, packed, lay, gin_launches["fused_mp"])]
+    rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"]),
+            time_fused_mp(device, packed, lay, paths["gin"]["fused_mp"]),
+            time_segment_reduce(device, packed, lay, paths["gat"]["segment_reduce"]),
+            time_edge_softmax(device, packed, lay, paths["gat"]["edge_softmax"])]
+    for row in rows:
+        row["launches_by_path"] = {model: counts[row["name"]]
+                                   for model, counts in paths.items()}
+    return rows
 
 
 def main() -> int:

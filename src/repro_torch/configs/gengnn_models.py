@@ -1,5 +1,5 @@
 """The paper's six GNN models (Table 2 / §5.1 hyperparameters) as
-selectable configs; this slice serves ``gcn`` and ``gin``."""
+selectable configs; ``gin_vn`` is GIN with the virtual node."""
 from repro_torch.gnn.models import GNNConfig, paper_config
 
 GNN_MODELS = ("gcn", "gin", "gin_vn", "gat", "pna", "dgn")

@@ -90,6 +90,17 @@ def pack_layout(packed: G.Graph) -> LY.GraphLayout:
     return LY.host_layout(packed)
 
 
+def pack_eigvecs(eigvecs: Sequence[np.ndarray], meta: PackMeta) -> np.ndarray:
+    """Concatenate per-graph node vectors (DGN's Laplacian eigenvectors)
+    into the packed (N_pad,) layout; padding rows are zero."""
+    out = np.zeros((meta.budget.n_pad,), np.float32)
+    off = 0
+    for vec, n in zip(eigvecs, meta.node_counts):
+        out[off : off + n] = np.asarray(vec, np.float32)[:n]
+        off += n
+    return out
+
+
 def unpack_outputs(outputs: np.ndarray, meta: PackMeta,
                    level: str = "graph") -> List[np.ndarray]:
     """Exact inverse of packing: one array per real graph (``graph``:

@@ -12,7 +12,10 @@ destination-ordered edge plan every layer consumes:
   * ``src_sorted``  (E_pad,) int32 — source ids in sorted-edge order;
   * ``in_degree``   (N_pad,) int32 — real-edge in-degree;
 
-plus GCN's lazily attached ``gcn_inv_sqrt``.  All plan arrays stay int32
+plus the lazily attached model-static derivatives: GCN's ``gcn_inv_sqrt``,
+PNA's ``pna_scalers`` and DGN's ``dgn_w_e`` / ``dgn_denom`` / ``dgn_wsum``
+(directional weights from the eigenvector input, computed once per forward
+instead of once per layer).  All plan arrays stay int32
 with the same values as the JAX plan; indexing ops convert to int64 where
 they need it.  ``build_layout`` sorts on the graph's device;
 ``host_layout`` is its numpy twin, run at pack time.
@@ -28,10 +31,6 @@ import torch
 from repro_torch.core import graph as G
 from repro_torch.core import scatter_gather as sg
 
-# the models whose graph-static derivatives arrive in a later slice
-_LATER_SLICE = ("pna", "dgn")
-
-
 @dataclasses.dataclass(frozen=True)
 class GraphLayout:
     """Destination-ordered edge plan for one (possibly packed) ``Graph``."""
@@ -42,6 +41,10 @@ class GraphLayout:
     src_sorted: torch.Tensor
     in_degree: torch.Tensor
     gcn_inv_sqrt: Optional[torch.Tensor] = None  # (N_pad,) f32
+    pna_scalers: Optional[torch.Tensor] = None  # (N_pad, 3) f32
+    dgn_w_e: Optional[torch.Tensor] = None  # (E_pad,) f32, COO order
+    dgn_denom: Optional[torch.Tensor] = None  # (N_pad,) f32 |dphi| in-sums
+    dgn_wsum: Optional[torch.Tensor] = None  # (N_pad,) f32 per-dst sum of w_e
 
     @property
     def num_nodes(self) -> int:
@@ -130,18 +133,50 @@ def with_gcn_norms(layout: GraphLayout) -> GraphLayout:
     return dataclasses.replace(layout, gcn_inv_sqrt=torch.rsqrt(deg))
 
 
+def with_pna_scalers(layout: GraphLayout, avg_degree: float) -> GraphLayout:
+    """Attach PNA's (N, 3) [identity, amplification, attenuation] scalers."""
+    if layout.pna_scalers is not None:
+        return layout
+    from repro_torch.core import message_passing as mp
+
+    scalers = mp.pna_scalers(layout.in_degree, avg_degree)
+    return dataclasses.replace(layout, pna_scalers=scalers)
+
+
+def with_dgn_weights(
+    layout: GraphLayout, graph: G.Graph, eigvec: torch.Tensor
+) -> GraphLayout:
+    """Attach DGN's directional weights, computed once from the eigenvector
+    (``message_passing.dgn_directional_weights``)."""
+    if layout.dgn_w_e is not None:
+        return layout
+    from repro_torch.core import message_passing as mp
+
+    w_e, denom, wsum = mp.dgn_directional_weights(graph, eigvec, layout)
+    return dataclasses.replace(layout, dgn_w_e=w_e, dgn_denom=denom,
+                               dgn_wsum=wsum)
+
+
 def for_model(
     layout: Optional[GraphLayout],
     graph: G.Graph,
     model: str,
+    avg_degree: float = 1.0,
+    eigvec: Optional[torch.Tensor] = None,
 ) -> GraphLayout:
-    """Ensure the plan exists and carries ``model``'s static derivatives."""
-    if model in _LATER_SLICE:
-        raise NotImplementedError(
-            f"the {model} layout derivatives arrive with the PNA/DGN port "
-            "slice (ROADMAP queue 1, item 3)"
-        )
+    """Ensure the plan exists and carries ``model``'s static derivatives
+    (at most one sort; none when ``layout`` was supplied).  DGN needs its
+    eigenvector input."""
     layout = ensure_layout(layout, graph)
     if model == "gcn":
         layout = with_gcn_norms(layout)
+    elif model == "pna":
+        layout = with_pna_scalers(layout, avg_degree)
+    elif model == "dgn":
+        if eigvec is None and layout.dgn_w_e is None:
+            raise ValueError(
+                "dgn needs its Laplacian eigenvector input: pass eigvec= "
+                "(serving: with_eigvec=True or infer_packed(eigvec=...))"
+            )
+        layout = with_dgn_weights(layout, graph, eigvec)
     return layout

@@ -22,6 +22,7 @@ from repro_torch.kernels import ops as kops
 
 PhiFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 GammaFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+AggregateFn = Callable[[Graph, torch.Tensor, Optional[LY.GraphLayout]], torch.Tensor]
 
 AGGREGATORS = ("sum", "mean", "max", "min", "std", "var")
 
@@ -96,6 +97,7 @@ def mp_layer(
     ops: Sequence[str] = ("sum",),
     edge_feat: torch.Tensor | None = None,
     layout: Optional[LY.GraphLayout] = None,
+    aggregate: Optional[AggregateFn] = None,
     spec: Optional[MPSpec] = None,
     operands: Optional[Dict[str, torch.Tensor]] = None,
     mode: str = "auto",
@@ -103,7 +105,10 @@ def mp_layer(
     """One message-passing layer: the closure form (``phi``/``gamma``
     callables; gather, transform, reduce, update as separate ops) or the
     spec form (``spec`` + ``operands``; one ``kernels.ops.fused_mp`` pass
-    over the layout plan, which it requires)."""
+    over the layout plan, which it requires).  In the closure form
+    ``aggregate(graph, messages, layout)`` replaces ``gather_scatter`` where
+    a model's A(.) is more than a concatenation of reductions (PNA's scaled
+    tower, DGN's directional derivative)."""
     if spec is not None:
         if layout is None:
             raise ValueError(
@@ -118,9 +123,86 @@ def mp_layer(
     x_src = x[graph.src.long()]
     x_dst = x[graph.dst.long()]
     messages = phi(x_src, x_dst, e)
-    agg = gather_scatter(graph, messages, ops=ops, layout=layout)
+    if aggregate is not None:
+        agg = aggregate(graph, messages, layout)
+    else:
+        agg = gather_scatter(graph, messages, ops=ops, layout=layout)
     out = gamma(x, agg)
     return torch.where(graph.node_mask[:, None], out, torch.zeros_like(out))
+
+
+def pna_scalers(degree: torch.Tensor, avg_degree: float) -> torch.Tensor:
+    """(N_pad, 3) PNA scalers [1, amplification, attenuation] from the
+    plan's in-degree; ``avg_degree`` is the training set's mean degree (a
+    model hyperparameter), taken in float32 as the JAX package does."""
+    deg = degree.to(torch.float32)
+    logd = torch.log(deg + 1.0)
+    log_davg = torch.log(torch.tensor(avg_degree, dtype=torch.float32,
+                                      device=deg.device) + 1.0)
+    amp = logd / log_davg
+    att = log_davg / torch.clamp(logd, min=1e-6)
+    att = torch.where(deg > 0, att, torch.zeros_like(att))
+    return torch.stack([torch.ones_like(logd), amp, att], dim=-1)
+
+
+def pna_aggregate(graph: Graph, messages: torch.Tensor,
+                  layout: LY.GraphLayout) -> torch.Tensor:
+    """PNA's A(.): 4 aggregators x 3 degree scalers -> (N_pad, 12 F), over
+    one permuted message stream and the plan's ``pna_scalers``."""
+    agg = gather_scatter(graph, messages, ops=("mean", "std", "max", "min"),
+                         layout=layout)
+    n, f4 = agg.shape
+    out = agg[:, None, :] * layout.pna_scalers[:, :, None]  # (N, 3, 4F)
+    return out.reshape(n, 3 * f4)
+
+
+def gat_attention(
+    graph: Graph,
+    logits: torch.Tensor,
+    xp: torch.Tensor,
+    layout: LY.GraphLayout,
+    mode: str = "auto",
+) -> torch.Tensor:
+    """GAT's A(.): per-destination softmax, then the attention-weighted sum.
+
+    ``logits`` (E_pad, H) in COO order; ``xp`` (N_pad, H, F) per-head
+    features; returns (N_pad, H * F).  The softmax normaliser couples all of
+    a destination's edges before any message folds in, so GAT does not
+    lower to ``fused_mp``: its two segment kernels run over the plan here.
+    Padding edges get weight 0, so their messages are 0 (and past
+    ``offsets[N]``, where the kernel never reads).
+    """
+    n = graph.num_nodes
+    alpha = kops.edge_softmax(logits, layout.ids_sorted, layout.offsets, n,
+                              mode=mode, perm=layout.perm)  # (E, H) sorted
+    msg = xp[layout.src_sorted.long()] * alpha[:, :, None]
+    h_f = xp.shape[1] * xp.shape[2]
+    return kops.segment_reduce(msg.reshape(-1, h_f), layout.ids_sorted,
+                               layout.offsets, n, op="sum", mode=mode)
+
+
+def dgn_directional_weights(graph: Graph, eigvec: torch.Tensor,
+                            layout: LY.GraphLayout):
+    """-> (w_e (E,), denom (N,), wsum (N,)): DGN's directional weights
+    w_ij = (phi_j - phi_i) / sum_k |phi_k - phi_i| per in-edge (COO order),
+    their per-destination |dphi| normaliser and sum of weights."""
+    src, dst = graph.src.long(), graph.dst.long()
+    dphi = eigvec[src] - eigvec[dst]
+    dphi = torch.where(graph.edge_mask, dphi, torch.zeros_like(dphi))
+    denom = LY.segment_reduce(layout, torch.abs(dphi)[:, None], "sum")[:, 0]
+    w_e = dphi / torch.clamp(denom[dst], min=1e-6)
+    wsum = LY.segment_reduce(layout, w_e[:, None], "sum")[:, 0]
+    return w_e, denom, wsum
+
+
+def dgn_aggregate(graph: Graph, messages: torch.Tensor, w_e: torch.Tensor,
+                  layout: LY.GraphLayout) -> torch.Tensor:
+    """DGN's A(.): [mean, w-weighted sum] -> (N_pad, 2 F); ``w_e`` is the
+    (E,) COO-order directional weight vector."""
+    mean_agg = gather_scatter(graph, messages, ops=("mean",), layout=layout)
+    wx = gather_scatter(graph, messages * w_e[:, None], ops=("sum",),
+                        layout=layout)
+    return torch.cat([mean_agg, wx], dim=-1)
 
 
 def global_pool(

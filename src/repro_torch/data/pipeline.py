@@ -1,5 +1,6 @@
 """Deterministic synthetic molecular-graph streams (MolHIV / MolPCBA size
-statistics) — the GNN half of ``repro.data.pipeline``, copied as numpy.
+statistics) and DGN's Laplacian eigenvector input — the GNN half of
+``repro.data.pipeline``, copied as numpy.
 
 Graph ``i`` of a stream is a pure function of (seed, i), so the port and
 the JAX package serve identical inputs.
@@ -7,6 +8,7 @@ the JAX package serve identical inputs.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -44,6 +46,21 @@ def synthetic_molecule(rng: np.random.Generator, stats: MoleculeStats):
     ef = rng.normal(size=(len(s), stats.edge_dim)).astype(np.float32)
     label = (nf.sum() + 0.1 * len(s)) > 0  # synthetic separable target
     return s.astype(np.int32), r.astype(np.int32), nf, ef, np.float32(label)
+
+
+def laplacian_eigvec(s: np.ndarray, r: np.ndarray, n: int,
+                     n_pad: Optional[int] = None) -> np.ndarray:
+    """First non-trivial Laplacian eigenvector of the symmetrised graph —
+    DGN's precomputed input, (n_pad,) float32 with zero padding rows."""
+    a = np.zeros((n, n))
+    a[np.asarray(r), np.asarray(s)] = 1.0
+    a = np.maximum(a, a.T)
+    lap = np.diag(a.sum(1)) - a
+    _, v = np.linalg.eigh(lap)
+    vec = v[:, min(1, v.shape[1] - 1)]
+    out = np.zeros((n_pad if n_pad is not None else n,), np.float32)
+    out[:n] = vec
+    return out
 
 
 class MoleculeStream:

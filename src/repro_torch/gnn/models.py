@@ -1,10 +1,12 @@
-"""The paper's GNN models on the generic message-passing core, PyTorch
-port of ``repro.gnn.models`` — GCN and GIN in fp32 in this slice.
+"""The paper's six GNN models on the generic message-passing core, PyTorch
+port of ``repro.gnn.models`` (fp32).
 
-Configurations default to the paper's §5.1 settings (GCN / GIN: 5 layers,
-dim 100, mean pool, linear head).  GIN+VN, PNA, DGN and GAT keep their
-configs here but raise ``NotImplementedError`` at ``init`` / ``apply``:
-they arrive with a later slice (ROADMAP queue 1, item 3).
+Configurations default to the paper's §5.1 settings:
+
+  GCN / GIN / GIN+VN : 5 layers, dim 100, mean pool, linear head
+  PNA                : 4 layers, dim 80,  mean pool, MLP head (40, 20, 1)
+  DGN                : 4 layers, dim 100, mean pool, MLP head (50, 25, 1)
+  GAT                : 5 layers, 4 heads x 16 features, mean pool, linear head
 """
 from __future__ import annotations
 
@@ -12,15 +14,13 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as Fn
 
 from repro_torch.core import graph as G
 from repro_torch.core import layout as LY
 from repro_torch.core import message_passing as mp
 from repro_torch.gnn import layers as L
 from repro_torch.kernels import ops as kops
-
-PORTED_MODELS = ("gcn", "gin")
-
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
@@ -59,31 +59,43 @@ def paper_config(model: str, virtual_node: bool = False, **kw) -> GNNConfig:
     return GNNConfig(**base)
 
 
-def _require_ported(cfg: GNNConfig) -> None:
-    if cfg.model not in PORTED_MODELS or cfg.virtual_node:
-        name = "gin_vn" if cfg.virtual_node else cfg.model
-        raise NotImplementedError(
-            f"{name} arrives with the GIN+VN/PNA/DGN/GAT port slice "
-            f"(ROADMAP queue 1, item 3); this slice ports {PORTED_MODELS}"
-        )
-
-
 def init(gen: torch.Generator, cfg: GNNConfig, device="cpu") -> dict:
     """Random parameters drawn from ``gen`` (the port's generator draws
     differ from ``jax.random``; parity tests convert JAX params with
     ``repro_torch.convert.from_jax_params`` instead)."""
-    _require_ported(cfg)
     w = cfg.width
     params: dict = {"encoder": L.linear_init(gen, cfg.feat_dim, w, device),
                     "layers": []}
     for _ in range(cfg.num_layers):
         if cfg.model == "gcn":
             lp = {"lin": L.linear_init(gen, w, w, device)}
-        else:
+        elif cfg.model == "gin":
             lp = {"edge": L.linear_init(gen, cfg.edge_dim, w, device),
                   "eps": torch.zeros((), device=device),
                   "mlp": L.mlp_init(gen, (w, 2 * w, w), device)}
+        elif cfg.model == "gat":
+            h, f = cfg.heads, cfg.head_features
+            lp = {"proj": L.linear_init(gen, w, h * f, device),
+                  "att_src": L.glorot(gen, (h, f), device),
+                  "att_dst": L.glorot(gen, (h, f), device)}
+        elif cfg.model == "pna":
+            lp = {"pre": L.linear_init(gen, w, w, device),
+                  "post": L.linear_init(gen, 12 * w, w, device)}
+        elif cfg.model == "dgn":
+            lp = {"post": L.linear_init(gen, 3 * w, w, device)}
+        else:
+            raise ValueError(f"unknown model {cfg.model!r}")
         params["layers"].append(lp)
+    if cfg.virtual_node:
+        params["vn_embed"] = torch.zeros((w,), device=device)
+        vn_mlps = []
+        for _ in range(cfg.num_layers - 1):
+            m = L.mlp_init(gen, (w, 2 * w, w), device)
+            # the VN update's output layer starts at 0, so the virtual-node
+            # branch starts as a no-op (as in the JAX package)
+            m[-1]["w"] = torch.zeros_like(m[-1]["w"])
+            vn_mlps.append(m)
+        params["vn_mlp"] = vn_mlps
     head_sizes = (w,) + tuple(cfg.head_hidden) + (cfg.out_dim,)
     params["head"] = L.mlp_init(gen, head_sizes, device)
     return params
@@ -153,7 +165,87 @@ def _gin_layer(g: G.Graph, x, lp, cfg, extras):
                        layout=layout)
 
 
-_LAYERS = {"gcn": _gcn_layer, "gin": _gin_layer}
+def _gat_layer(g: G.Graph, x, lp, cfg, extras):
+    """GAT's A(.) is an edge softmax, not a plain reduction, so GAT does not
+    lower to ``fused_mp`` (it ignores ``extras["fused"]``): phi gives
+    per-edge logits, ``mp.gat_attention`` normalises and reduces over the
+    plan with the ``edge_softmax`` and ``segment_reduce`` kernels, and
+    gamma is the elu tail."""
+    h, f = cfg.heads, cfg.head_features
+    n = g.num_nodes
+    xp = L.linear_apply(lp["proj"], x, mode=cfg.kernel_mode).reshape(n, h, f)
+    a_src = (xp * lp["att_src"]).sum(-1)  # (N, H)
+    a_dst = (xp * lp["att_dst"]).sum(-1)
+    logits = Fn.leaky_relu(a_src[g.src.long()] + a_dst[g.dst.long()], 0.2)
+    agg = mp.gat_attention(g, logits, xp, extras["layout"], mode=cfg.kernel_mode)
+    out = Fn.elu(agg)
+    return torch.where(g.node_mask[:, None], out, torch.zeros_like(out))
+
+
+def _pna_layer(g: G.Graph, x, lp, cfg, extras):
+    layout = extras["layout"]
+    xp = L.linear_apply(lp["pre"], x, activation="relu", mode=cfg.kernel_mode)
+
+    if extras["fused"]:
+        lin1 = L.fused_linear_operands(lp["post"])
+        spec = mp.MPSpec(phi="copy", ops=("sum", "sqsum", "max", "min"),
+                         gamma="pna")
+        return mp.mp_layer(
+            g, xp, layout=layout, spec=spec, mode=cfg.kernel_mode,
+            operands=dict(msrc=xp, x_res=x, nop=layout.pna_scalers,
+                          w1=lin1["w"], b1=lin1["b"]),
+        )
+
+    def phi(x_src, x_dst, e):
+        return x_src
+
+    def gamma(xp_, tower):
+        out = L.linear_apply(lp["post"], tower, activation="relu",
+                             mode=cfg.kernel_mode)
+        return out + x  # skip connection (§4.3) from the layer input
+
+    return mp.mp_layer(g, xp, phi, gamma, aggregate=mp.pna_aggregate,
+                       layout=layout)
+
+
+def _dgn_layer(g: G.Graph, x, lp, cfg, extras):
+    """mean + directional-derivative aggregation along eigenvector phi1 (§4.4):
+    y_dx_i = | sum_j w_ij x_j  -  x_i sum_j w_ij |, with the directional
+    weights off the plan (computed once per forward).  Fused, the weighted
+    sum is ``fused_mp``'s "wsum" accumulator over plan-ordered weights."""
+    layout = extras["layout"]
+    w_e, wsum = layout.dgn_w_e, layout.dgn_wsum
+
+    if extras["fused"]:
+        lin1 = L.fused_linear_operands(lp["post"])
+        spec = mp.MPSpec(phi="copy", ops=("sum", "wsum"), gamma="dgn")
+        return mp.mp_layer(
+            g, x, layout=layout, spec=spec, mode=cfg.kernel_mode,
+            operands=dict(msrc=x, x_res=x, nop=wsum[:, None],
+                          ew=w_e[layout.perm.long()][:, None],
+                          w1=lin1["w"], b1=lin1["b"]),
+        )
+
+    def phi(x_src, x_dst, e):
+        return x_src
+
+    def aggregate(graph, messages, layout_):
+        return mp.dgn_aggregate(graph, messages, w_e, layout_)
+
+    def gamma(x_, agg):
+        d = x_.shape[-1]
+        mean_agg, wx = agg[:, :d], agg[:, d:]
+        dx_agg = torch.abs(wx - x_ * wsum[:, None])
+        tower = torch.cat([x_, mean_agg, dx_agg], dim=-1)
+        out = L.linear_apply(lp["post"], tower, activation="relu",
+                             mode=cfg.kernel_mode)
+        return out + x_  # skip connection, as in PNA (§4.4)
+
+    return mp.mp_layer(g, x, phi, gamma, aggregate=aggregate, layout=layout)
+
+
+_LAYERS = {"gcn": _gcn_layer, "gin": _gin_layer, "gat": _gat_layer,
+           "pna": _pna_layer, "dgn": _dgn_layer}
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +257,7 @@ def apply(
     params: dict,
     g: G.Graph,
     cfg: GNNConfig,
+    eigvec: Optional[torch.Tensor] = None,
     num_graphs: Optional[int] = None,
     layout: Optional[LY.GraphLayout] = None,
     fused: bool = False,
@@ -172,19 +265,33 @@ def apply(
     """Forward pass -> (num_graphs, out_dim) for graph tasks or
     (N_pad, out_dim) for node tasks.
 
-    ``layout`` is the shared edge plan: pass one built at pack time for a
-    zero-sort forward, or leave it ``None`` to build it here (one sort).
-    ``fused`` runs each layer as one ``fused_mp`` pass over the plan.
+    ``eigvec`` is DGN's (N_pad,) Laplacian eigenvector input.  ``layout``
+    is the shared edge plan: pass one built at pack time for a zero-sort
+    forward, or leave it ``None`` to build it here (one sort).  ``fused``
+    runs each layer as one ``fused_mp`` pass over the plan (GAT keeps its
+    own path).
     """
-    _require_ported(cfg)
     m = g.num_nodes if num_graphs is None else num_graphs
     layer_fn = _LAYERS[cfg.model]
-    layout = LY.for_model(layout, g, cfg.model)
+    layout = LY.for_model(layout, g, cfg.model, avg_degree=cfg.avg_degree,
+                          eigvec=eigvec)
     extras = {"layout": layout, "fused": fused}
     x = L.linear_apply(params["encoder"], g.node_feat, mode=cfg.kernel_mode)
     x = torch.where(g.node_mask[:, None], x, torch.zeros_like(x))
+    vn = None  # (m, w) per-graph virtual-node state
+    if cfg.virtual_node:
+        vn = params["vn_embed"].expand(m, x.shape[-1])
+        gid = torch.clamp(g.graph_id, 0, m - 1).long()
     for li in range(cfg.num_layers):
+        if cfg.virtual_node:
+            # the virtual node broadcasts its state to its graph's nodes
+            x = x + vn[gid] * g.node_mask[:, None]
         x = layer_fn(g, x, params["layers"][li], cfg, extras)
+        if cfg.virtual_node and li < cfg.num_layers - 1:
+            # vn_{l+1} = MLP(vn_l + sum-pool of that graph's nodes)
+            pooled = mp.global_pool(g, x, op="sum", num_graphs=m)
+            vn = L.mlp_apply(params["vn_mlp"][li], pooled + vn,
+                             mode=cfg.kernel_mode)
     if cfg.task == "graph":
         pooled = mp.global_pool(g, x, op="mean", num_graphs=m)
         return L.mlp_apply(params["head"], pooled, mode=cfg.kernel_mode)
@@ -196,12 +303,12 @@ def forward_program(
     num_graphs: Optional[int] = None,
     fused: bool = False,
 ) -> Callable:
-    """:func:`apply` with its statics bound: a ``(params, graph, layout)
-    -> logits`` closure, built once per program-cache entry by
+    """:func:`apply` with its statics bound: a ``(params, graph, eigvec,
+    layout) -> logits`` closure, built once per program-cache entry by
     ``serve.executor.Executor``."""
 
-    def program(params, g: G.Graph, layout):
-        return apply(params, g, cfg, num_graphs=num_graphs,
+    def program(params, g: G.Graph, eigvec, layout):
+        return apply(params, g, cfg, eigvec=eigvec, num_graphs=num_graphs,
                      layout=layout, fused=fused)
 
     return program

@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("node_mlp", "fused_mp")
+SOURCES = ("node_mlp", "fused_mp", "segment_reduce", "edge_softmax")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,6 +40,26 @@ def device_scope(device):
     if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def check(kernel: str, name: str, t, device, dtype, shape) -> None:
+    """Raise unless operand ``name`` of ``kernel`` is a contiguous ``dtype``
+    tensor on ``device`` whose shape matches ``shape`` (None entries match
+    any size)."""
+    if t is None:
+        raise ValueError(f"{kernel}: operand {name} is required")
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+        s is not None and s != got for s, got in zip(shape, t.shape)
+    ):
+        raise ValueError(
+            f"{kernel}: {name} has shape {tuple(t.shape)}, expected {shape}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def nvcc_path() -> str:

@@ -42,22 +42,7 @@ _SIGNATURES = {
 
 
 def _check(name, t, device, dtype, shape):
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
-    whose shape matches ``shape`` (None entries match any size)."""
-    if t is None:
-        raise ValueError(f"fused_mp: operand {name} is required by this spec")
-    if t.device != device:
-        raise ValueError(f"fused_mp: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"fused_mp: {name} must be {dtype}, got {t.dtype}")
-    if t.dim() != len(shape) or any(
-        s is not None and s != got for s, got in zip(shape, t.shape)
-    ):
-        raise ValueError(
-            f"fused_mp: {name} has shape {tuple(t.shape)}, expected {shape}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"fused_mp: {name} must be contiguous")
+    _build.check("fused_mp", name, t, device, dtype, shape)
 
 
 def smem_bytes(f: int, n_ops: int, k1: int, h1: int) -> int:

@@ -29,17 +29,6 @@ _SIGNATURES = {
 }
 
 
-def _check(name: str, t: torch.Tensor, dim: int, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"node_mlp: {name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"node_mlp: {name} must be float32, got {t.dtype}")
-    if t.dim() != dim:
-        raise ValueError(f"node_mlp: {name} must be {dim}-D, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"node_mlp: {name} must be contiguous")
-
-
 def node_mlp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
              activation: str = "relu") -> torch.Tensor:
     """x (M, K), w (K, N), b (N,) float32 CUDA tensors -> (M, N)."""
@@ -48,9 +37,8 @@ def node_mlp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"node_mlp kernel needs CUDA tensors, got {x.device}")
     if activation not in ACTIVATION_CODES:
         raise ValueError(f"unknown activation {activation!r}")
-    _check("x", x, 2, x.device)
-    _check("w", w, 2, x.device)
-    _check("b", b, 1, x.device)
+    for name, t, dim in (("x", x, 2), ("w", w, 2), ("b", b, 1)):
+        _build.check("node_mlp", name, t, x.device, torch.float32, (None,) * dim)
     m, k = x.shape
     if w.shape[0] != k or b.shape[0] != w.shape[1]:
         raise ValueError(

@@ -21,9 +21,11 @@ import os
 
 import torch
 
+from repro_torch.kernels import edge_softmax as _edge_softmax_kernel
 from repro_torch.kernels import fused_mp as _fused_mp_kernel
 from repro_torch.kernels import node_mlp as _node_mlp_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import segment_reduce as _segment_kernel
 
 MODES = ("auto", "kernel", "reference")
 
@@ -48,6 +50,53 @@ def _resolve(mode: str, t: torch.Tensor) -> bool:
             "(the CUDA kernels have no CPU or interpret mode)"
         )
     return on_cuda
+
+
+def segment_reduce(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor,
+    offsets: torch.Tensor,
+    num_segments: int,
+    op: str = "sum",
+    mode: str = "auto",
+    perm: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Sorted-segment reduction (the MP PE): values (E, F) -> (N, F).
+
+    ``segment_ids`` and ``offsets`` come from one ``core.layout``
+    plan: the CUDA kernel walks the CSR ``offsets``, the plain version
+    reads the ids.  ``perm`` (the plan's permutation) gathers COO-order
+    ``values`` into plan order first.
+    """
+    if perm is not None:
+        values = values[perm.long()]
+    if not _resolve(mode, values):
+        return ref.segment_reduce_sorted_ref(values, segment_ids, num_segments, op)
+    return _segment_kernel.segment_reduce(
+        values.contiguous(), offsets.contiguous(), num_segments, op
+    )
+
+
+def edge_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    offsets: torch.Tensor,
+    num_segments: int,
+    mode: str = "auto",
+    perm: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-destination softmax over sorted edges (GAT): (E, H) -> (E, H).
+
+    Plan operands as for :func:`segment_reduce`; ``perm`` gathers
+    COO-order ``logits`` into plan order first.
+    """
+    if perm is not None:
+        logits = logits[perm.long()]
+    if not _resolve(mode, logits):
+        return ref.edge_softmax_ref(logits, segment_ids, num_segments)
+    return _edge_softmax_kernel.edge_softmax(
+        logits.contiguous(), offsets.contiguous(), num_segments
+    )
 
 
 def node_mlp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

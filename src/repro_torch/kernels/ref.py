@@ -36,6 +36,28 @@ def segment_reduce_sorted_ref(
     return out.to(values.dtype)
 
 
+def edge_softmax_ref(
+    logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+) -> torch.Tensor:
+    """Numerically stable per-destination softmax over sorted edges (GAT).
+
+    logits (E, H); returns (E, H) weights that sum to 1 within each
+    (segment, head); padding edges (ids >= num_segments) get weight 0.
+    """
+    valid = (segment_ids < num_segments)[:, None]
+    ids = sg._sink_ids(segment_ids, num_segments)
+    lm = torch.where(valid, logits.float(), torch.full_like(logits.float(), float("-inf")))
+    seg_max = sg._segment_extremum(lm, segment_ids, num_segments, "max")
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros_like(seg_max))
+    # one zero row for the padding ids' sink
+    seg_max = torch.cat([seg_max, seg_max.new_zeros((1, seg_max.shape[1]))])
+    z = torch.exp(lm - seg_max[ids])
+    z = torch.where(valid, z, torch.zeros_like(z))
+    seg_sum = sg.segment_sum(z, segment_ids, num_segments)
+    seg_sum = torch.cat([seg_sum, seg_sum.new_zeros((1, seg_sum.shape[1]))])
+    return (z / torch.clamp(seg_sum[ids], min=1e-30)).to(logits.dtype)
+
+
 def _activate(y: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "relu":
         return torch.clamp(y, min=0.0)

@@ -4,9 +4,9 @@
 
 * **prepare** — ``prepare_stream`` / ``prepare_batched`` /
   ``prepare_packed`` pad raw input into a ``PreparedBatch`` on the
-  executor's device: padded graph, optional layout plan (packed batches
-  carry their host-built plan), bucket key and warm signature.  DGN's
-  eigenvector input arrives with the DGN slice.
+  executor's device: padded graph, DGN's eigenvector input when asked
+  for (host eigensolve, memoised), optional layout plan (packed batches
+  carry their host-built plan), bucket key and warm signature.
 * **warm** — every (tenant, program, signature) executes once untimed
   before it may be timed.  On the card that first run builds the CUDA
   kernels (at first use) and sets up the libraries, so neither leaks into
@@ -25,6 +25,7 @@ the caller asks for the CPU, and raises if CUDA is missing.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
@@ -34,6 +35,7 @@ import torch
 from repro_torch.core import batching as B
 from repro_torch.core import graph as G
 from repro_torch.core import layout as LY
+from repro_torch.data.pipeline import laplacian_eigvec
 from repro_torch.device import resolve_device
 from repro_torch.gnn import models as M
 from repro_torch.serve.clock import Clock, RealClock
@@ -58,11 +60,11 @@ def _tensor_leaves(obj):
             yield from _tensor_leaves(v)
 
 
-def trace_signature(graph: G.Graph, layout=None) -> tuple:
-    """Warm signature of one prepared input: whether it carries a plan,
-    plus (shape, dtype) of every tensor."""
-    leaves = _tensor_leaves((graph, layout))
-    return (("lay", layout is not None),) + tuple(
+def trace_signature(graph: G.Graph, eigvec=None, layout=None) -> tuple:
+    """Warm signature of one prepared input: whether it carries an
+    eigenvector and a plan, plus (shape, dtype) of every tensor."""
+    leaves = _tensor_leaves((graph, eigvec, layout))
+    return (("eig", eigvec is not None), ("lay", layout is not None)) + tuple(
         (tuple(v.shape), str(v.dtype)) for v in leaves
     )
 
@@ -83,20 +85,21 @@ def _params_to(params, device: torch.device):
 @dataclasses.dataclass(frozen=True)
 class PreparedBatch:
     """One batch staged for the executor: padded (possibly packed) graph,
-    optional layout plan, and its routing facts."""
+    optional eigenvector and layout plan, and its routing facts."""
 
     graph: G.Graph
+    eigvec: Optional[torch.Tensor]
     layout: Optional[LY.GraphLayout]
     bucket_key: tuple
     num_graphs: int
     signature: tuple
 
 
-def prepared(graph: G.Graph, layout, bucket_key: tuple,
+def prepared(graph: G.Graph, eigvec, layout, bucket_key: tuple,
              num_graphs: int) -> PreparedBatch:
-    return PreparedBatch(graph=graph, layout=layout,
+    return PreparedBatch(graph=graph, eigvec=eigvec, layout=layout,
                          bucket_key=bucket_key, num_graphs=num_graphs,
-                         signature=trace_signature(graph, layout))
+                         signature=trace_signature(graph, eigvec, layout))
 
 
 @dataclasses.dataclass
@@ -136,6 +139,7 @@ class Executor:
         self.clock = clock if clock is not None else RealClock()
         self.tenants: Dict[str, Tenant] = {}
         self._programs: Dict[tuple, _Program] = {}
+        self._eigvec_lru: collections.OrderedDict = collections.OrderedDict()
 
     # ---------------------------------------------------------- tenants
 
@@ -198,7 +202,7 @@ class Executor:
         if sig in prog.warm:
             return 0.0
         t0 = self.clock.now()
-        prog.fn(tenant.params, p.graph, p.layout)
+        prog.fn(tenant.params, p.graph, p.eigvec, p.layout)
         self._synchronize()
         dt = self.clock.now() - t0
         prog.warm.add(sig)
@@ -207,33 +211,52 @@ class Executor:
 
     # ---------------------------------------------------------- prepare
 
-    def prepare_stream(self, raw: tuple) -> PreparedBatch:
+    def prepare_stream(self, raw: tuple, with_eigvec: bool = False) -> PreparedBatch:
         """One raw COO graph padded into the smallest bucket; no layout
         plan (the forward builds it on the device: one sort)."""
         s, r, nf, ef = raw[:4]
         nb, eb = self.bucket_for(nf.shape[0], len(s))
         g = G.from_numpy(s, r, nf, ef, n_pad=nb, e_pad=eb, device=self.device)
-        return prepared(g, None, ("stream", nb, eb), 1)
+        eig = None
+        if with_eigvec:
+            eig = torch.as_tensor(self._eigvec(s, r, nf.shape[0], nb),
+                                  device=self.device)
+        return prepared(g, eig, None, ("stream", nb, eb), 1)
 
     def prepare_batched(self, chunk: Sequence[tuple], batch_size: int,
-                        n_pad: int, e_pad: int) -> PreparedBatch:
-        """One fixed-size padded batch of the chunk's raw graphs."""
+                        n_pad: int, e_pad: int,
+                        with_eigvec: bool = False) -> PreparedBatch:
+        """One fixed-size padded batch of the chunk's raw graphs, with the
+        per-graph eigenvectors at the batch's node offsets when asked."""
         gs = [(g[0], g[1], g[2], g[3]) for g in chunk]
         g = G.batch_graphs(gs, n_pad=n_pad, e_pad=e_pad, device=self.device)
-        return prepared(g, None, ("batched", n_pad, e_pad, batch_size),
+        eig = None
+        if with_eigvec:
+            vec = np.zeros((n_pad,), np.float32)
+            off = 0
+            for s, r, nf, _ in gs:
+                n = nf.shape[0]
+                vec[off : off + n] = self._eigvec(s, r, n, n)
+                off += n
+            eig = torch.as_tensor(vec, device=self.device)
+        return prepared(g, eig, None, ("batched", n_pad, e_pad, batch_size),
                         batch_size)
 
-    def prepare_packed(self, packed: G.Graph, budget,
+    def prepare_packed(self, packed: G.Graph, budget, eigvec=None,
                        layout=None) -> PreparedBatch:
-        """One already-packed batch (``core.batching``); without a plan
-        the host plan is built here."""
+        """One already-packed batch (``core.batching``), with its packed
+        eigenvector (``core.batching.pack_eigvecs``) for DGN; without a
+        plan the host plan is built here."""
         if packed.device != self.device:
             raise ValueError(
                 f"packed graph is on {packed.device}, executor on {self.device}"
             )
+        if eigvec is not None:
+            eigvec = torch.as_tensor(eigvec, dtype=torch.float32,
+                                     device=self.device)
         if layout is None:
             layout = B.pack_layout(packed)
-        return prepared(packed, layout,
+        return prepared(packed, eigvec, layout,
                         ("packed", budget.n_pad, budget.e_pad, budget.g_pad),
                         budget.g_pad)
 
@@ -249,7 +272,28 @@ class Executor:
         with torch.inference_mode():
             self._warm(prog, (tenant.params_sig,) + p.signature, tenant, p)
             t0 = self.clock.now()
-            out = prog.fn(tenant.params, p.graph, p.layout)
+            out = prog.fn(tenant.params, p.graph, p.eigvec, p.layout)
             self._synchronize()
             dt = self.clock.now() - t0
         return out.cpu().numpy(), dt
+
+    # ------------------------------------------------------------- misc
+
+    _EIGVEC_LRU_SIZE = 128
+
+    def _eigvec(self, s, r, n: int, n_pad: int) -> np.ndarray:
+        """DGN's eigenvector input (``data.pipeline.laplacian_eigvec``),
+        memoised in a small LRU keyed by (edge lists, n, n_pad): a stream
+        revisits graph shapes, and the host eigensolve is the costliest
+        prepare stage."""
+        s_arr, r_arr = np.ascontiguousarray(s), np.ascontiguousarray(r)
+        key = (s_arr.tobytes(), r_arr.tobytes(), int(n), int(n_pad))
+        vec = self._eigvec_lru.get(key)
+        if vec is not None:
+            self._eigvec_lru.move_to_end(key)
+            return vec
+        vec = laplacian_eigvec(s_arr, r_arr, n, n_pad)
+        self._eigvec_lru[key] = vec
+        if len(self._eigvec_lru) > self._EIGVEC_LRU_SIZE:
+            self._eigvec_lru.popitem(last=False)
+        return vec

@@ -30,7 +30,8 @@ class GNNEngine:
         fused: bool = False,
         device="cuda",
     ):
-        """``fused`` runs every GCN / GIN layer as one ``fused_mp`` pass."""
+        """``fused`` runs every GCN / GIN / PNA / DGN layer as one
+        ``fused_mp`` pass (GAT keeps its edge-softmax path)."""
         self.executor = Executor(buckets=buckets, device=device)
         self._tenant = self.executor.register(
             "default", cfg, params, precision=precision, fused=fused,
@@ -45,35 +46,40 @@ class GNNEngine:
     def warm_seconds(self) -> float:
         return self.executor.warm_seconds
 
-    def infer_stream(self, graphs: Iterable[tuple]):
+    def infer_stream(self, graphs: Iterable[tuple], with_eigvec: bool = False):
         """graphs: raw (senders, receivers, node_feat, edge_feat[, label])
-        tuples.  Returns (outputs, per-graph latencies in seconds, untimed
-        warm seconds)."""
+        tuples; ``with_eigvec`` computes DGN's eigenvector input per graph
+        (in prepare, outside the timed region).  Returns (outputs,
+        per-graph latencies in seconds, untimed warm seconds)."""
         ex = self.executor
         outs: List[np.ndarray] = []
         lats: List[float] = []
         warm_before = ex.warm_seconds
         for graph in graphs:
-            out, dt = ex.run(ex.prepare_stream(graph))
+            out, dt = ex.run(ex.prepare_stream(graph, with_eigvec=with_eigvec))
             lats.append(dt)
             outs.append(out[:1])
         return outs, np.asarray(lats), ex.warm_seconds - warm_before
 
     def infer_batched(self, graphs: Sequence[tuple], batch_size: int,
-                      n_pad: int, e_pad: int):
+                      n_pad: int, e_pad: int, with_eigvec: bool = False):
         """Padded-batch mode.  Returns (outputs (n_graphs, out), seconds/graph)."""
         ex = self.executor
         outs = []
         total = 0.0
         for i in range(0, len(graphs), batch_size):
             chunk = graphs[i : i + batch_size]
-            out, dt = ex.run(ex.prepare_batched(chunk, batch_size, n_pad, e_pad))
+            out, dt = ex.run(ex.prepare_batched(chunk, batch_size, n_pad, e_pad,
+                                                with_eigvec=with_eigvec))
             total += dt
             outs.append(out[: len(chunk)])
         return np.concatenate(outs), total / len(graphs)
 
-    def infer_packed(self, packed, budget, layout=None):
+    def infer_packed(self, packed, budget, eigvec=None, layout=None):
         """Run one packed batch (``core.batching.pack_graphs`` on this
-        engine's device).  Returns (outputs (G_pad, out), seconds)."""
+        engine's device); DGN takes its packed eigenvector
+        (``core.batching.pack_eigvecs``).  Returns (outputs (G_pad, out),
+        seconds)."""
         ex = self.executor
-        return ex.run(ex.prepare_packed(packed, budget, layout=layout))
+        return ex.run(ex.prepare_packed(packed, budget, eigvec=eigvec,
+                                        layout=layout))

@@ -11,8 +11,11 @@ The same numpy inputs go through ``repro`` (JAX, CPU) and ``repro_torch``
     Newton steps (up to 2 ulp off the correctly rounded value), while
     ``torch.rsqrt`` on the CPU rounds correctly;
   * segment reductions (every op, padding ids, empty segments): atol 1e-6;
-  * graph construction, packing and unpacking, and the molecule stream are
-    identical.
+  * PNA's ``pna_scalers`` within rtol 1e-6 (``log`` may differ by an ulp)
+    and DGN's ``dgn_w_e`` / ``dgn_denom`` / ``dgn_wsum`` within rtol 1e-5,
+    from the same eigenvector;
+  * graph construction, packing and unpacking, the molecule stream, DGN's
+    ``laplacian_eigvec`` and ``pack_eigvecs`` are identical.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -219,3 +222,58 @@ def test_molecule_stream_identical():
         for ja, ta in zip(jt, tt):
             for x, y in zip(ja, ta):
                 np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("kind", ["single", "batched", "packed"])
+def test_pna_scalers_match_jax(kind):
+    jg, tg = _graph_pair(kind, 10)
+    want = _np(JLY.for_model(None, jg, "pna", avg_degree=2.2).pna_scalers)
+    got = TLY.for_model(None, tg, "pna", avg_degree=2.2).pna_scalers
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(_np(got), want, rtol=1e-6, atol=0)
+
+
+def _eigvec(tg, seed):
+    """A per-node vector with padding rows 0, as DGN's input has."""
+    vec = np.random.default_rng(seed).normal(size=(tg.num_nodes,)).astype(np.float32)
+    return np.where(_np(tg.node_mask), vec, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["single", "batched", "packed"])
+def test_dgn_weights_match_jax(kind):
+    jg, tg = _graph_pair(kind, 11)
+    eig = _eigvec(tg, 11)
+    jl = JLY.for_model(None, jg, "dgn", eigvec=jnp.asarray(eig))
+    tl = TLY.for_model(None, tg, "dgn", eigvec=torch.from_numpy(eig))
+    for name in ("dgn_w_e", "dgn_denom", "dgn_wsum"):
+        got, want = _np(getattr(tl, name)), _np(getattr(jl, name))
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7, err_msg=name)
+    # the plan-less weights of the JAX package agree with the cached ones
+    w_e, wsum = JMP.dgn_directional_weights(jg, jnp.asarray(eig))
+    np.testing.assert_allclose(_np(tl.dgn_w_e), _np(w_e), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(_np(tl.dgn_wsum), _np(wsum), rtol=1e-5, atol=1e-7)
+    # attached once: a second call keeps the plan's values
+    assert TLY.for_model(tl, tg, "dgn", eigvec=None) is tl
+
+
+def test_dgn_needs_its_eigenvector():
+    _, tg = _graph_pair("single", 12)
+    with pytest.raises(ValueError, match="eigenvector"):
+        TLY.for_model(None, tg, "dgn")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_laplacian_eigvec_and_pack_identical(seed):
+    gs = [g[:4] for g in JP.MoleculeStream(JP.MOLHIV, seed=seed).take(4)]
+    for s, r, nf, _ in gs:
+        n = nf.shape[0]
+        for n_pad in (None, n + 7):
+            np.testing.assert_array_equal(TP.laplacian_eigvec(s, r, n, n_pad),
+                                          JP.laplacian_eigvec(s, r, n, n_pad))
+    vecs = [TP.laplacian_eigvec(g[0], g[1], g[2].shape[0]) for g in gs]
+    _, jm = JB.pack_graphs(gs, JB.BucketBudget(256, 768, 8))
+    _, tm = TB.pack_graphs(gs, TB.BucketBudget(256, 768, 8))
+    got = TB.pack_eigvecs(vecs, tm)
+    np.testing.assert_array_equal(got, JB.pack_eigvecs(vecs, jm))
+    assert got.dtype == np.float32 and not got[sum(tm.node_counts):].any()

@@ -9,7 +9,7 @@ device is present (decided inside the test run, never at import):
 Tolerance: |kernel - plain| <= 1e-5 + 1e-5 |plain| (the same fp32 FMAs
 summed in another order); PNA 5e-3, whose std amplifies one rounding of
 ``sqsum/c - mean^2``.  The numpy operand helpers are shared with
-``tests/test_torch_kernels.py``.
+``tests/test_torch_kernels.py`` and ``tests/test_torch_segment_kernels.py``.
 """
 import dataclasses
 
@@ -20,9 +20,11 @@ import torch
 from repro_torch.core import graph as TG
 from repro_torch.core import layout as TLY
 from repro_torch.core import message_passing as TMP
+from repro_torch.kernels import edge_softmax as ES
 from repro_torch.kernels import fused_mp as FM
 from repro_torch.kernels import node_mlp as NM
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import segment_reduce as SR
 
 torch.set_num_threads(1)
 
@@ -62,6 +64,21 @@ def plan_arrays(rng, n_pad=40, e_pad=96):
             ("ids_sorted", "src_sorted", "in_degree", "offsets")}
     plan["node_mask"] = g.node_mask.numpy()
     return plan
+
+
+def segment_case(rng, case):
+    """Numpy (ids_sorted, offsets, n) of a sorted plan: "empty_and_padding"
+    (gaps and the last 4 segments empty, padding ids n at the end),
+    "all_padding" (no real edge), "wide" (64 segments, the last 10
+    isolated, padding at the end)."""
+    if case == "all_padding":
+        n, ids = 16, np.full((24,), 16, np.int32)
+    else:
+        n, e, pad = (20, 90, 17) if case == "empty_and_padding" else (64, 150, 30)
+        ids = np.sort(rng.integers(0, n - (4 if n == 20 else 10), e))
+        ids = np.concatenate([ids, np.full((pad,), n)]).astype(np.int32)
+    offsets = np.searchsorted(ids, np.arange(n + 1), side="left").astype(np.int32)
+    return ids, offsets, n
 
 
 def spec_operands(rng, gamma, n, e, f=12):
@@ -177,5 +194,63 @@ def test_gin_engine_on_card_matches_reference(cuda):
     assert NM.launches > before[0] and FM.launches > before[1]
     ref_cfg = dataclasses.replace(cfg, kernel_mode="reference")
     refs, _, _ = GNNEngine(ref_cfg, params, fused=True, device=cuda).infer_stream(graphs)
+    np.testing.assert_allclose(np.concatenate(outs), np.concatenate(refs),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "sqsum", "max", "min"])
+def test_segment_reduce_kernel_matches_plain(cuda, op):
+    rng = np.random.default_rng(20)
+    for case in ("empty_and_padding", "all_padding", "wide"):
+        ids, offsets, n = segment_case(rng, case)
+        for f in (1, 3, 64, 100):
+            values = to_t(rng.normal(size=(ids.shape[0], f)).astype(np.float32), cuda)
+            args = (values, to_t(ids, cuda), to_t(offsets, cuda), n, op)
+            before = SR.launches
+            got = kops.segment_reduce(*args, mode="kernel")
+            want = kops.segment_reduce(*args, mode="reference")
+            torch.cuda.synchronize()
+            assert SR.launches == before + 1
+            assert_close(got.cpu(), want.cpu(), TOL)
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_edge_softmax_kernel_matches_plain(cuda, heads):
+    rng = np.random.default_rng(21)
+    for case in ("empty_and_padding", "all_padding", "wide"):
+        ids, offsets, n = segment_case(rng, case)
+        for spread in (1.0, 80.0):
+            logits = rng.uniform(-spread, spread, size=(ids.shape[0], heads))
+            args = (to_t(logits.astype(np.float32), cuda), to_t(ids, cuda),
+                    to_t(offsets, cuda), n)
+            got = kops.edge_softmax(*args, mode="kernel")
+            want = kops.edge_softmax(*args, mode="reference")
+            torch.cuda.synchronize()
+            assert_close(got.cpu(), want.cpu(), TOL)
+            assert (got.cpu().numpy()[ids >= n] == 0).all()
+
+
+def test_segment_kernels_empty_outputs_launch_nothing(cuda):
+    before = (SR.launches, ES.launches)
+    off = torch.zeros(1, dtype=torch.int32, device=cuda)
+    assert SR.segment_reduce(torch.empty((5, 4), device=cuda), off, 0).shape == (0, 4)
+    assert ES.edge_softmax(torch.empty((0, 4), device=cuda), off, 0).shape == (0, 4)
+    assert (SR.launches, ES.launches) == before
+
+
+def test_gat_engine_on_card_matches_reference(cuda):
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import models as TM
+    from repro_torch.serve.gnn_engine import GNNEngine
+
+    cfg = TM.paper_config("gat", num_layers=2)
+    params = TM.init(torch.Generator().manual_seed(0), cfg)
+    graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=1).take(4)]
+    before = (NM.launches, SR.launches, ES.launches)
+    outs, _, _ = GNNEngine(cfg, params, device=cuda).infer_stream(graphs)
+    after = (NM.launches, SR.launches, ES.launches)
+    assert all(a > b for a, b in zip(after, before))
+    ref_cfg = dataclasses.replace(cfg, kernel_mode="reference")
+    refs, _, _ = GNNEngine(ref_cfg, params, device=cuda).infer_stream(graphs)
     np.testing.assert_allclose(np.concatenate(outs), np.concatenate(refs),
                                rtol=1e-4, atol=1e-5)
