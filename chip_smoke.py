@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (built for the H100: the kernels compile for
-``sm_90a``) and the CUDA toolkit.  It builds the four CUDA kernels from
-``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel), then runs
-these phases, one line each:
+``sm_90a``) and the CUDA toolkit.  It builds the five CUDA kernel sources
+from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel), then
+runs these phases, one line each:
 
   1. device   the card's name and power limit (``nvidia-smi``); TF32 off
   2. node_mlp kernel vs plain PyTorch version on the card, GIN's five
@@ -33,11 +33,41 @@ these phases, one line each:
               segment_reduce: 7, 5 and 5 launches per forward)
   5c. PNA, DGN (with its eigenvector input), GIN+VN: the same, streamed
               (PNA rtol 5e-3)
-  6. kernels  launch counts of each path (counters reset just before each
+  3d. quant_node_mlp  kernel vs plain version at GIN's int8 shapes
+              (4096 x 9->100, 12288 x 3->100, 4096 x 100->200, 4096 x
+              200->100) and ragged M in {1, 37, 4097}, every activation,
+              with and without row scales (|kernel - plain| <= 1e-6 +
+              1e-6 |plain|); with scale 1 and bias 0 the output is the
+              exact integer product (int64)
+  3e. fused_mp int8   kernel vs plain version for the int8 gammas gin
+              (F=100, H=200), pna (F=80), dgn (F=100) at N = 4096, E =
+              12288 (+ all-padding edges), on operands whose aggregates are
+              exact in fp32: PNA and DGN bit for bit, GIN within 2e-5 and
+              bit for bit on probe weights that output q * rs
+  7. int8     all six models served in int8 (W8A8, dynamic per-node
+              scales) with ``fused=True``: GIN streamed and packed, the
+              others streamed; each against the same engine in
+              ``mode="reference"``, on the CPU, and unfused, within the
+              quantization-noise bound MAE(got - want) <= 0.2 MAE(int8 -
+              fp32) + 1e-5 (fp32: the same model's fp32 engine on the
+              card).  GIN's and GIN+VN's fused layers keep the edge and
+              second MLP linears in dequantized fp32, so against their
+              unfused engine the bound is JAX's own
+              (tests/test_fused_mp.py): MAE(fused - fp32) <= 5 MAE(unfused
+              - fp32) + 1e-4
+  7b. GIN in int8-static (calibrated on 16 graphs of a disjoint stream) and
+              fixed (ap_fixed<16,6>), 8 streamed graphs: within the bound
+              of the reference, unfused and CPU engines, no fused_mp
+              launch, and with PyTorch's deterministic algorithms (the
+              unfused sums' atomics otherwise vary from run to run) fused
+              gives the unfused result bit for bit: those linears do not
+              lower
+  8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after), and at the packed batch's
               shapes each kernel's time beside its plain version's, the
               library call's (node_mlp: ``torch.addmm`` + relu;
-              segment_reduce: ``torch.segment_reduce``) and the card's
+              segment_reduce: ``torch.segment_reduce``; quant_node_mlp:
+              ``torch._int_mm`` + the epilogue in torch) and the card's
               bound
 
 It prints the card line and a JSON object of the kernels before the last
@@ -59,22 +89,46 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): fp32 on CUDA cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): fp32 on CUDA cores, int8 on the
+# tensor cores, HBM3
 PEAK_FP32_FLOP_S = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES_S = 3.35e12
 TOL = dict(rtol=1e-5, atol=1e-5)
 PNA_TOL = dict(rtol=5e-3, atol=5e-3)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+QMLP_TOL = dict(rtol=1e-6, atol=1e-6)
+INT8_TOL = dict(rtol=0.0, atol=2e-5)
+# (K, N) of every linear the six int8 paths quantize: the encoders (9 ->
+# 100, 64, 80), GIN's edge embedding and MLP (also GIN+VN's virtual-node
+# MLPs), GCN's lin, GAT's proj, PNA's pre / post, DGN's post
+QMLP_SHAPES = ((9, 100), (3, 100), (100, 200), (200, 100), (100, 100),
+               (9, 64), (64, 64), (9, 80), (80, 80), (960, 80), (300, 100))
+# M: the packed plan's nodes and edges, the smallest stream bucket, the
+# packed batch's graphs (the virtual-node MLPs), ragged
+QMLP_ROWS = (4096, 12288, 32, 128, 1, 37, 4097)
 TIMING_REPS = 50
 # GIN's linears as (K, N): encoder, edge embedding, MLP in/out, head
 GIN_LINEARS = ((9, 100), (3, 100), (100, 200), (200, 100), (100, 1))
 PACKED = dict(n_pad=4096, e_pad=12288, g_pad=128)
 SEGMENT_OPS = ("sum", "mean", "sqsum", "max", "min")
-# the kernels each served path must launch
+# the kernels each served path must launch, by precision (int8 paths keep
+# the fp32 head on node_mlp; fused_mp_int8 counts fused_mp's int8 gammas)
 PATH_KERNELS = {"gin": ("node_mlp", "fused_mp"), "gcn": ("node_mlp", "fused_mp"),
                 "gat": ("node_mlp", "edge_softmax", "segment_reduce"),
                 "pna": ("node_mlp", "fused_mp"), "dgn": ("node_mlp", "fused_mp"),
                 "gin_vn": ("node_mlp", "fused_mp")}
+INT8_PATH_KERNELS = {
+    "gin": ("quant_node_mlp", "node_mlp", "fused_mp_int8"),
+    "gcn": ("quant_node_mlp", "node_mlp", "fused_mp"),
+    "gat": ("quant_node_mlp", "node_mlp", "edge_softmax", "segment_reduce"),
+    "pna": ("quant_node_mlp", "node_mlp", "fused_mp_int8"),
+    "dgn": ("quant_node_mlp", "node_mlp", "fused_mp_int8"),
+    "gin_vn": ("quant_node_mlp", "node_mlp", "fused_mp_int8"),
+}
+# int8-static and fixed GIN layers do not lower into fused_mp
+UNFUSABLE_PATH_KERNELS = {"int8-static": ("quant_node_mlp", "node_mlp"),
+                          "fixed": ("node_mlp",)}
 
 
 def device_line() -> str:
@@ -114,8 +168,13 @@ def device_ms(fn, reps: int = TIMING_REPS):
 
     ``torch.profiler`` records the CUDA activity of ``reps`` calls; each
     call issues the same number of device operations, so the records
-    split into per-call sums.  If it records no device activity, CUDA
-    events around each call stand in (they include launch overhead)."""
+    split into per-call sums ("profiler-median").  When records are lost
+    (the profiler can drop one of a session's), the mean per call over the
+    records is given, with their count against the expected one
+    ("profiler-mean(n/expected)").  If the profiler records no device
+    activity at all, the calls are queued behind a sleeping kernel and
+    timed with CUDA events as one back-to-back run ("events-queued": no
+    host launch overhead, but the gaps between kernels count)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -131,12 +190,31 @@ def device_ms(fn, reps: int = TIMING_REPS):
             sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                    key=lambda e: e.time_range.start)]
     if not durs:
-        return call_ms(fn, reps), "events"
-    per_call, rem = divmod(len(durs), reps)
-    if rem:
-        return sum(durs) / reps / 1e3, "profiler-mean"
+        return queued_ms(fn, reps), "events-queued"
+    per_call = max(1, round(len(durs) / reps))
+    if len(durs) != per_call * reps:
+        # records lost or extra: the mean over the calls they cover
+        return (sum(durs) * per_call / len(durs) / 1e3,
+                f"profiler-mean({len(durs)}/{per_call * reps})")
     calls = [sum(durs[i * per_call:(i + 1) * per_call]) for i in range(reps)]
     return statistics.median(calls) / 1e3, "profiler-median"
+
+
+def queued_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Per-call ms of ``reps`` calls queued behind a ~50 ms sleeping kernel
+    and run back to back, between two CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def call_ms(fn, reps: int = TIMING_REPS) -> float:
@@ -176,10 +254,12 @@ def busy_share(fn):
     return sum(dev) / 1e6 / (time.perf_counter() - t0), len(dev)
 
 
-def bound(nbytes: float, flops: float):
-    """(least ms, "bytes" | "operations") on an H100 SXM."""
+def bound(nbytes: float, flops: float, int8_ops: float = 0.0):
+    """(least ms, "bytes" | "operations") on an H100 SXM: the larger of the
+    bytes over the memory rate and the operations over the peak of their
+    type (fp32 on CUDA cores, int8 on the tensor cores; both must run)."""
     t_mem = nbytes / PEAK_HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_S * 1e3
+    t_ops = (flops / PEAK_FP32_FLOP_S + int8_ops / PEAK_INT8_OPS) * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -351,26 +431,160 @@ def check_edge_softmax(device) -> None:
           f"{worst:.3g}); weights sum to 1 within 1e-5; padding rows are 0")
 
 
+# ------------------------------------------------------------ phase 3d-e
+
+
+def qmlp_inputs(gen, m: int, k: int, n: int, device):
+    """int8 operands of ``quant_node_mlp`` at (M, K) x (K, N): x_q, w_q,
+    per-channel scales, per-row scales and a bias."""
+    import torch
+
+    x_q = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen) * 9e-3 + 1e-3
+    rs = torch.rand((m, 1), generator=gen) * 0.1 + 1e-3
+    b = 0.1 * torch.randn((n,), generator=gen)
+    return [t.to(device) for t in (x_q, w_q, scale, rs, b)]
+
+
+def check_quant_node_mlp(device) -> None:
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(12)
+    worst, count = 0.0, 0
+    for k, n in QMLP_SHAPES:
+        for m in QMLP_ROWS:
+            x_q, w_q, scale, rs, b = qmlp_inputs(gen, m, k, n, device)
+            for act in ("relu", "gelu", "none"):
+                for row_scale in (rs, None):
+                    args = (x_q, w_q, scale, b, act)
+                    worst = max(worst, checked_err(
+                        f"quant_node_mlp ({m},{k})x({k},{n}) {act} "
+                        f"row_scale={row_scale is not None}",
+                        kops.quant_node_mlp(*args, row_scale=row_scale, mode="kernel"),
+                        kops.quant_node_mlp(*args, row_scale=row_scale,
+                                            mode="reference"), QMLP_TOL))
+                    count += 1
+            # scale 1 (0-d), bias 0: the exact integer product
+            got = kops.quant_node_mlp(x_q, w_q, torch.tensor(1.0, device=device),
+                                      torch.zeros(n, device=device), "none",
+                                      mode="kernel")
+            # every partial sum is an integer below 2^53: the float64
+            # product is the exact int64 one
+            exact = (x_q.double() @ w_q.double()).long()
+            if not torch.equal(got.long(), exact) or bool(
+                    (got != got.round()).any()):
+                raise AssertionError(f"quant_node_mlp ({m},{k})x({k},{n}): the "
+                                     "accumulator is not the exact product")
+    print(f"[quant_node_mlp] {count} cases (the {len(QMLP_SHAPES)} (K, N) of the "
+          f"six int8 paths x M in {QMLP_ROWS} x relu/gelu/none x row scales "
+          f"on/off) match the plain version, max abs err {worst:.3g}; scale-1 "
+          f"outputs equal the int64 products")
+
+
+def exact_int8_operands(gen, gamma: str, n: int, e: int, f: int, device):
+    """(MPSpec, operands) of an int8 fused layer whose aggregates are exact
+    in fp32: msrc, x_res, eop multiples of 1/8 in [-4, 4], ew powers of
+    two, nop multiples of 1/8; w1 int8 with per-column scales."""
+    import torch
+    from repro_torch.core import message_passing as mp
+
+    eighths = lambda *shape: torch.randint(-32, 33, shape, generator=gen) / 8.0
+    h1 = 2 * f if gamma == "gin" else f
+    k1 = {"gin": f, "pna": 12 * f, "dgn": 3 * f}[gamma]
+    kw = dict(msrc=eighths(n, f), x_res=eighths(n, f),
+              w1=torch.randint(-127, 128, (k1, h1), generator=gen, dtype=torch.int8),
+              w1_scale=torch.rand((h1,), generator=gen) * 9e-3 + 1e-3,
+              b1=0.1 * torch.randn((h1,), generator=gen))
+    if gamma == "gin":
+        spec = mp.MPSpec("add_relu", ("sum",), "gin", "int8")
+        kw.update(eop=eighths(e, f),
+                  w2=torch.randn((h1, f), generator=gen) * (2.0 / (h1 + f)) ** 0.5,
+                  b2=0.1 * torch.randn((f,), generator=gen))
+    elif gamma == "pna":
+        spec = mp.MPSpec("copy", ("sum", "sqsum", "max", "min"), "pna", "int8")
+        kw["nop"] = torch.randint(4, 17, (n, 3), generator=gen) / 8.0
+    else:
+        spec = mp.MPSpec("copy", ("sum", "wsum"), "dgn", "int8")
+        sign = torch.randint(0, 2, (e, 1), generator=gen) * 2.0 - 1.0
+        kw.update(nop=eighths(n, 1) / 2.0,
+                  ew=sign * 2.0 ** torch.randint(-2, 2, (e, 1), generator=gen))
+    return spec, {k: v.to(device) for k, v in kw.items()}
+
+
+def gin_probe(f: int, device) -> dict:
+    """int8 GIN weights under which the layer outputs q * rs exactly:
+    w1 = [I, -I] (scale 1, bias 0), w2 = [I; -I]."""
+    import torch
+
+    eye = torch.eye(f)
+    return dict(w1=torch.cat([eye, -eye], 1).to(torch.int8).to(device),
+                w1_scale=torch.ones(2 * f, device=device),
+                b1=torch.zeros(2 * f, device=device),
+                w2=torch.cat([eye, -eye], 0).to(device),
+                b2=torch.zeros(f, device=device))
+
+
+def check_fused_mp_int8(device) -> None:
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    rng = np.random.default_rng(13)
+    gen = torch.Generator().manual_seed(14)
+    cases = []
+    widths = {"gin": 100, "pna": 80, "dgn": 100}
+    for all_padding in (False, True):
+        g, lay = plan_graph(rng, 4096, 12288, all_padding, device)
+        for gamma, f in widths.items():
+            spec, kw = exact_int8_operands(gen, gamma, g.num_nodes, g.num_edges,
+                                           f, device)
+            args = (spec, lay.ids_sorted, lay.offsets, lay.src_sorted,
+                    lay.in_degree, g.node_mask)
+            variants = [("random", kw)]
+            if gamma == "gin":
+                variants.append(("probe", dict(kw, **gin_probe(f, device))))
+            for what, operands in variants:
+                name = f"fused_mp int8 {gamma} {what} (all_padding={all_padding})"
+                got = kops.fused_mp(*args, mode="kernel", **operands)
+                want = kops.fused_mp(*args, mode="reference", **operands)
+                if gamma == "gin" and what == "random":
+                    err = checked_err(name, got, want, INT8_TOL)
+                else:
+                    err = checked_err(name, got, want, dict(rtol=0.0, atol=0.0))
+                if bool(got[~g.node_mask].abs().max() != 0):
+                    raise AssertionError(f"{name}: a padded node row is not 0")
+                cases.append(f"{gamma}/{what}:{err:.2g}")
+    print(f"[fused_mp int8] gin(F=100,H=200)/pna(F=80)/dgn(F=100) at N=4096, "
+          f"E=12288 (+ all-padding edges), exact aggregates: pna, dgn and the "
+          f"gin probe (q * rs) bit for bit, gin within 2e-5: {' '.join(cases)}")
+
+
 # ------------------------------------------------------------ phases 4-5c
 
 
-def _kernel_modules() -> dict:
+def _counters() -> dict:
+    """Kernel name -> (wrapper module, its launch counter)."""
     from repro_torch.kernels import edge_softmax as ES
     from repro_torch.kernels import fused_mp as FM
     from repro_torch.kernels import node_mlp as NM
+    from repro_torch.kernels import quant_mlp as QM
     from repro_torch.kernels import segment_reduce as SR
 
-    return {"node_mlp": NM, "fused_mp": FM, "segment_reduce": SR,
-            "edge_softmax": ES}
+    return {"node_mlp": (NM, "launches"), "fused_mp": (FM, "launches"),
+            "segment_reduce": (SR, "launches"),
+            "edge_softmax": (ES, "launches"),
+            "quant_node_mlp": (QM, "launches"),
+            "fused_mp_int8": (FM, "int8_launches")}
 
 
 def reset_launches():
-    for mod in _kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in _kernel_modules().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
 def checked_err(name: str, got, want, tol) -> float:
@@ -394,8 +608,53 @@ def agree(name: str, got, want, tol) -> None:
                              f"max err {max_err(a, b):.3g}")
 
 
-def serve_model(model: str, device, packed_too: bool) -> dict:
-    """Drive the port's main path for ``model`` and check what comes out."""
+def noise_agree(name: str, got, want, fp32) -> float:
+    """The quantization-noise bound of a served int8 model:
+    MAE(got - want) <= 0.2 MAE(want - fp32) + 1e-5, the noise taken from
+    the reference, not from the output under test; returns MAE(got - want)."""
+    got, want, fp32 = (np.asarray(a, np.float64) for a in (got, want, fp32))
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{name}: shapes {got.shape}/{want.shape} or not finite")
+    mae, noise = np.abs(got - want).mean(), np.abs(want - fp32).mean()
+    if mae > 0.2 * noise + 1e-5:
+        raise AssertionError(f"{name}: MAE {mae:.3g} > 0.2 x int8 noise {noise:.3g}")
+    return float(mae)
+
+
+def check_launches(model: str, precision: str, launches: dict) -> None:
+    """Every kernel of the path ran, in the counts one forward gives."""
+    if precision == "fp32":
+        need = PATH_KERNELS[model]
+    elif precision == "int8":
+        need = INT8_PATH_KERNELS[model]
+    else:
+        need = UNFUSABLE_PATH_KERNELS[precision]
+    for kernel in need:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{model} {precision}: {kernel} was never launched")
+    lq, ln, les = (launches[k] for k in ("quant_node_mlp", "node_mlp", "edge_softmax"))
+    if model == "gat" and precision == "fp32" and not (
+            les == launches["segment_reduce"] and 5 * ln == 7 * les):
+        raise AssertionError(f"gat: launches {launches} are not 7:5:5 per forward")
+    if model == "gat" and precision == "int8" and not (
+            les == launches["segment_reduce"] and 5 * lq == 6 * les and 5 * ln == les):
+        raise AssertionError(f"gat int8: launches {launches} are not 6 quant_node_mlp, "
+                             f"1 node_mlp, 5 edge_softmax per forward")
+    if model == "gin" and precision == "int8" and not (
+            5 * lq == launches["fused_mp_int8"] == launches["fused_mp"]):
+        raise AssertionError(f"gin int8: launches {launches} are not 1 quant_node_mlp "
+                             f"and 5 int8 fused_mp per forward")
+    if precision != "int8" and launches["fused_mp_int8"]:
+        raise AssertionError(f"{model} {precision}: int8 fused_mp ran")
+    if precision in UNFUSABLE_PATH_KERNELS and launches["fused_mp"]:
+        raise AssertionError(f"{model} {precision}: fused_mp ran; these "
+                             f"linears do not lower")
+
+
+def serve_model(model: str, device, packed_too: bool, precision: str = "fp32",
+                n_stream: int = 32) -> dict:
+    """Drive the port's main path for ``model`` at ``precision`` and check
+    what comes out; returns the path's launch counts."""
     import torch
     from repro_torch.configs.gengnn_models import get_gnn_config
     from repro_torch.core import batching as B
@@ -405,51 +664,88 @@ def serve_model(model: str, device, packed_too: bool) -> dict:
 
     cfg = get_gnn_config(model)
     params = init(torch.Generator().manual_seed(0), cfg)
-    stream = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(32)]
+    stream = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(n_stream)]
     batch = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(128)]
     budget = B.BucketBudget(**PACKED)
     with_eigvec = model == "dgn"
     tol = PNA_TOL if model == "pna" else SERVE_TOL
+    # int8-static calibrates on a stream disjoint from the served one
+    calib = ([g[:4] for g in MoleculeStream(MOLHIV, seed=97).take(16)]
+             if precision == "int8-static" else None)
+    keys = ("stream", "packed") if packed_too else ("stream",)
 
-    def run(engine):
-        outs, lats, warm = engine.infer_stream(stream, with_eigvec=with_eigvec)
+    def engine(cfg_=cfg, fused=True, on=device, precision_=precision):
+        return GNNEngine(cfg_, params, precision=precision_, calib_graphs=calib,
+                         fused=fused, device=on)
+
+    def run(eng):
+        outs, lats, warm = eng.infer_stream(stream, with_eigvec=with_eigvec)
         res = {"stream": np.concatenate(outs), "lats": lats, "warm": warm}
         if packed_too:
-            packed, meta = B.pack_graphs(batch, budget, device=engine.device)
-            out, dt = engine.infer_packed(packed, budget)
+            packed, meta = B.pack_graphs(batch, budget, device=eng.device)
+            out, dt = eng.infer_packed(packed, budget)
             res["packed"], res["packed_s"] = out[: meta.num_graphs], dt
         return res
 
-    engine = GNNEngine(cfg, params, fused=True, device=device)
+    main_engine = engine()
     reset_launches()
-    main = run(engine)
+    main = run(main_engine)
     launches = read_launches()
-    for kernel in PATH_KERNELS[model]:
-        if launches[kernel] <= 0:
-            raise AssertionError(f"{model}: {kernel} was never launched")
-    if model == "gat" and not (
-            launches["edge_softmax"] == launches["segment_reduce"]
-            and 5 * launches["node_mlp"] == 7 * launches["edge_softmax"]):
-        raise AssertionError(f"gat: launches {launches} are not 7:5:5 per forward")
+    check_launches(model, precision, launches)
     ref_cfg = dataclasses.replace(cfg, kernel_mode="reference")
-    checks = {
-        "reference": run(GNNEngine(ref_cfg, params, fused=True, device=device)),
-        "unfused": run(GNNEngine(cfg, params, fused=False, device=device)),
-        "cpu": run(GNNEngine(cfg, params, fused=True, device="cpu")),
-    }
-    for what, res in checks.items():
-        for key in ("stream", "packed") if packed_too else ("stream",):
-            agree(f"{model} {key} vs {what}", main[key], res[key], tol)
+    checks = {"reference": run(engine(cfg_=ref_cfg)),
+              "unfused": run(engine(fused=False)),
+              "cpu": run(engine(on="cpu"))}
+    errs = []
+    if precision == "fp32":
+        for what, res in checks.items():
+            for key in keys:
+                agree(f"{model} {key} vs {what}", main[key], res[key], tol)
+    else:
+        fp32 = run(engine(precision_="fp32"))
+        for what, res in checks.items():
+            for key in keys:
+                name = f"{model} {precision} {key} vs {what}"
+                if what == "unfused" and precision == "int8" and model in ("gin", "gin_vn"):
+                    # dequantized fp32 edge / second MLP linears in the fused
+                    # layer: JAX's bound (tests/test_fused_mp.py)
+                    fu = np.abs(main[key] - fp32[key]).mean()
+                    un = np.abs(res[key] - fp32[key]).mean()
+                    if not fu <= 5.0 * un + 1e-4:
+                        raise AssertionError(f"{name}: fused noise {fu:.3g} > 5 x "
+                                             f"unfused noise {un:.3g}")
+                    errs.append(f"{what}/{key} noise {fu:.3g} vs {un:.3g}")
+                    continue
+                else:
+                    errs.append(f"{what}/{key} mae {noise_agree(name, main[key], res[key], fp32[key]):.3g}")
+        errs.append(f"{precision}-fp32 mae " + "/".join(
+            f"{np.abs(main[k] - fp32[k]).mean():.3g}" for k in keys))
+    if precision in UNFUSABLE_PATH_KERNELS:
+        # the fallback: fused=True runs the unfused layers, bit for bit.
+        # index_add_ sums with atomics in a varying order on the card, so
+        # this comparison runs both engines with PyTorch's deterministic
+        # algorithms
+        torch.use_deterministic_algorithms(True)
+        try:
+            fused_out = run(engine())["stream"]
+            unfused_out = run(engine(fused=False))["stream"]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not np.array_equal(fused_out, unfused_out):
+            raise AssertionError(f"{model} {precision}: fused is not the unfused "
+                                 f"result bit for bit")
+        errs.append("fused == unfused bit for bit (deterministic algorithms)")
     busy = {}
     if device.type == "cuda":
         busy["stream"] = busy_share(
-            lambda: engine.infer_stream(stream, with_eigvec=with_eigvec))
+            lambda: main_engine.infer_stream(stream, with_eigvec=with_eigvec))
         if packed_too:
             packed, _ = B.pack_graphs(batch, budget, device=device)
-            busy["packed"] = busy_share(lambda: engine.infer_packed(packed, budget))
+            busy["packed"] = busy_share(lambda: main_engine.infer_packed(packed, budget))
     lats = main["lats"] * 1e3
-    line = (f"[{model}] {'serve' if model == 'gat' else 'fused serve'}: "
-            f"32 graphs streamed, p50 "
+    tag = model if precision == "fp32" else f"{model} {precision}"
+    line = (f"[{tag}] {'serve' if model == 'gat' else 'fused serve'}: "
+            f"{n_stream} graphs streamed, p50 "
             f"{np.percentile(lats, 50):.3f} ms p99 {np.percentile(lats, 99):.3f} ms "
             f"(warm {main['warm']:.2f}s excluded)")
     if packed_too:
@@ -457,8 +753,11 @@ def serve_model(model: str, device, packed_too: bool) -> dict:
                  f"in {main['packed_s'] * 1e3:.3f} ms")
     shares = ", ".join(f"{k} {v:.3f} ({ops} device ops)"
                        for k, (v, ops) in busy.items())
-    print(line + f"; matches reference/unfused/cpu; launches {launches}; "
-          f"device busy share: {shares or 'not measured'}")
+    quant = main_engine.quant_report
+    if quant is not None:
+        line += f"; {quant.quantized} linears quantized, {quant.kept_fp32} fp32"
+    print(line + f"; matches reference/unfused/cpu{' (' + '; '.join(errs) + ')' if errs else ''}; "
+          f"launches {launches}; device busy share: {shares or 'not measured'}")
     return launches
 
 
@@ -618,28 +917,151 @@ def time_edge_softmax(device, packed, lay, launches: int) -> dict:
     return row
 
 
+def time_quant_node_mlp(device, launches: int) -> dict:
+    """``quant_node_mlp`` at the packed GIN int8 path's shapes: the
+    encoder (4096, 9 -> 100), which the fused path launches, and the
+    unfused MLP's first layer (4096, 100 -> 200, relu, row scales).  The
+    yardstick is ``torch._int_mm`` (K and N zero-padded to multiples of 8
+    before the timed call, as its shape rules need) plus the epilogue in
+    torch."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(15)
+    rows = []
+    for m, k, n, act in ((PACKED["n_pad"], 9, 100, "none"),
+                         (PACKED["n_pad"], 100, 200, "relu")):
+        x_q, w_q, scale, rs, b = qmlp_inputs(gen, m, k, n, device)
+        kern = lambda: kops.quant_node_mlp(x_q, w_q, scale, b, act, row_scale=rs,
+                                           mode="kernel")
+        plain = lambda: kops.quant_node_mlp(x_q, w_q, scale, b, act, row_scale=rs,
+                                            mode="reference")
+        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+        x_p = Fn.pad(x_q, (0, kp - k)).contiguous()
+        w_p = Fn.pad(w_q, (0, np_ - n, 0, kp - k)).contiguous()
+
+        def lib():
+            y = torch._int_mm(x_p, w_p)[:, :n].float() * scale * rs + b
+            return torch.relu(y) if act == "relu" else y
+
+        err = checked_err(f"quant_node_mlp {(m, k, n, act)}", kern(), plain(), QMLP_TOL)
+        checked_err(f"torch._int_mm + epilogue {(m, k, n, act)}", lib(), plain(),
+                    QMLP_TOL)
+        ms, timer = device_ms(kern)
+        plain_ms, _ = device_ms(plain)
+        library_ms, _ = device_ms(lib)
+        # read x_q, w_q, scale, row scales, bias once; write y once
+        nbytes = m * k + k * n + 4.0 * (n + m + n + m * n)
+        bound_ms, bound_by = bound(nbytes, 4.0 * m * n, int8_ops=2.0 * m * k * n)
+        rows.append(dict(shape=[m, k, n, act, "row_scale"], max_abs_err=err, ms=ms,
+                         timer=timer, call_ms=call_ms(kern), plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+    for r in rows:
+        print(f"[time] quant_node_mlp {r['shape']}: err {r['max_abs_err']:.3g}; "
+              f"{r['ms']:.4f} ms ({r['timer']}; per call {r['call_ms']:.4f} ms), "
+              f"plain {r['plain_ms']:.4f}, _int_mm+epilogue {r['library_ms']:.4f}, "
+              f"bound {r['bound_ms']:.5f} ({r['bound_by']})")
+    return dict(name="quant_node_mlp", route="cuda",
+                source="src/repro_torch/kernels/csrc/quant_mlp.cu",
+                replaces="src/repro/kernels/quant_mlp.py:60",
+                launches=launches, **rows[0], all_shapes=rows)
+
+
+def time_fused_mp_int8(device, packed, lay, launches: int) -> dict:
+    """The int8 gamma of ``fused_mp`` at the packed plan's shapes, GIN
+    (F=100, H=200) and PNA (F=80, K1=960), on exact-aggregate operands; no
+    single library call computes a fused layer."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(16)
+    n, e = packed.num_nodes, packed.num_edges
+    n_real = int(packed.node_mask.sum())
+    e_real = int(lay.offsets[-1])
+    rows = []
+    for gamma, f in (("gin", 100), ("pna", 80)):
+        spec, kw = exact_int8_operands(gen, gamma, n, e, f, device)
+        args = (spec, lay.ids_sorted, lay.offsets, lay.src_sorted, lay.in_degree,
+                packed.node_mask)
+        kern = lambda: kops.fused_mp(*args, mode="kernel", **kw)
+        plain = lambda: kops.fused_mp(*args, mode="reference", **kw)
+        err = checked_err(f"fused_mp int8 {gamma} (packed shapes)", kern(), plain(),
+                          INT8_TOL if gamma == "gin" else dict(rtol=0.0, atol=0.0))
+        ms, timer = device_ms(kern)
+        plain_ms, _ = device_ms(plain)
+        # the plan (offsets, real src ids), msrc and x_res, deg and mask,
+        # the weights (w1 int8 + scales), and the output, each once
+        plan_b = 4.0 * ((n + 1) + e_real + n) + n
+        if gamma == "gin":
+            h = 2 * f
+            nbytes = (plan_b + 4.0 * (2 * n * f + e_real * f + n * f)
+                      + f * h + 4.0 * (2 * h + h * f + f))
+            # phi + sum; tower; quantize (abs-max, divide, round); epilogue;
+            # second linear
+            flops = (3.0 * e_real * f + n_real * f + 3.0 * n_real * f
+                     + 4.0 * n_real * h + 2.0 * n_real * h * f + n_real * f)
+            int8_ops = 2.0 * n_real * f * h
+        else:
+            k1 = 12 * f
+            nbytes = (plan_b + 4.0 * (2 * n * f + 3 * n + n * f)
+                      + k1 * f + 4.0 * 2 * f)
+            # sum, sqsum, max, min per edge; mean/std/scalers; quantize;
+            # epilogue and residual
+            flops = (5.0 * e_real * f + 18.0 * n_real * f + 3.0 * n_real * k1
+                     + 5.0 * n_real * f)
+            int8_ops = 2.0 * n_real * k1 * f
+        bound_ms, bound_by = bound(nbytes, flops, int8_ops=int8_ops)
+        rows.append(dict(gamma=gamma, max_abs_err=err, ms=ms, timer=timer,
+                         call_ms=call_ms(kern), plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by,
+                         shape=dict(gamma=gamma, n=n, e_pad=e, e_real=e_real, f=f)))
+    for r in rows:
+        print(f"[time] fused_mp int8 {r['gamma']} N={n} E={e_real}/{e}: err "
+              f"{r['max_abs_err']:.3g}; {r['ms']:.4f} ms ({r['timer']}; per call "
+              f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']})")
+    main = {k: v for k, v in rows[0].items() if k != "gamma"}
+    return dict(name="fused_mp_int8", route="cuda",
+                source="src/repro_torch/kernels/csrc/fused_mp.cu",
+                replaces="src/repro/kernels/fused_mp.py:50",
+                launches=launches, library_ms=None, **main, all_shapes=rows)
+
+
 # ------------------------------------------------------------ entry point
 
 
 def run(device) -> list:
-    """Phases 2-6 on ``device``; returns the kernels' JSON rows."""
+    """Phases 2-8 on ``device``; returns the kernels' JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
     check_segment_reduce(device)
     check_edge_softmax(device)
+    check_quant_node_mlp(device)
+    check_fused_mp_int8(device)
     paths = {"gin": serve_model("gin", device, packed_too=True),
              "gcn": serve_model("gcn", device, packed_too=False),
              "gat": serve_model("gat", device, packed_too=True)}
     for model in ("pna", "dgn", "gin_vn"):
         paths[model] = serve_model(model, device, packed_too=False)
+    for model in ("gin", "gcn", "gat", "pna", "dgn", "gin_vn"):
+        paths[f"{model} int8"] = serve_model(model, device, packed_too=model == "gin",
+                                             precision="int8")
+    for precision in ("int8-static", "fixed"):
+        paths[f"gin {precision}"] = serve_model("gin", device, packed_too=False,
+                                                precision=precision, n_stream=8)
     packed, lay = packed_plan(device)
     rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"]),
             time_fused_mp(device, packed, lay, paths["gin"]["fused_mp"]),
             time_segment_reduce(device, packed, lay, paths["gat"]["segment_reduce"]),
-            time_edge_softmax(device, packed, lay, paths["gat"]["edge_softmax"])]
+            time_edge_softmax(device, packed, lay, paths["gat"]["edge_softmax"]),
+            time_quant_node_mlp(device, paths["gin int8"]["quant_node_mlp"]),
+            time_fused_mp_int8(device, packed, lay,
+                               paths["gin int8"]["fused_mp_int8"])]
     for row in rows:
-        row["launches_by_path"] = {model: counts[row["name"]]
-                                   for model, counts in paths.items()}
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in paths.items()}
     return rows
 
 

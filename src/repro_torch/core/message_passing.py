@@ -40,7 +40,9 @@ class MPSpec:
       ops:        accumulator tuple, a non-empty subset of
                   ``FUSED_AGGREGATORS``
       gamma:      "gcn", "gin", "pna" or "dgn"
-      precision:  "fp32" or "int8" (int8 runs in a later slice)
+      precision:  "fp32" or "int8" (gamma's first linear in W8A8: the input
+                  quantized per row inside the pass, int8 x int8 -> int32,
+                  one requantize tail; gcn's gamma has no linear)
     """
 
     phi: str = "copy"

@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.ieee import sqrt_rn
+
 REDUCTIONS = ("sum", "mean", "max", "min", "var", "std", "sqsum")
 
 
@@ -69,7 +71,7 @@ def segment_reduce(
         c = torch.clamp(count, min=1.0)
         mean = total / c
         var = torch.clamp(sq / c - mean * mean, min=0.0)
-        return torch.sqrt(var) if op == "std" else var
+        return sqrt_rn(var) if op == "std" else var
     red = _segment_extremum(values, segment_ids, num_segments, op)
     red = torch.where(torch.isfinite(red), red, torch.zeros_like(red))
     return torch.where(count > 0, red, torch.zeros_like(red))

@@ -1,10 +1,11 @@
 """Shared building blocks of the GNN models, PyTorch port of
-``repro.gnn.layers`` (fp32 only).
+``repro.gnn.layers``.
 
 Parameters are plain nested dicts of tensors.  Every dense transform
-routes through ``kernels.ops.node_mlp``, so the NE PE kernel / plain
-dispatch is uniform across models.  Quantized linears arrive with the
-int8 slice; a parameter that is not a plain ``{"w", "b"}`` dict raises.
+routes through ``linear_apply``: a plain ``{"w", "b"}`` dict runs the NE PE
+(``kernels.ops.node_mlp``), a ``quant.QuantizedLinear`` its quantized
+forward (``kernels.ops.quant_node_mlp`` for int8), so the kernel / plain
+dispatch is uniform across models and precisions.
 """
 from __future__ import annotations
 
@@ -14,18 +15,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import ops
-
-
-def _plain_linear(p) -> bool:
-    return isinstance(p, dict) and set(p) == {"w", "b"}
-
-
-def _require_plain(p) -> None:
-    if not _plain_linear(p):
-        raise NotImplementedError(
-            "quantized linears arrive with the int8 serving slice; this "
-            "slice serves fp32 {'w', 'b'} linears only"
-        )
+from repro_torch.quant import observers as qobs
+from repro_torch.quant import qconfig as qc
 
 
 def glorot(gen: torch.Generator, shape, device="cpu") -> torch.Tensor:
@@ -41,22 +32,41 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, device="cpu") -> di
 
 def linear_apply(p, x: torch.Tensor, activation: str = "none",
                  mode: str = "auto") -> torch.Tensor:
-    """Dense transform through the NE PE."""
-    _require_plain(p)
+    """Dense transform through the NE PE; a ``QuantizedLinear`` runs its
+    quantized forward.  fp32 inputs are reported to the calibration hook
+    (a no-op outside ``quant.apply.calibrate``)."""
+    if isinstance(p, qc.QuantizedLinear):
+        return qc.quantized_linear(p, x, activation=activation, mode=mode)
+    qobs.observe_linear_input(p, x)
     return ops.node_mlp(x, p["w"], p["b"], activation=activation, mode=mode)
 
 
 def fused_linear_operands(p):
-    """A linear layer's operand form for the fused kernel:
-    ``{"kind": "fp32", "w", "b"}``."""
-    _require_plain(p)
+    """A linear layer's operand form for the fused kernel, or ``None``:
+
+      {"kind": "fp32", "w", "b"}               plain ``{"w", "b"}``
+      {"kind": "int8", "w_q", "w_scale", "b"}  int8-dynamic (w_scale (N,))
+
+    ``None`` (int8-static, "fixed": neither folds into the kernel's
+    requantize tail) tells the layer body to keep the unfused path.
+    """
+    if isinstance(p, qc.QuantizedLinear):
+        if p.scheme == "int8" and p.act_mode == "dynamic":
+            return {"kind": "int8", "w_q": p.w_q,
+                    "w_scale": p.w_scale.float().expand(p.w_q.shape[1]),
+                    "b": p.b}
+        return None
     return {"kind": "fp32", "w": p["w"], "b": p["b"]}
 
 
 def fused_dequant_weights(p):
     """f32 ``(w, b)`` view of a linear layer (GIN's edge embedding and
-    second MLP layer in the fused path)."""
-    _require_plain(p)
+    second MLP layer in the fused path: int8-dynamic weights run
+    dequantized there), or ``None`` for int8-static / "fixed"."""
+    if isinstance(p, qc.QuantizedLinear):
+        if p.scheme == "int8" and p.act_mode == "dynamic":
+            return qc.dequantize_int8(p.w_q, p.w_scale), p.b
+        return None
     return p["w"], p["b"]
 
 

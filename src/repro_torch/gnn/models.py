@@ -1,5 +1,7 @@
 """The paper's six GNN models on the generic message-passing core, PyTorch
-port of ``repro.gnn.models`` (fp32).
+port of ``repro.gnn.models``.  A parameter tree quantized by
+``quant.apply`` runs through the same bodies (``gnn/layers.linear_apply``
+dispatches on each linear).
 
 Configurations default to the paper's §5.1 settings:
 
@@ -104,8 +106,21 @@ def init(gen: torch.Generator, cfg: GNNConfig, device="cpu") -> dict:
 # ---------------------------------------------------------------------------
 # per-model layer bodies: (phi, A, gamma) over the shared GraphLayout; with
 # ``extras["fused"]`` a body declares an ``mp.MPSpec`` + operands and runs
-# the whole layer as one fused_mp pass
+# the whole layer as one fused_mp pass.  Bodies whose linears cannot lower
+# (int8-static, ap_fixed: the operand probes return None) keep the closure
+# form; GAT opts out structurally.
 # ---------------------------------------------------------------------------
+
+
+def _spec_precision(lin1) -> str:
+    return "int8" if lin1["kind"] == "int8" else "fp32"
+
+
+def _lin1_operands(lin1) -> dict:
+    """fused_linear_operands dict -> the kernel's w1 / b1 / w1_scale."""
+    if lin1["kind"] == "int8":
+        return dict(w1=lin1["w_q"], b1=lin1["b"], w1_scale=lin1["w_scale"])
+    return dict(w1=lin1["w"], b1=lin1["b"])
 
 
 def _gcn_layer(g: G.Graph, x, lp, cfg, extras):
@@ -134,21 +149,24 @@ def _gcn_layer(g: G.Graph, x, lp, cfg, extras):
 def _gin_layer(g: G.Graph, x, lp, cfg, extras):
     # phi(x, e) = relu(x_src + edge_embed)
     layout = extras["layout"]
+    lin1 = edge_wb = lin2_wb = None
     if extras["fused"]:
         lin1 = L.fused_linear_operands(lp["mlp"][0])
-        edge_w, edge_b = L.fused_dequant_weights(lp["edge"])
-        w2, b2 = L.fused_dequant_weights(lp["mlp"][1])
+        edge_wb = L.fused_dequant_weights(lp["edge"])
+        lin2_wb = L.fused_dequant_weights(lp["mlp"][1])
+    if lin1 is not None and edge_wb is not None and lin2_wb is not None:
         # edge features gather into plan order first, so the edge
         # embedding lands pre-sorted as the kernel's phi operand
         ef_sorted = g.edge_feat[layout.perm.long()]
-        e_emb = kops.node_mlp(ef_sorted, edge_w, edge_b, activation="none",
-                              mode=cfg.kernel_mode)
-        spec = mp.MPSpec(phi="add_relu", ops=("sum",), gamma="gin")
+        e_emb = kops.node_mlp(ef_sorted, edge_wb[0], edge_wb[1],
+                              activation="none", mode=cfg.kernel_mode)
+        spec = mp.MPSpec(phi="add_relu", ops=("sum",), gamma="gin",
+                         precision=_spec_precision(lin1))
         return mp.mp_layer(
             g, x, layout=layout, spec=spec, mode=cfg.kernel_mode,
             operands=dict(
                 msrc=x, x_res=(1.0 + lp["eps"]) * x, eop=e_emb,
-                w1=lin1["w"], b1=lin1["b"], w2=w2, b2=b2,
+                w2=lin2_wb[0], b2=lin2_wb[1], **_lin1_operands(lin1),
             ),
         )
 
@@ -186,14 +204,14 @@ def _pna_layer(g: G.Graph, x, lp, cfg, extras):
     layout = extras["layout"]
     xp = L.linear_apply(lp["pre"], x, activation="relu", mode=cfg.kernel_mode)
 
-    if extras["fused"]:
-        lin1 = L.fused_linear_operands(lp["post"])
+    lin1 = L.fused_linear_operands(lp["post"]) if extras["fused"] else None
+    if lin1 is not None:
         spec = mp.MPSpec(phi="copy", ops=("sum", "sqsum", "max", "min"),
-                         gamma="pna")
+                         gamma="pna", precision=_spec_precision(lin1))
         return mp.mp_layer(
             g, xp, layout=layout, spec=spec, mode=cfg.kernel_mode,
             operands=dict(msrc=xp, x_res=x, nop=layout.pna_scalers,
-                          w1=lin1["w"], b1=lin1["b"]),
+                          **_lin1_operands(lin1)),
         )
 
     def phi(x_src, x_dst, e):
@@ -216,14 +234,15 @@ def _dgn_layer(g: G.Graph, x, lp, cfg, extras):
     layout = extras["layout"]
     w_e, wsum = layout.dgn_w_e, layout.dgn_wsum
 
-    if extras["fused"]:
-        lin1 = L.fused_linear_operands(lp["post"])
-        spec = mp.MPSpec(phi="copy", ops=("sum", "wsum"), gamma="dgn")
+    lin1 = L.fused_linear_operands(lp["post"]) if extras["fused"] else None
+    if lin1 is not None:
+        spec = mp.MPSpec(phi="copy", ops=("sum", "wsum"), gamma="dgn",
+                         precision=_spec_precision(lin1))
         return mp.mp_layer(
             g, x, layout=layout, spec=spec, mode=cfg.kernel_mode,
             operands=dict(msrc=x, x_res=x, nop=wsum[:, None],
                           ew=w_e[layout.perm.long()][:, None],
-                          w1=lin1["w"], b1=lin1["b"]),
+                          **_lin1_operands(lin1)),
         )
 
     def phi(x_src, x_dst, e):
@@ -268,8 +287,8 @@ def apply(
     ``eigvec`` is DGN's (N_pad,) Laplacian eigenvector input.  ``layout``
     is the shared edge plan: pass one built at pack time for a zero-sort
     forward, or leave it ``None`` to build it here (one sort).  ``fused``
-    runs each layer as one ``fused_mp`` pass over the plan (GAT keeps its
-    own path).
+    runs each layer as one ``fused_mp`` pass over the plan (GAT, and
+    layers whose quantized linears cannot lower, keep the unfused path).
     """
     m = g.num_nodes if num_graphs is None else num_graphs
     layer_fn = _LAYERS[cfg.model]

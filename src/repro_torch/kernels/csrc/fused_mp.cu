@@ -1,7 +1,9 @@
-// fused_mp.cu — one fused (phi, A, gamma) message-passing layer, fp32.
+// fused_mp.cu — one fused (phi, A, gamma) message-passing layer, fp32 or
+// with the int8 (W8A8) first linear of gamma.
 //
-// Replaces: src/repro/kernels/fused_mp.py:fused_mp with precision="fp32"
-// (Pallas body _fused_kernel), the paper's single-pass dataflow: gather the
+// Replaces: src/repro/kernels/fused_mp.py:fused_mp (Pallas body _fused_kernel)
+// with precision="fp32", and its int8 gamma, _gamma_linear (fused_mp.py:50)
+// under precision="int8": the paper's single-pass dataflow — gather the
 // source rows, transform them (phi), reduce them per destination (A) and
 // update the node (gamma) without writing messages or aggregates to memory.
 //
@@ -30,6 +32,19 @@
 // empty max/min rows come out 0.  Products that the plain version rounds
 // before a sum are kept separate (__fmul_rn / __fadd_rn) so that nvcc cannot
 // contract them into an FMA.
+//
+// int8 gamma (gin / pna / dgn): after the tower is built, one warp per tile
+// row reduces max|t| over K1 with a shuffle max, takes the row scale
+// rs = max(m, 1e-8) / 127 (1e-8 is quant/qconfig._EPS), and stores
+// q = clamp(rint(t / rs), -128, 127) as an int8 TILE x K1 tile in shared
+// memory: IEEE division (no fast math) and round-half-to-even, as torch.round
+// and jnp.round do (roundf would round half away from zero).  Each column
+// thread then accumulates q x w1 (int8) in int32, exact, and applies
+// relu((float)acc * (rs * s1[c]) + b1[c]), the order of the JAX kernel's
+// tail.  |acc| <= 127 * 128 * K1 stays below 2^24 for K1 <= 1032 (PNA: 960),
+// so the conversion to float is exact.  GIN's second linear stays fp32 over
+// the dequantized w2; PNA and DGN add the residual.  GCN's gamma has no
+// linear, so the precision changes nothing there.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -54,13 +69,14 @@ struct Args {
   const float* ew;             // (E,) wsum edge weights or null
   const int* deg;              // (N,) real in-degree
   const unsigned char* mask;   // (N,) node mask
-  const float* w1;             // (K1, H1) gamma's first linear or null
+  const void* w1;              // (K1, H1) gamma's first linear, f32 or int8
   const float* b1;             // (H1,)
+  const float* s1;             // (H1,) int8 weight scales or null
   const float* w2;             // (H1, F_out) GIN's second linear or null
   const float* b2;             // (F_out,)
   float* out;                  // (N, F_out)
   int n, f, fr, p, k1, h1, f_out;
-  int phi, ops, gamma;
+  int phi, ops, gamma, int8;
 };
 
 __device__ __forceinline__ int slot_of(int ops, int bit) {
@@ -81,6 +97,36 @@ __device__ __forceinline__ void tile_column(const float* T, int k,
   }
 }
 
+// relu(T @ w1 + b1) at column c of w1 (h columns) for the TILE rows of the
+// tile: fp32 over the tower T, or int8 over its quantized copy Q with the row
+// scales rs.
+__device__ __forceinline__ void gamma_linear(const Args& a, const float* T,
+                                             const signed char* Q,
+                                             const float* rs, int h, int c,
+                                             float y[TILE]) {
+  if (a.int8) {
+    const signed char* __restrict__ W = static_cast<const signed char*>(a.w1);
+    int acc[TILE];
+#pragma unroll
+    for (int r = 0; r < TILE; ++r) acc[r] = 0;
+    for (int kk = 0; kk < a.k1; ++kk) {
+      const int wv = __ldg(W + (size_t)kk * h + c);
+#pragma unroll
+      for (int r = 0; r < TILE; ++r) acc[r] += (int)Q[r * a.k1 + kk] * wv;
+    }
+    const float s = a.s1[c], bias = a.b1[c];
+#pragma unroll
+    for (int r = 0; r < TILE; ++r)
+      y[r] = fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc[r]), __fmul_rn(rs[r], s)),
+                             bias), 0.f);
+    return;
+  }
+  tile_column(T, a.k1, static_cast<const float*>(a.w1), h, c, y);
+  const float bias = a.b1[c];
+#pragma unroll
+  for (int r = 0; r < TILE; ++r) y[r] = fmaxf(y[r] + bias, 0.f);
+}
+
 __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   extern __shared__ float smem[];
   const int F = a.f;
@@ -88,6 +134,8 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   float* acc_base = smem;                       // nops x TILE x F
   float* tower = acc_base + nops * TILE * F;    // TILE x K1
   float* hidden = tower + TILE * a.k1;          // TILE x H1 (gin)
+  float* rs = hidden + TILE * a.h1;             // TILE row scales (int8)
+  signed char* qtile = reinterpret_cast<signed char*>(rs + TILE);  // TILE x K1
   const int lo = blockIdx.x * TILE;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -193,14 +241,31 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   }
   __syncthreads();
 
+  if (a.int8) {
+    // per-row exact-range quantization of the tower, one warp per row
+    for (int r = warp; r < TILE; r += WARPS) {
+      const float* t = tower + r * a.k1;
+      float m = 0.f;
+      for (int k = lane; k < a.k1; k += 32) m = fmaxf(m, fabsf(t[k]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const float scale = fmaxf(m, 1e-8f) / 127.0f;
+      for (int k = lane; k < a.k1; k += 32) {
+        const float q = fminf(fmaxf(rintf(t[k] / scale), -128.f), 127.f);
+        qtile[r * a.k1 + k] = (signed char)(int)q;
+      }
+      if (lane == 0) rs[r] = scale;
+    }
+    __syncthreads();
+  }
+
   float acc[TILE];
   if (a.gamma == GAMMA_GIN) {
     // hidden = relu(tower @ w1 + b1), kept in shared memory
     for (int c = threadIdx.x; c < a.h1; c += THREADS) {
-      tile_column(tower, a.k1, a.w1, a.h1, c, acc);
-      const float bias = a.b1[c];
+      gamma_linear(a, tower, qtile, rs, a.h1, c, acc);
 #pragma unroll
-      for (int r = 0; r < TILE; ++r) hidden[r * a.h1 + c] = fmaxf(acc[r] + bias, 0.f);
+      for (int r = 0; r < TILE; ++r) hidden[r * a.h1 + c] = acc[r];
     }
     __syncthreads();
     for (int c = threadIdx.x; c < a.f_out; c += THREADS) {
@@ -216,13 +281,12 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   }
   // pna / dgn: out = relu(tower @ w1 + b1) + x_res
   for (int c = threadIdx.x; c < a.f_out; c += THREADS) {
-    tile_column(tower, a.k1, a.w1, a.f_out, c, acc);
-    const float bias = a.b1[c];
+    gamma_linear(a, tower, qtile, rs, a.f_out, c, acc);
 #pragma unroll
     for (int r = 0; r < TILE; ++r) {
       const int d = lo + r;
       if (r >= rows) continue;
-      const float v = fmaxf(acc[r] + bias, 0.f) + a.x_res[(size_t)d * a.fr + c];
+      const float v = acc[r] + a.x_res[(size_t)d * a.fr + c];
       a.out[(size_t)d * a.f_out + c] = a.mask[d] ? v : 0.f;
     }
   }
@@ -230,10 +294,12 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
 
 // Dynamic shared memory the kernel needs for one block, in bytes (the
 // wrapper, kernels/fused_mp.py:smem_bytes, checks the same size against the
-// 227 KB limit before it launches).
-long long smem_bytes(int f, int ops, int k1, int h1) {
-  return (long long)sizeof(float) * TILE *
-         ((long long)__builtin_popcount(ops) * f + k1 + h1);
+// 227 KB limit before it launches): fp32 accumulators, tower and hidden
+// layer, and for int8 the row scales and the int8 tile.
+long long smem_bytes(int f, int ops, int k1, int h1, int int8) {
+  const long long f32 = (long long)sizeof(float) * TILE *
+                        ((long long)__builtin_popcount(ops) * f + k1 + h1);
+  return int8 ? f32 + (long long)sizeof(float) * TILE + (long long)TILE * k1 : f32;
 }
 
 // Largest dynamic shared memory opted into so far, per device: the opt-in
@@ -246,19 +312,21 @@ long long smem_opted[MAX_DEVICES] = {};
 
 // Plain C entry point (loaded through ctypes).  Launches on `stream`, does
 // not synchronise, and returns the launch's cudaError_t (0 on success).
-extern "C" int fused_mp_f32(
+// `int8` selects gamma's int8 first linear (gin / pna / dgn): w1 is then
+// int8 with the per-column scales s1; otherwise w1 is f32 and s1 is not read.
+extern "C" int fused_mp_launch(
     const int* offsets, const int* src, const float* msrc, const float* x_res,
     const float* nop, const float* eop, const float* ew, const int* deg,
-    const unsigned char* mask, const float* w1, const float* b1,
-    const float* w2, const float* b2, float* out,
+    const unsigned char* mask, const void* w1, const float* b1,
+    const float* s1, const float* w2, const float* b2, float* out,
     int n, int f, int fr, int p, int k1, int h1, int f_out,
-    int phi, int ops, int gamma, cudaStream_t stream) {
+    int phi, int ops, int gamma, int int8, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (f > 32 * MAXV || f <= 0) return (int)cudaErrorInvalidValue;
   const Args a{offsets, src, msrc, x_res, nop, eop, ew, deg, mask,
-               w1, b1, w2, b2, out, n, f, fr, p, k1, h1, f_out,
-               phi, ops, gamma};
-  const long long smem = smem_bytes(f, ops, k1, h1);
+               w1, b1, s1, w2, b2, out, n, f, fr, p, k1, h1, f_out,
+               phi, ops, gamma, int8};
+  const long long smem = smem_bytes(f, ops, k1, h1, int8);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;

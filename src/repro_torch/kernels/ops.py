@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import edge_softmax as _edge_softmax_kernel
 from repro_torch.kernels import fused_mp as _fused_mp_kernel
 from repro_torch.kernels import node_mlp as _node_mlp_kernel
+from repro_torch.kernels import quant_mlp as _quant_mlp_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_reduce as _segment_kernel
 
@@ -109,6 +110,20 @@ def node_mlp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     )
 
 
+def quant_node_mlp(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                   b: torch.Tensor, activation: str = "relu",
+                   row_scale: torch.Tensor | None = None,
+                   mode: str = "auto") -> torch.Tensor:
+    """Quantized NE PE: int8 x int8 -> int32, then
+    ``act((acc * scale) * row_scale + b)``; ``scale`` is (N,) or ()."""
+    if not _resolve(mode, x_q):
+        return ref.quant_node_mlp_ref(x_q, w_q, scale, b, activation, row_scale)
+    c = lambda t: None if t is None else t.contiguous()
+    return _quant_mlp_kernel.quant_node_mlp(
+        c(x_q), c(w_q), c(scale.float()), c(b.float()), activation, c(row_scale)
+    )
+
+
 def fused_mp(
     spec,
     ids_sorted: torch.Tensor,
@@ -144,5 +159,5 @@ def fused_mp(
     return _fused_mp_kernel.fused_mp(
         spec, c(offsets), c(src_sorted), c(in_degree), c(node_mask),
         c(msrc), c(x_res), nop=c(nop), eop=c(eop), ew=c(ew), w1=c(w1),
-        b1=c(b1), w1_scale=w1_scale, w2=c(w2), b2=c(b2),
+        b1=c(b1), w1_scale=c(w1_scale), w2=c(w2), b2=c(b2),
     )

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract).
 
-Port of the fp32 parts of ``repro.kernels.ref``.  Each ``*_ref`` defines
-the exact semantics its CUDA kernel must match; on CPU tensors the
-wrappers in ``kernels/ops.py`` run these, and ``chip_smoke.py`` holds the
-kernels against them on the card.
+Port of ``repro.kernels.ref`` (all but the LM substrate's attention).
+Each ``*_ref`` defines the exact semantics its CUDA kernel must match; on
+CPU tensors the wrappers in ``kernels/ops.py`` run these, and
+``chip_smoke.py`` holds the kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.core import scatter_gather as sg
+from repro_torch.core.ieee import div_rn, sqrt_rn
 
 
 def segment_reduce_sorted_ref(
@@ -77,6 +78,72 @@ def node_mlp_ref(
     return _activate(y, activation).to(x.dtype)
 
 
+# int8 x int8 partial products fit an f32 mantissa while
+# |x| * |w| * K <= 128 * 127 * K < 2^24, i.e. K <= 1032: under that bound an
+# f32 matmul over the integer-valued operands is bit-identical to an int32
+# accumulator (and runs on every device; CUDA has no int32 matmul).
+_EXACT_EMU_MAX_K = 1024
+
+
+def _int8_accumulate(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """(M, K) x (K, N) int8 matmul with exact accumulation, returned f32.
+    Past ``_EXACT_EMU_MAX_K`` the depth is cut into exact f32 chunks whose
+    integer partial sums add in int64."""
+    k = x_q.shape[-1]
+    if k <= _EXACT_EMU_MAX_K:
+        return torch.matmul(x_q.float(), w_q.float())
+    acc = None
+    for k0 in range(0, k, _EXACT_EMU_MAX_K):
+        part = torch.matmul(x_q[:, k0:k0 + _EXACT_EMU_MAX_K].float(),
+                            w_q[k0:k0 + _EXACT_EMU_MAX_K].float()).to(torch.int64)
+        acc = part if acc is None else acc + part
+    return acc.float()
+
+
+def quant_node_mlp_ref(
+    x_q: torch.Tensor,
+    w_q: torch.Tensor,
+    scale: torch.Tensor,
+    b: torch.Tensor,
+    activation: str = "relu",
+    row_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Quantized fused linear (int8 NE PE): exact int32 accumulate, then
+    ``act((acc * scale) * row_scale + b)``, each step rounded once.
+
+    x_q (M, K) int8; w_q (K, N) int8; scale (N,) or () f32 per output
+    channel; row_scale (M, 1) f32 per row (dynamic per-node scales; None
+    -> 1); b (N,) f32.
+    """
+    y = _int8_accumulate(x_q, w_q) * scale.float()
+    if row_scale is not None:
+        y = y * row_scale.float()
+    y = y + b.float()
+    return _activate(y, activation)
+
+
+# floor of the dynamic per-row activation scale: must equal
+# ``quant.qconfig._EPS`` so the fused gamma reproduces the unfused
+# ``quantized_linear`` dynamic recipe
+_ROW_EPS = 1e-8
+
+
+def _fused_gamma_linear(x, w1, b1, w1_scale, precision: str) -> torch.Tensor:
+    """gamma's first linear + relu, fp32 or the in-pass W8A8 boundary.
+
+    int8: exact-range symmetric per-row quantization of ``x``, exact int8
+    accumulation, one requantize tail ``acc * (row_scale * w_scale) + b``.
+    """
+    if precision == "int8":
+        rs = div_rn(torch.clamp(torch.abs(x).amax(dim=-1, keepdim=True),
+                                min=_ROW_EPS), 127.0)
+        q = torch.clamp(torch.round(x / rs), -128.0, 127.0)
+        y = _int8_accumulate(q, w1) * (rs * w1_scale.float()) + b1
+    else:
+        y = torch.matmul(x, w1.float()) + b1
+    return torch.clamp(y, min=0.0)
+
+
 def fused_mp_ref(
     spec,
     ids_sorted: torch.Tensor,
@@ -94,8 +161,8 @@ def fused_mp_ref(
     w2: torch.Tensor | None = None,
     b2: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Fused (phi, A, gamma) message-passing pass, fp32 (the operand
-    contract of ``repro.kernels.ref.fused_mp_ref``).
+    """Fused (phi, A, gamma) message-passing pass (the operand contract of
+    ``repro.kernels.ref.fused_mp_ref``).
 
       msrc  (N, F)  per-source message operand, gathered via src_sorted
       x_res (N, Fr) gamma's residual/self operand
@@ -103,15 +170,13 @@ def fused_mp_ref(
                     degree scalers; dgn (N,1) sum of w_e
       eop   (E, F)  phi="add_relu" edge operand (plan order)
       ew    (E, 1)  "wsum" edge weights (plan order)
-      w1/b1, w2/b2  gamma's linears (w2/b2: gin only)
+      w1/b1[/w1_scale]  gamma's first linear (int8: w1 int8 + per-channel
+                    scale (H1,), the in-pass W8A8 boundary; gcn ignores
+                    the precision)
+      w2/b2         gamma="gin" second linear (always f32 weights)
 
     Empty segments contribute 0; padded node rows come out 0.
     """
-    if spec.precision != "fp32":
-        raise NotImplementedError(
-            "int8 fused_mp arrives with the int8 serving slice"
-        )
-    del w1_scale
     n = in_degree.shape[0]
     msg = msrc.float()[src_sorted.long()]
     if spec.phi == "add_relu":
@@ -140,21 +205,22 @@ def fused_mp_ref(
     if spec.gamma == "gcn":
         out = (agg["sum"] + x_res) * nop
     elif spec.gamma == "gin":
-        h = torch.clamp(torch.matmul(x_res + agg["sum"], w1.float()) + b1, min=0.0)
+        h = _fused_gamma_linear(x_res + agg["sum"], w1, b1, w1_scale,
+                                spec.precision)
         out = torch.matmul(h, w2.float()) + b2
     elif spec.gamma == "pna":
         mean = agg["sum"] / c
-        std = torch.sqrt(torch.clamp(agg["sqsum"] / c - mean * mean, min=0.0))
+        std = sqrt_rn(torch.clamp(agg["sqsum"] / c - mean * mean, min=0.0))
         agg4 = torch.cat([mean, std, agg["max"], agg["min"]], dim=-1)
         tower = torch.cat(
             [agg4 * nop[:, 0:1], agg4 * nop[:, 1:2], agg4 * nop[:, 2:3]], dim=-1
         )
-        out = torch.clamp(torch.matmul(tower, w1.float()) + b1, min=0.0) + x_res
+        out = _fused_gamma_linear(tower, w1, b1, w1_scale, spec.precision) + x_res
     elif spec.gamma == "dgn":
         mean = agg["sum"] / c
         dx = torch.abs(agg["wsum"] - x_res * nop)
         tower = torch.cat([x_res, mean, dx], dim=-1)
-        out = torch.clamp(torch.matmul(tower, w1.float()) + b1, min=0.0) + x_res
+        out = _fused_gamma_linear(tower, w1, b1, w1_scale, spec.precision) + x_res
     else:
         raise ValueError(f"unknown gamma {spec.gamma!r}")
     return torch.where(node_mask[:, None], out, torch.zeros_like(out))

@@ -5,10 +5,14 @@ for the paper's six models (port of the GNN path of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn gcn --batched --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn dgn --fused --n-graphs 32
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn gin --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --gnn gin --fused --precision int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --gnn gin --precision int8-static
 
 Runs on the card unless ``--device cpu`` is given.  Parameters are random,
 drawn from a fixed seed; DGN computes its eigenvector input per graph in
-prepare.  The printed latency line has the JAX launcher's
+prepare.  ``--precision int8-static`` calibrates on 16 graphs of a stream
+disjoint from the served one (seed 97); every precision but fp32 prints a
+``[quant]`` report line.  The printed latency line has the JAX launcher's
 format; its "compile ... excluded" figure is the untimed warm-up (kernel
 build and first run).
 """
@@ -26,7 +30,16 @@ def serve_gnn(args):
 
     cfg = get_gnn_config(args.gnn)
     params = init(torch.Generator().manual_seed(0), cfg)
-    eng = GNNEngine(cfg, params, fused=args.fused, device=args.device)
+    calib = None
+    if args.precision == "int8-static":
+        # calibration stream disjoint from the served one (seed split)
+        calib = [g[:4] for g in MoleculeStream(MOLHIV, seed=97).take(16)]
+    eng = GNNEngine(cfg, params, precision=args.precision, calib_graphs=calib,
+                    fused=args.fused, device=args.device)
+    if eng.quant_report is not None:
+        r = eng.quant_report
+        print(f"[quant] {args.precision}: {r.quantized} linears quantized, "
+              f"{r.kept_fp32} fp32 (skip: {list(r.skipped_paths)})")
     graphs = MoleculeStream(MOLHIV, seed=0).take(args.n_graphs)
     with_eigvec = args.gnn == "dgn"
     if args.batched:
@@ -53,6 +66,12 @@ def main(argv=None):
     ap.add_argument("--fused", action="store_true",
                     help="run every layer as one fused (phi, A, gamma) "
                          "fused_mp kernel pass")
+    ap.add_argument("--precision", default="fp32",
+                    choices=("fp32", "int8", "int8-static", "fixed"),
+                    help="serving arithmetic: int8 is W8A8 with dynamic "
+                         "per-node activation scales, int8-static "
+                         "calibrates per-tensor scales first, fixed "
+                         "emulates ap_fixed<16,6>")
     ap.add_argument("--n-graphs", type=int, default=16)
     ap.add_argument("--batched", action="store_true",
                     help="padded-batch mode instead of streaming")

@@ -17,7 +17,10 @@
 
 Programs are cached by ``(program_key, bucket_key, num_graphs)`` with
 ``program_key = (cfg, precision, fused)``, so tenants of one
-architecture share them.  PyTorch runs eagerly: a program is the
+architecture share them.  ``register(precision=...)`` quantizes once
+(``quant.apply.quantize_model``, calibrating first for int8-static) on the
+parameters as the caller gave them, then moves the quantized tree to the
+executor's device; every mode serves the transformed tree.  PyTorch runs eagerly: a program is the
 ``gnn.models.forward_program`` closure, and there is no compile step.
 ``torch.compile``, CUDA graphs, the AOT cache, the mesh and telemetry
 arrive with later slices.  The executor runs on ``device="cuda"`` unless
@@ -70,16 +73,26 @@ def trace_signature(graph: G.Graph, eigvec=None, layout=None) -> tuple:
 
 
 def params_signature(params) -> tuple:
-    """Structural signature of a parameter tree (leaf shapes / dtypes)."""
+    """Structural signature of a parameter tree (leaf shapes / dtypes,
+    ``QuantizedLinear`` fields included)."""
     return tuple((tuple(v.shape), str(v.dtype)) for v in _tensor_leaves(params))
 
 
 def _params_to(params, device: torch.device):
+    """The tree with every tensor on ``device`` (dtypes kept: int8 weights
+    stay int8); ``QuantizedLinear`` nodes are rebuilt around moved
+    fields."""
+    if isinstance(params, torch.Tensor):
+        return params.to(device)
+    if dataclasses.is_dataclass(params):
+        return dataclasses.replace(params, **{
+            f.name: _params_to(getattr(params, f.name), device)
+            for f in dataclasses.fields(params)})
     if isinstance(params, dict):
         return {k: _params_to(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(_params_to(v, device) for v in params)
-    return params.to(device)
+    return params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +127,8 @@ class _Program:
 
 @dataclasses.dataclass
 class Tenant:
-    """One registered model: config, params (on the executor's device),
+    """One registered model: config, params (on the executor's device,
+    quantized for precisions other than fp32), the quantization report,
     and the derived program key / params signature."""
 
     name: str
@@ -122,6 +136,7 @@ class Tenant:
     params: dict
     precision: str = "fp32"
     fused: bool = False
+    quant_report: object = None
     params_sig: tuple = ()
 
     @property
@@ -144,17 +159,35 @@ class Executor:
     # ---------------------------------------------------------- tenants
 
     def register(self, name: str, cfg: M.GNNConfig, params: dict,
-                 precision: str = "fp32", fused: bool = False) -> Tenant:
-        """Admit a model; its params move to the executor's device."""
+                 precision: str = "fp32",
+                 calib_graphs: Optional[Sequence[tuple]] = None,
+                 fused: bool = False) -> Tenant:
+        """Admit a model.  ``precision`` selects the serving arithmetic:
+        "fp32", "int8" (dynamic per-node activation scales), "int8-static"
+        (calibrated on ``calib_graphs``, raw COO tuples) or "fixed"
+        (ap_fixed emulation), each with ``quant.apply.precision_qconfig``'s
+        recipe.  Quantization runs once here, on ``params`` where the
+        caller keeps them (calibration and transform see the same tree);
+        then the params move to the executor's device."""
         if name in self.tenants:
             raise ValueError(f"tenant {name!r} already registered")
+        quant_report = None
         if precision != "fp32":
-            raise NotImplementedError(
-                f"precision {precision!r} arrives with the int8 serving slice"
+            from repro_torch.quant import apply as QA
+
+            qcfg = QA.precision_qconfig(precision)
+            if (qcfg.scheme == "int8" and qcfg.act_mode == "static"
+                    and not calib_graphs):
+                raise ValueError(
+                    "static-activation int8 needs calib_graphs (raw COO "
+                    "tuples) to calibrate activation ranges"
+                )
+            params, quant_report = QA.quantize_model(
+                params, cfg, calib_graphs or (), qcfg
             )
         params = _params_to(params, self.device)
         tenant = Tenant(name=name, cfg=cfg, params=params, precision=precision,
-                        fused=fused,
+                        fused=fused, quant_report=quant_report,
                         params_sig=params_signature(params))
         self.tenants[name] = tenant
         return tenant

@@ -10,7 +10,7 @@ raises if CUDA is missing.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -27,20 +27,35 @@ class GNNEngine:
         params: dict,
         buckets: Sequence[tuple] = DEFAULT_BUCKETS,
         precision: str = "fp32",
+        calib_graphs: Optional[Sequence[tuple]] = None,
         fused: bool = False,
         device="cuda",
     ):
-        """``fused`` runs every GCN / GIN / PNA / DGN layer as one
-        ``fused_mp`` pass (GAT keeps its edge-softmax path)."""
+        """``precision``: "fp32" (default), "int8" (W8A8, dynamic per-node
+        activation scales, no calibration), "int8-static" (calibrated
+        per-tensor scales; needs ``calib_graphs``, a few raw COO tuples)
+        or "fixed" (ap_fixed<W,I> emulation).  ``fused`` runs every GCN / GIN / PNA / DGN layer as one
+        ``fused_mp`` pass (GAT, int8-static and fixed layers keep the
+        unfused path)."""
         self.executor = Executor(buckets=buckets, device=device)
         self._tenant = self.executor.register(
-            "default", cfg, params, precision=precision, fused=fused,
+            "default", cfg, params, precision=precision,
+            calib_graphs=calib_graphs, fused=fused,
         )
         self.cfg = cfg
 
     @property
     def device(self):
         return self.executor.device
+
+    @property
+    def precision(self) -> str:
+        return self._tenant.precision
+
+    @property
+    def quant_report(self):
+        """``quant.apply.QuantReport`` of the transform, None for fp32."""
+        return self._tenant.quant_report
 
     @property
     def warm_seconds(self) -> float:

@@ -7,7 +7,8 @@ oracles, dispatch rules and the build.
     std amplifies one rounding of ``sqsum/c - mean^2``).
   * ``kernels.ops`` sends CPU tensors to the plain version, raises for
     ``mode="kernel"`` on a CPU tensor, and honours ``REPRO_KERNEL_MODE``.
-  * The kernel wrappers refuse CPU tensors and int8 without launching.
+  * The kernel wrappers refuse CPU tensors without launching; on CPU
+    tensors ``kernels.ops`` runs int8 specs (JAX's answer within 2e-5).
   * The CUDA kernels themselves are held against the plain versions in
     ``tests/test_torch_on_card.py`` (it skips without a card) and, at full
     size, by ``python3 chip_smoke.py``.
@@ -24,10 +25,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import fused_mp as FM
 from repro_torch.kernels import node_mlp as NM
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import quant_mlp as QM
 from repro_torch.kernels import ref as TREF
 from test_torch_on_card import (GAMMAS, PLAN_ARGS, PNA_TOL, TOL,
-                                assert_close, plan_arrays, spec_operands,
-                                to_t)
+                                assert_close, exact_operands,
+                                exact_plan_arrays, plan_arrays,
+                                spec_operands, to_t)
 
 torch.set_num_threads(1)
 
@@ -146,21 +149,42 @@ def test_env_override(monkeypatch):
 
 
 def test_wrappers_refuse_cpu_tensors_and_int8():
+    """The kernel wrappers refuse CPU tensors, int8 specs and quantized
+    operands included, without launching; on CPU tensors ``kernels.ops``
+    accepts int8 and gives JAX's answer (the int8 plain versions are held
+    against JAX in ``tests/test_torch_quant.py``)."""
     x, w, b = _node_mlp_args()
-    n_before, f_before = NM.launches, FM.launches
+    before = (NM.launches, FM.launches, QM.launches)
     with pytest.raises(ValueError, match="CUDA"):
         NM.node_mlp(x, w, b)
     spec = TMP.MPSpec("copy", ("sum",), "gcn")
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         FM.fused_mp(spec, z, z, z, z.bool(), x, x)
-    with pytest.raises(NotImplementedError):
-        FM.fused_mp(TMP.MPSpec("copy", ("sum",), "gcn", "int8"), z, z, z,
-                    z.bool(), x, x)
-    with pytest.raises(NotImplementedError):
-        TREF.fused_mp_ref(TMP.MPSpec("copy", ("sum",), "gcn", "int8"), z, z,
-                          z, z.bool(), x, x)
-    assert (NM.launches, FM.launches) == (n_before, f_before)
+    x_q, w_q = x.to(torch.int8), w.to(torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        QM.quant_node_mlp(x_q, w_q, torch.ones(2), b)
+    rng = np.random.default_rng(2)
+    plan = exact_plan_arrays(rng)
+    n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
+    (phi, ops, gamma), kw = exact_operands(rng, "pna", n, e)
+    tspec = TMP.MPSpec(phi, ops, gamma, "int8")
+    args = [to_t(plan[k]) for k in PLAN_ARGS]
+    tkw = {k: to_t(v) for k, v in kw.items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        FM.fused_mp(tspec, *args[1:], **tkw)
+    got = kops.fused_mp(tspec, *args, **tkw)
+    names = ("ids_sorted", "src_sorted", "in_degree", "node_mask")
+    want = JREF.fused_mp_ref(JMP.MPSpec(phi, ops, gamma, "int8"),
+                             *(jnp.asarray(plan[k]) for k in names),
+                             **{k: jnp.asarray(v) for k, v in kw.items()})
+    assert_close(got.numpy(), want, dict(rtol=0, atol=2e-5))
+    # gcn's gamma has no linear: its int8 spec computes the fp32 layer
+    (phi, ops, gamma), kw = spec_operands(rng, "gcn", n, e)
+    kw = {k: to_t(v) for k, v in kw.items()}
+    assert torch.equal(kops.fused_mp(TMP.MPSpec(phi, ops, gamma, "int8"), *args, **kw),
+                       kops.fused_mp(TMP.MPSpec(phi, ops, gamma), *args, **kw))
+    assert (NM.launches, FM.launches, QM.launches) == before
 
 
 @pytest.mark.parametrize("gamma, f, n_ops, k1, h1, want", [
@@ -172,6 +196,18 @@ def test_wrappers_refuse_cpu_tensors_and_int8():
 def test_fused_mp_shared_memory_fits_paper_widths(gamma, f, n_ops, k1, h1, want):
     """Every fp32 gamma at its paper width fits one block's shared memory."""
     got = FM.smem_bytes(f, n_ops, k1, h1)
+    assert got == want <= FM.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("gamma, f, n_ops, k1, h1, want", [
+    ("gin", 100, 1, 100, 200, 25_600 + 64 + 1_600),
+    ("pna", 80, 4, 12 * 80, 0, 81_920 + 64 + 15_360),
+    ("dgn", 100, 2, 3 * 100, 0, 32_000 + 64 + 4_800),
+])
+def test_fused_mp_int8_shared_memory_fits_paper_widths(gamma, f, n_ops, k1, h1,
+                                                        want):
+    """The int8 gamma adds TILE row scales and a TILE x K1 int8 tile."""
+    got = FM.smem_bytes(f, n_ops, k1, h1, int8=True)
     assert got == want <= FM.MAX_SMEM_BYTES
 
 

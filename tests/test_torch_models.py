@@ -303,15 +303,31 @@ def test_later_slice_models_raise(name):
 
 
 def test_quantized_serving_waits_for_int8_slice():
-    _, tcfg = _configs("gin")
-    _, tp = _params(_configs("gin")[0])
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, tp, precision="int8", device="cpu")
-    # a linear that is not a plain {w, b} dict is a quantized one
-    tp["encoder"] = {"w_q": tp["encoder"]["w"], "b": tp["encoder"]["b"]}
-    _, tg, m, _, _, _ = _inputs("single")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TM.apply(tp, tg, tcfg, num_graphs=m)
+    """Quantized serving now runs: the engine serves int8 as JAX's engine
+    does (within the quantization-noise bound of
+    ``tests/test_torch_quant.py``), and a tree holding ``QuantizedLinear``
+    nodes, converted from JAX's, runs through ``apply`` on both paths."""
+    from repro.quant import apply as JQA
+    from repro_torch.quant import QuantizedLinear
+
+    jcfg, tcfg = _configs("gin")
+    jp, tp = _params(jcfg)
+    graphs = [g[:4] for g in JP.MoleculeStream(JP.MOLHIV, seed=2).take(4)]
+    fp32, _, _ = JEngine(jcfg, jp).infer_stream(graphs)
+    want, _, _ = JEngine(jcfg, jp, precision="int8", fused=True).infer_stream(graphs)
+    got, _, _ = TEngine(tcfg, tp, precision="int8", fused=True,
+                        device="cpu").infer_stream(graphs)
+    got, want, fp32 = (np.concatenate(a) for a in (got, want, fp32))
+    assert np.abs(got - want).mean() <= 0.2 * np.abs(want - fp32).mean() + 1e-5
+    jq, _ = JQA.quantize_model(jp, jcfg, (), JQA.precision_qconfig("int8"))
+    tq = from_jax_params(jax.tree_util.tree_map(np.asarray, jq))
+    assert isinstance(tq["encoder"], QuantizedLinear)
+    assert tq["encoder"].w_q.dtype == torch.int8
+    _, tg, _, _, _, _ = _inputs("single")
+    fused = TM.apply(tq, tg, tcfg, num_graphs=1, fused=True)
+    unfused = TM.apply(tq, tg, tcfg, num_graphs=1)
+    assert fused.shape == unfused.shape == (1, 1)
+    assert np.isfinite(fused.numpy()).all() and np.isfinite(unfused.numpy()).all()
 
 
 def test_layer_helpers_match_jax():

@@ -8,8 +8,11 @@ device is present (decided inside the test run, never at import):
 
 Tolerance: |kernel - plain| <= 1e-5 + 1e-5 |plain| (the same fp32 FMAs
 summed in another order); PNA 5e-3, whose std amplifies one rounding of
-``sqsum/c - mean^2``.  The numpy operand helpers are shared with
-``tests/test_torch_kernels.py`` and ``tests/test_torch_segment_kernels.py``.
+``sqsum/c - mean^2``.  int8: ``quant_node_mlp`` 1e-6 + 1e-6 |plain|;
+``fused_mp`` on exact aggregates bit for bit (GIN 2e-5); the int8 engine
+within the quantization-noise bound of ``tests/test_torch_quant.py``.  The
+numpy operand helpers are shared with ``tests/test_torch_kernels.py``,
+``tests/test_torch_segment_kernels.py`` and ``tests/test_torch_quant.py``.
 """
 import dataclasses
 
@@ -24,6 +27,7 @@ from repro_torch.kernels import edge_softmax as ES
 from repro_torch.kernels import fused_mp as FM
 from repro_torch.kernels import node_mlp as NM
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import quant_mlp as QM
 from repro_torch.kernels import segment_reduce as SR
 
 torch.set_num_threads(1)
@@ -109,6 +113,66 @@ def spec_operands(rng, gamma, n, e, f=12):
     return (phi, ops, gamma), kw
 
 
+def exact_plan_arrays(rng, n_pad=40, e_pad=128):
+    """Plan arrays as :func:`plan_arrays` gives them, of a batch whose
+    in-degrees are 0, 1, 2 or 4: with :func:`exact_operands` every
+    aggregate, mean and gamma tower is exact in fp32, whatever the order
+    of the sums and whether a product is fused into an add."""
+    gs = []
+    for n in (7, 12, 5):
+        r = np.repeat(np.arange(n), rng.choice([0, 1, 2, 4], size=n))
+        gs.append((rng.integers(0, n, r.size).astype(np.int32),
+                   r.astype(np.int32),
+                   rng.normal(size=(n, 9)).astype(np.float32),
+                   rng.normal(size=(r.size, 3)).astype(np.float32)))
+    g = TG.batch_graphs(gs, n_pad=n_pad, e_pad=e_pad)
+    lay = TLY.host_layout(g)
+    plan = {k: getattr(lay, k).numpy() for k in
+            ("ids_sorted", "src_sorted", "in_degree", "offsets")}
+    plan["node_mask"] = g.node_mask.numpy()
+    return plan
+
+
+def exact_operands(rng, gamma, n, e, f=12):
+    """((phi, ops, gamma), numpy operands) of an int8 fused layer whose
+    aggregates are exact in fp32: msrc, x_res and eop multiples of 1/8 in
+    [-4, 4], ew powers of two, nop multiples of 1/8; w1 int8 with
+    per-column scales w1_scale (GIN: hidden width 2f, f32 w2)."""
+    eighths = lambda *shape: rng.integers(-32, 33, size=shape) / 8.0
+    h1 = 2 * f if gamma == "gin" else f
+    k1 = {"gin": f, "pna": 12 * f, "dgn": 3 * f}[gamma]
+    kw = dict(msrc=eighths(n, f), x_res=eighths(n, f),
+              w1_scale=rng.uniform(1e-3, 1e-2, size=(h1,)),
+              b1=0.1 * rng.normal(size=(h1,)))
+    if gamma == "gin":
+        kw.update(eop=eighths(e, f), w2=rng.normal(size=(h1, f)) * 0.3,
+                  b2=rng.normal(size=(f,)))
+    elif gamma == "pna":
+        kw["nop"] = rng.integers(4, 17, size=(n, 3)) / 8.0
+    else:
+        kw.update(nop=eighths(n, 1) / 2.0,
+                  ew=rng.choice([-1.0, 1.0], size=(e, 1))
+                  * 2.0 ** rng.integers(-2, 2, size=(e, 1)))
+    kw = {k: v.astype(np.float32) for k, v in kw.items()}
+    kw["w1"] = rng.integers(-127, 128, size=(k1, h1)).astype(np.int8)
+    phi = "add_relu" if gamma == "gin" else "copy"
+    ops = {"gin": ("sum",), "pna": ("sum", "sqsum", "max", "min"),
+           "dgn": ("sum", "wsum")}[gamma]
+    return (phi, ops, gamma), kw
+
+
+def gin_probe_weights(f=12):
+    """int8 GIN weights that make the fused layer's output q * rs exactly:
+    w1 = [I, -I] (scale 1, bias 0) splits relu(q rs) and relu(-q rs), and
+    w2 = [I; -I] adds them back, so the output shows the quantized tower."""
+    eye = np.eye(f)
+    return dict(w1=np.concatenate([eye, -eye], 1).astype(np.int8),
+                w1_scale=np.ones((2 * f,), np.float32),
+                b1=np.zeros((2 * f,), np.float32),
+                w2=np.concatenate([eye, -eye], 0).astype(np.float32),
+                b2=np.zeros((f,), np.float32))
+
+
 def assert_close(got, want, tol):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape
@@ -161,10 +225,29 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="chain"):
         NM.node_mlp(x, w.t().contiguous(), b)
     assert NM.launches == before
-    z = torch.zeros(8, dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError):
-        kops.fused_mp(TMP.MPSpec("copy", ("sum",), "gcn", "int8"), z, z, z,
-                      z, z.bool(), x, x)
+    # int8: quantized operands must be int8, with their scales
+    before = (FM.launches, QM.launches)
+    rng = np.random.default_rng(6)
+    plan = exact_plan_arrays(rng)
+    n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
+    (phi, ops, gamma), kw = exact_operands(rng, "dgn", n, e)
+    spec = TMP.MPSpec(phi, ops, gamma, "int8")
+    args = [to_t(plan[k], cuda) for k in PLAN_ARGS]
+    kw = {k: to_t(v, cuda) for k, v in kw.items()}
+    with pytest.raises(TypeError, match="w1"):
+        kops.fused_mp(spec, *args, mode="kernel", **dict(kw, w1=kw["w1"].float()))
+    with pytest.raises(ValueError, match="w1_scale"):
+        kops.fused_mp(spec, *args, mode="kernel", **dict(kw, w1_scale=None))
+    x_q = torch.zeros((8, 4), dtype=torch.int8, device=cuda)
+    w_q = torch.zeros((4, 3), dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError, match="x_q"):
+        QM.quant_node_mlp(x, w_q, torch.ones(3, device=cuda), b)
+    with pytest.raises(ValueError, match="w_q"):
+        QM.quant_node_mlp(x_q, w_q.t().contiguous(), torch.ones(3, device=cuda), b)
+    with pytest.raises(ValueError, match="row_scale"):
+        QM.quant_node_mlp(x_q, w_q, torch.ones(3, device=cuda), b,
+                          row_scale=torch.ones((8,), device=cuda))
+    assert (FM.launches, QM.launches) == before
 
 
 def test_empty_outputs_launch_nothing(cuda):
@@ -254,3 +337,101 @@ def test_gat_engine_on_card_matches_reference(cuda):
     refs, _, _ = GNNEngine(ref_cfg, params, device=cuda).infer_stream(graphs)
     np.testing.assert_allclose(np.concatenate(outs), np.concatenate(refs),
                                rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------------ int8
+
+
+def _qmlp_case(gen, m, k, n, row_scale, device):
+    x_q = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen) * 9e-3 + 1e-3
+    b = torch.randn((n,), generator=gen)
+    rs = torch.rand((m, 1), generator=gen) * 0.1 + 1e-3 if row_scale else None
+    return [None if t is None else t.to(device) for t in (x_q, w_q, scale, b, rs)]
+
+
+@pytest.mark.parametrize("row_scale", [False, True])
+@pytest.mark.parametrize("activation", ["relu", "gelu", "none"])
+def test_quant_node_mlp_kernel_matches_plain(cuda, activation, row_scale):
+    """|kernel - plain| <= 1e-6 + 1e-6 |plain| (the same exact integer
+    accumulators and the same rounded tail; gelu's tanh may differ by an
+    ulp), as JAX's kernel test holds its Pallas kernel."""
+    gen = torch.Generator().manual_seed(1)
+    for m, k, n in ((37, 9, 100), (4097, 100, 200), (1, 200, 100), (65, 3, 63)):
+        x_q, w_q, scale, b, rs = _qmlp_case(gen, m, k, n, row_scale, cuda)
+        before = QM.launches
+        got = kops.quant_node_mlp(x_q, w_q, scale, b, activation, row_scale=rs,
+                                  mode="kernel")
+        assert QM.launches == before + 1
+        want = kops.quant_node_mlp(x_q, w_q, scale, b, activation, row_scale=rs,
+                                   mode="reference")
+        assert QM.launches == before + 1
+        assert_close(got.cpu().numpy(), want.cpu().numpy(),
+                     dict(rtol=1e-6, atol=1e-6))
+
+
+def test_quant_node_mlp_kernel_accumulates_exactly(cuda):
+    """scale 1 (a 0-d scale, broadcast by the wrapper), bias 0: the output
+    is the exact integer product, computed in int64."""
+    gen = torch.Generator().manual_seed(2)
+    for m, k, n in ((40, 96, 24), (129, 960, 80), (3, 1, 5)):
+        x_q, w_q, _, _, _ = _qmlp_case(gen, m, k, n, False, cuda)
+        got = kops.quant_node_mlp(x_q, w_q, torch.tensor(1.0, device=cuda),
+                                  torch.zeros(n, device=cuda), "none", mode="kernel")
+        exact = x_q.cpu().long() @ w_q.cpu().long()
+        assert torch.equal(got.cpu().long(), exact)
+
+
+@pytest.mark.parametrize("gamma", ["gin", "pna", "dgn"])
+def test_fused_mp_int8_kernel_matches_plain(cuda, gamma):
+    """Exact aggregates (``exact_operands``): the towers, their int8
+    quantization and the int32 accumulators agree bit for bit, so PNA's and
+    DGN's outputs are equal; GIN's fp32 second linear sums in another
+    order (2e-5, JAX's INT8_TOL), and its probe weights show q * rs equal."""
+    rng = np.random.default_rng(7)
+    plan = exact_plan_arrays(rng)
+    n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
+    (phi, ops, _), kw = exact_operands(rng, gamma, n, e)
+    spec = TMP.MPSpec(phi, ops, gamma, "int8")
+    args = [to_t(plan[k], cuda) for k in PLAN_ARGS]
+    cases = [kw] + ([dict(kw, **gin_probe_weights())] if gamma == "gin" else [])
+    for i, case in enumerate(cases):
+        case = {k: to_t(v, cuda) for k, v in case.items()}
+        before = FM.launches
+        got = kops.fused_mp(spec, *args, mode="kernel", **case).cpu().numpy()
+        assert FM.launches == before + 1
+        want = kops.fused_mp(spec, *args, mode="reference", **case).cpu().numpy()
+        if gamma == "gin" and i == 0:
+            assert_close(got, want, dict(rtol=0, atol=2e-5))
+        else:
+            np.testing.assert_array_equal(got, want)
+        assert (got[~plan["node_mask"]] == 0).all()
+
+
+def test_int8_engine_on_card_matches_reference(cuda):
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import models as TM
+    from repro_torch.serve.gnn_engine import GNNEngine
+
+    cfg = TM.paper_config("gin", num_layers=2, hidden=32)
+    params = TM.init(torch.Generator().manual_seed(0), cfg)
+    graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=1).take(4)]
+    before = (QM.launches, FM.launches)
+    outs, _, _ = GNNEngine(cfg, params, precision="int8", fused=True,
+                           device=cuda).infer_stream(graphs)
+    assert QM.launches > before[0] and FM.launches > before[1]
+    ref_cfg = dataclasses.replace(cfg, kernel_mode="reference")
+    refs, _, _ = GNNEngine(ref_cfg, params, precision="int8", fused=True,
+                           device=cuda).infer_stream(graphs)
+    fp32, _, _ = GNNEngine(cfg, params, fused=True, device=cuda).infer_stream(graphs)
+    got, want, fp32 = (np.concatenate(a) for a in (outs, refs, fp32))
+    assert np.abs(got - want).mean() <= 0.2 * np.abs(want - fp32).mean() + 1e-5
+
+
+def test_quant_node_mlp_empty_output_launches_nothing(cuda):
+    before = QM.launches
+    out = QM.quant_node_mlp(torch.empty((0, 4), dtype=torch.int8, device=cuda),
+                            torch.zeros((4, 3), dtype=torch.int8, device=cuda),
+                            torch.ones(3, device=cuda), torch.zeros(3, device=cuda))
+    assert out.shape == (0, 3) and QM.launches == before
