@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (built for the H100: the kernels compile for
-``sm_90a``) and the CUDA toolkit.  It builds the five CUDA kernel sources
+``sm_90a``) and the CUDA toolkit.  It builds the six CUDA kernel sources
 from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel), then
 runs these phases, one line each:
 
@@ -62,13 +62,36 @@ runs these phases, one line each:
               unfused sums' atomics otherwise vary from run to run) fused
               gives the unfused result bit for bit: those linears do not
               lower
+  3f. flash_attention kernel vs plain version at ChatGLM3-6B's prefill
+              (B 8, Hq 32, Hkv 16 and 2, D 128, S 512, 1, 37, 1000, in the
+              serving path's (B, S, H, D) layout) and Gemma-3-12B's layers
+              (B 2, Hq 16, Hkv 16 and 8, D 256, S 2048, window 0 and 1024),
+              one softcap case, fp32 and bf16 (fp32 |kernel - plain| <= 1e-5
+              + 1e-5 |plain|, fp32 products summed in another order; bf16
+              1.6e-2 + 1.6e-2 |plain|, two bf16 ulps at 1)
+  9. LM       ChatGLM3-6B served at full width and depth (28 layers, bf16,
+              random weights from a CUDA generator seeded 0) through
+              ``LMServer.generate``: 8 prompts of 256-512 tokens, prompt_len
+              512, cache_len 1024, 32 new tokens; against an
+              ``LMServer(mode="reference")`` on the same weights the prefill
+              logits and the decode logits, teacher-forced on the kernel
+              server's tokens, agree within max|d| <= 2e-2 max|ref| (JAX's
+              bound, tests/test_arch_smoke.py); decode after prefill(S-1)
+              matches prefill(S)'s last logits within the same bound;
+              flash_attention launches 28 times per prefill and 0 per
+              decode step; every token lies in [0, vocab)
+  9b. LM      Gemma-3-12B at full width, 6 layers (one 5-local / 1-global
+              group): B 2, prompts of 1024-2048 tokens, prompt_len 2048,
+              cache_len 2304, 8 new tokens; the same checks, 6 launches per
+              prefill
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after), and at the packed batch's
               shapes each kernel's time beside its plain version's, the
               library call's (node_mlp: ``torch.addmm`` + relu;
               segment_reduce: ``torch.segment_reduce``; quant_node_mlp:
               ``torch._int_mm`` + the epilogue in torch) and the card's
-              bound
+              bound; flash_attention at ChatGLM3's prefill shape (bf16,
+              causal) against ``scaled_dot_product_attention``
 
 It prints the card line and a JSON object of the kernels before the last
 line, and ends with ``{"ok": true, "device": {...}}``.  Any mismatch or
@@ -78,6 +101,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -92,6 +116,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 on CUDA cores, int8 on the
 # tensor cores, HBM3
 PEAK_FP32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES_S = 3.35e12
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -99,6 +124,15 @@ PNA_TOL = dict(rtol=5e-3, atol=5e-3)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 QMLP_TOL = dict(rtol=1e-6, atol=1e-6)
 INT8_TOL = dict(rtol=0.0, atol=2e-5)
+FLASH_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+             "bfloat16": dict(rtol=1.6e-2, atol=1.6e-2)}
+LM_BOUND = 2e-2  # max|kernel - reference| <= LM_BOUND * max|reference|
+# the LM serving phases: (arch, config overrides, ServeConfig, prompt lengths)
+LM_PATHS = (("chatglm3-6b", {}, dict(max_batch=8, prompt_len=512, cache_len=1024,
+                                     max_new_tokens=32), (256, 512)),
+            ("gemma3-12b", dict(num_layers=6),
+             dict(max_batch=2, prompt_len=2048, cache_len=2304, max_new_tokens=8),
+             (1024, 2048)))
 # (K, N) of every linear the six int8 paths quantize: the encoders (9 ->
 # 100, 64, 80), GIN's edge embedding and MLP (also GIN+VN's virtual-node
 # MLPs), GCN's lin, GAT's proj, PNA's pre / post, DGN's post
@@ -254,12 +288,15 @@ def busy_share(fn):
     return sum(dev) / 1e6 / (time.perf_counter() - t0), len(dev)
 
 
-def bound(nbytes: float, flops: float, int8_ops: float = 0.0):
+def bound(nbytes: float, flops: float, int8_ops: float = 0.0,
+          bf16_ops: float = 0.0):
     """(least ms, "bytes" | "operations") on an H100 SXM: the larger of the
     bytes over the memory rate and the operations over the peak of their
-    type (fp32 on CUDA cores, int8 on the tensor cores; both must run)."""
+    type (fp32 on CUDA cores, int8 and bf16 on the tensor cores; all must
+    run)."""
     t_mem = nbytes / PEAK_HBM_BYTES_S * 1e3
-    t_ops = (flops / PEAK_FP32_FLOP_S + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_ops = (flops / PEAK_FP32_FLOP_S + int8_ops / PEAK_INT8_OPS
+             + bf16_ops / PEAK_BF16_FLOP_S) * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -560,12 +597,60 @@ def check_fused_mp_int8(device) -> None:
           f"gin probe (q * rs) bit for bit, gin within 2e-5: {' '.join(cases)}")
 
 
+# ------------------------------------------------------------ phase 3f
+
+
+def attention_inputs(gen, b, hq, hkv, s, d, dtype, device, layout="bhsd"):
+    """q (B, Hq, S, D), k, v (B, Hkv, S, D) from ``gen``; "bshd" gives
+    (B, H, S, D) views of (B, S, H, D) tensors, the serving path's layout."""
+    import torch
+
+    def one(h):
+        if layout == "bshd":
+            return torch.randn((b, s, h, d), generator=gen).to(device, dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen).to(device, dtype)
+
+    return one(hq), one(hkv), one(hkv)
+
+
+def check_flash_attention(device) -> None:
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(17)
+    # (B, Hq, Hkv, S, D, window, softcap, layout): ChatGLM3's prefill (with
+    # and without kv_pad_to's 16 heads), Gemma-3's local and global layers
+    cases = [(8, 32, hkv, s, 128, 0, 0.0, "bshd") for hkv in (16, 2)
+             for s in (512, 1, 37, 1000)]
+    cases += [(2, 16, hkv, 2048, 256, w, 0.0, "bhsd") for hkv in (16, 8)
+              for w in (0, 1024)]
+    cases.append((2, 16, 8, 600, 256, 0, 30.0, "bshd"))
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for b, hq, hkv, s, d, window, softcap, layout in cases:
+            q, k, v = attention_inputs(gen, b, hq, hkv, s, d, dtype, device, layout)
+            kw = dict(window=window, softcap=softcap)
+            got = kops.flash_attention(q, k, v, mode="kernel", **kw)
+            want = kops.flash_attention(q, k, v, mode="reference", **kw)
+            err = checked_err(f"flash_attention {name} {(b, hq, hkv, s, d, window, softcap, layout)}",
+                              got.float(), want.float(), FLASH_TOL[name])
+            if got.dtype != dtype or got.shape != q.shape:
+                raise AssertionError(f"flash_attention: output {got.dtype} {tuple(got.shape)}")
+            worst[name] = max(worst.get(name, 0.0), err)
+    print(f"[flash_attention] {len(cases)} shapes x fp32/bf16 (ChatGLM3 B=8 Hq=32 "
+          f"Hkv 16/2 D=128 S 512/1/37/1000; Gemma-3 B=2 Hq=16 Hkv 16/8 D=256 "
+          f"S=2048 window 0/1024; softcap 30) match the plain version: max abs err "
+          + " ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
 # ------------------------------------------------------------ phases 4-5c
 
 
 def _counters() -> dict:
     """Kernel name -> (wrapper module, its launch counter)."""
     from repro_torch.kernels import edge_softmax as ES
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_mp as FM
     from repro_torch.kernels import node_mlp as NM
     from repro_torch.kernels import quant_mlp as QM
@@ -575,7 +660,8 @@ def _counters() -> dict:
             "segment_reduce": (SR, "launches"),
             "edge_softmax": (ES, "launches"),
             "quant_node_mlp": (QM, "launches"),
-            "fused_mp_int8": (FM, "int8_launches")}
+            "fused_mp_int8": (FM, "int8_launches"),
+            "flash_attention": (FA, "launches")}
 
 
 def reset_launches():
@@ -758,6 +844,121 @@ def serve_model(model: str, device, packed_too: bool, precision: str = "fp32",
         line += f"; {quant.quantized} linears quantized, {quant.kept_fp32} fp32"
     print(line + f"; matches reference/unfused/cpu{' (' + '; '.join(errs) + ')' if errs else ''}; "
           f"launches {launches}; device busy share: {shares or 'not measured'}")
+    return launches
+
+
+# ------------------------------------------------------------ phases 9-9b
+
+
+def lm_bound_err(name: str, got, want) -> float:
+    """max|got - want| / max|want|; raises unless finite, of the same
+    shape and within ``LM_BOUND``."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} / {tuple(want.shape)} "
+                             f"or not finite")
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not rel <= LM_BOUND:
+        raise AssertionError(f"{name}: max|d| / max|ref| = {rel:.3g} > {LM_BOUND}")
+    return rel
+
+
+def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> dict:
+    """Drive the port's LM serving path for ``arch`` at full width and
+    check it; returns the path's launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import LMServer, ServeConfig
+    from repro_torch.serve.executor import params_signature
+
+    cfg = get_config(arch, **overrides)
+    scfg = ServeConfig(**serve_kw)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(math.prod(shape) for shape, _ in params_signature(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(lengths[0], lengths[1] + 1, scfg.max_batch)]
+    toks = np.zeros((scfg.max_batch, scfg.prompt_len), np.int32)
+    for i, pr in enumerate(prompts):
+        toks[i, -len(pr):] = pr  # LMServer's left padding
+    tokens = torch.from_numpy(toks).to(device)
+    srv = LMServer(params, cfg, scfg, device=device)
+    ref_srv = LMServer(params, cfg, scfg, device=device, mode="reference")
+    srv.generate(prompts)  # warm: cuBLAS handles, allocator
+    reset_launches()
+    gen, stats = srv.generate(prompts)
+    launches = read_launches()
+    if launches["flash_attention"] != cfg.num_layers or any(
+            n for k, n in launches.items() if k != "flash_attention"):
+        raise AssertionError(f"{arch}: launches {launches}; expected "
+                             f"{cfg.num_layers} flash_attention per generate")
+    if gen.shape != (scfg.max_batch, scfg.max_new_tokens) or not (
+            (gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: tokens out of [0, {cfg.vocab_size}) or shape {gen.shape}")
+
+    def path(server, forced):
+        """(prefill last logits, teacher-forced decode logits, flash
+        launches of the prefill) in ``server``'s mode; raises if a decode
+        step launches the flash kernel."""
+        reset_launches()
+        cache, last, t = lm.prefill(server.params, {"tokens": tokens}, cfg,
+                                    scfg.cache_len, kernel_mode=server.mode)
+        torch.cuda.synchronize()
+        n_prefill = read_launches()["flash_attention"]
+        logits = []
+        for i in range(forced.shape[1]):
+            reset_launches()
+            step, cache = lm.decode_step(server.params, cache, forced[:, i:i + 1], t + i, cfg)
+            logits.append(step)
+            if read_launches()["flash_attention"]:
+                raise AssertionError(f"{arch}: flash_attention ran in a decode step")
+        return last, torch.stack(logits, 1), n_prefill
+
+    forced = torch.from_numpy(gen).to(device)
+    last_k, dec_k, n_prefill = path(srv, forced)
+    last_r, dec_r, n_ref = path(ref_srv, forced)
+    if n_prefill != cfg.num_layers or n_ref != 0:
+        raise AssertionError(f"{arch}: prefill launched flash_attention {n_prefill} times "
+                             f"(reference mode {n_ref}); expected {cfg.num_layers} and 0")
+    errs = {"prefill": lm_bound_err(f"{arch} prefill logits", last_k, last_r),
+            "decode": lm_bound_err(f"{arch} teacher-forced decode logits", dec_k, dec_r)}
+    # decode after prefill(S - 1) against prefill(S)'s last logits
+    cache, _, t = lm.prefill(params, {"tokens": tokens[:, :-1]}, cfg, scfg.cache_len)
+    step, _ = lm.decode_step(params, cache, tokens[:, -1:], t, cfg)
+    errs["decode_vs_prefill"] = lm_bound_err(f"{arch} decode after prefill(S-1)", step, last_k)
+    del cache
+    ref_gen, _ = ref_srv.generate(prompts)
+    agree_tokens = float((ref_gen == gen).mean())
+
+    busy_prefill = busy_share(lambda: lm.prefill(params, {"tokens": tokens}, cfg,
+                                                 scfg.cache_len))
+    cache, _, t = lm.prefill(params, {"tokens": tokens}, cfg, scfg.cache_len)
+    first = forced[:, :1]
+    busy_decode = busy_share(lambda: [lm.decode_step(params, cache, first, t + i, cfg)
+                                      for i in range(8)])
+    del cache, srv, ref_srv, params
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[lm {arch}] {cfg.num_layers} layers, d {cfg.d_model}, {n_params / 1e9:.3f} B "
+          f"params (init {init_s:.3f}s); B={scfg.max_batch} prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens padded to "
+          f"{scfg.prompt_len}, cache {scfg.cache_len}, {scfg.max_new_tokens} new: "
+          f"prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{stats['decode_s_per_token'] * 1e3:.3f} ms/token; vs reference mode "
+          f"max|d|/max|ref| prefill {errs['prefill']:.3g}, decode {errs['decode']:.3g}, "
+          f"decode-after-prefill(S-1) {errs['decode_vs_prefill']:.3g}; tokens equal to "
+          f"the reference server's {agree_tokens:.3f}; flash_attention {n_prefill} per "
+          f"prefill, 0 per decode step; launches {launches}; device busy share: prefill "
+          f"{busy_prefill[0]:.3f} ({busy_prefill[1]} device ops), decode "
+          f"{busy_decode[0]:.3f} ({busy_decode[1] // 8} per step); peak memory "
+          f"{peak_gb:.1f} GB")
     return launches
 
 
@@ -1029,17 +1230,59 @@ def time_fused_mp_int8(device, packed, lay, launches: int) -> dict:
                 launches=launches, library_ms=None, **main, all_shapes=rows)
 
 
+def time_flash_attention(device, launches: int) -> dict:
+    """``flash_attention`` at ChatGLM3's prefill shape (B 8, Hq 32, Hkv 16
+    after kv_pad_to, S 512, D 128, bf16, causal) in the path's (B, S, H, D)
+    layout; the yardstick is ``scaled_dot_product_attention`` on the same
+    tensors (``is_causal``, ``enable_gqa``)."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import ops as kops
+
+    b, hq, hkv, s, d = 8, 32, 16, 512, 128
+    gen = torch.Generator().manual_seed(18)
+    q, k, v = attention_inputs(gen, b, hq, hkv, s, d, torch.bfloat16, device, "bshd")
+    kern = lambda: kops.flash_attention(q, k, v, mode="kernel")
+    plain = lambda: kops.flash_attention(q, k, v, mode="reference")
+    lib = lambda: Fn.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    err = checked_err("flash_attention (ChatGLM3 prefill shape)", kern().float(),
+                      plain().float(), FLASH_TOL["bfloat16"])
+    checked_err("scaled_dot_product_attention (ChatGLM3 prefill shape)", lib().float(),
+                plain().float(), FLASH_TOL["bfloat16"])
+    ms, timer = device_ms(kern)
+    plain_ms, _ = device_ms(plain)
+    library_ms, _ = device_ms(lib)
+    # q, k, v read once, o written once; 4 D operations per causal pair
+    nbytes = 2.0 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    pairs = s * (s + 1) / 2
+    bound_ms, bound_by = bound(nbytes, 0.0, bf16_ops=4.0 * b * hq * d * pairs)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:90",
+               launches=launches, max_abs_err=err, ms=ms, timer=timer,
+               call_ms=call_ms(kern), plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms,
+               shape=dict(b=b, hq=hq, hkv=hkv, s=s, d=d, dtype="bfloat16",
+                          causal=True, layout="bshd"))
+    print(f"[time] flash_attention B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 causal: "
+          f"err {err:.3g}; {ms:.4f} ms ({timer}; per call {row['call_ms']:.4f} ms), "
+          f"plain {plain_ms:.4f}, sdpa {library_ms:.4f}, bound {bound_ms:.5f} "
+          f"({bound_by})")
+    return row
+
+
 # ------------------------------------------------------------ entry point
 
 
 def run(device) -> list:
-    """Phases 2-8 on ``device``; returns the kernels' JSON rows."""
+    """Phases 2-9b and 8 on ``device``; returns the kernels' JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
     check_segment_reduce(device)
     check_edge_softmax(device)
     check_quant_node_mlp(device)
     check_fused_mp_int8(device)
+    check_flash_attention(device)
     paths = {"gin": serve_model("gin", device, packed_too=True),
              "gcn": serve_model("gcn", device, packed_too=False),
              "gat": serve_model("gat", device, packed_too=True)}
@@ -1051,6 +1294,8 @@ def run(device) -> list:
     for precision in ("int8-static", "fixed"):
         paths[f"gin {precision}"] = serve_model("gin", device, packed_too=False,
                                                 precision=precision, n_stream=8)
+    for arch, overrides, serve_kw, lengths in LM_PATHS:
+        paths[arch] = serve_lm(arch, overrides, serve_kw, lengths, device)
     packed, lay = packed_plan(device)
     rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"]),
             time_fused_mp(device, packed, lay, paths["gin"]["fused_mp"]),
@@ -1058,7 +1303,8 @@ def run(device) -> list:
             time_edge_softmax(device, packed, lay, paths["gat"]["edge_softmax"]),
             time_quant_node_mlp(device, paths["gin int8"]["quant_node_mlp"]),
             time_fused_mp_int8(device, packed, lay,
-                               paths["gin int8"]["fused_mp_int8"])]
+                               paths["gin int8"]["fused_mp_int8"]),
+            time_flash_attention(device, paths["chatglm3-6b"]["flash_attention"])]
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}

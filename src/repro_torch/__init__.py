@@ -6,8 +6,9 @@ is found by name.  It imports ``torch`` and ``numpy`` only — never ``jax``
 and nothing of ``repro`` (``tests/test_torch_models.py`` enforces that).
 
 Entry points (``serve.gnn_engine.GNNEngine``, ``serve.executor.Executor``,
-``launch.serve``) run on ``device="cuda"`` unless the caller asks for the
-CPU.  Dense linears and whole fused message-passing layers run through
-hand-written CUDA kernels (``kernels/csrc``); on CPU tensors the same
-wrappers use their plain PyTorch versions (``kernels/ref.py``).
+``serve.engine.LMServer``, ``launch.serve``) run on ``device="cuda"``
+unless the caller asks for the CPU.  The GNNs' dense linears and whole
+fused message-passing layers, and the dense LMs' prefill attention, run
+through hand-written CUDA kernels (``kernels/csrc``); on CPU tensors the
+same wrappers use their plain PyTorch versions (``kernels/ref.py``).
 """

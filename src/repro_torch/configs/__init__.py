@@ -1,1 +1,26 @@
-"""Model configurations of the port."""
+"""Model configurations of the port.
+
+``gengnn_models`` holds the paper's six GNNs.  The LM registry lists the
+dense GQA decoders the port serves (copies of ``repro.configs``' modules of
+the same names): ``get_config(arch)`` gives the published configuration,
+``get_reduced(arch)`` the same-family smoke-test reduction.  The JAX
+package's other seven architectures (MoE, MLA, hybrid/SSM, VLM, audio)
+need modules the port does not have yet.
+"""
+from importlib import import_module
+
+REGISTRY = {
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+}
+
+ARCHS = tuple(REGISTRY)
+
+
+def get_config(arch: str, **kw):
+    return import_module(REGISTRY[arch]).get_config(**kw)
+
+
+def get_reduced(arch: str, **kw):
+    return import_module(REGISTRY[arch]).reduced_config(**kw)

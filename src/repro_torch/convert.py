@@ -8,6 +8,9 @@ tensor.  A quantized tree (``repro.quant``'s ``QuantizedLinear`` nodes,
 whose leaves ``tree_map`` turns into numpy arrays) converts into the port's
 ``quant.QuantizedLinear``: the node is recognised by its attributes, the
 int8 weights stay int8 and every other numeric field becomes float32.
+
+``from_jax_lm_params`` converts the LM substrate's tree (``repro.models.lm``'s
+``P.values(init_params(...))``, leaves as numpy), keeping each leaf's type.
 """
 from __future__ import annotations
 
@@ -45,3 +48,30 @@ def from_jax_params(tree, device="cpu"):
         fields.update({a: getattr(tree, a) for a in _QUANT_STATICS})
         return QuantizedLinear(**fields)
     return _tensor(tree, device)
+
+
+def _lm_tensor(leaf, device, dtype) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy rejects: through
+        # float32, where every bfloat16 value is exact
+        t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))  # a copy
+    if dtype is not None and t.is_floating_point() and t.dim() >= 2:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_jax_lm_params(tree, device="cpu", dtype=None):
+    """The JAX LM parameter tree (nested dicts / lists of numpy arrays) ->
+    the same structure of tensors on ``device``.  Each leaf keeps its JAX
+    type: bfloat16 leaves become ``torch.bfloat16`` exactly, float32 leaves
+    (``final_norm``) stay float32.  ``dtype`` casts every floating leaf of
+    two or more dimensions, the leaves ``init_params`` casts to the model
+    dtype."""
+    if isinstance(tree, dict):
+        return {k: from_jax_lm_params(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_jax_lm_params(v, device, dtype) for v in tree)
+    return _lm_tensor(tree, device, dtype)

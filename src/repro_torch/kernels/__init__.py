@@ -7,8 +7,10 @@
                      with gamma's int8 first linear
   csrc/segment_reduce.cu  sorted-segment sum/mean/sqsum/max/min over the plan
   csrc/edge_softmax.cu    GAT's per-destination, per-head edge softmax
-  node_mlp.py, quant_mlp.py, fused_mp.py, segment_reduce.py, edge_softmax.py
-                     ctypes wrappers of the five kernels (+ launch counters)
+  csrc/flash_attention.cu causal / windowed GQA attention, online softmax
+                     (the LM substrate's prefill attention), fp32 or bf16
+  node_mlp.py, quant_mlp.py, fused_mp.py, segment_reduce.py, edge_softmax.py,
+  flash_attention.py ctypes wrappers of the six kernels (+ launch counters)
   _build.py          nvcc build (sm_90a) into build/repro_torch/, at first use
   ops.py             dispatch: kernel for CUDA tensors, ref.py for CPU ones
   ref.py             plain PyTorch versions (the correctness contract)

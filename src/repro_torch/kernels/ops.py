@@ -22,6 +22,7 @@ import os
 import torch
 
 from repro_torch.kernels import edge_softmax as _edge_softmax_kernel
+from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import fused_mp as _fused_mp_kernel
 from repro_torch.kernels import node_mlp as _node_mlp_kernel
 from repro_torch.kernels import quant_mlp as _quant_mlp_kernel
@@ -161,3 +162,16 @@ def fused_mp(
         c(msrc), c(x_res), nop=c(nop), eop=c(eop), ew=c(ew), w1=c(w1),
         b1=c(b1), w1_scale=c(w1_scale), w2=c(w2), b2=c(b2),
     )
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    mode: str = "auto", softcap: float = 0.0) -> torch.Tensor:
+    """Blockwise GQA attention: q (B, Hq, S, D), k/v (B, Hkv, S, D) ->
+    (B, Hq, S, D).  The CUDA kernel takes strided views (unit feature
+    stride); the plain version is the quadratic oracle."""
+    if not _resolve(mode, q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    return _flash_kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                         softcap=softcap)

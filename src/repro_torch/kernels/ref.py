@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract).
 
-Port of ``repro.kernels.ref`` (all but the LM substrate's attention).
+Port of ``repro.kernels.ref``.
 Each ``*_ref`` defines the exact semantics its CUDA kernel must match; on
 CPU tensors the wrappers in ``kernels/ops.py`` run these, and
 ``chip_smoke.py`` holds the kernels against them on the card.
@@ -224,3 +224,35 @@ def fused_mp_ref(
     else:
         raise ValueError(f"unknown gamma {spec.gamma!r}")
     return torch.where(node_mask[:, None], out, torch.zeros_like(out))
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    window: int | None = None, scale: float | None = None, softcap: float = 0.0,
+) -> torch.Tensor:
+    """Full (quadratic) GQA attention: q (B, Hq, S, D), k/v (B, Hkv, S, D)
+    with Hq % Hkv == 0 -> (B, Hq, S, D) in q's dtype, computed in fp32.
+
+    ``window`` None or 0 = full; the causal mask applies when ``causal``;
+    ``softcap`` > 0 applies ``tanh(s / c) * c`` to the scaled scores before
+    the masks; masked scores are filled with -1e30, as in JAX's oracle.
+    """
+    s, d = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    kq = k.repeat_interleave(g, dim=1)
+    vq = v.repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq.float()) * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window:
+        mask &= ki > qi - window
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vq.float())
+    return out.to(q.dtype)

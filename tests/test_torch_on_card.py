@@ -10,7 +10,10 @@ Tolerance: |kernel - plain| <= 1e-5 + 1e-5 |plain| (the same fp32 FMAs
 summed in another order); PNA 5e-3, whose std amplifies one rounding of
 ``sqsum/c - mean^2``.  int8: ``quant_node_mlp`` 1e-6 + 1e-6 |plain|;
 ``fused_mp`` on exact aggregates bit for bit (GIN 2e-5); the int8 engine
-within the quantization-noise bound of ``tests/test_torch_quant.py``.  The
+within the quantization-noise bound of ``tests/test_torch_quant.py``.
+``flash_attention``: fp32 1e-5 + 1e-5 |plain| (fp32 products summed in
+another order), bf16 1.6e-2 + 1.6e-2 |plain| (two bf16 ulps at 1); the fp32
+LM server against its reference mode 1e-4.  The
 numpy operand helpers are shared with ``tests/test_torch_kernels.py``,
 ``tests/test_torch_segment_kernels.py`` and ``tests/test_torch_quant.py``.
 """
@@ -24,6 +27,7 @@ from repro_torch.core import graph as TG
 from repro_torch.core import layout as TLY
 from repro_torch.core import message_passing as TMP
 from repro_torch.kernels import edge_softmax as ES
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fused_mp as FM
 from repro_torch.kernels import node_mlp as NM
 from repro_torch.kernels import ops as kops
@@ -435,3 +439,98 @@ def test_quant_node_mlp_empty_output_launches_nothing(cuda):
                             torch.zeros((4, 3), dtype=torch.int8, device=cuda),
                             torch.ones(3, device=cuda), torch.zeros(3, device=cuda))
     assert out.shape == (0, 3) and QM.launches == before
+
+
+# ---------------------------------------------------------------- flash attention
+
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}
+
+
+def _attention_inputs(device, b, hq, hkv, s, d, dtype, bshd, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+
+    def one(h):
+        if bshd:  # the serving path's (B, S, H, D) tensors, as (B, H, S, D) views
+            return torch.randn((b, s, h, d), generator=gen).to(device, dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen).to(device, dtype)
+
+    return one(hq), one(hkv), one(hkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,s,d,window,softcap,bshd", [
+    (4, 2, 77, 16, 0, 0.0, True),
+    (4, 4, 130, 128, 0, 0.0, False),
+    (8, 1, 200, 64, 48, 0.0, True),
+    (4, 2, 65, 256, 0, 20.0, False),
+    (2, 2, 1, 8, 0, 0.0, True),
+    (4, 2, 100, 32, 16, 0.0, False),
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, hq, hkv, s, d, window,
+                                              softcap, bshd):
+    q, k, v = _attention_inputs(cuda, 2, hq, hkv, s, d, dtype, bshd)
+    before = FA.launches
+    got = kops.flash_attention(q, k, v, window=window, softcap=softcap, mode="kernel")
+    want = kops.flash_attention(q, k, v, window=window, softcap=softcap, mode="reference")
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    # the output takes q's layout: a (B, S, H, D) view stays one
+    assert got.transpose(1, 2).is_contiguous() == bshd
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _attention_inputs(cuda, 1, 4, 2, 16, 32, torch.float32, False)
+    before = FA.launches
+    bad = [
+        dict(q=q.half(), k=k.half(), v=v.half()),           # dtype
+        dict(q=q, k=k.bfloat16(), v=v),                      # mixed dtypes
+        dict(q=q[..., :24], k=k[..., :24], v=v[..., :24]),   # head dim 24
+        dict(q=q, k=k[:, :, :8], v=v[:, :, :8]),             # S differs
+        dict(q=q[:, :3], k=k, v=v),                          # Hq % Hkv
+        dict(q=q[..., ::2], k=k[..., ::2], v=v[..., ::2]),   # feature stride 2
+    ]
+    for kw in bad:
+        with pytest.raises((ValueError, TypeError)):
+            FA.flash_attention(**kw)
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k, v, window=-1)
+    assert FA.launches == before
+    empty = torch.empty((1, 4, 0, 32), device=cuda)
+    assert FA.flash_attention(empty, empty[:, :2], empty[:, :2]).shape == (1, 4, 0, 32)
+    assert FA.launches == before
+
+
+def test_lm_server_on_card_matches_reference(cuda):
+    """Reduced ChatGLM3 in fp32: the server's flash-kernel prefill against
+    its reference mode (plain attention on the card), then the decode
+    logits teacher-forced on the kernel server's tokens."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import LMServer, ServeConfig
+
+    cfg = get_reduced("chatglm3-6b", dtype="float32")
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    scfg = ServeConfig(max_batch=2, prompt_len=24, cache_len=40, max_new_tokens=6)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (13, 24)]
+    before = FA.launches
+    gen, _ = LMServer(params, cfg, scfg, device=cuda).generate(prompts)
+    assert FA.launches == before + cfg.num_layers
+    assert ((gen >= 0) & (gen < cfg.vocab_size)).all()
+    toks = np.zeros((2, 24), np.int64)
+    for i, pr in enumerate(prompts):
+        toks[i, -len(pr):] = pr
+    tokens = torch.from_numpy(toks).to(cuda)
+    forced = torch.from_numpy(gen).to(cuda)
+    outs = []
+    for mode in ("kernel", "reference"):
+        cache, last, t = lm.prefill(params, {"tokens": tokens}, cfg, 40, kernel_mode=mode)
+        steps = [last]
+        for i in range(gen.shape[1]):
+            logits, cache = lm.decode_step(params, cache, forced[:, i:i + 1], t + i, cfg)
+            steps.append(logits)
+        outs.append(torch.stack(steps))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
