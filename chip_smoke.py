@@ -5,14 +5,17 @@
 
 Needs one NVIDIA GPU (built for the H100: the kernels compile for
 ``sm_90a``) and the CUDA toolkit.  It builds the six CUDA kernel sources
-from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel), then
-runs these phases, one line each:
+from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel; one
+``[build]`` line per source gives each kernel's registers and spill bytes),
+then runs these phases, one line each:
 
   1. device   the card's name and power limit (``nvidia-smi``); TF32 off
   2. node_mlp kernel vs plain PyTorch version on the card, GIN's five
-              linear shapes at M = 4096 and ragged M, every activation
-              (|kernel - plain| <= 1e-5 + 1e-5 |plain|: the same fp32
-              FMAs summed in another order)
+              linear shapes at M = 4096, the head's 128 and ragged M, every
+              activation (|kernel - plain| <= 1e-5 + 1e-5 |plain|: the same
+              fp32 FMAs summed in another order); each case runs on the
+              variant ``node_mlp.variant`` names (narrow at N = 1, shallow
+              at K 3 and 9, tiled at K 100 and 200)
   3. fused_mp kernel vs plain version for every fp32 gamma at the paper
               widths, N = 4096, E = 12288, with isolated nodes, padding
               edges and an all-padding edge list (same tolerance; PNA
@@ -68,7 +71,9 @@ runs these phases, one line each:
               (B 2, Hq 16, Hkv 16 and 8, D 256, S 2048, window 0 and 1024),
               one softcap case, fp32 and bf16 (fp32 |kernel - plain| <= 1e-5
               + 1e-5 |plain|, fp32 products summed in another order; bf16
-              1.6e-2 + 1.6e-2 |plain|, two bf16 ulps at 1)
+              1.6e-2 + 1.6e-2 |plain|, two bf16 ulps at 1); each case runs on
+              the route ``flash_attention.route`` names (bf16: mma, fp32:
+              simt)
   9. LM       ChatGLM3-6B served at full width and depth (28 layers, bf16,
               random weights from a CUDA generator seeded 0) through
               ``LMServer.generate``: 8 prompts of 256-512 tokens, prompt_len
@@ -78,20 +83,23 @@ runs these phases, one line each:
               server's tokens, agree within max|d| <= 2e-2 max|ref| (JAX's
               bound, tests/test_arch_smoke.py); decode after prefill(S-1)
               matches prefill(S)'s last logits within the same bound;
-              flash_attention launches 28 times per prefill and 0 per
-              decode step; every token lies in [0, vocab)
+              flash_attention launches 28 times per prefill, all on the mma
+              route, and 0 per decode step; every token lies in [0, vocab)
   9b. LM      Gemma-3-12B at full width, 6 layers (one 5-local / 1-global
               group): B 2, prompts of 1024-2048 tokens, prompt_len 2048,
-              cache_len 2304, 8 new tokens; the same checks, 6 launches per
-              prefill
+              cache_len 2304, 8 new tokens; the same checks, 6 mma launches
+              per prefill
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after), and at the packed batch's
               shapes each kernel's time beside its plain version's, the
               library call's (node_mlp: ``torch.addmm`` + relu;
               segment_reduce: ``torch.segment_reduce``; quant_node_mlp:
               ``torch._int_mm`` + the epilogue in torch) and the card's
-              bound; flash_attention at ChatGLM3's prefill shape (bf16,
-              causal) against ``scaled_dot_product_attention``
+              bound; flash_attention at ChatGLM3's prefill shape and at
+              Gemma-3's global layer (bf16, causal) against
+              ``scaled_dot_product_attention``, and there the CUDA-core
+              (simt) route forced on the same bf16 tensors, the design the
+              mma route replaces on this path
 
 It prints the card line and a JSON object of the kernels before the last
 line, and ends with ``{"ok": true, "device": {...}}``.  Any mismatch or
@@ -174,15 +182,47 @@ def device_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def ptxas_usage(log: str) -> list:
+    """[kernel, registers, spill store bytes, spill load bytes] for each
+    entry function in an ``nvcc -Xptxas -v`` log; names demangled by
+    ``c++filt`` where it is installed."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(rows):
+        for row, demangled in zip(rows, names):
+            row[0] = re.sub(r"^void |\(.*", "", demangled.replace("(anonymous namespace)::", ""))
+    return rows
+
+
 def build_kernels() -> None:
-    """Build every CUDA source in parallel; print nvcc's resource usage."""
+    """Build every CUDA source in parallel; print each kernel's registers
+    and spills as ``-Xptxas -v`` reports them."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     logs = _build.build()
     dt = time.perf_counter() - t0
     for name, log in logs.items():
-        usage = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        usage = [f"{k}: {r} registers, {st}/{ld} bytes spill stores/loads"
+                 for k, r, st, ld in ptxas_usage(log)]
         print(f"[build] {name}.cu: {'; '.join(usage) or 'built'}")
     print(f"[build] {len(logs)} kernel sources built in {dt:.1f}s")
 
@@ -305,17 +345,20 @@ def bound(nbytes: float, flops: float, int8_ops: float = 0.0,
 
 def check_node_mlp(device) -> None:
     import torch
+    from repro_torch.kernels import node_mlp as NM
     from repro_torch.kernels import ops as kops
 
     gen = torch.Generator().manual_seed(1)
     worst, count = 0.0, 0
+    ran = dict.fromkeys(NM.VARIANT_CODES, 0)
     for k, n in GIN_LINEARS:
-        for m in (4096, 1, 37, 4097):
+        for m in (4096, PACKED["g_pad"], 1, 37, 4097):
             x = torch.randn((m, k), generator=gen).to(device)
             w = (torch.randn((k, n), generator=gen)
                  * (2.0 / (k + n)) ** 0.5).to(device)
             b = (0.1 * torch.randn((n,), generator=gen)).to(device)
             for act in ("relu", "gelu", "none"):
+                before = dict(NM.launches_by_variant)
                 got = kops.node_mlp(x, w, b, act, mode="kernel")
                 want = kops.node_mlp(x, w, b, act, mode="reference")
                 if device.type == "cuda":
@@ -324,10 +367,16 @@ def check_node_mlp(device) -> None:
                     raise AssertionError(
                         f"node_mlp ({m},{k})x({k},{n}) {act}: max err "
                         f"{max_err(got, want):.3g}")
+                chosen = NM.variant(m, k, n)
+                if NM.launches_by_variant != dict(before, **{chosen: before[chosen] + 1}):
+                    raise AssertionError(f"node_mlp ({m},{k})x({k},{n}): launches "
+                                         f"{NM.launches_by_variant}, expected one {chosen}")
+                ran[chosen] += 1
                 worst = max(worst, max_err(got, want))
                 count += 1
-    print(f"[node_mlp] {count} cases (GIN shapes x M in 4096,1,37,4097 x "
-          f"relu/gelu/none) match the plain version; max abs err {worst:.3g}")
+    print(f"[node_mlp] {count} cases (GIN shapes x M in 4096,128,1,37,4097 x "
+          f"relu/gelu/none) match the plain version, each on its variant "
+          f"{ran}; max abs err {worst:.3g}")
 
 
 # ------------------------------------------------------------ phase 3
@@ -615,6 +664,7 @@ def attention_inputs(gen, b, hq, hkv, s, d, dtype, device, layout="bhsd"):
 
 def check_flash_attention(device) -> None:
     import torch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops as kops
 
     gen = torch.Generator().manual_seed(17)
@@ -626,22 +676,29 @@ def check_flash_attention(device) -> None:
               for w in (0, 1024)]
     cases.append((2, 16, 8, 600, 256, 0, 30.0, "bshd"))
     worst = {}
+    ran = dict.fromkeys(FA.ROUTE_CODES, 0)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for b, hq, hkv, s, d, window, softcap, layout in cases:
             q, k, v = attention_inputs(gen, b, hq, hkv, s, d, dtype, device, layout)
             kw = dict(window=window, softcap=softcap)
+            case = f"flash_attention {name} {(b, hq, hkv, s, d, window, softcap, layout)}"
+            before = dict(FA.launches_by_route)
             got = kops.flash_attention(q, k, v, mode="kernel", **kw)
             want = kops.flash_attention(q, k, v, mode="reference", **kw)
-            err = checked_err(f"flash_attention {name} {(b, hq, hkv, s, d, window, softcap, layout)}",
-                              got.float(), want.float(), FLASH_TOL[name])
+            err = checked_err(case, got.float(), want.float(), FLASH_TOL[name])
             if got.dtype != dtype or got.shape != q.shape:
                 raise AssertionError(f"flash_attention: output {got.dtype} {tuple(got.shape)}")
+            chosen = FA.route(dtype, d)
+            if FA.launches_by_route != dict(before, **{chosen: before[chosen] + 1}):
+                raise AssertionError(f"{case}: launches {FA.launches_by_route}, expected "
+                                     f"one on the {chosen} route")
+            ran[chosen] += 1
             worst[name] = max(worst.get(name, 0.0), err)
     print(f"[flash_attention] {len(cases)} shapes x fp32/bf16 (ChatGLM3 B=8 Hq=32 "
           f"Hkv 16/2 D=128 S 512/1/37/1000; Gemma-3 B=2 Hq=16 Hkv 16/8 D=256 "
-          f"S=2048 window 0/1024; softcap 30) match the plain version: max abs err "
-          + " ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+          f"S=2048 window 0/1024; softcap 30) match the plain version, each on its "
+          f"route {ran}: max abs err " + " ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
 # ------------------------------------------------------------ phases 4-5c
@@ -664,13 +721,34 @@ def _counters() -> dict:
             "flash_attention": (FA, "launches")}
 
 
+def _design_counters() -> dict:
+    """Kernel name -> (wrapper module, its launch counts by design)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import node_mlp as NM
+
+    return {"flash_attention": (FA, "launches_by_route"),
+            "node_mlp": (NM, "launches_by_variant")}
+
+
 def reset_launches():
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
+    for mod, attr in _design_counters().values():
+        setattr(mod, attr, dict.fromkeys(getattr(mod, attr), 0))
 
 
 def read_launches() -> dict:
-    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+    """The launch counts; "<kernel>.<design>" keys split flash_attention
+    by route and node_mlp by variant (raises unless they sum to the
+    kernel's count)."""
+    out = {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+    for kernel, (mod, attr) in _design_counters().items():
+        split = getattr(mod, attr)
+        if sum(split.values()) != out[kernel]:
+            raise AssertionError(f"{kernel}: launches by design {split} do not sum "
+                                 f"to {out[kernel]}")
+        out.update({f"{kernel}.{design}": n for design, n in split.items()})
+    return out
 
 
 def checked_err(name: str, got, want, tol) -> float:
@@ -895,10 +973,12 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> dic
     reset_launches()
     gen, stats = srv.generate(prompts)
     launches = read_launches()
-    if launches["flash_attention"] != cfg.num_layers or any(
-            n for k, n in launches.items() if k != "flash_attention"):
+    if launches["flash_attention.mma"] != cfg.num_layers or any(
+            n for k, n in launches.items()
+            if k not in ("flash_attention", "flash_attention.mma")):
         raise AssertionError(f"{arch}: launches {launches}; expected "
-                             f"{cfg.num_layers} flash_attention per generate")
+                             f"{cfg.num_layers} flash_attention per generate, all "
+                             f"on the mma route")
     if gen.shape != (scfg.max_batch, scfg.max_new_tokens) or not (
             (gen >= 0) & (gen < cfg.vocab_size)).all():
         raise AssertionError(f"{arch}: tokens out of [0, {cfg.vocab_size}) or shape {gen.shape}")
@@ -911,7 +991,11 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> dic
         cache, last, t = lm.prefill(server.params, {"tokens": tokens}, cfg,
                                     scfg.cache_len, kernel_mode=server.mode)
         torch.cuda.synchronize()
-        n_prefill = read_launches()["flash_attention"]
+        counts = read_launches()
+        n_prefill = counts["flash_attention"]
+        if counts["flash_attention.mma"] != n_prefill:
+            raise AssertionError(f"{arch}: prefill launches {counts}; not all on the "
+                                 f"mma route")
         logits = []
         for i in range(forced.shape[1]):
             reset_launches()
@@ -955,7 +1039,8 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> dic
           f"max|d|/max|ref| prefill {errs['prefill']:.3g}, decode {errs['decode']:.3g}, "
           f"decode-after-prefill(S-1) {errs['decode_vs_prefill']:.3g}; tokens equal to "
           f"the reference server's {agree_tokens:.3f}; flash_attention {n_prefill} per "
-          f"prefill, 0 per decode step; launches {launches}; device busy share: prefill "
+          f"prefill (mma route), 0 per decode step; launches {launches}; device busy "
+          f"share: prefill "
           f"{busy_prefill[0]:.3f} ({busy_prefill[1]} device ops), decode "
           f"{busy_decode[0]:.3f} ({busy_decode[1] // 8} per step); peak memory "
           f"{peak_gb:.1f} GB")
@@ -974,8 +1059,15 @@ def packed_plan(device):
     return packed, B.pack_layout(packed)
 
 
-def time_node_mlp(device, packed, launches: int) -> dict:
+def design_split(counts: dict, kernel: str) -> dict:
+    """{design: launches} of ``kernel`` from one path's ``read_launches``."""
+    return {k.split(".", 1)[1]: n for k, n in counts.items()
+            if k.startswith(kernel + ".")}
+
+
+def time_node_mlp(device, packed, launches: int, by_variant: dict) -> dict:
     import torch
+    from repro_torch.kernels import node_mlp as NM
     from repro_torch.kernels import ops as kops
 
     gen = torch.Generator().manual_seed(4)
@@ -998,12 +1090,13 @@ def time_node_mlp(device, packed, launches: int) -> dict:
         library_ms, _ = device_ms(lib)
         bound_ms, bound_by = bound(4.0 * (m * k + k * n + n + m * n),
                                    2.0 * m * k * n + 2.0 * m * n)
-        rows.append(dict(shape=[m, k, n, act], max_abs_err=err, ms=ms, timer=timer,
+        rows.append(dict(shape=[m, k, n, act], variant=NM.variant(m, k, n),
+                         max_abs_err=err, ms=ms, timer=timer,
                          call_ms=call_ms(lambda: kops.node_mlp(x, w, b, act, mode="kernel")),
                          plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
     for r in rows:
-        print(f"[time] node_mlp {r['shape']}: err {r['max_abs_err']:.3g}; "
+        print(f"[time] node_mlp {r['shape']} ({r['variant']}): err {r['max_abs_err']:.3g}; "
               f"{r['ms']:.4f} ms ({r['timer']}; "
               f"per call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f}, "
               f"addmm {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} "
@@ -1012,7 +1105,8 @@ def time_node_mlp(device, packed, launches: int) -> dict:
     return dict(name="node_mlp", route="cuda",
                 source="src/repro_torch/kernels/csrc/node_mlp.cu",
                 replaces="src/repro/kernels/node_mlp.py:55",
-                launches=launches, **main,
+                launches=launches, launches_by_variant=by_variant,
+                **{k: v for k, v in main.items() if k != "variant"},
                 all_shapes=rows)
 
 
@@ -1230,45 +1324,64 @@ def time_fused_mp_int8(device, packed, lay, launches: int) -> dict:
                 launches=launches, library_ms=None, **main, all_shapes=rows)
 
 
-def time_flash_attention(device, launches: int) -> dict:
-    """``flash_attention`` at ChatGLM3's prefill shape (B 8, Hq 32, Hkv 16
-    after kv_pad_to, S 512, D 128, bf16, causal) in the path's (B, S, H, D)
-    layout; the yardstick is ``scaled_dot_product_attention`` on the same
-    tensors (``is_causal``, ``enable_gqa``)."""
+def time_flash_attention(device, launches: int, by_route: dict) -> dict:
+    """``flash_attention`` (bf16, causal, the path's (B, S, H, D) layout) at
+    ChatGLM3's prefill shape (B 8, Hq 32, Hkv 16 after kv_pad_to, S 512, D
+    128) and Gemma-3's global layer (B 2, Hq 16, Hkv 16, S 2048, D 256):
+    the kernel on the route the path takes (mma), the CUDA-core route it
+    replaces there (simt, forced on the same bf16 tensors), the plain
+    version and ``scaled_dot_product_attention`` on the same tensors
+    (``is_causal``, ``enable_gqa``)."""
     import torch
     import torch.nn.functional as Fn
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops as kops
 
-    b, hq, hkv, s, d = 8, 32, 16, 512, 128
     gen = torch.Generator().manual_seed(18)
-    q, k, v = attention_inputs(gen, b, hq, hkv, s, d, torch.bfloat16, device, "bshd")
-    kern = lambda: kops.flash_attention(q, k, v, mode="kernel")
-    plain = lambda: kops.flash_attention(q, k, v, mode="reference")
-    lib = lambda: Fn.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-    err = checked_err("flash_attention (ChatGLM3 prefill shape)", kern().float(),
-                      plain().float(), FLASH_TOL["bfloat16"])
-    checked_err("scaled_dot_product_attention (ChatGLM3 prefill shape)", lib().float(),
-                plain().float(), FLASH_TOL["bfloat16"])
-    ms, timer = device_ms(kern)
-    plain_ms, _ = device_ms(plain)
-    library_ms, _ = device_ms(lib)
-    # q, k, v read once, o written once; 4 D operations per causal pair
-    nbytes = 2.0 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
-    pairs = s * (s + 1) / 2
-    bound_ms, bound_by = bound(nbytes, 0.0, bf16_ops=4.0 * b * hq * d * pairs)
-    row = dict(name="flash_attention", route="cuda",
-               source="src/repro_torch/kernels/csrc/flash_attention.cu",
-               replaces="src/repro/kernels/flash_attention.py:90",
-               launches=launches, max_abs_err=err, ms=ms, timer=timer,
-               call_ms=call_ms(kern), plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=library_ms,
-               shape=dict(b=b, hq=hq, hkv=hkv, s=s, d=d, dtype="bfloat16",
-                          causal=True, layout="bshd"))
-    print(f"[time] flash_attention B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 causal: "
-          f"err {err:.3g}; {ms:.4f} ms ({timer}; per call {row['call_ms']:.4f} ms), "
-          f"plain {plain_ms:.4f}, sdpa {library_ms:.4f}, bound {bound_ms:.5f} "
-          f"({bound_by})")
-    return row
+    rows = []
+    for name, (b, hq, hkv, s, d) in (("chatglm3-6b prefill", (8, 32, 16, 512, 128)),
+                                     ("gemma3-12b global layer", (2, 16, 16, 2048, 256))):
+        q, k, v = attention_inputs(gen, b, hq, hkv, s, d, torch.bfloat16, device, "bshd")
+        kern = lambda: kops.flash_attention(q, k, v, mode="kernel")
+        simt = lambda: FA.flash_attention(q, k, v, force_route="simt")
+        plain = lambda: kops.flash_attention(q, k, v, mode="reference")
+        lib = lambda: Fn.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+        want = plain().float()
+        err = checked_err(f"flash_attention ({name} shape)", kern().float(), want,
+                          FLASH_TOL["bfloat16"])
+        simt_err = checked_err(f"flash_attention simt route ({name} shape)",
+                               simt().float(), want, FLASH_TOL["bfloat16"])
+        checked_err(f"scaled_dot_product_attention ({name} shape)", lib().float(),
+                    want, FLASH_TOL["bfloat16"])
+        del want
+        ms, timer = device_ms(kern)
+        simt_ms, _ = device_ms(simt, 10)
+        plain_ms, _ = device_ms(plain, 10)
+        library_ms, _ = device_ms(lib)
+        # q, k, v read once, o written once; 4 D operations per causal pair
+        nbytes = 2.0 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+        pairs = s * (s + 1) / 2
+        bound_ms, bound_by = bound(nbytes, 0.0, bf16_ops=4.0 * b * hq * d * pairs)
+        row = dict(max_abs_err=err, ms=ms, timer=timer, call_ms=call_ms(kern),
+                   design=FA.route(q.dtype, d), simt_ms=simt_ms, simt_max_abs_err=simt_err,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms,
+                   shape=dict(name=name, b=b, hq=hq, hkv=hkv, s=s, d=d,
+                              dtype="bfloat16", causal=True, layout="bshd"))
+        rows.append(row)
+        print(f"[time] flash_attention {name} B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 "
+              f"causal: err {err:.3g}; {row['design']} {ms:.4f} ms ({timer}; per call "
+              f"{row['call_ms']:.4f} ms), simt route {simt_ms:.4f} (err {simt_err:.3g}), "
+              f"plain {plain_ms:.4f}, sdpa {library_ms:.4f}, bound {bound_ms:.5f} "
+              f"({bound_by})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    main = {k: v for k, v in rows[0].items() if k != "design"}
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:90",
+                launches=launches, launches_by_route=by_route, **main, all_shapes=rows)
 
 
 # ------------------------------------------------------------ entry point
@@ -1297,14 +1410,16 @@ def run(device) -> list:
     for arch, overrides, serve_kw, lengths in LM_PATHS:
         paths[arch] = serve_lm(arch, overrides, serve_kw, lengths, device)
     packed, lay = packed_plan(device)
-    rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"]),
+    rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"],
+                          design_split(paths["gin"], "node_mlp")),
             time_fused_mp(device, packed, lay, paths["gin"]["fused_mp"]),
             time_segment_reduce(device, packed, lay, paths["gat"]["segment_reduce"]),
             time_edge_softmax(device, packed, lay, paths["gat"]["edge_softmax"]),
             time_quant_node_mlp(device, paths["gin int8"]["quant_node_mlp"]),
             time_fused_mp_int8(device, packed, lay,
                                paths["gin int8"]["fused_mp_int8"]),
-            time_flash_attention(device, paths["chatglm3-6b"]["flash_attention"])]
+            time_flash_attention(device, paths["chatglm3-6b"]["flash_attention"],
+                                 design_split(paths["chatglm3-6b"], "flash_attention"))]
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}

@@ -1,5 +1,5 @@
 // flash_attention.cu — causal / sliding-window GQA attention with an online
-// softmax (flash attention, forward), fp32 or bf16 in, fp32 arithmetic.
+// softmax (flash attention, forward), fp32 or bf16 in, fp32 accumulation.
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention (the Pallas
 // _flash_kernel), which is also the deployment form of the LM substrate's
@@ -18,26 +18,60 @@
 //
 // Bound on the H100: per (query, key) pair in the causal band the kernel does
 // 4 D operations (two D-long dot products); q, k, v and o are read or written
-// once.  At ChatGLM3's prefill (B 8, Hq 32, Hkv 16, S 512, D 128, bf16) that is
-// ~17 GFLOP against ~67 MB: ~17 us on the bf16 tensor cores, ~20 us on bytes.
-// This first kernel runs on the CUDA cores in fp32 (67 TFLOP/s at most), so
-// its floor is ~0.3 ms, and its inner loops read shared memory once per two
-// FMAs, which bounds it further.  wgmma, TMA and bf16 tensor cores are later
-// work.
+// once.  At ChatGLM3's prefill (B 8, Hq 32, Hkv 16, S 512, D 128, bf16) that
+// is 17.2 GFLOP against 100.7 MB (q and o 33.6 MB each, k and v 16.8 MB each):
+// 17.4 us on the bf16 tensor cores, 30.0 us on bytes (chip_smoke.py's
+// time_flash_attention counts the same).  At Gemma-3's global layer (B 2,
+// Hq = Hkv = 16, S 2048, D 256) it is 68.8 GFLOP against 134 MB: 69.5 us on
+// the tensor cores, 40.1 us on bytes.
 //
-// Design: one CTA of 256 threads per (batch, query head, 64-row query tile),
-// as the Pallas grid's (batch * heads, q blocks); the Pallas kernel's
-// sequential k grid axis becomes a loop over 64-row KV tiles inside the CTA.
-// Only tiles that meet the causal / window band are visited (pl.when's
-// pruning).  Each KV tile is staged through shared memory as fp32 (the Q and K
-// rows padded by one float so the column reads hit distinct banks).  A 16 x 16
-// thread grid computes the 64 x 64 score tile, 4 x 4 scores per thread; each
-// query row's running max and sum are reduced across its 16 threads with
-// shuffles and kept in registers, beside the thread's 4 rows x D/16 columns of
-// the fp32 accumulator.  The probabilities pass through shared memory (over
-// the K tile, which is no longer needed) to the P.V product.  Heavier query
-// tiles (later rows see more keys) launch first.  expf and tanhf are the
-// accurate libdevice ones (no --use_fast_math); FMAs are fp32, no TF32.
+// Two designs ("routes"), chosen by the caller from (dtype, D) up front
+// (kernels/flash_attention.py:route) and never swapped after a failure:
+//
+// "mma" — bf16 at D in {64, 128, 256}: the FlashAttention-2 shape on the
+// tensor cores.  One CTA of 4 warps per (64-row query tile, batch x query
+// head), each warp owning 16 query rows; the Pallas kernel's sequential k grid
+// axis becomes a loop over KV tiles of 64 rows (32 at D = 256, 16 with a
+// softcap there, to fit the registers) inside the CTA, visiting only the
+// tiles that meet the causal / window band, and applying the per-element mask
+// only on the tiles that cut the band's edge or the ragged tail.  S = Q K^T and O += P V run as
+// mma.sync.m16n8k16 bf16 x bf16 -> fp32 (bf16 products are exact in fp32, so
+// the scores are what the Pallas kernel computes), with fragments loaded by
+// ldmatrix (ldmatrix.trans for V as PV's B operand).  The online softmax stays
+// in registers: each thread holds two rows' scores, their max and sum reduced
+// over the row's quad by shuffles, scale * log2(e) folded into one FMA before
+// exp2f (accurate libdevice tanhf / exp2f, no --use_fast_math; the softcap is
+// a template switch, so the uncapped instance carries no tanh path).  P is
+// rounded to bf16 once to feed the PV mma, as every tensor-core flash kernel
+// does.  Q, K and V are copied as bf16 with 16-byte cp.async (zero-filled
+// past S) into shared memory whose rows are XOR-swizzled in 16-byte chunks, so
+// ldmatrix is free of bank conflicts; K and V ride a ring of stages (three at
+// D <= 128, two at 256), the next tile's copy overlapping this tile's mma.  Q sits in registers at D <= 128
+// and is re-read from shared memory per k step at D = 256; each lane's
+// ldmatrix addresses are four precomputed offsets per operand plus
+// immediates, which keeps the D = 256 instances free of spills.  Shared
+// memory: Q 8 / 16 / 32 KB plus the stages of K and V, 56 / 112 / 96 KB in
+// all at D = 64 / 128 / 256 (64 KB with a softcap at 256), two CTAs per SM.  The
+// output is staged through the warp's own Q rows and written as 16-byte rows.
+// This route needs 16-byte-aligned data and (batch, head, row) strides that are
+// multiples of 8 elements (the wrapper checks; this entry refuses otherwise).
+//
+// "simt" — fp32 at every D, bf16 at D in {8, 16, 32}: fp32 FMAs on the CUDA
+// cores (fp32 cannot reach the tensor cores without TF32, which the port
+// forbids: the JAX kernel and its oracle are IEEE fp32).  One CTA of 256
+// threads per (batch, query head, 64-row query tile); each KV tile is staged
+// through shared memory as fp32 (the Q and K rows padded by one float so the
+// column reads hit distinct banks).  A 16 x 16 thread grid computes the 64 x
+// 64 score tile, 4 x 4 scores per thread; each query row's running max and sum
+// are reduced across its 16 threads with shuffles and kept in registers,
+// beside the thread's 4 rows x D/16 columns of the fp32 accumulator.  The
+// probabilities pass through shared memory (over the K tile) to the P.V
+// product.  expf and tanhf are the accurate libdevice ones.
+//
+// Both: heavier query tiles (later rows see more keys) launch first; masked
+// scores take the Pallas kernel's -1e30 (the mma route uses -inf inside a
+// tile and -1e30 as the running max's start, which gives the same weights);
+// rows are divided by max(l, 1e-30).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -252,23 +286,381 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* o, Stri
 #undef FA_CASE
 }
 
+
+// ------------------------------------------------------------ the mma route
+
+namespace mma {
+
+constexpr float LOG2E = 1.4426950408889634f;
+using bf16 = __nv_bfloat16;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int BQ = WARPS * 16;  // query rows per CTA, 16 per warp
+
+template <int D, bool CAPPED>
+struct Cfg {
+  // key rows per KV tile: fewer at D = 256 to fit the registers (the
+  // softcap's tanh needs more of them)
+  static constexpr int BK = D < 256 ? 64 : CAPPED ? 16 : 32;
+  // K / V ring stages: three drop the barrier before a stage is refilled
+  // (a warp is at most one tile ahead of another); two at D = 256, where
+  // three would leave one CTA per SM
+  static constexpr int STAGES = D < 256 ? 3 : 2;
+  static constexpr int CH = D / 8;               // 16-byte chunks per row
+  static constexpr bool Q_IN_REGS = D <= 128;
+  // Q tile, then the stages of (K tile, V tile), all bf16
+  static constexpr size_t SMEM = (size_t)(BQ + 2 * STAGES * BK) * D * sizeof(bf16);
+  static_assert(D % 64 == 0, "the swizzle needs 8 chunks per row");
+};
+
+// Element offset of (row, 16-byte chunk c) in a swizzled tile of D columns:
+// chunk c of row r sits at chunk c ^ (r % 8), so the 8 rows an ldmatrix
+// reads at one chunk column land in 8 distinct bank groups.
+template <int D>
+__device__ __forceinline__ int swz(int row, int c) {
+  return row * D + ((c ^ (row & 7)) << 3);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Byte offsets of one lane's ldmatrix row in a swizzled tile: row `row` at
+// chunk 2 kk + lo sits at at(kk), and row + 8 i at at(kk) + 16 i D, since
+// (2 kk + lo) ^ (row % 8) only depends on kk % 4 below its multiple of 8.
+// Four registers per operand, the rest immediates.
+template <int D>
+struct FragAddr {
+  unsigned off[4];
+  __device__ __forceinline__ FragAddr(int row, int lo) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) off[j] = 2 * (row * D + (((2 * j + lo) ^ (row & 7)) << 3));
+  }
+  __device__ __forceinline__ unsigned at(int kk) const { return off[kk & 3] + (kk >> 2) * 128; }
+};
+
+// 16-byte global -> shared copy; src_bytes 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Copy rows r0 .. r0 + R - 1 (those below s; the rest zero-filled) of a
+// (rows, D) bf16 matrix with row stride `stride` into a swizzled tile.
+template <int D, int R>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride,
+                                          int r0, int s, int tid) {
+  constexpr int CH = D / 8;
+  static_assert((R * CH) % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < R * CH / THREADS; ++i) {
+    const int idx = tid + i * THREADS, r = idx / CH, c = idx % CH, pos = r0 + r;
+    const bool in = pos < s;
+    cp_async16(smem_u32(dst + swz<D>(r, c)), src + (long long)(in ? pos : 0) * stride + c * 8,
+               in ? 16 : 0);
+  }
+}
+
+template <int D, bool CAPPED>
+__global__ void __launch_bounds__(THREADS, 2) flash_fwd_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int hq, int group,
+    int s, int causal, int window, float scale, float softcap) {
+  using C = Cfg<D, CAPPED>;
+  constexpr int BK = C::BK;
+  constexpr int NT = BK / 8;  // score n-tiles (8 keys) per KV tile
+  constexpr int DT = D / 8;   // output n-tiles (8 features)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* KV = Qs + BQ * D;  // stage st: K at KV + st * 2 * BK * D, V BK * D after
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // the mma fragments' row and column pair
+  const int bh = blockIdx.x;
+  const int b = bh / hq, h = bh % hq, hk = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heavier tiles first
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+  bf16* ob = o + b * os.b + h * os.h;
+
+  // KV tiles that meet the band: keys k_begin .. k_end - 1
+  const int q_last = min(q0 + BQ, s) - 1;
+  const int k_end = causal ? q_last + 1 : s;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt0 = k_begin / BK, n_tiles = (k_end + BK - 1) / BK - kt0;
+
+  auto load_kv = [&](int stage, int kt) {
+    bf16* Ks = KV + stage * 2 * BK * D;
+    load_rows<D, BK>(Ks, kb, ks.s, kt * BK, s, tid);
+    load_rows<D, BK>(Ks + BK * D, vb, vs.s, kt * BK, s, tid);
+  };
+  load_rows<D, BQ>(Qs, qb, qs.s, q0, s, tid);
+  cp_async_commit();
+  load_kv(0, kt0);
+  cp_async_commit();
+
+  // ldmatrix rows of this lane: Q's A fragments (rows warp * 16 + lane % 16,
+  // chunk 2 kk + lane / 16), K's B fragments (two 8-key n-tiles per x4) and
+  // V's transposed B fragments (two 8-feature n-tiles per x4)
+  const FragAddr<D> qa(warp * 16 + (lane & 15), lane >> 4);
+  const FragAddr<D> ka((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
+  const FragAddr<D> va((lane & 7) + (((lane >> 3) & 1) << 3), lane >> 4);
+  const unsigned q_base = smem_u32(Qs), kv_base = smem_u32(KV);
+  unsigned qf[C::Q_IN_REGS ? D / 16 : 1][4];
+  if constexpr (C::Q_IN_REGS) {
+    cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], q_base + qa.at(kk));
+  }
+
+  float oacc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // rows g and g + 8 of the warp
+  // scores reach the log2 domain as x * s2: uncapped x is the raw score and
+  // s2 = scale * log2(e) (folded into the exp2's FMA); capped x is
+  // tanh(raw * scale / softcap) * softcap * log2(e) and s2 = 1
+  const float pre = CAPPED ? scale / softcap : scale * LOG2E;
+  const float post = softcap * LOG2E;
+  const float s2 = CAPPED ? 1.f : pre;
+  const int row0 = q0 + warp * 16 + g;  // this thread's first query row
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      load_kv((it + 1) % C::STAGES, kt0 + it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned k_base = kv_base + (it % C::STAGES) * 4 * BK * D;  // bytes
+    const unsigned v_base = k_base + 2 * BK * D;
+    const int k0 = (kt0 + it) * BK;
+
+    // S = Q K^T: B fragments of two 8-key n-tiles per ldmatrix.x4
+    float sacc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned a[4];
+      if constexpr (C::Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(a, q_base + qa.at(kk));
+      }
+#pragma unroll
+      for (int nn = 0; nn < BK / 16; ++nn) {
+        unsigned bk[4];
+        ldmatrix_x4(bk, k_base + ka.at(kk) + nn * 32 * D);
+        mma_bf16(sacc[2 * nn], a, bk[0], bk[1]);
+        mma_bf16(sacc[2 * nn + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // the per-element mask only where the tile cuts the band's edge or the
+    // ragged tail
+    const bool edge = (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window) || k0 + BK > s;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = CAPPED ? tanhf(sacc[j][e] * pre) * post : sacc[j][e];
+        if (edge) {
+          const int qpos = row0 + ((e >> 1) << 3), kpos = k0 + j * 8 + 2 * t4 + (e & 1);
+          const bool ok = kpos < s && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          x = ok ? x : -INFINITY;
+        }
+        sacc[j][e] = x;
+      }
+
+    // online softmax of rows g (elements 0, 1) and g + 8 (elements 2, 3)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(sacc[j][2 * r], sacc[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[r], mx);  // finite: m starts at -1e30
+      const float alpha = exp2f((m[r] - m_new) * s2);
+      const float m_s2 = m_new * s2;
+      m[r] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          sacc[j][e] = exp2f(fmaf(sacc[j][e], s2, -m_s2));  // masked: exp2(-inf) = 0
+          rs += sacc[j][e];
+        }
+      l[r] = l[r] * alpha + rs;  // this thread's share; the quad sums at the end
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        oacc[j][2 * r] *= alpha;
+        oacc[j][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V: the score accumulators of n-tiles 2 kk, 2 kk + 1 are the A
+    // fragment of the 16-key step kk; V's B fragments come transposed
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const unsigned a[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
+                             pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
+                             pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+                             pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, v_base + va.at(dn) + kk * 32 * D);
+        mma_bf16(oacc[2 * dn], a, bv[0], bv[1]);
+        mma_bf16(oacc[2 * dn + 1], a, bv[2], bv[3]);
+      }
+    }
+    if constexpr (C::STAGES == 2) __syncthreads();  // done with this stage before its refill
+  }
+
+  // normalise, stage the warp's 16 rows in its own Q rows, write 16-byte rows
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float t = l[r];
+    t += __shfl_xor_sync(FULL, t, 1);
+    t += __shfl_xor_sync(FULL, t, 2);
+    den[r] = fmaxf(t, 1e-30f);
+  }
+  const int srow = warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(Qs + swz<D>(srow, j) + 2 * t4) =
+        __floats2bfloat162_rn(oacc[j][0] / den[0], oacc[j][1] / den[0]);
+    *reinterpret_cast<__nv_bfloat162*>(Qs + swz<D>(srow + 8, j) + 2 * t4) =
+        __floats2bfloat162_rn(oacc[j][2] / den[1], oacc[j][3] / den[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * C::CH; i += 32) {
+    const int r = warp * 16 + i / C::CH, c = i % C::CH, qpos = q0 + r;
+    if (qpos < s)
+      *reinterpret_cast<uint4*>(ob + qpos * os.s + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<D>(r, c));
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, Strides qs, Strides ks,
+           Strides vs, Strides os, int b, int hq, int hkv, int s, int causal, int window,
+           float scale, float softcap, cudaStream_t stream) {
+  const bool capped = softcap > 0.f;
+  const size_t smem = capped ? Cfg<D, true>::SMEM : Cfg<D, false>::SMEM;
+  auto kernel = capped ? flash_fwd_mma<D, true> : flash_fwd_mma<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_qt = (s + BQ - 1) / BQ;
+  if ((long long)b * hq > 2147483647LL || n_qt > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)(b * hq), (unsigned)n_qt);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), qs, ks, vs, os, hq, hq / hkv, s, causal, window, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte cp.async needs a 16-byte-aligned base and strides of whole
+// 8-element chunks (a stride along an axis of extent 1 is never used)
+bool aligned(const void* p, const Strides& st, int b, int h, int s) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0 && (b == 1 || st.b % 8 == 0) &&
+         (h == 1 || st.h % 8 == 0) && (s == 1 || st.s % 8 == 0);
+}
+
+}  // namespace mma
+
 }  // namespace
 
 // Plain C entry point (loaded through ctypes).  q (B, Hq, S, D), k and v
 // (B, Hkv, S, D), o (B, Hq, S, D), each addressed through its (batch, head,
 // row) strides in elements with a unit feature stride; dtype 0 = fp32, 1 =
-// bf16 (all four tensors).  window 0 = no window.  Launches on `stream`, does
-// not synchronise, and returns the launch's cudaError_t (0 on success).
+// bf16 (all four tensors).  window 0 = no window.  route 0 = "simt", 1 =
+// "mma" (bf16, D in {64, 128, 256}, aligned as mma::aligned says); a route
+// with no instance for (dtype, D) is refused.  Launches on `stream`, does not
+// synchronise, and returns the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, int b, int hq, int hkv, int s, int d, int causal, int window,
-    int dtype, float scale, float softcap, cudaStream_t stream) {
+    int dtype, int route, float scale, float softcap, cudaStream_t stream) {
   if (b <= 0 || hq <= 0 || s <= 0) return (int)cudaSuccess;
   if (hkv <= 0 || hq % hkv != 0 || window < 0) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
+  if (route == 1) {
+    if (dtype != 1 || !mma::aligned(q, qs, b, hq, s) || !mma::aligned(k, ks, b, hkv, s) ||
+        !mma::aligned(v, vs, b, hkv, s) || !mma::aligned(o, os, b, hq, s))
+      return (int)cudaErrorInvalidValue;
+    switch (d) {
+      case 64:
+        return mma::launch<64>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
+                               scale, softcap, stream);
+      case 128:
+        return mma::launch<128>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
+                                scale, softcap, stream);
+      case 256:
+        return mma::launch<256>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
+                                scale, softcap, stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_d<float>(d, q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
                              scale, softcap, stream);

@@ -199,6 +199,31 @@ def test_node_mlp_kernel_matches_plain(cuda, activation):
         assert_close(got.cpu().numpy(), want.cpu().numpy(), TOL)
 
 
+@pytest.mark.parametrize("activation", ["relu", "gelu", "none"])
+@pytest.mark.parametrize("n", [1, 8, 63, 200])
+def test_node_mlp_variants_match_plain(cuda, activation, n):
+    """Every variant: narrow (N 1, 8), shallow (K 3, 9) and tiled (K 37,
+    100, 1040: 4- and 16-byte copies, one and several K slices, a ring
+    refilled past K 256; N 63: 4-byte copies of w and stores of y), at
+    ragged M; K = 100 also from a view 4 bytes past a 16-byte boundary."""
+    gen = torch.Generator().manual_seed(n)
+    for k in (3, 9, 37, 100, 1040):
+        for m in (1, 37, 4097):
+            w = (torch.randn((k, n), generator=gen) * (2.0 / (k + n)) ** 0.5).to(cuda)
+            b = torch.randn((n,), generator=gen).to(cuda)
+            xs = [torch.randn((m, k), generator=gen).to(cuda)]
+            if k == 100:
+                xs.append(torch.randn((m * k + 1,), generator=gen).to(cuda)[1:].view(m, k))
+            for x in xs:
+                want_variant = NM.variant(m, k, n)
+                before = dict(NM.launches_by_variant)
+                got = kops.node_mlp(x, w, b, activation, mode="kernel")
+                want = kops.node_mlp(x, w, b, activation, mode="reference")
+                assert NM.launches_by_variant == dict(
+                    before, **{want_variant: before[want_variant] + 1})
+                assert_close(got.cpu().numpy(), want.cpu().numpy(), TOL)
+
+
 @pytest.mark.parametrize("gamma", GAMMAS)
 def test_fused_mp_kernel_matches_plain(cuda, gamma):
     rng = np.random.default_rng(5)
@@ -479,6 +504,67 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, hq, hkv, s, d, window
     # the output takes q's layout: a (B, S, H, D) view stays one
     assert got.transpose(1, 2).is_contiguous() == bshd
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+# the mma route (bf16 at D 64 / 128 / 256): S 1, 37, 512, 1000 at each D,
+# Hq / Hkv 1, 2 and 16, windows, softcaps, (B, S, H, D) views, non-causal
+MMA_CASES = [  # (hq, hkv, s, d, causal, window, softcap, bshd)
+    (16, 16, 1, 64, True, 0, 0.0, True),
+    (2, 1, 37, 64, True, 0, 0.0, False),
+    (16, 1, 512, 64, True, 100, 0.0, True),
+    (4, 2, 1000, 64, True, 0, 30.0, False),
+    (16, 8, 1, 128, True, 0, 0.0, False),
+    (16, 16, 37, 128, True, 16, 0.0, True),
+    (16, 1, 512, 128, True, 0, 0.0, True),
+    (2, 1, 1000, 128, True, 300, 20.0, True),
+    (4, 2, 200, 128, False, 0, 0.0, False),
+    (16, 16, 1, 256, True, 0, 50.0, True),
+    (16, 1, 37, 256, True, 0, 0.0, False),
+    (2, 2, 512, 256, True, 128, 0.0, True),
+    (16, 8, 1000, 256, True, 0, 0.0, False),
+    (4, 4, 300, 256, False, 64, 0.0, True),
+]
+
+
+@pytest.mark.parametrize("hq,hkv,s,d,causal,window,softcap,bshd", MMA_CASES)
+def test_flash_attention_mma_route_matches_plain(cuda, hq, hkv, s, d, causal, window,
+                                                 softcap, bshd):
+    q, k, v = _attention_inputs(cuda, 2, hq, hkv, s, d, torch.bfloat16, bshd, seed=s + d)
+    assert FA.route(q.dtype, d) == "mma"
+    before = dict(FA.launches_by_route)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = kops.flash_attention(q, k, v, mode="kernel", **kw)
+    want = kops.flash_attention(q, k, v, mode="reference", **kw)
+    torch.cuda.synchronize()
+    assert FA.launches_by_route == dict(before, mma=before["mma"] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    if s > 1:  # at S = 1 both layouts are contiguous
+        assert got.transpose(1, 2).is_contiguous() == bshd
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+    # the same inputs through the CUDA-core design, forced
+    simt = FA.flash_attention(q, k, v, force_route="simt", **kw)
+    torch.testing.assert_close(simt.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_attention_mma_route_refuses_misaligned_views(cuda):
+    b, h, s, d = 1, 4, 64, 128
+    q, k, v = _attention_inputs(cuda, b, h, h, s, d, torch.bfloat16, False)
+    flat = torch.randn(b * h * s * d + 1, device=cuda).to(torch.bfloat16)
+    offset = flat[1:].view(b, h, s, d)                     # 2 bytes past 16
+    padded = torch.randn((b, h, s, d + 4), device=cuda).to(torch.bfloat16)[..., :d]
+    before = (FA.launches, dict(FA.launches_by_route))
+    for bad in (offset, padded):                           # row stride 132
+        with pytest.raises(ValueError, match="16-byte"):
+            FA.flash_attention(bad, k, v)
+        with pytest.raises(ValueError, match="16-byte"):
+            FA.flash_attention(q, k, bad)
+    with pytest.raises(ValueError, match="no instance"):
+        FA.flash_attention(q.float(), k.float(), v.float(), force_route="mma")
+    assert (FA.launches, FA.launches_by_route) == before
+    # the simt route takes the same views
+    got = FA.flash_attention(offset, k, v, force_route="simt")
+    want = kops.flash_attention(offset, k, v, mode="reference")
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
