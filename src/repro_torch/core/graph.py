@@ -79,6 +79,12 @@ def _to_graph(nf, ei, ef, node_mask, edge_mask, gid, n_graph, device) -> Graph:
     )
 
 
+# ``jnp.asarray``'s dtypes with x64 off (the JAX package's setting): 64-bit
+# node features narrow to 32 bits, every other dtype stays as it is
+_X32 = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+        np.dtype(np.uint64): np.uint32}
+
+
 def from_numpy(
     senders: np.ndarray,
     receivers: np.ndarray,
@@ -97,7 +103,7 @@ def from_numpy(
         raise ValueError(f"padding too small: ({n_pad},{e_pad}) < ({n},{e})")
     f = node_feat.shape[1]
     d = 0 if edge_feat is None else edge_feat.shape[1]
-    nf = np.zeros((n_pad, f), dtype=node_feat.dtype)
+    nf = np.zeros((n_pad, f), dtype=_X32.get(node_feat.dtype, node_feat.dtype))
     nf[:n] = node_feat
     ef = np.zeros((e_pad, max(d, 1)), dtype=np.float32)
     if edge_feat is not None:

@@ -146,6 +146,13 @@ def _gcn_layer(g: G.Graph, x, lp, cfg, extras):
     return mp.mp_layer(g, xs, phi, gamma, ops=("sum",), layout=layout)
 
 
+def _gin_self(eps: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(1 + eps) * x, promoted as JAX promotes it: eps is a typed f32
+    scalar, so an f16 x gives f32 (torch would keep a 0-d operand out of
+    the promotion and round the product to f16)."""
+    return (1.0 + eps) * x.to(torch.promote_types(x.dtype, eps.dtype))
+
+
 def _gin_layer(g: G.Graph, x, lp, cfg, extras):
     # phi(x, e) = relu(x_src + edge_embed)
     layout = extras["layout"]
@@ -165,7 +172,7 @@ def _gin_layer(g: G.Graph, x, lp, cfg, extras):
         return mp.mp_layer(
             g, x, layout=layout, spec=spec, mode=cfg.kernel_mode,
             operands=dict(
-                msrc=x, x_res=(1.0 + lp["eps"]) * x, eop=e_emb,
+                msrc=x, x_res=_gin_self(lp["eps"], x), eop=e_emb,
                 w2=lin2_wb[0], b2=lin2_wb[1], **_lin1_operands(lin1),
             ),
         )
@@ -176,7 +183,7 @@ def _gin_layer(g: G.Graph, x, lp, cfg, extras):
         return torch.relu(x_src + e)
 
     def gamma(x_, agg):
-        return L.mlp_apply(lp["mlp"], (1.0 + lp["eps"]) * x_ + agg,
+        return L.mlp_apply(lp["mlp"], _gin_self(lp["eps"], x_) + agg,
                            mode=cfg.kernel_mode)
 
     return mp.mp_layer(g, x, phi, gamma, ops=("sum",), edge_feat=e_emb,
@@ -296,7 +303,8 @@ def apply(
                           eigvec=eigvec)
     extras = {"layout": layout, "fused": fused}
     x = L.linear_apply(params["encoder"], g.node_feat, mode=cfg.kernel_mode)
-    x = torch.where(g.node_mask[:, None], x, torch.zeros_like(x))
+    # promotes as jnp.where(mask, x, 0.0): an integer encoder output -> f32
+    x = torch.where(g.node_mask[:, None], x, 0.0)
     vn = None  # (m, w) per-graph virtual-node state
     if cfg.virtual_node:
         vn = params["vn_embed"].expand(m, x.shape[-1])

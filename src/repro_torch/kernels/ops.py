@@ -14,6 +14,13 @@ The ``REPRO_KERNEL_MODE`` environment variable, when set, overrides the
 per-call ``mode``, as in the JAX package.  There is no fallback: on a CUDA
 tensor the kernel launches or raises, and a kernel that fails to build
 raises.  The TPU package's VMEM-budget fallback has no counterpart here.
+
+The fp32 kernels refuse other dtypes.  Where a plain version reads an
+operand in fp32 (``.float()``), the dispatch hands its kernel that fp32
+tensor, and ``node_mlp`` casts the kernel's output to the input's dtype
+as ``node_mlp_ref`` does: an f16 or integer node-feature stream serves on
+the card as on the CPU.  ``.float()`` of an fp32 tensor is the tensor
+itself, so fp32 pays nothing.
 """
 from __future__ import annotations
 
@@ -75,7 +82,7 @@ def segment_reduce(
     if not _resolve(mode, values):
         return ref.segment_reduce_sorted_ref(values, segment_ids, num_segments, op)
     return _segment_kernel.segment_reduce(
-        values.contiguous(), offsets.contiguous(), num_segments, op
+        values.float().contiguous(), offsets.contiguous(), num_segments, op
     )
 
 
@@ -97,7 +104,7 @@ def edge_softmax(
     if not _resolve(mode, logits):
         return ref.edge_softmax_ref(logits, segment_ids, num_segments)
     return _edge_softmax_kernel.edge_softmax(
-        logits.contiguous(), offsets.contiguous(), num_segments
+        logits.float().contiguous(), offsets.contiguous(), num_segments
     )
 
 
@@ -106,9 +113,10 @@ def node_mlp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Fused linear + bias + activation (the NE PE)."""
     if not _resolve(mode, x):
         return ref.node_mlp_ref(x, w, b, activation)
-    return _node_mlp_kernel.node_mlp(
-        x.contiguous(), w.contiguous(), b.contiguous(), activation
+    y = _node_mlp_kernel.node_mlp(
+        x.float().contiguous(), w.contiguous(), b.contiguous(), activation
     )
+    return y.to(x.dtype)
 
 
 def quant_node_mlp(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
@@ -159,7 +167,8 @@ def fused_mp(
     c = lambda t: None if t is None else t.contiguous()
     return _fused_mp_kernel.fused_mp(
         spec, c(offsets), c(src_sorted), c(in_degree), c(node_mask),
-        c(msrc), c(x_res), nop=c(nop), eop=c(eop), ew=c(ew), w1=c(w1),
+        c(msrc.float()), c(x_res.float()), nop=c(nop),
+        eop=None if eop is None else c(eop.float()), ew=c(ew), w1=c(w1),
         b1=c(b1), w1_scale=c(w1_scale), w2=c(w2), b2=c(b2),
     )
 

@@ -310,6 +310,46 @@ def test_gin_engine_on_card_matches_reference(cuda):
                                rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float16, torch.float64])
+def test_node_mlp_dispatch_feeds_the_kernel_fp32(cuda, dtype):
+    """``ops.node_mlp`` runs the fp32 kernel on ``x.float()`` and returns
+    the input's dtype, as ``node_mlp_ref`` does (an fp32 sum rounded the
+    other way may move the cast by one step: an f16 ulp, 2^-10 relative, or
+    1 in int32); the wrapper itself still refuses the dtype."""
+    gen = torch.Generator().manual_seed(3)
+    x = (4 * torch.randn((37, 9), generator=gen)).to(dtype).to(cuda)
+    w = (0.3 * torch.randn((9, 100), generator=gen)).to(cuda)
+    b = torch.randn((100,), generator=gen).to(cuda)
+    before = NM.launches
+    got = kops.node_mlp(x, w, b, "none", mode="kernel")
+    assert NM.launches == before + 1
+    want = kops.node_mlp(x, w, b, "none", mode="reference")
+    assert got.dtype == want.dtype == dtype
+    tol = dict(rtol=2.0 ** -10, atol=1e-5) if dtype == torch.float16 else TOL
+    assert_close(got.double().cpu().numpy(), want.double().cpu().numpy(),
+                 dict(rtol=0, atol=1) if dtype == torch.int32 else tol)
+    with pytest.raises(TypeError):
+        NM.node_mlp(x, w, b)
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.float64])
+def test_gin_stream_with_64_bit_features_matches_cpu(cuda, dtype):
+    """int64 and float64 node features narrow to 32 bits as JAX's
+    ``jnp.asarray`` does; the card's stream equals the CPU path's."""
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import models as TM
+    from repro_torch.serve.gnn_engine import GNNEngine
+
+    cfg = TM.paper_config("gin", num_layers=2, hidden=32)
+    params = TM.init(torch.Generator().manual_seed(0), cfg)
+    graphs = [(s, r, np.abs(np.rint(4 * nf)).astype(dtype), ef) for s, r, nf, ef in
+              (g[:4] for g in MoleculeStream(MOLHIV, seed=1).take(4))]
+    outs, _, _ = GNNEngine(cfg, params, fused=True, device=cuda).infer_stream(graphs)
+    cpu, _, _ = GNNEngine(cfg, params, fused=True, device="cpu").infer_stream(graphs)
+    np.testing.assert_allclose(np.concatenate(outs), np.concatenate(cpu),
+                               rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("op", ["sum", "mean", "sqsum", "max", "min"])
 def test_segment_reduce_kernel_matches_plain(cuda, op):
     rng = np.random.default_rng(20)
