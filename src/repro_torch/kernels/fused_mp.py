@@ -13,6 +13,11 @@ device, dtype, shape and contiguity, sizes the kernel's dynamic shared
 memory per spec, launches on the current stream and raises if the launch
 fails.  ``launches`` counts the launches it made, ``int8_launches`` those
 of them that ran the int8 gamma; a graph with no node launches nothing.
+
+A block owns ``rows_for(...)`` destinations (32, or 16 where 32 rows'
+shared memory would pass ``MAX_SMEM_BYTES``); the kernel picks the same
+with the same function of the spec, and :func:`smem_bytes` mirrors its
+shared-memory layout.
 """
 from __future__ import annotations
 
@@ -32,7 +37,10 @@ REQUIRED_OPS = {
 }
 MAX_FEATURES = 256  # 32 lanes x 8 registers per destination warp
 MAX_SMEM_BYTES = 232_448  # 227 KB of dynamic shared memory per block
-TILE = 16  # destination nodes per block, as in csrc/fused_mp.cu
+ROWS = (32, 16)  # destinations per block, the first whose shared memory fits
+# 32-bit words of one staged fp32 weight slice of gamma's products (an int8
+# slice takes half); two slices are staged at a time, as in csrc/fused_mp.cu
+STAGE_WORDS = 4096
 
 launches = 0
 int8_launches = 0  # the launches among them with gamma's int8 linear
@@ -49,13 +57,28 @@ def _check(name, t, device, dtype, shape):
     _build.check("fused_mp", name, t, device, dtype, shape)
 
 
-def smem_bytes(f: int, n_ops: int, k1: int, h1: int, int8: bool = False) -> int:
-    """Dynamic shared memory one block of the kernel needs: a TILE x F
-    table per accumulator, gamma's TILE x K1 input and TILE x H1 hidden
-    layer, fp32, and for int8 TILE row scales and the TILE x K1 int8 tile
-    (``csrc/fused_mp.cu`` sizes its launch the same way)."""
-    f32 = 4 * TILE * (n_ops * f + k1 + h1)
-    return f32 + 4 * TILE + TILE * k1 if int8 else f32
+def smem_bytes(f: int, n_ops: int, k1: int, h1: int, int8: bool = False,
+               rows: int = ROWS[0]) -> int:
+    """Dynamic shared memory one block of ``rows`` destinations needs: a
+    rows x F fp32 table per accumulator; gamma's input (K1 deep) and GIN's
+    hidden layer (H1 deep), k-major at rows + 4 words a k; for int8 the row
+    scales and the int8 tile (four k to a word, rows + 4 words a word); and
+    two staged weight slices, fp32 or (when every product of gamma is int8)
+    int8 (``csrc/fused_mp.cu:smem_bytes``)."""
+    pr = rows + 4
+    words = rows * n_ops * f + pr * (k1 + h1)
+    if int8:
+        words += rows + pr * ((k1 + 3) // 4)
+    if k1 > 0:
+        words += STAGE_WORDS if int8 and h1 == 0 else 2 * STAGE_WORDS
+    return 4 * words
+
+
+def rows_for(f: int, n_ops: int, k1: int, h1: int, int8: bool = False) -> int:
+    """Destinations per block for a spec: the first of ``ROWS`` whose
+    shared memory fits (``csrc/fused_mp.cu:rows_for``)."""
+    return next((r for r in ROWS if smem_bytes(f, n_ops, k1, h1, int8, r)
+                 <= MAX_SMEM_BYTES), ROWS[-1])
 
 
 def fused_mp(
@@ -128,7 +151,7 @@ def fused_mp(
         p = nop.shape[1]
     ops = set(spec.ops)
     ops_bits = sum(OP_BITS[op] for op in ops)
-    smem = smem_bytes(f, len(ops), k1, h1, int8)
+    smem = smem_bytes(f, len(ops), k1, h1, int8, rows_for(f, len(ops), k1, h1, int8))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"fused_mp: spec {spec} at F={f} needs {smem} bytes of shared "

@@ -188,27 +188,55 @@ def test_wrappers_refuse_cpu_tensors_and_int8():
 
 
 @pytest.mark.parametrize("gamma, f, n_ops, k1, h1, want", [
-    ("gcn", 100, 1, 0, 0, 6_400),
-    ("gin", 100, 1, 100, 200, 25_600),
-    ("pna", 80, 4, 12 * 80, 0, 81_920),
-    ("dgn", 100, 2, 3 * 100, 0, 32_000),
+    ("gcn", 100, 1, 0, 0, 12_800),
+    ("gin", 100, 1, 100, 200, 12_800 + 43_200 + 32_768),
+    ("pna", 80, 4, 12 * 80, 0, 40_960 + 138_240 + 32_768),
+    ("dgn", 100, 2, 3 * 100, 0, 25_600 + 43_200 + 32_768),
 ])
 def test_fused_mp_shared_memory_fits_paper_widths(gamma, f, n_ops, k1, h1, want):
-    """Every fp32 gamma at its paper width fits one block's shared memory."""
+    """Every fp32 gamma at its paper width fits one block's shared memory at
+    32 rows: the accumulators; the tower and GIN's hidden layer k-major at
+    36 words a k (K1 + H1 = 300, 960, 300); two staged 16 KB weight slices."""
     got = FM.smem_bytes(f, n_ops, k1, h1)
     assert got == want <= FM.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("gamma, f, n_ops, k1, h1, want", [
-    ("gin", 100, 1, 100, 200, 25_600 + 64 + 1_600),
-    ("pna", 80, 4, 12 * 80, 0, 81_920 + 64 + 15_360),
-    ("dgn", 100, 2, 3 * 100, 0, 32_000 + 64 + 4_800),
+    ("gin", 100, 1, 100, 200, 88_768 + 128 + 3_600),
+    ("pna", 80, 4, 12 * 80, 0, 179_200 + 128 + 34_560 + 16_384),
+    ("dgn", 100, 2, 3 * 100, 0, 68_800 + 128 + 10_800 + 16_384),
 ])
 def test_fused_mp_int8_shared_memory_fits_paper_widths(gamma, f, n_ops, k1, h1,
                                                         want):
-    """The int8 gamma adds TILE row scales and a TILE x K1 int8 tile."""
+    """The int8 gamma adds 32 row scales and the int8 tile, four k to a word
+    at 36 words a word (25, 240, 75 words deep); PNA's and DGN's staged
+    slices are int8 (two of 8 KB), GIN's stay fp32 for w2."""
     got = FM.smem_bytes(f, n_ops, k1, h1, int8=True)
     assert got == want <= FM.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("gamma, f, n_ops, k1, h1", [
+    ("gcn", 100, 1, 0, 0), ("gin", 100, 1, 100, 200),
+    ("pna", 80, 4, 12 * 80, 0), ("dgn", 100, 2, 3 * 100, 0),
+])
+def test_fused_mp_paper_widths_take_32_rows(gamma, f, n_ops, k1, h1, int8):
+    """Every paper-width gamma, in both precisions, runs 32 destinations per
+    block within 232,448 bytes (gcn has no int8 linear)."""
+    int8 = int8 and gamma != "gcn"
+    assert FM.rows_for(f, n_ops, k1, h1, int8) == 32
+    assert FM.smem_bytes(f, n_ops, k1, h1, int8, 32) <= FM.MAX_SMEM_BYTES == 232_448
+
+
+@pytest.mark.parametrize("int8, want", [(False, 25_600 + 96_000 + 32_768),
+                                         (True, 25_600 + 96_000 + 64 + 24_000 + 16_384)])
+def test_fused_mp_rows_fall_back_to_16_past_the_limit(int8, want):
+    """PNA at F = 100 (K1 1200) passes the limit at 32 rows and fits at 16;
+    at F = 256 neither fits, and the wrapper refuses it (tested on the card)."""
+    assert FM.smem_bytes(100, 4, 1200, 0, int8, 32) > FM.MAX_SMEM_BYTES
+    assert FM.rows_for(100, 4, 1200, 0, int8) == 16
+    assert FM.smem_bytes(100, 4, 1200, 0, int8, 16) == want
+    assert FM.smem_bytes(256, 4, 12 * 256, 0, int8, 16) > FM.MAX_SMEM_BYTES
 
 
 # ---------------------------------------------------------------- build

@@ -74,6 +74,28 @@ def plan_arrays(rng, n_pad=40, e_pad=96):
     return plan
 
 
+# (n_pad, n_real) of one graph: N that cuts a 32-row tile, and a graph
+# whose last tiles hold only padding rows
+TILE_CASES = ((1, 1), (31, 31), (33, 33), (4097, 4097), (4096, 1000))
+
+
+def tile_plan_arrays(rng, n_pad, n_real, exact=False):
+    """Plan arrays, as :func:`plan_arrays` gives them, of one graph of
+    ``n_real`` nodes padded to ``n_pad``; in-degrees 0-3, or with ``exact``
+    0, 1, 2 or 4 as :func:`exact_plan_arrays` makes them."""
+    deg = rng.choice([0, 1, 2, 4] if exact else [0, 1, 2, 3], size=n_real)
+    r = np.repeat(np.arange(n_real), deg).astype(np.int32)
+    s = rng.integers(0, n_real, r.size).astype(np.int32)
+    g = TG.from_numpy(s, r, rng.normal(size=(n_real, 9)).astype(np.float32),
+                      rng.normal(size=(r.size, 3)).astype(np.float32),
+                      n_pad=n_pad, e_pad=r.size + 7)
+    lay = TLY.host_layout(g)
+    plan = {k: getattr(lay, k).numpy() for k in
+            ("ids_sorted", "src_sorted", "in_degree", "offsets")}
+    plan["node_mask"] = g.node_mask.numpy()
+    return plan
+
+
 def segment_case(rng, case):
     """Numpy (ids_sorted, offsets, n) of a sorted plan: "empty_and_padding"
     (gaps and the last 4 segments empty, padding ids n at the end),
@@ -226,20 +248,23 @@ def test_node_mlp_variants_match_plain(cuda, activation, n):
 
 @pytest.mark.parametrize("gamma", GAMMAS)
 def test_fused_mp_kernel_matches_plain(cuda, gamma):
+    """A padded batch, then N cutting a tile (1, 31, 33, 4097) and a graph
+    whose last 96 tiles are all padding (``TILE_CASES``)."""
     rng = np.random.default_rng(5)
-    plan = plan_arrays(rng)
-    n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
-    (phi, ops, _), kw = spec_operands(rng, gamma, n, e)
-    spec = TMP.MPSpec(phi, ops, gamma)
-    args = [to_t(plan[k], cuda) for k in PLAN_ARGS]
-    kw = {k: to_t(v, cuda) for k, v in kw.items()}
-    before = FM.launches
-    got = kops.fused_mp(spec, *args, mode="kernel", **kw)
-    assert FM.launches == before + 1
-    want = kops.fused_mp(spec, *args, mode="reference", **kw)
-    assert_close(got.cpu().numpy(), want.cpu().numpy(),
-                 PNA_TOL if gamma == "pna" else TOL)
-    assert (got.cpu().numpy()[~plan["node_mask"]] == 0).all()
+    plans = [plan_arrays(rng)] + [tile_plan_arrays(rng, *c) for c in TILE_CASES]
+    for plan in plans:
+        n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
+        (phi, ops, _), kw = spec_operands(rng, gamma, n, e)
+        spec = TMP.MPSpec(phi, ops, gamma)
+        args = [to_t(plan[k], cuda) for k in PLAN_ARGS]
+        kw = {k: to_t(v, cuda) for k, v in kw.items()}
+        before = FM.launches
+        got = kops.fused_mp(spec, *args, mode="kernel", **kw)
+        assert FM.launches == before + 1
+        want = kops.fused_mp(spec, *args, mode="reference", **kw)
+        assert_close(got.cpu().numpy(), want.cpu().numpy(),
+                     PNA_TOL if gamma == "pna" else TOL)
+        assert (got.cpu().numpy()[~plan["node_mask"]] == 0).all()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -267,6 +292,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kops.fused_mp(spec, *args, mode="kernel", **dict(kw, w1=kw["w1"].float()))
     with pytest.raises(ValueError, match="w1_scale"):
         kops.fused_mp(spec, *args, mode="kernel", **dict(kw, w1_scale=None))
+    # PNA at F = 256: no block size's shared memory fits
+    (phi, ops, gamma), kw = spec_operands(rng, "pna", n, e, f=256)
+    with pytest.raises(ValueError, match="shared memory"):
+        kops.fused_mp(TMP.MPSpec(phi, ops, gamma), *args, mode="kernel",
+                      **{k: to_t(v, cuda) for k, v in kw.items()})
     x_q = torch.zeros((8, 4), dtype=torch.int8, device=cuda)
     w_q = torch.zeros((4, 3), dtype=torch.int8, device=cuda)
     with pytest.raises(TypeError, match="x_q"):
@@ -457,25 +487,28 @@ def test_fused_mp_int8_kernel_matches_plain(cuda, gamma):
     """Exact aggregates (``exact_operands``): the towers, their int8
     quantization and the int32 accumulators agree bit for bit, so PNA's and
     DGN's outputs are equal; GIN's fp32 second linear sums in another
-    order (2e-5, JAX's INT8_TOL), and its probe weights show q * rs equal."""
+    order (2e-5, JAX's INT8_TOL), and its probe weights show q * rs equal.
+    The exact batch, then ``TILE_CASES``' ragged and dead tiles."""
     rng = np.random.default_rng(7)
-    plan = exact_plan_arrays(rng)
-    n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
-    (phi, ops, _), kw = exact_operands(rng, gamma, n, e)
-    spec = TMP.MPSpec(phi, ops, gamma, "int8")
-    args = [to_t(plan[k], cuda) for k in PLAN_ARGS]
-    cases = [kw] + ([dict(kw, **gin_probe_weights())] if gamma == "gin" else [])
-    for i, case in enumerate(cases):
-        case = {k: to_t(v, cuda) for k, v in case.items()}
-        before = FM.launches
-        got = kops.fused_mp(spec, *args, mode="kernel", **case).cpu().numpy()
-        assert FM.launches == before + 1
-        want = kops.fused_mp(spec, *args, mode="reference", **case).cpu().numpy()
-        if gamma == "gin" and i == 0:
-            assert_close(got, want, dict(rtol=0, atol=2e-5))
-        else:
-            np.testing.assert_array_equal(got, want)
-        assert (got[~plan["node_mask"]] == 0).all()
+    plans = [exact_plan_arrays(rng)] + [tile_plan_arrays(rng, *c, exact=True)
+                                        for c in TILE_CASES]
+    for plan in plans:
+        n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
+        (phi, ops, _), kw = exact_operands(rng, gamma, n, e)
+        spec = TMP.MPSpec(phi, ops, gamma, "int8")
+        args = [to_t(plan[k], cuda) for k in PLAN_ARGS]
+        cases = [kw] + ([dict(kw, **gin_probe_weights())] if gamma == "gin" else [])
+        for i, case in enumerate(cases):
+            case = {k: to_t(v, cuda) for k, v in case.items()}
+            before = FM.launches
+            got = kops.fused_mp(spec, *args, mode="kernel", **case).cpu().numpy()
+            assert FM.launches == before + 1
+            want = kops.fused_mp(spec, *args, mode="reference", **case).cpu().numpy()
+            if gamma == "gin" and i == 0:
+                assert_close(got, want, dict(rtol=0, atol=2e-5))
+            else:
+                np.testing.assert_array_equal(got, want)
+            assert (got[~plan["node_mask"]] == 0).all()
 
 
 def test_int8_engine_on_card_matches_reference(cuda):
