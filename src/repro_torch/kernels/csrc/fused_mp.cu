@@ -111,15 +111,15 @@ __device__ __forceinline__ float lane4(const float4& v, int u) {
 }
 
 // Columns a pass of a product N wide computes: 256 (RN = 8) or 128.
-__host__ __device__ inline int span_for(int n) { return n > 128 ? 256 : 128; }
+__device__ __forceinline__ int span_for(int n) { return n > 128 ? 256 : 128; }
 
-// The products' register tiles: thread t < 32 RG of a pass owns the RM = 4
-// rows from row0 = 4 (t % RG) and, per group g < G, columns 128 g + col ..
-// + 3, col = 4 (t / RG).
+// The products' register tiles: thread t < 32 RG of a pass owns the 4 rows
+// from row0 = 4 (t % RG) and, per group g < G, columns 128 g + col .. + 3,
+// col = 4 (t / RG).
 template <int ROWS, int RN>
 struct Tile {
   static constexpr int RG = ROWS / 4;  // row groups: a pass runs on RG warps
-  static constexpr int RM = ROWS / RG, G = RN / 4, SPAN = 32 * RN;
+  static constexpr int G = RN / 4, SPAN = 32 * RN;
   static constexpr int KS = STAGE_WORDS / SPAN;      // fp32 W rows per slice
   static constexpr int KW = STAGE_WORDS / 2 / SPAN;  // int8 W words (4 rows) per slice
 };
@@ -134,10 +134,10 @@ template <int ROWS, int RN, typename Ep>
 __device__ void gemm_f32(const float* A, int pa, int K, const float* __restrict__ W,
                          int N, float* ws, Ep ep) {
   using T = Tile<ROWS, RN>;
-  constexpr int RG = T::RG, RM = T::RM, G = T::G, SPAN = T::SPAN, KS = T::KS;
+  constexpr int RG = T::RG, G = T::G, SPAN = T::SPAN, KS = T::KS;
   constexpr int PF = KS * SPAN / THREADS;  // staged floats per thread (16)
   const int tid = threadIdx.x;
-  const int row0 = (tid % RG) * RM, col = 4 * (tid / RG);  // compute role, tid < 32 RG
+  const int row0 = 4 * (tid % RG), col = 4 * (tid / RG);  // compute role, tid < 32 RG
   const int S = (K + KS - 1) / KS;
   const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
   for (int c0 = 0; c0 < N; c0 += SPAN) {
@@ -169,27 +169,26 @@ __device__ void gemm_f32(const float* A, int pa, int K, const float* __restrict_
             make_float4(pf[4 * l], pf[4 * l + 1], pf[4 * l + 2], pf[4 * l + 3]);
       }
     };
-    float acc[G][RM][4];
+    float acc[G][4][4];
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[g][i][j] = 0.f;
-    // one k of the products: this thread's rows of A and columns of W
-    float4 a0[RM / 4], b0[G], a1[RM / 4], b1[G];
-    auto load = [&](float4 (&av)[RM / 4], float4 (&bv)[G], const float* ak, const float* wk) {
-#pragma unroll
-      for (int i = 0; i < RM / 4; ++i) av[i] = *reinterpret_cast<const float4*>(ak + 4 * i);
+    // one k of the products: this thread's 4 values of A and columns of W
+    float4 a0, b0[G], a1, b1[G];
+    auto load = [&](float4& av, float4 (&bv)[G], const float* ak, const float* wk) {
+      av = *reinterpret_cast<const float4*>(ak);
 #pragma unroll
       for (int g = 0; g < G; ++g) bv[g] = *reinterpret_cast<const float4*>(wk + 128 * g);
     };
-    auto fma_k = [&](const float4 (&av)[RM / 4], const float4 (&bv)[G]) {
+    auto fma_k = [&](const float4& av, const float4 (&bv)[G]) {
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const float x = lane4(av[i / 4], i % 4);
+        for (int i = 0; i < 4; ++i) {
+          const float x = lane4(av, i);
           acc[g][i][0] = fmaf(x, bv[g].x, acc[g][i][0]);
           acc[g][i][1] = fmaf(x, bv[g].y, acc[g][i][1]);
           acc[g][i][2] = fmaf(x, bv[g].z, acc[g][i][2]);
@@ -251,11 +250,11 @@ template <int ROWS, int RN, typename Ep>
 __device__ void gemm_i8(const int* Q, int pq, int K, const signed char* __restrict__ W,
                         int N, int* ws, Ep ep) {
   using T = Tile<ROWS, RN>;
-  constexpr int RG = T::RG, RM = T::RM, G = T::G, SPAN = T::SPAN, KW = T::KW, KS = 4 * KW;
+  constexpr int RG = T::RG, G = T::G, SPAN = T::SPAN, KW = T::KW, KS = 4 * KW;
   constexpr int PF = KW * SPAN / THREADS;  // staged words per thread (8)
   constexpr int BUF = STAGE_WORDS / 2;
   const int tid = threadIdx.x;
-  const int row0 = (tid % RG) * RM, col = 4 * (tid / RG);
+  const int row0 = 4 * (tid % RG), col = 4 * (tid / RG);
   const int S = (K + KS - 1) / KS;
   const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 4 == 0;
   for (int c0 = 0; c0 < N; c0 += SPAN) {
@@ -292,26 +291,25 @@ __device__ void gemm_i8(const int* Q, int pq, int K, const signed char* __restri
             transpose4(pf[l][0], pf[l][1], pf[l][2], pf[l][3]);
       }
     };
-    int acc[G][RM][4];
+    int acc[G][4][4];
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[g][i][j] = 0;
-    int4 a0[RM / 4], b0[G], a1[RM / 4], b1[G];
-    auto load = [&](int4 (&qv)[RM / 4], int4 (&bv)[G], const int* qw, const int* ww) {
-#pragma unroll
-      for (int i = 0; i < RM / 4; ++i) qv[i] = *reinterpret_cast<const int4*>(qw + 4 * i);
+    int4 a0, b0[G], a1, b1[G];
+    auto load = [&](int4& qv, int4 (&bv)[G], const int* qw, const int* ww) {
+      qv = *reinterpret_cast<const int4*>(qw);
 #pragma unroll
       for (int g = 0; g < G; ++g) bv[g] = *reinterpret_cast<const int4*>(ww + 128 * g);
     };
-    auto dp4a_w = [&](const int4 (&qv)[RM / 4], const int4 (&bv)[G]) {
+    auto dp4a_w = [&](const int4& qv, const int4 (&bv)[G]) {
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const int x = lane4(qv[i / 4], i % 4);
+        for (int i = 0; i < 4; ++i) {
+          const int x = lane4(qv, i);
           acc[g][i][0] = __dp4a(x, bv[g].x, acc[g][i][0]);
           acc[g][i][1] = __dp4a(x, bv[g].y, acc[g][i][1]);
           acc[g][i][2] = __dp4a(x, bv[g].z, acc[g][i][2]);
@@ -587,7 +585,7 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   // the epilogues get a thread's block of rows row0 .. row0 + RM - 1 and
   // columns col .. col + 3 (gemm_f32 / gemm_i8); each loads what it reads
   // first
-  constexpr int RM = Tile<ROWS, 4>::RM;
+  constexpr int RM = 4;  // rows per thread of a product pass (Tile)
   int* istage = reinterpret_cast<int*>(stage);
   if (a.gamma == GAMMA_GIN) {
     // hidden = relu(tower @ w1 + b1), kept in shared memory (H1 x ROWS)
