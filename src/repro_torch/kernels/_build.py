@@ -5,6 +5,8 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``build/repro_torch/`` at the repository
 root, named by a hash of the source and the flags, and are built at first
 use; :func:`build` compiles several sources in parallel, one ``nvcc`` each.
+``defines`` (``-D`` names, e.g. ``FUSED_MP_PHASES`` for the phase marks
+of ``kernels/fused_mp_phases.py``) build a separate library of a source.
 A failed build raises with the compiler's output — there is no fallback.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -30,7 +32,7 @@ NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 
 
 def device_scope(device):
@@ -78,29 +80,34 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Iterable[str]) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Iterable[str] = ()) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def nvcc_command(name: str, out: Path) -> list:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+def nvcc_command(name: str, out: Path, defines: Iterable[str] = ()) -> list:
+    return [nvcc_path(), *_flags(defines), "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+def build(names: Iterable[str] = SOURCES, defines: Iterable[str] = ()) -> Dict[str, str]:
     """Compile every missing library of ``names`` in parallel; returns
     ``{name: compiler output}`` for the sources built in this call
     (``-Xptxas -v`` reports registers, shared memory and spills)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    defines = tuple(defines)
     procs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         procs[name] = (tmp, out, subprocess.Popen(
-            nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            nvcc_command(name, tmp, defines), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True,
         ))
     logs, failed = {}, []
@@ -117,15 +124,18 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
-def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (built if missing), with
-    ``signatures`` ``{function: (restype, argtypes)}`` declared on it."""
-    lib = _loaded.get(name)
+def load(name: str, signatures: Dict[str, tuple],
+         defines: Iterable[str] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` built with ``defines``
+    (built if missing), with ``signatures`` ``{function: (restype,
+    argtypes)}`` declared on it."""
+    defines = tuple(defines)
+    lib = _loaded.get((name, defines))
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        build([name], defines)
+        lib = ctypes.CDLL(str(library_path(name, defines)))
         for fn, (restype, argtypes) in signatures.items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = list(argtypes)
-        _loaded[name] = lib
+        _loaded[(name, defines)] = lib
     return lib

@@ -102,6 +102,30 @@ struct Args {
   int phi, ops, gamma, int8;
 };
 
+// Phase marks, built only with -DFUSED_MP_PHASES (kernels/fused_mp_phases.py):
+// thread 0 of each of the first MARK_BLOCKS blocks records %globaltimer at
+// the block's start (0), after the dead-tile check (1), the CSR walk (2),
+// the tower (3) and the int8 tile (4), before gamma's last product (5) and
+// at the end (6).  Without the define they compile to nothing.
+#ifdef FUSED_MP_PHASES
+constexpr int MARK_BLOCKS = 1024;
+__device__ unsigned long long phase_marks[MARK_BLOCKS][8];
+__device__ __forceinline__ void phase_mark(int i) {
+  if (threadIdx.x == 0 && blockIdx.x < MARK_BLOCKS) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    phase_marks[blockIdx.x][i] = t;
+  }
+}
+__device__ __forceinline__ void phase_end() {
+  __syncthreads();
+  phase_mark(6);
+}
+#else
+__device__ __forceinline__ void phase_mark(int) {}
+__device__ __forceinline__ void phase_end() {}
+#endif
+
 __device__ __forceinline__ int slot_of(int ops, int bit) {
   return __popc(ops & (bit - 1));
 }
@@ -375,6 +399,7 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   const int lo = blockIdx.x * ROWS;
   const int rows = min(ROWS, a.n - lo);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  phase_mark(0);
 
   // ---- a tile with no live row: its zeros, and nothing else ----
   const bool live_row = threadIdx.x < rows && a.mask[lo + threadIdx.x];
@@ -393,6 +418,7 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   float* rs = hidden + a.h1 * PR;               // ROWS row scales (int8)
   int* qtile = reinterpret_cast<int*>(rs + (a.int8 ? ROWS : 0));  // kq x PR (int8)
   float* stage = reinterpret_cast<float*>(qtile + (a.int8 ? kq * PR : 0));  // weight slices
+  phase_mark(1);
 
   // ---- phase 1: walk each destination's CSR range, phi + accumulate ----
   for (int r = warp; r < ROWS; r += WARPS) {
@@ -442,6 +468,7 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   }
   __syncthreads();
 
+  phase_mark(2);
   const float* sum = acc_base + slot_of(a.ops, OP_SUM) * ROWS * F;
 
   // ---- phase 2: gamma on the tile ----
@@ -543,6 +570,7 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
     }
   }
   __syncthreads();
+  phase_mark(3);
 
   if (a.int8) {
     // per-row exact-range quantization of the tower: thread t takes row
@@ -582,6 +610,7 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
     __syncthreads();
   }
 
+  phase_mark(4);
   // the epilogues get a thread's block of rows row0 .. row0 + RM - 1 and
   // columns col .. col + 3 (gemm_f32 / gemm_i8); each loads what it reads
   // first
@@ -621,6 +650,7 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
                         });
     }
     __syncthreads();
+    phase_mark(5);
     product_f32<ROWS>(hidden, PR, a.h1, a.w2, a.f_out, stage,
                       [&](int row0, int col, const float (&acc)[RM][4]) {
                         float bias[4];
@@ -638,9 +668,11 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
                               a.out[(size_t)(lo + r) * a.f_out + c] = keep[i] ? acc[i][j] + bias[j] : 0.f;
                           }
                       });
+    phase_end();
     return;
   }
   // pna / dgn: out = relu(tower @ w1 + b1) + x_res
+  phase_mark(5);
   auto residual = [&](int row0, int col, const float (&y)[RM][4]) {
     float xr[RM][4];
     bool keep[RM];
@@ -690,6 +722,7 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
                         residual(row0, col, y);
                       });
   }
+  phase_end();
 }
 
 // Dynamic shared memory one block of `rows` destinations needs, in bytes
@@ -758,3 +791,10 @@ extern "C" int fused_mp_launch(
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   return rows == 32 ? launch<32>(a, smem, dev, stream) : launch<16>(a, smem, dev, stream);
 }
+
+#ifdef FUSED_MP_PHASES
+// The phase marks of the last launches (MARK_BLOCKS x 8 nanosecond stamps).
+extern "C" int fused_mp_read_marks(unsigned long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, phase_marks, sizeof(phase_marks));
+}
+#endif

@@ -44,6 +44,9 @@ STAGE_WORDS = 4096
 
 launches = 0
 int8_launches = 0  # the launches among them with gamma's int8 linear
+# -D names of the library the wrapper launches: ("FUSED_MP_PHASES",) makes
+# each block record its phase times (kernels/fused_mp_phases.py)
+defines: tuple = ()
 
 _SIGNATURES = {
     "fused_mp_launch": (
@@ -160,7 +163,7 @@ def fused_mp(
     out = torch.empty((n, f_out), dtype=f32, device=dev)
     if n == 0:
         return out
-    lib = _build.load("fused_mp", _SIGNATURES)
+    lib = _build.load("fused_mp", _SIGNATURES, defines)
     ptr = lambda t: None if t is None else t.data_ptr()
     uses_nop = spec.gamma != "gin"
     with _build.device_scope(dev):

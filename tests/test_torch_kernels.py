@@ -250,6 +250,26 @@ def test_build_targets_hopper_and_names_by_content():
         assert path.parent == _build.BUILD_DIR and path == _build.library_path(name)
 
 
+def test_build_defines_name_a_separate_library(monkeypatch, tmp_path):
+    """``-D`` names (the fused_mp phase marks) build their own library of a
+    source; without them the served library is unchanged."""
+    marks = ("FUSED_MP_PHASES",)
+    assert _build.library_path("fused_mp", marks) != _build.library_path("fused_mp")
+    (tmp_path / "bin").mkdir()
+    (tmp_path / "bin" / "nvcc").write_text("")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    cmd = _build.nvcc_command("fused_mp", tmp_path / "x.so", marks)
+    assert "-DFUSED_MP_PHASES" in cmd
+    assert "-DFUSED_MP_PHASES" not in _build.nvcc_command("fused_mp", tmp_path / "x.so")
+
+
+def test_fused_mp_phases_needs_a_card(capsys):
+    from repro_torch.kernels import fused_mp_phases
+
+    assert fused_mp_phases.main() == 1
+    assert "CUDA" in capsys.readouterr().err
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
