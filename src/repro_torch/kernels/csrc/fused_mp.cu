@@ -19,8 +19,9 @@
 //
 // Design: the TPU kernel streams edge blocks past resident node blocks and
 // reduces with a one-hot MXU matmul; on Hopper that matmul is wasted work.
-// Here each block owns a tile of ROWS destination nodes (32, or 16 where 32
-// rows' shared memory would pass 227 KB: rows_for) and walks the CSR ranges
+// Here each block owns a tile of ROWS destination nodes (rows_for: 32 where
+// gamma has a linear and 32 rows fit 227 KB of shared memory, else 16) and
+// walks the CSR ranges
 // offsets[d]..offsets[d+1] of the shared GraphLayout plan: one warp per
 // destination, lanes along F, accumulators in registers.  No two blocks
 // share a destination, so there are no atomics, and each destination's sum
@@ -61,7 +62,9 @@
 // __dp4a accumulates q x w1 in int32, exact in any order; the epilogue is
 // relu((float)acc * (rs * s1[c]) + b1[c]), the order of the JAX kernel's
 // tail.  |acc| <= 127 * 128 * K1 stays below 2^24 for K1 <= 1032 (PNA: 960),
-// so the conversion to float is exact.  Depth past K1 is zero in both
+// so the conversion to float is exact; deeper, __int2float_rn rounds it to
+// nearest even, as the plain version's exact sum does when it is converted
+// to float.  Depth past K1 is zero in both
 // operands.  GIN's second linear stays fp32 over the dequantized w2, through
 // gemm_f32; PNA and DGN add the residual.  GCN's gamma has no linear, so the
 // precision changes nothing there.
@@ -391,7 +394,9 @@ __device__ __forceinline__ float dequant_relu(int acc, float rs, float s, float 
   return fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(rs, s)), bias), 0.f);
 }
 
-template <int ROWS>
+// LINEAR false is GCN's instance: gamma has no product, so none of the
+// products' registers are held and more blocks share an SM.
+template <int ROWS, bool LINEAR>
 __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   const int F = a.f;
@@ -472,7 +477,7 @@ __global__ void __launch_bounds__(THREADS) fused_mp_kernel(const Args a) {
   const float* sum = acc_base + slot_of(a.ops, OP_SUM) * ROWS * F;
 
   // ---- phase 2: gamma on the tile ----
-  if (a.gamma == GAMMA_GCN) {
+  if (!LINEAR || a.gamma == GAMMA_GCN) {
     for (int idx = threadIdx.x; idx < rows * a.fr; idx += THREADS) {
       const int r = idx / a.fr, j = idx % a.fr, d = lo + r;
       const float v = (sum[r * F + j] + a.x_res[(size_t)d * a.fr + j]) * a.nop[(size_t)d * a.p];
@@ -739,9 +744,12 @@ long long smem_bytes(int f, int ops, int k1, int h1, int int8, int rows) {
   return 4 * words;
 }
 
-// Destinations per block: 32, or 16 where 32 rows' shared memory would pass
-// the limit (kernels/fused_mp.py:rows_for mirrors it).
+// Destinations per block (kernels/fused_mp.py:rows_for mirrors it): 16 for a
+// gamma with no linear (GCN), which gains nothing from a wider tile while
+// each warp would walk twice as many destinations; else 32, or 16 where 32
+// rows' shared memory would pass the limit.
 int rows_for(int f, int ops, int k1, int h1, int int8) {
+  if (k1 == 0) return 16;
   return smem_bytes(f, ops, k1, h1, int8, 32) <= MAX_SMEM ? 32 : 16;
 }
 
@@ -749,18 +757,18 @@ int rows_for(int f, int ops, int k1, int h1, int int8) {
 // the opt-in (cudaFuncSetAttribute) is made only when a launch needs more,
 // so the common call pays for no attribute call.
 constexpr int MAX_DEVICES = 64;
-long long smem_opted[2][MAX_DEVICES] = {};
+long long smem_opted[3][MAX_DEVICES] = {};
 
-template <int ROWS>
+template <int ROWS, bool LINEAR>
 int launch(const Args& a, long long smem, int dev, cudaStream_t stream) {
-  long long& opted = smem_opted[ROWS == 32][dev];
+  long long& opted = smem_opted[LINEAR ? 1 + (ROWS == 32) : 0][dev];
   if (smem > opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_mp_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_mp_kernel<ROWS, LINEAR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted = smem;
   }
-  fused_mp_kernel<ROWS><<<(a.n + ROWS - 1) / ROWS, THREADS, (size_t)smem, stream>>>(a);
+  fused_mp_kernel<ROWS, LINEAR><<<(a.n + ROWS - 1) / ROWS, THREADS, (size_t)smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -789,7 +797,9 @@ extern "C" int fused_mp_launch(
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  return rows == 32 ? launch<32>(a, smem, dev, stream) : launch<16>(a, smem, dev, stream);
+  if (gamma == GAMMA_GCN) return launch<16, false>(a, smem, dev, stream);
+  return rows == 32 ? launch<32, true>(a, smem, dev, stream)
+                    : launch<16, true>(a, smem, dev, stream);
 }
 
 #ifdef FUSED_MP_PHASES

@@ -14,10 +14,12 @@ memory per spec, launches on the current stream and raises if the launch
 fails.  ``launches`` counts the launches it made, ``int8_launches`` those
 of them that ran the int8 gamma; a graph with no node launches nothing.
 
-A block owns ``rows_for(...)`` destinations (32, or 16 where 32 rows'
-shared memory would pass ``MAX_SMEM_BYTES``); the kernel picks the same
-with the same function of the spec, and :func:`smem_bytes` mirrors its
-shared-memory layout.
+A block owns ``rows_for(...)`` destinations (32 where gamma has a linear
+and 32 rows' shared memory fits ``MAX_SMEM_BYTES``, else 16); the kernel
+picks the same with the same function of the spec, and :func:`smem_bytes`
+mirrors its shared-memory layout.  :func:`launch_args` checks a layer's
+operands and :func:`launch` launches it; :func:`fused_mp` does both and
+counts the launch.
 """
 from __future__ import annotations
 
@@ -37,16 +39,13 @@ REQUIRED_OPS = {
 }
 MAX_FEATURES = 256  # 32 lanes x 8 registers per destination warp
 MAX_SMEM_BYTES = 232_448  # 227 KB of dynamic shared memory per block
-ROWS = (32, 16)  # destinations per block, the first whose shared memory fits
+ROWS = (32, 16)  # destinations per block (rows_for)
 # 32-bit words of one staged fp32 weight slice of gamma's products (an int8
 # slice takes half); two slices are staged at a time, as in csrc/fused_mp.cu
 STAGE_WORDS = 4096
 
 launches = 0
 int8_launches = 0  # the launches among them with gamma's int8 linear
-# -D names of the library the wrapper launches: ("FUSED_MP_PHASES",) makes
-# each block record its phase times (kernels/fused_mp_phases.py)
-defines: tuple = ()
 
 _SIGNATURES = {
     "fused_mp_launch": (
@@ -61,13 +60,16 @@ def _check(name, t, device, dtype, shape):
 
 
 def smem_bytes(f: int, n_ops: int, k1: int, h1: int, int8: bool = False,
-               rows: int = ROWS[0]) -> int:
-    """Dynamic shared memory one block of ``rows`` destinations needs: a
+               rows: int | None = None) -> int:
+    """Dynamic shared memory one block of ``rows`` destinations (by default
+    ``rows_for`` the spec) needs: a
     rows x F fp32 table per accumulator; gamma's input (K1 deep) and GIN's
     hidden layer (H1 deep), k-major at rows + 4 words a k; for int8 the row
     scales and the int8 tile (four k to a word, rows + 4 words a word); and
     two staged weight slices, fp32 or (when every product of gamma is int8)
     int8 (``csrc/fused_mp.cu:smem_bytes``)."""
+    if rows is None:
+        rows = rows_for(f, n_ops, k1, h1, int8)
     pr = rows + 4
     words = rows * n_ops * f + pr * (k1 + h1)
     if int8:
@@ -78,13 +80,17 @@ def smem_bytes(f: int, n_ops: int, k1: int, h1: int, int8: bool = False,
 
 
 def rows_for(f: int, n_ops: int, k1: int, h1: int, int8: bool = False) -> int:
-    """Destinations per block for a spec: the first of ``ROWS`` whose
-    shared memory fits (``csrc/fused_mp.cu:rows_for``)."""
+    """Destinations per block for a spec (``csrc/fused_mp.cu:rows_for``):
+    16 for a gamma with no linear (GCN), whose tile gains nothing from more
+    rows and whose walk would run twice as many destinations a warp; else
+    the first of ``ROWS`` whose shared memory fits."""
+    if k1 == 0:
+        return ROWS[-1]
     return next((r for r in ROWS if smem_bytes(f, n_ops, k1, h1, int8, r)
                  <= MAX_SMEM_BYTES), ROWS[-1])
 
 
-def fused_mp(
+def launch_args(
     spec,
     offsets: torch.Tensor,
     src_sorted: torch.Tensor,
@@ -100,9 +106,13 @@ def fused_mp(
     w1_scale: torch.Tensor | None = None,
     w2: torch.Tensor | None = None,
     b2: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """One fused message-passing layer on CUDA tensors -> (N, F_out)."""
-    global launches, int8_launches
+):
+    """Check one layer's operands (CUDA tensors, :func:`fused_mp`'s
+    contract) and allocate its output: ``(out, int8, args)``, ``int8``
+    whether gamma runs its int8 linear and ``args`` the arguments of the C
+    entry point ``fused_mp_launch`` but the stream.  Raises for an operand
+    that breaks the contract, F past ``MAX_FEATURES`` or a block past
+    ``MAX_SMEM_BYTES``."""
     dev = msrc.device
     if dev.type != "cuda":
         raise ValueError(f"fused_mp kernel needs CUDA tensors, got {dev}")
@@ -154,38 +164,68 @@ def fused_mp(
         p = nop.shape[1]
     ops = set(spec.ops)
     ops_bits = sum(OP_BITS[op] for op in ops)
-    smem = smem_bytes(f, len(ops), k1, h1, int8, rows_for(f, len(ops), k1, h1, int8))
+    smem = smem_bytes(f, len(ops), k1, h1, int8)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"fused_mp: spec {spec} at F={f} needs {smem} bytes of shared "
             f"memory per block, more than {MAX_SMEM_BYTES}"
         )
     out = torch.empty((n, f_out), dtype=f32, device=dev)
-    if n == 0:
-        return out
-    lib = _build.load("fused_mp", _SIGNATURES, defines)
     ptr = lambda t: None if t is None else t.data_ptr()
     uses_nop = spec.gamma != "gin"
-    with _build.device_scope(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_mp_launch(
-            offsets.data_ptr(), src_sorted.data_ptr(), msrc.data_ptr(),
-            x_res.data_ptr(), ptr(nop) if uses_nop else None,
-            ptr(eop) if spec.phi == "add_relu" else None,
-            ptr(ew) if "wsum" in spec.ops else None,
-            in_degree.data_ptr(), node_mask.data_ptr(),
-            ptr(w1) if spec.gamma != "gcn" else None,
-            ptr(b1) if spec.gamma != "gcn" else None,
-            ptr(w1_scale) if int8 else None,
-            ptr(w2) if spec.gamma == "gin" else None,
-            ptr(b2) if spec.gamma == "gin" else None,
-            out.data_ptr(),
-            n, f, fr, p, k1, h1, f_out,
-            PHI_CODES[spec.phi], ops_bits, GAMMA_CODES[spec.gamma], int(int8),
-            stream,
-        )
+    args = (
+        offsets.data_ptr(), src_sorted.data_ptr(), msrc.data_ptr(),
+        x_res.data_ptr(), ptr(nop) if uses_nop else None,
+        ptr(eop) if spec.phi == "add_relu" else None,
+        ptr(ew) if "wsum" in spec.ops else None,
+        in_degree.data_ptr(), node_mask.data_ptr(),
+        ptr(w1) if spec.gamma != "gcn" else None,
+        ptr(b1) if spec.gamma != "gcn" else None,
+        ptr(w1_scale) if int8 else None,
+        ptr(w2) if spec.gamma == "gin" else None,
+        ptr(b2) if spec.gamma == "gin" else None,
+        out.data_ptr(),
+        n, f, fr, p, k1, h1, f_out,
+        PHI_CODES[spec.phi], ops_bits, GAMMA_CODES[spec.gamma], int(int8),
+    )
+    return out, int8, args
+
+
+def launch(lib, out: torch.Tensor, args: tuple) -> None:
+    """Launch ``fused_mp_launch`` of the loaded library ``lib`` with
+    :func:`launch_args`' ``args`` on the current stream of ``out``'s
+    device; raises if the launch fails.  Counts nothing."""
+    with _build.device_scope(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.fused_mp_launch(*args, stream)
     if err != 0:
         raise RuntimeError(f"fused_mp launch failed: cudaError_t {err}")
+
+
+def fused_mp(
+    spec,
+    offsets: torch.Tensor,
+    src_sorted: torch.Tensor,
+    in_degree: torch.Tensor,
+    node_mask: torch.Tensor,
+    msrc: torch.Tensor,
+    x_res: torch.Tensor,
+    nop: torch.Tensor | None = None,
+    eop: torch.Tensor | None = None,
+    ew: torch.Tensor | None = None,
+    w1: torch.Tensor | None = None,
+    b1: torch.Tensor | None = None,
+    w1_scale: torch.Tensor | None = None,
+    w2: torch.Tensor | None = None,
+    b2: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One fused message-passing layer on CUDA tensors -> (N, F_out)."""
+    global launches, int8_launches
+    out, int8, args = launch_args(spec, offsets, src_sorted, in_degree, node_mask,
+                                  msrc, x_res, nop, eop, ew, w1, b1, w1_scale, w2, b2)
+    if out.shape[0] == 0:
+        return out
+    launch(_build.load("fused_mp", _SIGNATURES), out, args)
     launches += 1
     int8_launches += int8
     return out

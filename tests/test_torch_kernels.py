@@ -188,15 +188,16 @@ def test_wrappers_refuse_cpu_tensors_and_int8():
 
 
 @pytest.mark.parametrize("gamma, f, n_ops, k1, h1, want", [
-    ("gcn", 100, 1, 0, 0, 12_800),
+    ("gcn", 100, 1, 0, 0, 6_400),
     ("gin", 100, 1, 100, 200, 12_800 + 43_200 + 32_768),
     ("pna", 80, 4, 12 * 80, 0, 40_960 + 138_240 + 32_768),
     ("dgn", 100, 2, 3 * 100, 0, 25_600 + 43_200 + 32_768),
 ])
 def test_fused_mp_shared_memory_fits_paper_widths(gamma, f, n_ops, k1, h1, want):
     """Every fp32 gamma at its paper width fits one block's shared memory at
-    32 rows: the accumulators; the tower and GIN's hidden layer k-major at
-    36 words a k (K1 + H1 = 300, 960, 300); two staged 16 KB weight slices."""
+    its rows (gcn 16, the others 32): the accumulators; the tower and GIN's
+    hidden layer k-major at 36 words a k (K1 + H1 = 300, 960, 300); two
+    staged 16 KB weight slices."""
     got = FM.smem_bytes(f, n_ops, k1, h1)
     assert got == want <= FM.MAX_SMEM_BYTES
 
@@ -221,11 +222,13 @@ def test_fused_mp_int8_shared_memory_fits_paper_widths(gamma, f, n_ops, k1, h1,
     ("pna", 80, 4, 12 * 80, 0), ("dgn", 100, 2, 3 * 100, 0),
 ])
 def test_fused_mp_paper_widths_take_32_rows(gamma, f, n_ops, k1, h1, int8):
-    """Every paper-width gamma, in both precisions, runs 32 destinations per
-    block within 232,448 bytes (gcn has no int8 linear)."""
+    """Every paper-width gamma with a linear, in both precisions, runs 32
+    destinations per block within 232,448 bytes; gcn, whose gamma has no
+    product to widen (and no int8 linear), keeps 16."""
     int8 = int8 and gamma != "gcn"
-    assert FM.rows_for(f, n_ops, k1, h1, int8) == 32
-    assert FM.smem_bytes(f, n_ops, k1, h1, int8, 32) <= FM.MAX_SMEM_BYTES == 232_448
+    rows = 16 if gamma == "gcn" else 32
+    assert FM.rows_for(f, n_ops, k1, h1, int8) == rows
+    assert FM.smem_bytes(f, n_ops, k1, h1, int8, rows) <= FM.MAX_SMEM_BYTES == 232_448
 
 
 @pytest.mark.parametrize("int8, want", [(False, 25_600 + 96_000 + 32_768),
@@ -263,11 +266,21 @@ def test_build_defines_name_a_separate_library(monkeypatch, tmp_path):
     assert "-DFUSED_MP_PHASES" not in _build.nvcc_command("fused_mp", tmp_path / "x.so")
 
 
-def test_fused_mp_phases_needs_a_card(capsys):
+@pytest.mark.parametrize("argv", [[], ["--times"], ["--fma"]])
+def test_fused_mp_phases_needs_a_card(capsys, argv):
     from repro_torch.kernels import fused_mp_phases
 
-    assert fused_mp_phases.main() == 1
+    assert fused_mp_phases.main(argv) == 1
     assert "CUDA" in capsys.readouterr().err
+
+
+def test_fused_mp_wrapper_has_one_library():
+    """The served wrapper loads only the plain build of fused_mp.cu: the
+    phase tool launches its marked build through ``launch_args`` /
+    ``launch`` and nothing in the wrapper selects a library."""
+    assert not hasattr(FM, "defines")
+    assert (_build.CSRC / "fma_probe.cu").is_file()
+    assert "fma_probe" not in _build.SOURCES
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
