@@ -17,12 +17,13 @@ then runs these phases, one line each:
               variant ``node_mlp.variant`` names (narrow at N = 1, shallow
               at K 3 and 9, tiled at K 100 and 200)
   3. fused_mp kernel vs plain version for every fp32 gamma at the paper
-              widths, N = 4096, E = 12288, with isolated nodes, padding
-              edges and an all-padding edge list, then one graph at each
-              N of TILE_CASES: 1, 31, 33 and 4097 cut a 32-row tile, and
-              1000 real nodes of 4096 leave 96 tiles all padding (same
-              tolerance; PNA 5e-3, whose std amplifies one rounding of
-              sqsum/c - mean^2)
+              widths (32 rows a block; GCN 16) and PNA at F = 100 (K1 1200:
+              16 rows a block, asserted), N = 4096, E = 12288, with
+              isolated nodes, padding edges and an all-padding edge list,
+              then one graph at each N of TILE_CASES: 1, 31, 33 and 4097
+              cut a 16- and a 32-row tile, and 1000 real nodes of 4096
+              leave their last tiles all padding (same tolerance; PNA 5e-3,
+              whose std amplifies one rounding of sqsum/c - mean^2)
   3b. segment_reduce  kernel vs plain version, all five ops at F in
               {1, 3, 64, 100} on the same graphs (same tolerance)
   3c. edge_softmax    kernel vs plain version at H in {1, 4}, logits
@@ -49,13 +50,14 @@ then runs these phases, one line each:
               1e-6 |plain|); with scale 1 and bias 0 the output is the
               exact integer product (int64)
   3e. fused_mp int8   kernel vs plain version for the int8 gammas gin
-              (F=100, H=200), pna (F=80), dgn (F=100) at N = 4096, E =
-              12288 (+ all-padding edges) and on phase 3's TILE_CASES, on
-              operands whose aggregates are exact in fp32: PNA and DGN bit
-              for bit, GIN within 2e-5 (on TILE_CASES within phase 3's
-              tolerance: cuBLAS sums the plain version's fp32 second linear
-              in another order at small M) and bit for bit on probe weights
-              that output q * rs
+              (F=100, H=200), pna (F=80, and F=100 on 16 rows a block), dgn
+              (F=100) at N = 4096, E = 12288 (+ all-padding edges) and on
+              phase 3's TILE_CASES, on operands whose aggregates are exact
+              in fp32: PNA and DGN bit for bit, GIN within 2e-5 (at N < 4096
+              of the plain version run with padding nodes up to 4096 rows
+              and cut back: cuBLAS sums its fp32 second linear in another
+              order at small M) and bit for bit on probe weights that output
+              q * rs
   7. int8     all six models served in int8 (W8A8, dynamic per-node
               scales) with ``fused=True``: GIN streamed and packed, the
               others streamed; each against the same engine in
@@ -104,8 +106,8 @@ then runs these phases, one line each:
               library call's (node_mlp: ``torch.addmm`` + relu;
               segment_reduce: ``torch.segment_reduce``; quant_node_mlp:
               ``torch._int_mm`` + the epilogue in torch) and the card's
-              bound (fused_mp fp32 at GIN's and PNA's shapes, int8 at
-              GIN's and PNA's, each with its destinations per block and
+              bound (fused_mp fp32 at GIN's, PNA's and GCN's shapes, int8
+              at GIN's and PNA's, each with its destinations per block and
               its live tiles); flash_attention at ChatGLM3's prefill shape and at
               Gemma-3's global layer (bf16, causal) against
               ``scaled_dot_product_attention``, and there the CUDA-core
@@ -164,9 +166,14 @@ TIMING_REPS = 50
 # GIN's linears as (K, N): encoder, edge embedding, MLP in/out, head
 GIN_LINEARS = ((9, 100), (3, 100), (100, 200), (200, 100), (100, 1))
 PACKED = dict(n_pad=4096, e_pad=12288, g_pad=128)
-# (n_pad, n_real) of one graph: N that cuts fused_mp's 32-row tile, and a
-# graph whose last tiles hold only padding rows
+# (n_pad, n_real) of one graph: N that cuts fused_mp's 16- and 32-row
+# tiles, and a graph whose last tiles hold only padding rows
 TILE_CASES = ((1, 1), (31, 31), (33, 33), (4097, 4097), (4096, 1000))
+# (gamma, F) of the fused_mp checks: the paper widths (32 rows a block, GCN
+# 16), and PNA at F = 100 (K1 1200), whose 32 rows would pass 227 KB of
+# shared memory: 16 rows a block in both precisions
+FUSED_WIDTHS = (("gcn", 100), ("gin", 100), ("pna", 80), ("dgn", 100), ("pna", 100))
+INT8_FUSED_WIDTHS = (("gin", 100), ("pna", 80), ("dgn", 100), ("pna", 100))
 SEGMENT_OPS = ("sum", "mean", "sqsum", "max", "min")
 # the kernels each served path must launch, by precision (int8 paths keep
 # the fp32 head on node_mlp; fused_mp_int8 counts fused_mp's int8 gammas)
@@ -476,6 +483,14 @@ def tile_census(node_mask, f, n_ops, k1, h1, int8) -> dict:
     return dict(rows=rows, tiles=tiles, live_tiles=int(padded.view(tiles, rows).any(1).sum()))
 
 
+def check_sixteen_rows() -> None:
+    """PNA at F = 100 runs fused_mp's 16-row instance in both precisions."""
+    from repro_torch.kernels import fused_mp as FM
+
+    if any(FM.rows_for(100, 4, 1200, 0, int8) != 16 for int8 in (False, True)):
+        raise AssertionError("fused_mp: PNA at F=100 does not take 16 rows a block")
+
+
 def check_fused_mp(device) -> None:
     import torch
     from repro_torch.kernels import ops as kops
@@ -483,9 +498,9 @@ def check_fused_mp(device) -> None:
     rng = np.random.default_rng(2)
     gen = torch.Generator().manual_seed(3)
     cases = {}
-    widths = {"gcn": 100, "gin": 100, "pna": 80, "dgn": 100}
+    check_sixteen_rows()
     for what, g, lay in fused_graphs(rng, device):
-        for gamma, f in widths.items():
+        for gamma, f in FUSED_WIDTHS:
             spec, kw = fused_operands(gen, gamma, g.num_nodes, g.num_edges,
                                       f, device)
             args = (spec, lay.ids_sorted, lay.offsets, lay.src_sorted,
@@ -499,9 +514,11 @@ def check_fused_mp(device) -> None:
             if (not close(got, want, tol) or not torch.isfinite(got).all()
                     or (bool(padded.any()) and bool(got[padded].abs().max() != 0))):
                 raise AssertionError(
-                    f"fused_mp {gamma} ({what}): max err {max_err(got, want):.3g}")
-            cases[gamma] = max(cases.get(gamma, 0.0), max_err(got, want))
-    print(f"[fused_mp] gcn/gin(F=100,H=200)/pna(F=80)/dgn(F=100) at N=4096, "
+                    f"fused_mp {gamma} F={f} ({what}): max err {max_err(got, want):.3g}")
+            key = f"{gamma}{f}"
+            cases[key] = max(cases.get(key, 0.0), max_err(got, want))
+    print(f"[fused_mp] gcn/gin(F=100,H=200)/pna(F=80; F=100 on 16 rows a block)/"
+          f"dgn(F=100) at N=4096, "
           f"E=12288 (+ all-padding edges), and at N (real) "
           f"{', '.join(f'{a} ({b})' for a, b in TILE_CASES)}, match the plain "
           f"version, max err {' '.join(f'{k}:{v:.2g}' for k, v in cases.items())}")
@@ -661,6 +678,27 @@ def gin_probe(f: int, device) -> dict:
                 b2=torch.zeros(f, device=device))
 
 
+def plain_at_height(args, kw, height: int):
+    """The plain ``fused_mp`` of a graph of N < ``height`` nodes, computed
+    with ``height - N`` isolated padding nodes appended and cut back to its
+    N rows: the same function of the same operands on those rows, with its
+    fp32 products at M = ``height``.  cuBLAS sums a product in another order
+    at small M (its small-M kernels) than at the packed plan's 4096 rows,
+    where GIN's fp32 second linear matches the kernel's K order."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    spec, ids, offsets, src, deg, mask = args
+    n, extra = deg.shape[0], height - deg.shape[0]
+    grow = lambda t: torch.cat([t, t.new_zeros((extra,) + tuple(t.shape[1:]))])
+    node_operands = ("msrc", "x_res", "nop")
+    want = kops.fused_mp(
+        spec, torch.where(ids >= n, torch.full_like(ids, height), ids),
+        torch.cat([offsets, offsets[-1:].expand(extra)]), src, grow(deg), grow(mask),
+        mode="reference", **{k: grow(v) if k in node_operands else v for k, v in kw.items()})
+    return want[:n]
+
+
 def check_fused_mp_int8(device) -> None:
     import torch
     from repro_torch.kernels import ops as kops
@@ -668,9 +706,9 @@ def check_fused_mp_int8(device) -> None:
     rng = np.random.default_rng(13)
     gen = torch.Generator().manual_seed(14)
     cases = {}
-    widths = {"gin": 100, "pna": 80, "dgn": 100}
+    check_sixteen_rows()
     for graph, g, lay in fused_graphs(rng, device):
-        for gamma, f in widths.items():
+        for gamma, f in INT8_FUSED_WIDTHS:
             spec, kw = exact_int8_operands(gen, gamma, g.num_nodes, g.num_edges,
                                            f, device)
             args = (spec, lay.ids_sorted, lay.offsets, lay.src_sorted,
@@ -679,27 +717,28 @@ def check_fused_mp_int8(device) -> None:
             if gamma == "gin":
                 variants.append(("probe", dict(kw, **gin_probe(f, device))))
             for what, operands in variants:
-                name = f"fused_mp int8 {gamma} {what} ({graph})"
+                name = f"fused_mp int8 {gamma} F={f} {what} ({graph})"
                 got = kops.fused_mp(*args, mode="kernel", **operands)
                 want = kops.fused_mp(*args, mode="reference", **operands)
                 if gamma == "gin" and what == "random":
-                    # GIN's second linear is fp32: at the padded 4096 x 12288
-                    # graph JAX's 2e-5; at TILE_CASES' N the plain version's
-                    # cuBLAS call sums it in another order (its small-M
-                    # kernels), so phase 3's fp32 tolerance for that linear
-                    tile = graph.startswith("N=")
-                    err = checked_err(name, got, want, TOL if tile else INT8_TOL)
+                    # GIN's second linear is fp32: within JAX's 2e-5; at the
+                    # TILE_CASES' small N against the plain version run at
+                    # the packed plan's height (plain_at_height)
+                    if g.num_nodes < PACKED["n_pad"]:
+                        want = plain_at_height(args, operands, PACKED["n_pad"])
+                    err = checked_err(name, got, want, INT8_TOL)
                 else:
                     err = checked_err(name, got, want, dict(rtol=0.0, atol=0.0))
                 if (~g.node_mask).any() and bool(got[~g.node_mask].abs().max() != 0):
                     raise AssertionError(f"{name}: a padded node row is not 0")
-                key = f"{gamma}/{what}"
+                key = f"{gamma}{f}/{what}"
                 cases[key] = max(cases.get(key, 0.0), err)
-    print(f"[fused_mp int8] gin(F=100,H=200)/pna(F=80)/dgn(F=100) at N=4096, "
+    print(f"[fused_mp int8] gin(F=100,H=200)/pna(F=80; F=100 on 16 rows a block)/"
+          f"dgn(F=100) at N=4096, "
           f"E=12288 (+ all-padding edges), and at N (real) "
           f"{', '.join(f'{a} ({b})' for a, b in TILE_CASES)}, exact aggregates: "
           f"pna, dgn and the gin probe (q * rs) bit for bit, gin within 2e-5 "
-          f"(at the TILE_CASES 1e-5 + 1e-5 |plain|), "
+          f"(at N < 4096 of the plain version run at 4096 rows), "
           f"max err {' '.join(f'{k}:{v:.2g}' for k, v in cases.items())}")
 
 
@@ -1202,8 +1241,8 @@ def time_node_mlp(device, packed, launches: int, by_variant: dict) -> dict:
 
 def time_fused_mp(device, packed, lay, launches: int) -> dict:
     """The fp32 ``fused_mp`` at the packed plan's shapes: GIN (F=100, H=200),
-    the main row, and PNA (F=80, K1=960); no single library call computes a
-    fused layer."""
+    the main row, PNA (F=80, K1=960) and GCN (F=100); no single library
+    call computes a fused layer."""
     import torch
     from repro_torch.kernels import ops as kops
 
@@ -1212,7 +1251,7 @@ def time_fused_mp(device, packed, lay, launches: int) -> dict:
     n_real = int(packed.node_mask.sum())
     e_real = int(lay.offsets[-1])
     rows = []
-    for gamma, f in (("gin", 100), ("pna", 80)):
+    for gamma, f in (("gin", 100), ("pna", 80), ("gcn", 100)):
         spec, kw = fused_operands(gen, gamma, n, e, f, device)
         args = (spec, lay.ids_sorted, lay.offsets, lay.src_sorted, lay.in_degree,
                 packed.node_mask)
@@ -1229,6 +1268,11 @@ def time_fused_mp(device, packed, lay, launches: int) -> dict:
             nbytes = plan_b + 4.0 * (2 * n * f + e_real * f + f * h + h + h * f + f + n * f)
             flops = (3.0 * e_real * f + n_real * f + 2.0 * n_real * f * h
                      + 2.0 * n_real * h + 2.0 * n_real * h * f + n_real * f)
+        elif gamma == "gcn":
+            h, k1, n_ops = 0, 0, 1
+            nbytes = plan_b + 4.0 * (2 * n * f + n + n * f)  # msrc, x_res, nop, out
+            # the sum per edge; residual add and scale per node
+            flops = e_real * f + 2.0 * n_real * f
         else:
             h, k1, n_ops = 0, 12 * f, 4
             nbytes = plan_b + 4.0 * (2 * n * f + 3 * n + k1 * f + f + n * f)

@@ -74,8 +74,8 @@ def plan_arrays(rng, n_pad=40, e_pad=96):
     return plan
 
 
-# (n_pad, n_real) of one graph: N that cuts a 32-row tile, and a graph
-# whose last tiles hold only padding rows
+# (n_pad, n_real) of one graph: N that cuts a 16- and a 32-row tile, and a
+# graph whose last tiles hold only padding rows
 TILE_CASES = ((1, 1), (31, 31), (33, 33), (4097, 4097), (4096, 1000))
 
 
@@ -509,6 +509,36 @@ def test_fused_mp_int8_kernel_matches_plain(cuda, gamma):
             else:
                 np.testing.assert_array_equal(got, want)
             assert (got[~plan["node_mask"]] == 0).all()
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+def test_fused_mp_sixteen_row_tiles_match_plain(cuda, precision):
+    """PNA at F = 100 (K1 1200) passes 227 KB of shared memory at 32 rows,
+    so it runs the 16-row instance (half the threads in the products, 16
+    tile words a thread in the int8 row maxima).  fp32 within PNA's
+    tolerance; int8 on exact aggregates bit for bit.  The padded batch,
+    then ``TILE_CASES``' ragged and dead tiles."""
+    int8 = precision == "int8"
+    assert FM.rows_for(100, 4, 1200, 0, int8) == 16
+    rng = np.random.default_rng(11)
+    plans = [exact_plan_arrays(rng) if int8 else plan_arrays(rng)]
+    plans += [tile_plan_arrays(rng, *c, exact=int8) for c in TILE_CASES]
+    for plan in plans:
+        n, e = plan["in_degree"].shape[0], plan["ids_sorted"].shape[0]
+        make = exact_operands if int8 else spec_operands
+        (phi, ops, _), kw = make(rng, "pna", n, e, f=100)
+        spec = TMP.MPSpec(phi, ops, "pna", precision)
+        args = [to_t(plan[k], cuda) for k in PLAN_ARGS]
+        kw = {k: to_t(v, cuda) for k, v in kw.items()}
+        before = FM.launches, FM.int8_launches
+        got = kops.fused_mp(spec, *args, mode="kernel", **kw).cpu().numpy()
+        assert (FM.launches, FM.int8_launches) == (before[0] + 1, before[1] + int8)
+        want = kops.fused_mp(spec, *args, mode="reference", **kw).cpu().numpy()
+        if int8:
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert_close(got, want, PNA_TOL)
+        assert (got[~plan["node_mask"]] == 0).all()
 
 
 def test_int8_engine_on_card_matches_reference(cuda):
