@@ -24,7 +24,8 @@ entry points, so it also times another tree's package when run as a file:
 ``--fma`` runs ``csrc/fma_probe.cu``: the FMAs per clock per SM of the
 products' 4 x 4 register tiles (one and two column groups), operands read
 from shared memory as ``gemm_f32`` reads them or held in registers, at one
-and two blocks of 256 threads per SM.
+and two blocks of 256 threads per SM, and the SM clock over the launch
+(its cycles over its CUDA-event time).
 
 Needs one NVIDIA GPU; exits 1 without one.
 """
@@ -161,9 +162,13 @@ def fma(device) -> None:
                 blocks = sms * per_sm
                 out = torch.empty(blocks * 256, device=device)
                 cycles = torch.zeros(blocks, dtype=torch.int64, device=device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
                 for _ in range(2):  # the first launch warms up
+                    start.record()
                     err = lib.fma_probe_launch(g, smem, blocks, FMA_REPS, out.data_ptr(),
                                                cycles.data_ptr())
+                    end.record()
                     if err != 0:
                         raise RuntimeError(f"fma_probe launch failed: cudaError_t {err}")
                 torch.cuda.synchronize()
@@ -171,7 +176,8 @@ def fma(device) -> None:
                 clk = float(cycles.max())
                 print(json.dumps(dict(columns=128 * g, warps_per_sm=8 * per_sm,
                                       operands="shared" if smem else "registers",
-                                      fma_per_clk_per_sm=round(fmas / clk, 2))))
+                                      fma_per_clk_per_sm=round(fmas / clk, 2),
+                                      sm_ghz=round(clk / (start.elapsed_time(end) * 1e6), 3))))
 
 
 def main(argv=None) -> int:
