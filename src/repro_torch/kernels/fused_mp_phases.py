@@ -97,7 +97,9 @@ def phase_us(marks: np.ndarray) -> dict:
 
 def device_us(fn, reps: int = 50) -> float:
     """Median device time of one call of ``fn`` in microseconds, from the
-    CUDA records of ``torch.profiler`` over ``reps`` calls."""
+    CUDA records of ``torch.profiler`` over ``reps`` calls; when the
+    profiler drops records (it can drop one of a session's), the mean per
+    call over those it kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -111,9 +113,11 @@ def device_us(fn, reps: int = 50) -> float:
     durs = [e.time_range.elapsed_us() for e in
             sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                    key=lambda e: e.time_range.start)]
-    per_call, rem = divmod(len(durs), reps)
-    if per_call == 0 or rem:
-        raise RuntimeError(f"profiler kept {len(durs)} records of {reps} calls")
+    if not durs:
+        raise RuntimeError("the profiler recorded no device activity")
+    per_call = max(1, round(len(durs) / reps))
+    if len(durs) != per_call * reps:
+        return sum(durs) * per_call / len(durs)
     return statistics.median(sum(durs[i * per_call:(i + 1) * per_call])
                              for i in range(reps))
 
