@@ -5,9 +5,10 @@
 
 Needs one NVIDIA GPU (built for the H100: the kernels compile for
 ``sm_90a``) and the CUDA toolkit.  It builds the six CUDA kernel sources
-from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (in parallel; one
-``[build]`` line per source gives each kernel's registers and spill bytes),
-then runs these phases, one line each:
+from ``src/repro_torch/kernels/csrc`` and the latency probe with ``nvcc``
+(in parallel; one ``[build]`` line per source gives each kernel's registers
+and spill bytes; a spill in the segment kernels or the probe fails the
+run), then runs these phases, one line each:
 
   1. device   the card's name and power limit (``nvidia-smi``); TF32 off
   2. node_mlp kernel vs plain PyTorch version on the card, GIN's five
@@ -25,11 +26,23 @@ then runs these phases, one line each:
               leave their last tiles all padding (same tolerance; PNA 5e-3,
               whose std amplifies one rounding of sqsum/c - mean^2)
   3b. segment_reduce  kernel vs plain version, all five ops at F in
-              {1, 3, 64, 100} on the same graphs (same tolerance)
+              {1, 3, 6, 64, 100, 101} (a thread reads float4 at 64 and
+              100, float2 at 6, one float at 1, 3 and 101; F = 64 and 100
+              also from a view one float past a 16-byte boundary, which
+              takes the one-float path and must give the same bits) on
+              the same graphs and on a hub graph at N = 4096, E = 12288
+              (hubs of 300 and 1000 edges, degrees 0, 1, 16, 17 and 33, then
+              0-3; padding edges at the end) (same tolerance, the plain
+              version under PyTorch's deterministic algorithms so that its
+              ``index_add_`` sums in edge order as the kernel does); a
+              second launch gives the same bits
   3c. edge_softmax    kernel vs plain version at H in {1, 4}, logits
-              spread +-1 and +-80, on the same graphs (same tolerance);
-              each segment's weights sum to 1 within 1e-5, padding rows
-              are exactly 0
+              spread +-1 and +-80, on the same graphs and the hub graph,
+              whose segments take every path of the kernel (a thread up
+              to 16 edges, a warp from registers up to 512, a warp in
+              three passes past that) (same tolerance); each segment's
+              weights sum to 1 within 1e-5, padding rows are exactly 0; a
+              second launch gives the same bits
   4. GIN      served at paper width through ``GNNEngine(fused=True)``:
               32 streamed MolHIV-like graphs and one packed batch of 128
               (the k=64 rung of the (64, 192) ladder), checked against
@@ -106,7 +119,11 @@ then runs these phases, one line each:
               library call's (node_mlp: ``torch.addmm`` + relu;
               segment_reduce: ``torch.segment_reduce``; quant_node_mlp:
               ``torch._int_mm`` + the epilogue in torch) and the card's
-              bound (fused_mp fp32 at GIN's, PNA's and GCN's shapes, int8
+              bound; segment_reduce and edge_softmax also beside
+              ``floor_ms``, the time of ``csrc/latency_probe.cu`` on the
+              kernel's own grid (each thread loads its destination's two
+              offsets and writes one float: the least a launch of that
+              shape takes) (fused_mp fp32 at GIN's, PNA's and GCN's shapes, int8
               at GIN's and PNA's, each with its destinations per block and
               its live tiles); flash_attention at ChatGLM3's prefill shape and at
               Gemma-3's global layer (bf16, causal) against
@@ -175,6 +192,11 @@ TILE_CASES = ((1, 1), (31, 31), (33, 33), (4097, 4097), (4096, 1000))
 FUSED_WIDTHS = (("gcn", 100), ("gin", 100), ("pna", 80), ("dgn", 100), ("pna", 100))
 INT8_FUSED_WIDTHS = (("gin", 100), ("pna", 80), ("dgn", 100), ("pna", 100))
 SEGMENT_OPS = ("sum", "mean", "sqsum", "max", "min")
+# F of phase 3b: float4 (64, 100), float2 (6) and one-float (1, 3, 101) reads
+SEGMENT_WIDTHS = (1, 3, 6, 64, 100, 101)
+# sources whose every instance must build without spills
+NO_SPILL_SOURCES = ("segment_reduce", "edge_softmax", "latency_probe")
+PROBE_THREADS = 256  # csrc/latency_probe.cu's block
 # the kernels each served path must launch, by precision (int8 paths keep
 # the fp32 head on node_mlp; fused_mp_int8 counts fused_mp's int8 gammas)
 PATH_KERNELS = {"gin": ("node_mlp", "fused_mp"), "gcn": ("node_mlp", "fused_mp"),
@@ -235,17 +257,24 @@ def ptxas_usage(log: str) -> list:
 
 def build_kernels() -> None:
     """Build every CUDA source in parallel; print each kernel's registers
-    and spills as ``-Xptxas -v`` reports them."""
+    and spills as ``-Xptxas -v`` reports them.  Raises if an instance in
+    ``NO_SPILL_SOURCES`` spills."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     logs = _build.build()
     dt = time.perf_counter() - t0
+    spilled = []
     for name, log in logs.items():
+        rows = ptxas_usage(log)
         usage = [f"{k}: {r} registers, {st}/{ld} bytes spill stores/loads"
-                 for k, r, st, ld in ptxas_usage(log)]
+                 for k, r, st, ld in rows]
         print(f"[build] {name}.cu: {'; '.join(usage) or 'built'}")
+        if name in NO_SPILL_SOURCES:
+            spilled += [k for k, _, st, ld in rows if st or ld]
     print(f"[build] {len(logs)} kernel sources built in {dt:.1f}s")
+    if spilled:
+        raise AssertionError(f"spills in {spilled}")
 
 
 def close(a, b, tol) -> bool:
@@ -527,28 +556,84 @@ def check_fused_mp(device) -> None:
 # ------------------------------------------------------------ phase 3b-c
 
 
+def segment_graphs(rng, device):
+    """(name, graph, plan) of phases 3b-3c at N = 4096, E = 12288: padded,
+    all-padding edges, hubs."""
+    from repro_torch.kernels import edge_softmax as ES
+    from repro_torch.kernels import segment_times as ST
+
+    t = ES.THREAD_EDGES
+    if not {t, t + 1, 33, 300, 1000} <= set(ST.HUB_DEGREES) or not ES.WARP_EDGES < 1000:
+        raise AssertionError("hub graph: its degrees no longer straddle the kernel's paths")
+    return ([(f"all_padding={p}", *plan_graph(rng, 4096, 12288, p, device))
+             for p in (False, True)]
+            + [("hub", *ST.hub_graph(rng, 4096, 12288, device))])
+
+
+def plain_in_edge_order(fn):
+    """``fn()`` under PyTorch's deterministic algorithms: ``index_add_``
+    then sums each segment in edge order (a stable sort, then a sequential
+    sum), as the kernel does.  Its atomics otherwise add a hub's values in a
+    varying order, and its long sums then differ by more than TOL where
+    they are near 0."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def same_bits(name: str, kern) -> None:
+    """A second launch of ``kern`` gives the first one's bits."""
+    import torch
+
+    if not torch.equal(kern(), kern()):
+        raise AssertionError(f"{name}: two launches differ")
+
+
 def check_segment_reduce(device) -> None:
     import torch
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import segment_reduce as SR
 
     rng = np.random.default_rng(6)
     gen = torch.Generator().manual_seed(7)
     worst = {op: 0.0 for op in SEGMENT_OPS}
-    for all_padding in (False, True):
-        g, lay = plan_graph(rng, 4096, 12288, all_padding, device)
+    widths = set()
+    for what, g, lay in segment_graphs(rng, device):
         n = g.num_nodes
-        for f in (1, 3, 64, 100):
+        for f in SEGMENT_WIDTHS:
             values = torch.randn((g.num_edges, f), generator=gen).to(device)
+            # the same values, 4 bytes past a 16-byte boundary
+            shifted = torch.empty((g.num_edges * f + 1,), device=device)[1:]
+            shifted = shifted.view(g.num_edges, f).copy_(values)
+            out = torch.empty((n, f), device=device)
+            vec = (f, SR.vector_width(f, values, out), SR.vector_width(f, shifted, out))
+            if vec[1:] != (4 if f % 4 == 0 else 2 if f % 2 == 0 else 1, 1):
+                raise AssertionError(f"segment_reduce F={f}: reads {vec[1:]} floats")
+            widths.add(vec)
             for op in SEGMENT_OPS:
+                name = f"segment_reduce {op} F={f} ({what})"
                 args = (values, lay.ids_sorted, lay.offsets, n, op)
-                err = checked_err(
-                    f"segment_reduce {op} F={f} (all_padding={all_padding})",
-                    kops.segment_reduce(*args, mode="kernel"),
-                    kops.segment_reduce(*args, mode="reference"), TOL)
+                kern = lambda: kops.segment_reduce(*args, mode="kernel")
+                got = kern()
+                want = plain_in_edge_order(
+                    lambda: kops.segment_reduce(*args, mode="reference"))
+                err = checked_err(name, got, want, TOL)
                 worst[op] = max(worst[op], err)
-    print(f"[segment_reduce] sum/mean/sqsum/max/min at F in 1,3,64,100, N=4096, "
-          f"E=12288 (+ all-padding edges) match the plain version: "
-          f"{' '.join(f'{op}:{e:.2g}' for op, e in worst.items())}")
+                same_bits(name, kern)
+                if f in (64, 100) and not torch.equal(got, kops.segment_reduce(
+                        shifted, *args[1:], mode="kernel")):
+                    raise AssertionError(f"{name}: the one-float path differs")
+    print(f"[segment_reduce] sum/mean/sqsum/max/min at F in "
+          f"{','.join(map(str, SEGMENT_WIDTHS))} (F, floats a thread reads, "
+          f"from the shifted view: {sorted(widths)}), N=4096, E=12288 (+ all-padding "
+          f"edges, + hubs of 300 and 1000) match the plain version (its sums in edge "
+          f"order): "
+          f"{' '.join(f'{op}:{e:.2g}' for op, e in worst.items())}; two launches "
+          f"give the same bits, and F=64, 100 from the shifted view too")
 
 
 def check_edge_softmax(device) -> None:
@@ -559,18 +644,19 @@ def check_edge_softmax(device) -> None:
     rng = np.random.default_rng(8)
     gen = torch.Generator().manual_seed(9)
     worst = 0.0
-    for all_padding in (False, True):
-        g, lay = plan_graph(rng, 4096, 12288, all_padding, device)
+    for what, g, lay in segment_graphs(rng, device):
         n, e_real = g.num_nodes, int(lay.offsets[-1])
         for heads in (1, 4):
             for spread in (1.0, 80.0):
                 logits = ((torch.rand((g.num_edges, heads), generator=gen) * 2 - 1)
                           * spread).to(device)
                 args = (logits, lay.ids_sorted, lay.offsets, n)
-                name = f"edge_softmax H={heads} spread {spread} (all_padding={all_padding})"
-                got = kops.edge_softmax(*args, mode="kernel")
+                name = f"edge_softmax H={heads} spread {spread} ({what})"
+                kern = lambda: kops.edge_softmax(*args, mode="kernel")
+                got = kern()
                 worst = max(worst, checked_err(
                     name, got, kops.edge_softmax(*args, mode="reference"), TOL))
+                same_bits(name, kern)
                 if bool(got[e_real:].ne(0).any()):
                     raise AssertionError(f"{name}: a padding row is not 0")
                 sums = sg.segment_sum(got, lay.ids_sorted, n)
@@ -579,8 +665,9 @@ def check_edge_softmax(device) -> None:
                         or bool(sums[~live].abs().max() != 0)):
                     raise AssertionError(f"{name}: weights do not sum to 1")
     print(f"[edge_softmax] H in 1,4, logits +-1 and +-80, N=4096, E=12288 "
-          f"(+ all-padding edges) match the plain version (max abs err "
-          f"{worst:.3g}); weights sum to 1 within 1e-5; padding rows are 0")
+          f"(+ all-padding edges, + hubs of 300 and 1000) match the plain version "
+          f"(max abs err {worst:.3g}); weights sum to 1 within 1e-5; padding rows "
+          f"are 0; two launches give the same bits")
 
 
 # ------------------------------------------------------------ phase 3d-e
@@ -1300,11 +1387,40 @@ def time_fused_mp(device, packed, lay, launches: int) -> dict:
                 launches=launches, library_ms=None, **main, all_shapes=rows)
 
 
+def floor_ms(offsets, n: int, blocks: int, group: int, device) -> float:
+    """Median device ms of ``csrc/latency_probe.cu`` on a grid of ``blocks``
+    blocks, ``group`` threads a destination, after checking that it wrote
+    each thread's degree."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build
+
+    lib = _build.load("latency_probe", {"latency_probe_launch": (
+        ctypes.c_int, (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))})
+    out = torch.empty(blocks * PROBE_THREADS, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def probe():
+        err = lib.latency_probe_launch(offsets.data_ptr(), out.data_ptr(), n, group,
+                                       blocks, stream)
+        if err != 0:
+            raise RuntimeError(f"latency_probe launch failed: cudaError_t {err}")
+
+    probe()
+    deg = (offsets[1:] - offsets[:-1]).float()
+    d = torch.arange(out.numel(), device=device).div(group, rounding_mode="floor")
+    if not torch.equal(out, deg[d.clamp(max=n - 1)]):
+        raise AssertionError("latency_probe: wrong degrees")
+    return device_ms(probe)[0]
+
+
 def time_segment_reduce(device, packed, lay, launches: int) -> dict:
     """GAT's weighted sum: (E_pad, H * F_head) = (12288, 64) plan-ordered
     values into (4096, 64); the yardstick is ``torch.segment_reduce``."""
     import torch
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import segment_reduce as SR
 
     gen = torch.Generator().manual_seed(10)
     n, e, f = packed.num_nodes, packed.num_edges, 64
@@ -1320,18 +1436,23 @@ def time_segment_reduce(device, packed, lay, launches: int) -> dict:
     ms, timer = device_ms(kern)
     plain_ms, _ = device_ms(plain)
     library_ms, _ = device_ms(lib)
+    vec = SR.vector_width(f, values, torch.empty((n, f), device=device))
+    blocks, group = SR.launch_shape(n, f, vec)
+    floor = floor_ms(lay.offsets, n, blocks, group, device)
     bound_ms, bound_by = bound(4.0 * (e_real * f + (n + 1) + n * f), 1.0 * e_real * f)
     row = dict(name="segment_reduce", route="cuda",
                source="src/repro_torch/kernels/csrc/segment_reduce.cu",
                replaces="src/repro/kernels/segment_reduce.py:112",
                launches=launches, max_abs_err=err, ms=ms, timer=timer,
                call_ms=call_ms(kern), plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=library_ms,
-               shape=dict(op="sum", n=n, e_pad=e, e_real=e_real, f=f))
+               bound_by=bound_by, library_ms=library_ms, floor_ms=floor,
+               shape=dict(op="sum", n=n, e_pad=e, e_real=e_real, f=f, vec=vec,
+                          blocks=blocks))
     print(f"[time] segment_reduce sum N={n} E={e_real}/{e} F={f}: err {err:.3g}; "
           f"{ms:.4f} ms ({timer}; per call {row['call_ms']:.4f} ms), plain "
           f"{plain_ms:.4f}, torch.segment_reduce {library_ms:.4f}, bound "
-          f"{bound_ms:.5f} ({bound_by})")
+          f"{bound_ms:.5f} ({bound_by}), floor {floor:.4f} ({blocks} blocks, "
+          f"{group} threads a destination, float{vec if vec > 1 else ''} reads)")
     return row
 
 
@@ -1339,6 +1460,7 @@ def time_edge_softmax(device, packed, lay, launches: int) -> dict:
     """GAT's softmax: (12288, 4) plan-ordered logits; no single library
     call computes it."""
     import torch
+    from repro_torch.kernels import edge_softmax as ES
     from repro_torch.kernels import ops as kops
 
     gen = torch.Generator().manual_seed(11)
@@ -1354,16 +1476,19 @@ def time_edge_softmax(device, packed, lay, launches: int) -> dict:
     # read the real logits and the offsets, write every row; per real
     # logit: max, subtract, exp, add, subtract, exp, divide
     bound_ms, bound_by = bound(4.0 * (e_real * h + (n + 1) + e * h), 7.0 * e_real * h)
+    blocks, group = ES.launch_shape(n, h, e)
+    floor = floor_ms(lay.offsets, n, blocks, group, device)
     row = dict(name="edge_softmax", route="cuda",
                source="src/repro_torch/kernels/csrc/edge_softmax.cu",
                replaces="src/repro/kernels/edge_softmax.py:28",
                launches=launches, max_abs_err=err, ms=ms, timer=timer,
                call_ms=call_ms(kern), plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=None,
-               shape=dict(n=n, e_pad=e, e_real=e_real, heads=h))
+               bound_by=bound_by, library_ms=None, floor_ms=floor,
+               shape=dict(n=n, e_pad=e, e_real=e_real, heads=h, blocks=blocks))
     print(f"[time] edge_softmax N={n} E={e_real}/{e} H={h}: err {err:.3g}; "
           f"{ms:.4f} ms ({timer}; per call {row['call_ms']:.4f} ms), plain "
-          f"{plain_ms:.4f}, bound {bound_ms:.5f} ({bound_by})")
+          f"{plain_ms:.4f}, bound {bound_ms:.5f} ({bound_by}), floor {floor:.4f} "
+          f"({blocks} blocks, {group} threads a destination)")
     return row
 
 

@@ -1,6 +1,8 @@
 """Wrapper of the ``edge_softmax`` CUDA kernel (``csrc/edge_softmax.cu``):
 GAT's per-destination, per-head softmax of (E_pad, H) plan-ordered logits
-over the plan's CSR ranges, fp32; padding edges get weight 0.
+over the plan's CSR ranges, fp32; padding edges get weight 0.  A thread
+serves one (destination, head) of up to ``THREAD_EDGES`` edges; the warp
+serves a longer segment, from registers up to ``WARP_EDGES`` edges.
 
 Port of ``repro.kernels.edge_softmax.edge_softmax``.  The wrapper takes
 CUDA tensors only: it checks device, dtype, shape and contiguity, allocates
@@ -18,6 +20,11 @@ import torch
 
 from repro_torch.kernels import _build
 
+# the kernel's segment lengths (csrc/edge_softmax.cu): a thread's, and the
+# longest a warp holds in registers (longer ones are read three times)
+THREAD_EDGES = 16
+WARP_EDGES = 512
+
 launches = 0
 
 _SIGNATURES = {
@@ -25,7 +32,19 @@ _SIGNATURES = {
         ctypes.c_int,
         (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,),
     ),
+    "edge_softmax_blocks": (
+        ctypes.c_longlong, (ctypes.c_int,) * 3 + (ctypes.POINTER(ctypes.c_int),),
+    ),
 }
+
+
+def launch_shape(n: int, h: int, e_pad: int) -> tuple:
+    """(blocks, threads a destination takes) of the kernel's launch, as the
+    CUDA source computes them (built and loaded on first use)."""
+    group = ctypes.c_int()
+    blocks = _build.load("edge_softmax", _SIGNATURES).edge_softmax_blocks(
+        n, h, e_pad, ctypes.byref(group))
+    return blocks, group.value
 
 
 def edge_softmax(logits: torch.Tensor, offsets: torch.Tensor,

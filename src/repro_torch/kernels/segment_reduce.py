@@ -1,6 +1,9 @@
 """Wrapper of the ``segment_reduce`` CUDA kernel (``csrc/segment_reduce.cu``):
 sum / mean / sqsum / max / min of (E, F) plan-ordered values over the
-plan's CSR ranges, fp32; every empty row comes out 0.
+plan's CSR ranges, fp32; every empty row comes out 0.  A thread reads
+``vector_width`` consecutive features of a row at a time: 4 (float4) where
+F is a multiple of 4 and ``values`` and the output are 16-byte aligned, 2
+(float2) at 8 bytes, else 1; every width gives the same bits.
 
 Port of ``repro.kernels.segment_reduce.segment_reduce_sorted`` plus the
 finalisation ``repro.kernels.ops.segment_reduce`` does around it.  The
@@ -26,9 +29,32 @@ launches = 0
 _SIGNATURES = {
     "segment_reduce_f32": (
         ctypes.c_int,
-        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,),
+    ),
+    "segment_reduce_blocks": (
+        ctypes.c_longlong, (ctypes.c_int,) * 3 + (ctypes.POINTER(ctypes.c_int),),
     ),
 }
+
+
+def vector_width(f: int, *tensors: torch.Tensor) -> int:
+    """Features a thread reads at a time: 4 where ``f`` is a multiple of 4
+    and every tensor's data is 16-byte aligned, 2 where ``f`` is even and
+    they are 8-byte aligned, else 1."""
+    for vec in (4, 2):
+        if f % vec == 0 and all(t.data_ptr() % (4 * vec) == 0 for t in tensors):
+            return vec
+    return 1
+
+
+def launch_shape(n: int, f: int, vec: int) -> tuple:
+    """(blocks, threads a destination takes) of the kernel's launch for
+    ``n`` destinations of ``f`` features read ``vec`` at a time, as the
+    CUDA source computes them (built and loaded on first use)."""
+    group = ctypes.c_int()
+    blocks = _build.load("segment_reduce", _SIGNATURES).segment_reduce_blocks(
+        n, f, vec, ctypes.byref(group))
+    return blocks, group.value
 
 
 def segment_reduce(values: torch.Tensor, offsets: torch.Tensor,
@@ -53,7 +79,7 @@ def segment_reduce(values: torch.Tensor, offsets: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.segment_reduce_f32(
             offsets.data_ptr(), values.data_ptr(), out.data_ptr(),
-            num_segments, f, OP_CODES[op], stream,
+            num_segments, f, OP_CODES[op], vector_width(f, values, out), stream,
         )
     if err != 0:
         raise RuntimeError(f"segment_reduce launch failed: cudaError_t {err}")

@@ -209,6 +209,25 @@ def test_engine_matches_jax_engine(model, fused):
     assert per_graph >= 0
 
 
+def test_fused_gin_wider_than_the_kernel_serves_on_cpu():
+    """GIN at F = 300, past the CUDA ``fused_mp``'s ``MAX_FEATURES``: on the
+    CPU the fused engine serves through the plain version and matches JAX's
+    fused engine (which takes its reference path above its VMEM budget).
+    On the card the same engine refuses it
+    (``tests/test_torch_on_card.py::test_fused_gin_wider_than_the_kernel_is_refused``)."""
+    from repro_torch.kernels import fused_mp as FM
+
+    small = dict(num_layers=2, hidden=300)
+    jcfg, tcfg = JM.paper_config("gin", **small), get_gnn_config("gin", **small)
+    assert tcfg.width > FM.MAX_FEATURES
+    jp, tp = _params(jcfg)
+    graphs = [g[:4] for g in JP.MoleculeStream(JP.MOLHIV, seed=2).take(4)]
+    jouts, _, _ = JEngine(jcfg, jp, fused=True).infer_stream(graphs)
+    touts, _, _ = TEngine(tcfg, tp, fused=True, device="cpu").infer_stream(graphs)
+    np.testing.assert_allclose(np.concatenate(touts), np.concatenate(jouts),
+                               **_tol("gin"))
+
+
 def test_executor_caches_programs_and_warms_once():
     _, tcfg = _configs("gin")
     _, tp = _params(_configs("gin")[0])

@@ -33,6 +33,7 @@ from repro_torch.kernels import node_mlp as NM
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quant_mlp as QM
 from repro_torch.kernels import segment_reduce as SR
+from repro_torch.kernels import segment_times as ST
 
 torch.set_num_threads(1)
 
@@ -96,13 +97,28 @@ def tile_plan_arrays(rng, n_pad, n_real, exact=False):
     return plan
 
 
+def hub_degrees(rng, n):
+    """In-degrees of ``n`` destinations for the "hub" case: two hubs (300
+    edges, and 1000, past the ``edge_softmax.WARP_EDGES`` a warp holds in
+    registers), degrees 0, 1, ``THREAD_EDGES`` and one more (either side of
+    a thread's segment in ``edge_softmax``) and 33 (past a warp's lanes),
+    then in-degrees 0-3."""
+    head = ST.HUB_DEGREES
+    return np.concatenate([head, rng.integers(0, 4, n - len(head))])
+
+
 def segment_case(rng, case):
     """Numpy (ids_sorted, offsets, n) of a sorted plan: "empty_and_padding"
     (gaps and the last 4 segments empty, padding ids n at the end),
     "all_padding" (no real edge), "wide" (64 segments, the last 10
-    isolated, padding at the end)."""
+    isolated, padding at the end), "hub" (64 segments of
+    :func:`hub_degrees`, padding at the end)."""
     if case == "all_padding":
         n, ids = 16, np.full((24,), 16, np.int32)
+    elif case == "hub":
+        n = 64
+        ids = np.repeat(np.arange(n), hub_degrees(rng, n))
+        ids = np.concatenate([ids, np.full((29,), n)]).astype(np.int32)
     else:
         n, e, pad = (20, 90, 17) if case == "empty_and_padding" else (64, 150, 30)
         ids = np.sort(rng.integers(0, n - (4 if n == 20 else 10), e))
@@ -380,17 +396,33 @@ def test_gin_stream_with_64_bit_features_matches_cpu(cuda, dtype):
                                rtol=1e-4, atol=1e-5)
 
 
+def plain_in_edge_order(fn):
+    """``fn()`` under PyTorch's deterministic algorithms: ``index_add_``
+    then sums each segment in edge order (a stable sort, then a sequential
+    sum), as the segment kernels do.  Its atomics otherwise add a hub's values in a
+    varying order, and its long sums then differ by more than TOL where
+    they are near 0."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 @pytest.mark.parametrize("op", ["sum", "mean", "sqsum", "max", "min"])
 def test_segment_reduce_kernel_matches_plain(cuda, op):
+    """Every case of :func:`segment_case` (hubs too), at F read as float4
+    (64, 100), float2 (6) and one float (1, 3, 101); the plain version sums
+    in edge order (:func:`plain_in_edge_order`)."""
     rng = np.random.default_rng(20)
-    for case in ("empty_and_padding", "all_padding", "wide"):
+    for case in ("empty_and_padding", "all_padding", "wide", "hub"):
         ids, offsets, n = segment_case(rng, case)
-        for f in (1, 3, 64, 100):
+        for f in (1, 3, 6, 64, 100, 101):
             values = to_t(rng.normal(size=(ids.shape[0], f)).astype(np.float32), cuda)
             args = (values, to_t(ids, cuda), to_t(offsets, cuda), n, op)
             before = SR.launches
             got = kops.segment_reduce(*args, mode="kernel")
-            want = kops.segment_reduce(*args, mode="reference")
+            want = plain_in_edge_order(lambda: kops.segment_reduce(*args, mode="reference"))
             torch.cuda.synchronize()
             assert SR.launches == before + 1
             assert_close(got.cpu(), want.cpu(), TOL)
@@ -398,8 +430,11 @@ def test_segment_reduce_kernel_matches_plain(cuda, op):
 
 @pytest.mark.parametrize("heads", [1, 4])
 def test_edge_softmax_kernel_matches_plain(cuda, heads):
+    """Every case of :func:`segment_case`: with "hub", segments a thread
+    serves (degree <= 16), a warp from registers (17, 33, 300) and a warp
+    in three passes (1000).  Weights sum to 1 within 1e-5; padding rows 0."""
     rng = np.random.default_rng(21)
-    for case in ("empty_and_padding", "all_padding", "wide"):
+    for case in ("empty_and_padding", "all_padding", "wide", "hub"):
         ids, offsets, n = segment_case(rng, case)
         for spread in (1.0, 80.0):
             logits = rng.uniform(-spread, spread, size=(ids.shape[0], heads))
@@ -409,7 +444,52 @@ def test_edge_softmax_kernel_matches_plain(cuda, heads):
             want = kops.edge_softmax(*args, mode="reference")
             torch.cuda.synchronize()
             assert_close(got.cpu(), want.cpu(), TOL)
-            assert (got.cpu().numpy()[ids >= n] == 0).all()
+            got = got.cpu().numpy()
+            assert (got[ids >= n] == 0).all()
+            sums = np.zeros((n, heads))
+            np.add.at(sums, ids[ids < n], got[ids < n])
+            live = np.diff(offsets) > 0
+            assert np.all(np.abs(sums[live] - 1) <= 1e-5)
+
+
+@pytest.mark.parametrize("f", [1, 2, 3, 6, 64, 100, 101])
+def test_segment_reduce_vector_widths_agree(cuda, f):
+    """``values`` whose data starts one float past a 16-byte boundary
+    (``big[1:]`` viewed as (E, F)) takes the one-float path; the aligned
+    copy takes float4 where F is a multiple of 4, float2 where F is even.
+    Both match the plain version and each other bit for bit (the same
+    sequential sums)."""
+    rng = np.random.default_rng(22)
+    ids, offsets, n = segment_case(rng, "hub")
+    e = ids.shape[0]
+    big = to_t(rng.normal(size=(e * f + 1,)).astype(np.float32), cuda)
+    shifted = big[1:].view(e, f)
+    aligned = shifted.clone()
+    plan = (to_t(ids, cuda), to_t(offsets, cuda), n)
+    out = torch.empty((n, f), device=cuda)
+    assert SR.vector_width(f, shifted, out) == 1
+    assert SR.vector_width(f, aligned, out) == (4 if f % 4 == 0 else 2 if f % 2 == 0 else 1)
+    for op in SR.OP_CODES:
+        got = [kops.segment_reduce(v, *plan, op, mode="kernel") for v in (aligned, shifted)]
+        want = plain_in_edge_order(
+            lambda: kops.segment_reduce(aligned, *plan, op, mode="reference"))
+        torch.cuda.synchronize()
+        assert_close(got[0].cpu(), want.cpu(), TOL)
+        assert torch.equal(got[0], got[1]), op
+
+
+def test_segment_kernels_are_deterministic(cuda):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    rng = np.random.default_rng(23)
+    ids, offsets, n = segment_case(rng, "hub")
+    plan = (to_t(ids, cuda), to_t(offsets, cuda), n)
+    values = to_t(rng.normal(size=(ids.shape[0], 64)).astype(np.float32), cuda)
+    logits = to_t(rng.normal(size=(ids.shape[0], 4)).astype(np.float32), cuda)
+    for op in SR.OP_CODES:
+        a, b = (kops.segment_reduce(values, *plan, op, mode="kernel") for _ in range(2))
+        assert torch.equal(a, b), op
+    a, b = (kops.edge_softmax(logits, *plan, mode="kernel") for _ in range(2))
+    assert torch.equal(a, b)
 
 
 def test_segment_kernels_empty_outputs_launch_nothing(cuda):
@@ -436,6 +516,25 @@ def test_gat_engine_on_card_matches_reference(cuda):
     refs, _, _ = GNNEngine(ref_cfg, params, device=cuda).infer_stream(graphs)
     np.testing.assert_allclose(np.concatenate(outs), np.concatenate(refs),
                                rtol=1e-4, atol=1e-5)
+
+
+def test_fused_gin_wider_than_the_kernel_is_refused(cuda):
+    """A ``fused=True`` GIN engine at F = 300, past ``fused_mp.MAX_FEATURES``,
+    raises the wrapper's ValueError naming the limit before any fused_mp
+    launch: the port has no size-based way to the plain version (JAX's
+    ``ops.fused_mp`` takes its reference above its VMEM budget).  The CPU
+    path serves the same model (``tests/test_torch_models.py``)."""
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import models as TM
+    from repro_torch.serve.gnn_engine import GNNEngine
+
+    cfg = TM.paper_config("gin", num_layers=2, hidden=300)
+    params = TM.init(torch.Generator().manual_seed(0), cfg)
+    graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=1).take(2)]
+    before = FM.launches
+    with pytest.raises(ValueError, match=rf"F=300 outside \(0, {FM.MAX_FEATURES}\]"):
+        GNNEngine(cfg, params, fused=True, device=cuda).infer_stream(graphs)
+    assert FM.launches == before
 
 
 # ------------------------------------------------------------------ int8

@@ -5,12 +5,17 @@ the JAX oracles, and the dispatch rules of their wrappers.
     ``kernels.ops.edge_softmax``, with and without ``perm=``, match
     ``repro.kernels.ref.segment_reduce_sorted_ref`` / ``edge_softmax_ref``
     at rtol 1e-6, atol 1e-6.  Cases: empty segments, padding ids, an
-    all-padding edge list, extreme logits (a spread of +-80), H in {1, 4}.
+    all-padding edge list, extreme logits (a spread of +-80), H in {1, 4},
+    and "hub": hubs of 300 and 1000 edges beside segments of degree 0, 1,
+    16, 17 and 33 (the lengths at which the CUDA kernels change paths).
     The oracles are the JAX package's ``ref.py`` functions, not its Pallas
     kernels.
   * Every segment's softmax weights sum to 1 per head; padding rows are 0.
   * The kernel wrappers refuse CPU tensors without launching;
     ``mode="kernel"`` raises on a CPU tensor.
+  * ``segment_reduce.vector_width`` picks float4 / float2 / one-float reads
+    from F and the data's alignment; ``kernels.segment_times`` builds its
+    hub graph with the stated in-degrees and needs a card.
   * The CUDA kernels themselves are held against these plain versions in
     ``tests/test_torch_on_card.py`` (it skips without a card) and by
     ``python3 chip_smoke.py``.
@@ -25,13 +30,14 @@ from repro_torch.kernels import edge_softmax as ES
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as TREF
 from repro_torch.kernels import segment_reduce as SR
+from repro_torch.kernels import segment_times as ST
 from test_torch_on_card import segment_case, to_t
 
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 OPS = ("sum", "mean", "sqsum", "max", "min")
-CASES = ("empty_and_padding", "all_padding", "wide")
+CASES = ("empty_and_padding", "all_padding", "wide", "hub")
 
 
 def _coo(rng, sorted_values):
@@ -47,7 +53,7 @@ def _coo(rng, sorted_values):
 @pytest.mark.parametrize("op", OPS)
 def test_segment_reduce_matches_jax_ref(op, case, use_perm):
     rng = np.random.default_rng(OPS.index(op) + 10 * CASES.index(case))
-    f = {"empty_and_padding": 5, "all_padding": 3, "wide": 64}[case]
+    f = {"empty_and_padding": 5, "all_padding": 3, "wide": 64, "hub": 64}[case]
     ids, offsets, n = segment_case(rng, case)
     values = rng.normal(size=(ids.shape[0], f)).astype(np.float32)
     want = np.asarray(JREF.segment_reduce_sorted_ref(
@@ -66,9 +72,9 @@ def test_segment_reduce_matches_jax_ref(op, case, use_perm):
 
 @pytest.mark.parametrize("use_perm", [False, True])
 @pytest.mark.parametrize("heads", [1, 4])
-@pytest.mark.parametrize("case", ["empty_and_padding", "all_padding", "extreme"])
+@pytest.mark.parametrize("case", ["empty_and_padding", "all_padding", "extreme", "hub"])
 def test_edge_softmax_matches_jax_ref(case, heads, use_perm):
-    rng = np.random.default_rng(100 + heads + (case == "extreme"))
+    rng = np.random.default_rng(100 + heads + (case == "extreme") + 2 * (case == "hub"))
     ids, offsets, n = segment_case(rng, "wide" if case == "extreme" else case)
     logits = rng.normal(size=(ids.shape[0], heads)).astype(np.float32)
     if case == "extreme":
@@ -110,3 +116,30 @@ def test_kernel_wrappers_refuse_cpu_tensors(monkeypatch):
         kops.edge_softmax(values, to_t(ids), to_t(offsets), n, mode="kernel"),
         TREF.edge_softmax_ref(values, to_t(ids), n))
     assert (SR.launches, ES.launches) == before
+
+
+@pytest.mark.parametrize("f, offset, want", [(64, 0, 4), (100, 0, 4), (6, 0, 2), (64, 2, 2),
+                                             (64, 1, 1), (101, 0, 1), (3, 0, 1), (1, 0, 1)])
+def test_vector_width_follows_f_and_alignment(f, offset, want):
+    """float4 reads where F is a multiple of 4 and the data is 16-byte
+    aligned, float2 where F is even and it is 8-byte aligned, else one
+    float; ``offset`` floats past an aligned allocation."""
+    big = torch.zeros(8 * f + offset)
+    values = big[offset:].view(8, f)
+    assert SR.vector_width(f, values, torch.zeros(4, f)) == want
+
+
+def test_hub_graph_has_the_stated_degrees():
+    g, lay = ST.hub_graph(np.random.default_rng(0), 512, 2048, "cpu")
+    deg = lay.in_degree.numpy()
+    assert tuple(deg[:len(ST.HUB_DEGREES)]) == ST.HUB_DEGREES
+    assert deg[len(ST.HUB_DEGREES):].max() <= 3 and (deg[512 - 96:] == 0).all()
+    assert int(lay.offsets[-1]) == deg.sum() < 2048
+    # the degrees straddle every path of the CUDA kernels
+    t = ES.THREAD_EDGES
+    assert {t, t + 1, 33, 300, 1000} <= set(ST.HUB_DEGREES) and ES.WARP_EDGES < 1000
+
+
+def test_segment_times_needs_a_card(capsys):
+    assert ST.main([]) == 1
+    assert "CUDA" in capsys.readouterr().err
