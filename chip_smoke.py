@@ -7,8 +7,8 @@ Needs one NVIDIA GPU (built for the H100: the kernels compile for
 ``sm_90a``) and the CUDA toolkit.  It builds the six CUDA kernel sources
 from ``src/repro_torch/kernels/csrc`` and the latency probe with ``nvcc``
 (in parallel; one ``[build]`` line per source gives each kernel's registers
-and spill bytes; a spill in the segment kernels or the probe fails the
-run), then runs these phases, one line each:
+and spill bytes; a spill in ``quant_mlp``, the segment kernels or the probe
+fails the run), then runs these phases, one line each:
 
   1. device   the card's name and power limit (``nvidia-smi``); TF32 off
   2. node_mlp kernel vs plain PyTorch version on the card, GIN's five
@@ -56,12 +56,21 @@ run), then runs these phases, one line each:
               segment_reduce: 7, 5 and 5 launches per forward)
   5c. PNA, DGN (with its eigenvector input), GIN+VN: the same, streamed
               (PNA rtol 5e-3)
-  3d. quant_node_mlp  kernel vs plain version at GIN's int8 shapes
-              (4096 x 9->100, 12288 x 3->100, 4096 x 100->200, 4096 x
-              200->100) and ragged M in {1, 37, 4097}, every activation,
-              with and without row scales (|kernel - plain| <= 1e-6 +
-              1e-6 |plain|); with scale 1 and bias 0 the output is the
-              exact integer product (int64)
+  3d. quant_node_mlp  both entries vs their plain versions at the (K, N)
+              of the six int8 paths (``QMLP_SHAPES``) and M in
+              ``QMLP_ROWS`` (ragged 1, 37, 4097 among them), every
+              activation (|kernel - plain| <= 1e-6 + 1e-6 |plain|), and
+              ``QMLP_WIDE_SHAPES`` (w past one block's shared memory: the
+              ring of slices; N = 257: two column blocks): the
+              int8 entry with and without row scales (with scale 1 and bias
+              0 the output is the exact integer product, int64), the
+              dynamic entry on fp32 rows of mixed ranges with all-zero
+              rows; each case launched on the entry it names.  The x_q
+              probe: the dynamic entry with an identity w_q (K = N in {9,
+              100, 200}), w_scale 1, bias 0 outputs x_q * rs, bit for bit
+              the plain version's, on all-zero rows (the 1e-8 floor) and on
+              rows whose max is 127 * 2^-e and whose values are ties
+              (j + 1/2) 2^-e, at M 37 and 4097
   3e. fused_mp int8   kernel vs plain version for the int8 gammas gin
               (F=100, H=200), pna (F=80, and F=100 on 16 rows a block), dgn
               (F=100) at N = 4096, E = 12288 (+ all-padding edges) and on
@@ -123,7 +132,11 @@ run), then runs these phases, one line each:
               ``floor_ms``, the time of ``csrc/latency_probe.cu`` on the
               kernel's own grid (each thread loads its destination's two
               offsets and writes one float: the least a launch of that
-              shape takes) (fused_mp fp32 at GIN's, PNA's and GCN's shapes, int8
+              shape takes); quant_node_mlp's int8 entry at the encoder's
+              and the unfused MLP's shapes, its dynamic entry at the same
+              shapes against the composition it replaced (the row
+              quantization's eager ops, then the int8 entry), beside the
+              probe on its 128 blocks (fused_mp fp32 at GIN's, PNA's and GCN's shapes, int8
               at GIN's and PNA's, each with its destinations per block and
               its live tiles); flash_attention at ChatGLM3's prefill shape and at
               Gemma-3's global layer (bf16, causal) against
@@ -179,6 +192,9 @@ QMLP_SHAPES = ((9, 100), (3, 100), (100, 200), (200, 100), (100, 100),
 # M: the packed plan's nodes and edges, the smallest stream bucket, the
 # packed batch's graphs (the virtual-node MLPs), ragged
 QMLP_ROWS = (4096, 12288, 32, 128, 1, 37, 4097)
+# (K, N) past every path's width: w no longer fits one block whole (the ring
+# of slices), and N past one block's 256 columns
+QMLP_WIDE_SHAPES = ((2000, 256), (300, 257))
 TIMING_REPS = 50
 # GIN's linears as (K, N): encoder, edge embedding, MLP in/out, head
 GIN_LINEARS = ((9, 100), (3, 100), (100, 200), (200, 100), (100, 1))
@@ -195,7 +211,7 @@ SEGMENT_OPS = ("sum", "mean", "sqsum", "max", "min")
 # F of phase 3b: float4 (64, 100), float2 (6) and one-float (1, 3, 101) reads
 SEGMENT_WIDTHS = (1, 3, 6, 64, 100, 101)
 # sources whose every instance must build without spills
-NO_SPILL_SOURCES = ("segment_reduce", "edge_softmax", "latency_probe")
+NO_SPILL_SOURCES = ("quant_mlp", "segment_reduce", "edge_softmax", "latency_probe")
 PROBE_THREADS = 256  # csrc/latency_probe.cu's block
 # the kernels each served path must launch, by precision (int8 paths keep
 # the fp32 head on node_mlp; fused_mp_int8 counts fused_mp's int8 gammas)
@@ -686,25 +702,72 @@ def qmlp_inputs(gen, m: int, k: int, n: int, device):
     return [t.to(device) for t in (x_q, w_q, scale, rs, b)]
 
 
+def dynamic_rows(gen, m: int, k: int, device):
+    """fp32 rows of ``quant_node_mlp_dynamic``: normal values at per-row
+    ranges from 1e-3 to 1e2, every fifth row all zero (the 1e-8 floor)."""
+    import torch
+
+    x = torch.randn((m, k), generator=gen) * 10.0 ** (5 * torch.rand((m, 1), generator=gen) - 3)
+    x[::5] = 0.0
+    return x.to(device)
+
+
+def tie_rows(gen, m: int, k: int, device):
+    """Rows on which the row recipe must round ties to even: row r (odd)
+    holds (j + 1/2) 2^-e for random j in [-127, 126] and one +-127 2^-e, so
+    that rs = 2^-e exactly and x / rs = j + 1/2; even rows are all zero."""
+    import torch
+
+    x = torch.zeros((m, k))
+    for r in range(1, m, 2):
+        e = int(torch.randint(-3, 20, (1,), generator=gen))
+        j = torch.randint(-127, 127, (k,), generator=gen).float()
+        x[r] = (j + 0.5) * 2.0 ** -e
+        x[r, int(torch.randint(0, k, (1,), generator=gen))] = (-1) ** (r // 2) * 127 * 2.0 ** -e
+    return x.to(device)
+
+
+def check_entry(entry: str, before: dict) -> None:
+    """The last call launched once, on ``entry`` of quant_node_mlp."""
+    from repro_torch.kernels import quant_mlp as QM
+
+    if QM.launches_by_entry != dict(before, **{entry: before[entry] + 1}):
+        raise AssertionError(f"quant_node_mlp: launches {QM.launches_by_entry} after "
+                             f"{before}; expected one on the {entry} entry")
+
+
 def check_quant_node_mlp(device) -> None:
     import torch
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import quant_mlp as QM
+    from repro_torch.kernels import ref
 
     gen = torch.Generator().manual_seed(12)
-    worst, count = 0.0, 0
+    worst, count = {"static": 0.0, "dynamic": 0.0}, {"static": 0, "dynamic": 0}
     for k, n in QMLP_SHAPES:
         for m in QMLP_ROWS:
             x_q, w_q, scale, rs, b = qmlp_inputs(gen, m, k, n, device)
+            x = dynamic_rows(gen, m, k, device)
             for act in ("relu", "gelu", "none"):
                 for row_scale in (rs, None):
                     args = (x_q, w_q, scale, b, act)
-                    worst = max(worst, checked_err(
+                    before = dict(QM.launches_by_entry)
+                    got = kops.quant_node_mlp(*args, row_scale=row_scale, mode="kernel")
+                    check_entry("static", before)
+                    worst["static"] = max(worst["static"], checked_err(
                         f"quant_node_mlp ({m},{k})x({k},{n}) {act} "
-                        f"row_scale={row_scale is not None}",
-                        kops.quant_node_mlp(*args, row_scale=row_scale, mode="kernel"),
+                        f"row_scale={row_scale is not None}", got,
                         kops.quant_node_mlp(*args, row_scale=row_scale,
                                             mode="reference"), QMLP_TOL))
-                    count += 1
+                    count["static"] += 1
+                before = dict(QM.launches_by_entry)
+                got = kops.quant_node_mlp_dynamic(x, w_q, scale, b, act, mode="kernel")
+                check_entry("dynamic", before)
+                worst["dynamic"] = max(worst["dynamic"], checked_err(
+                    f"quant_node_mlp_dynamic ({m},{k})x({k},{n}) {act}", got,
+                    kops.quant_node_mlp_dynamic(x, w_q, scale, b, act, mode="reference"),
+                    QMLP_TOL))
+                count["dynamic"] += 1
             # scale 1 (0-d), bias 0: the exact integer product
             got = kops.quant_node_mlp(x_q, w_q, torch.tensor(1.0, device=device),
                                       torch.zeros(n, device=device), "none",
@@ -716,10 +779,49 @@ def check_quant_node_mlp(device) -> None:
                     (got != got.round()).any()):
                 raise AssertionError(f"quant_node_mlp ({m},{k})x({k},{n}): the "
                                      "accumulator is not the exact product")
-    print(f"[quant_node_mlp] {count} cases (the {len(QMLP_SHAPES)} (K, N) of the "
-          f"six int8 paths x M in {QMLP_ROWS} x relu/gelu/none x row scales "
-          f"on/off) match the plain version, max abs err {worst:.3g}; scale-1 "
-          f"outputs equal the int64 products")
+    for k, n in QMLP_WIDE_SHAPES:
+        for m in (37, 4097):
+            x_q, w_q, scale, rs, b = qmlp_inputs(gen, m, k, n, device)
+            x = dynamic_rows(gen, m, k, device)
+            for act in ("relu", "none"):
+                worst["static"] = max(worst["static"], checked_err(
+                    f"quant_node_mlp ({m},{k})x({k},{n}) {act}",
+                    kops.quant_node_mlp(x_q, w_q, scale, b, act, row_scale=rs, mode="kernel"),
+                    kops.quant_node_mlp(x_q, w_q, scale, b, act, row_scale=rs,
+                                        mode="reference"), QMLP_TOL))
+                worst["dynamic"] = max(worst["dynamic"], checked_err(
+                    f"quant_node_mlp_dynamic ({m},{k})x({k},{n}) {act}",
+                    kops.quant_node_mlp_dynamic(x, w_q, scale, b, act, mode="kernel"),
+                    kops.quant_node_mlp_dynamic(x, w_q, scale, b, act, mode="reference"),
+                    QMLP_TOL))
+                count["static"] += 1
+                count["dynamic"] += 1
+    # the x_q probe: identity weights show the kernel's x_q * rs
+    ties = 0
+    for k in (9, 100, 200):
+        eye = torch.eye(k, dtype=torch.int8, device=device)
+        one, zero = torch.ones(k, device=device), torch.zeros(k, device=device)
+        for m in (37, 4097):
+            x = tie_rows(gen, m, k, device)
+            got = kops.quant_node_mlp_dynamic(x, eye, one, zero, "none", mode="kernel")
+            want = kops.quant_node_mlp_dynamic(x, eye, one, zero, "none", mode="reference")
+            q, rs = ref.quantize_rows(x)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(want, q * rs)):
+                raise AssertionError(f"quant_node_mlp_dynamic x_q probe (M={m}, K={k}): "
+                                     f"{int((got != want).sum())} outputs differ")
+            ties += int(((x / rs).remainder(1.0) == 0.5).sum())
+    if ties == 0:
+        raise AssertionError("x_q probe: no ties in its rows")
+    print(f"[quant_node_mlp] int8 entry: {count['static']} cases (the {len(QMLP_SHAPES)} "
+          f"(K, N) of the six int8 paths x M in {QMLP_ROWS} x relu/gelu/none x row "
+          f"scales on/off; and {QMLP_WIDE_SHAPES} at M 37/4097) match the plain "
+          f"version, max abs err {worst['static']:.3g}; "
+          f"scale-1 outputs equal the int64 products; dynamic entry: {count['dynamic']} "
+          f"cases (fp32 rows, 1 in 5 all zero) match, max abs err "
+          f"{worst['dynamic']:.3g}; x_q probe (identity w_q, K = N in 9/100/200, M "
+          f"37/4097, all-zero rows, {ties} ties) bit for bit q * rs; launches by entry "
+          f"{QM.launches_by_entry}")
 
 
 def exact_int8_operands(gen, gamma: str, n: int, e: int, f: int, device):
@@ -908,9 +1010,11 @@ def _design_counters() -> dict:
     """Kernel name -> (wrapper module, its launch counts by design)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import node_mlp as NM
+    from repro_torch.kernels import quant_mlp as QM
 
     return {"flash_attention": (FA, "launches_by_route"),
-            "node_mlp": (NM, "launches_by_variant")}
+            "node_mlp": (NM, "launches_by_variant"),
+            "quant_node_mlp": (QM, "launches_by_entry")}
 
 
 def reset_launches():
@@ -922,8 +1026,8 @@ def reset_launches():
 
 def read_launches() -> dict:
     """The launch counts; "<kernel>.<design>" keys split flash_attention
-    by route and node_mlp by variant (raises unless they sum to the
-    kernel's count)."""
+    by route, node_mlp by variant and quant_node_mlp by entry (raises
+    unless they sum to the kernel's count)."""
     out = {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
     for kernel, (mod, attr) in _design_counters().items():
         split = getattr(mod, attr)
@@ -991,6 +1095,12 @@ def check_launches(model: str, precision: str, launches: dict) -> None:
             5 * lq == launches["fused_mp_int8"] == launches["fused_mp"]):
         raise AssertionError(f"gin int8: launches {launches} are not 1 quant_node_mlp "
                              f"and 5 int8 fused_mp per forward")
+    # int8-dynamic linears launch the dynamic entry, int8-static ones the
+    # int8 entry
+    entry = {"int8": "dynamic", "int8-static": "static"}.get(precision)
+    if entry and launches[f"quant_node_mlp.{entry}"] != lq:
+        raise AssertionError(f"{model} {precision}: launches {launches}; not every "
+                             f"quant_node_mlp on the {entry} entry")
     if precision != "int8" and launches["fused_mp_int8"]:
         raise AssertionError(f"{model} {precision}: int8 fused_mp ran")
     if precision in UNFUSABLE_PATH_KERNELS and launches["fused_mp"]:
@@ -1098,7 +1208,8 @@ def serve_model(model: str, device, packed_too: bool, precision: str = "fp32",
     if packed_too:
         line += (f"; packed 128 graphs ({PACKED['n_pad']}x{PACKED['e_pad']}) "
                  f"in {main['packed_s'] * 1e3:.3f} ms")
-    shares = ", ".join(f"{k} {v:.3f} ({ops} device ops)"
+    per = {"stream": n_stream, "packed": 1}
+    shares = ", ".join(f"{k} {v:.3f} ({ops} device ops, {ops / per[k]:.1f} a forward)"
                        for k, (v, ops) in busy.items())
     quant = main_engine.quant_report
     if quant is not None:
@@ -1492,26 +1603,46 @@ def time_edge_softmax(device, packed, lay, launches: int) -> dict:
     return row
 
 
-def time_quant_node_mlp(device, launches: int) -> dict:
-    """``quant_node_mlp`` at the packed GIN int8 path's shapes: the
-    encoder (4096, 9 -> 100), which the fused path launches, and the
-    unfused MLP's first layer (4096, 100 -> 200, relu, row scales).  The
-    yardstick is ``torch._int_mm`` (K and N zero-padded to multiples of 8
-    before the timed call, as its shape rules need) plus the epilogue in
-    torch."""
+def time_quant_node_mlp(device, lay, launches: int, by_entry: dict) -> dict:
+    """``quant_node_mlp`` at the packed GIN int8 path's shapes, the encoder
+    (4096, 9 -> 100) and the unfused MLP's first layer (4096, 100 -> 200,
+    relu).  The int8 entry (row scales) beside ``torch._int_mm`` (K and N
+    zero-padded to multiples of 8 before the timed call, as its shape rules
+    need) plus the epilogue in torch; the dynamic entry on fp32 x beside
+    the composition it replaced: the row quantization's eager ops (abs,
+    amax, clamp, the scale's division, the division, round, + zero, clamp,
+    int8 cast) and then the int8 entry.  No single library call quantizes
+    rows and multiplies.  Both beside ``floor_ms`` on the launch's 128
+    blocks.  The main row is the dynamic entry at the encoder's shape, the
+    launch the GIN int8 path makes."""
     import torch
     import torch.nn.functional as Fn
+    from repro_torch.core.ieee import div_rn
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import quant_mlp as QM
+    from repro_torch.quant.qconfig import quantize_int8
 
     gen = torch.Generator().manual_seed(15)
+    n_dst = lay.offsets.numel() - 1
     rows = []
     for m, k, n, act in ((PACKED["n_pad"], 9, 100, "none"),
                          (PACKED["n_pad"], 100, 200, "relu")):
         x_q, w_q, scale, rs, b = qmlp_inputs(gen, m, k, n, device)
+        x = dynamic_rows(gen, m, k, device)
         kern = lambda: kops.quant_node_mlp(x_q, w_q, scale, b, act, row_scale=rs,
                                            mode="kernel")
         plain = lambda: kops.quant_node_mlp(x_q, w_q, scale, b, act, row_scale=rs,
                                             mode="reference")
+        dyn = lambda: kops.quant_node_mlp_dynamic(x, w_q, scale, b, act, mode="kernel")
+        dyn_plain = lambda: kops.quant_node_mlp_dynamic(x, w_q, scale, b, act,
+                                                        mode="reference")
+
+        def composition():
+            r = div_rn(torch.clamp(torch.abs(x.float()).amax(dim=1, keepdim=True),
+                                   min=1e-8), 127.0)
+            return kops.quant_node_mlp(quantize_int8(x, r), w_q, scale, b, act,
+                                       row_scale=r, mode="kernel")
+
         kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
         x_p = Fn.pad(x_q, (0, kp - k)).contiguous()
         w_p = Fn.pad(w_q, (0, np_ - n, 0, kp - k)).contiguous()
@@ -1523,25 +1654,48 @@ def time_quant_node_mlp(device, launches: int) -> dict:
         err = checked_err(f"quant_node_mlp {(m, k, n, act)}", kern(), plain(), QMLP_TOL)
         checked_err(f"torch._int_mm + epilogue {(m, k, n, act)}", lib(), plain(),
                     QMLP_TOL)
+        dyn_err = checked_err(f"quant_node_mlp_dynamic {(m, k, n, act)}", dyn(),
+                              dyn_plain(), QMLP_TOL)
+        checked_err(f"quantize + quant_node_mlp {(m, k, n, act)}", composition(),
+                    dyn_plain(), QMLP_TOL)
+        floor = floor_ms(lay.offsets, n_dst, QM.blocks(m, n), 8, device)
+        # int8 entry: read x_q, w_q, scale, row scales, bias once; write y
+        # once; the tail's 4 operations an output
         ms, timer = device_ms(kern)
         plain_ms, _ = device_ms(plain)
         library_ms, _ = device_ms(lib)
-        # read x_q, w_q, scale, row scales, bias once; write y once
-        nbytes = m * k + k * n + 4.0 * (n + m + n + m * n)
-        bound_ms, bound_by = bound(nbytes, 4.0 * m * n, int8_ops=2.0 * m * k * n)
-        rows.append(dict(shape=[m, k, n, act, "row_scale"], max_abs_err=err, ms=ms,
-                         timer=timer, call_ms=call_ms(kern), plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by))
+        bound_ms, bound_by = bound(m * k + k * n + 4.0 * (n + m + n + m * n),
+                                   4.0 * m * n, int8_ops=2.0 * m * k * n)
+        rows.append(dict(entry="static", shape=[m, k, n, act, "row_scale"],
+                         max_abs_err=err, ms=ms, timer=timer, call_ms=call_ms(kern),
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, floor_ms=floor, blocks=QM.blocks(m, n)))
+        # dynamic entry: read fp32 x instead of x_q and the row scales; 6
+        # operations an input to quantize (abs, max, divide, round, two
+        # clamps)
+        ms, timer = device_ms(dyn)
+        plain_ms, _ = device_ms(dyn_plain)
+        comp_ms, comp_timer = device_ms(composition)
+        bound_ms, bound_by = bound(4.0 * m * k + k * n + 4.0 * (n + n + m * n),
+                                   6.0 * m * k + 4.0 * m * n, int8_ops=2.0 * m * k * n)
+        rows.append(dict(entry="dynamic", shape=[m, k, n, act], max_abs_err=dyn_err,
+                         ms=ms, timer=timer, call_ms=call_ms(dyn), plain_ms=plain_ms,
+                         library_ms=None, composition_ms=comp_ms,
+                         composition_timer=comp_timer, bound_ms=bound_ms,
+                         bound_by=bound_by, floor_ms=floor, blocks=QM.blocks(m, n)))
     for r in rows:
-        print(f"[time] quant_node_mlp {r['shape']}: err {r['max_abs_err']:.3g}; "
-              f"{r['ms']:.4f} ms ({r['timer']}; per call {r['call_ms']:.4f} ms), "
-              f"plain {r['plain_ms']:.4f}, _int_mm+epilogue {r['library_ms']:.4f}, "
-              f"bound {r['bound_ms']:.5f} ({r['bound_by']})")
+        other = (f"_int_mm+epilogue {r['library_ms']:.4f}" if r["entry"] == "static"
+                 else f"composition {r['composition_ms']:.4f} ({r['composition_timer']})")
+        print(f"[time] quant_node_mlp {r['entry']} {r['shape']}: err "
+              f"{r['max_abs_err']:.3g}; {r['ms']:.4f} ms ({r['timer']}; per call "
+              f"{r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f}, {other}, bound "
+              f"{r['bound_ms']:.5f} ({r['bound_by']}), floor {r['floor_ms']:.4f} "
+              f"({r['blocks']} blocks)")
+    main = {k: v for k, v in rows[1].items() if k != "entry"}
     return dict(name="quant_node_mlp", route="cuda",
                 source="src/repro_torch/kernels/csrc/quant_mlp.cu",
                 replaces="src/repro/kernels/quant_mlp.py:60",
-                launches=launches, **rows[0], all_shapes=rows)
+                launches=launches, launches_by_entry=by_entry, **main, all_shapes=rows)
 
 
 def time_fused_mp_int8(device, packed, lay, launches: int) -> dict:
@@ -1699,7 +1853,8 @@ def run(device) -> list:
             time_fused_mp(device, packed, lay, paths["gin"]["fused_mp"]),
             time_segment_reduce(device, packed, lay, paths["gat"]["segment_reduce"]),
             time_edge_softmax(device, packed, lay, paths["gat"]["edge_softmax"]),
-            time_quant_node_mlp(device, paths["gin int8"]["quant_node_mlp"]),
+            time_quant_node_mlp(device, lay, paths["gin int8"]["quant_node_mlp"],
+                                design_split(paths["gin int8"], "quant_node_mlp")),
             time_fused_mp_int8(device, packed, lay,
                                paths["gin int8"]["fused_mp_int8"]),
             time_flash_attention(device, paths["chatglm3-6b"]["flash_attention"],

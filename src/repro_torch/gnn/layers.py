@@ -4,7 +4,8 @@
 Parameters are plain nested dicts of tensors.  Every dense transform
 routes through ``linear_apply``: a plain ``{"w", "b"}`` dict runs the NE PE
 (``kernels.ops.node_mlp``), a ``quant.QuantizedLinear`` its quantized
-forward (``kernels.ops.quant_node_mlp`` for int8), so the kernel / plain
+forward (``kernels.ops.quant_node_mlp_dynamic`` for int8-dynamic,
+``kernels.ops.quant_node_mlp`` for int8-static), so the kernel / plain
 dispatch is uniform across models and precisions.
 """
 from __future__ import annotations

@@ -133,6 +133,20 @@ def quant_node_mlp(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     )
 
 
+def quant_node_mlp_dynamic(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                           b: torch.Tensor, activation: str = "none",
+                           mode: str = "auto") -> torch.Tensor:
+    """The int8-dynamic linear in one call: rows of ``x`` quantized to int8
+    at their exact-range scales, then the quantized NE PE with those row
+    scales; ``w_scale`` is (N,) or ()."""
+    if not _resolve(mode, x):
+        return ref.quant_node_mlp_dynamic_ref(x, w_q, w_scale, b, activation)
+    return _quant_mlp_kernel.quant_node_mlp_dynamic(
+        x.float().contiguous(), w_q.contiguous(), w_scale.float().contiguous(),
+        b.float().contiguous(), activation
+    )
+
+
 def fused_mp(
     spec,
     ids_sorted: torch.Tensor,

@@ -128,16 +128,42 @@ def quant_node_mlp_ref(
 _ROW_EPS = 1e-8
 
 
+def quantize_rows(x: torch.Tensor):
+    """The int8-dynamic row recipe: exact-range symmetric scales
+    ``rs = max(max|x_row|, 1e-8) / 127`` (M, 1) and ``q = clamp(round(x /
+    rs), -128, 127)`` (M, K), integer-valued f32; IEEE divisions, ties to
+    even.  -> (q, rs)."""
+    x = x.float()
+    rs = div_rn(torch.clamp(torch.abs(x).amax(dim=-1, keepdim=True), min=_ROW_EPS),
+                127.0)
+    return torch.clamp(torch.round(x / rs), -128.0, 127.0), rs
+
+
+def quant_node_mlp_dynamic_ref(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    b: torch.Tensor,
+    activation: str = "none",
+) -> torch.Tensor:
+    """The int8-dynamic linear: rows of f32 ``x`` (M, K) quantized by
+    :func:`quantize_rows`, then :func:`quant_node_mlp_ref` with the row
+    scales, ``act(((acc * w_scale) * rs) + b)``."""
+    q, rs = quantize_rows(x)
+    return quant_node_mlp_ref(q.to(torch.int8), w_q, w_scale, b, activation,
+                              row_scale=rs)
+
+
 def _fused_gamma_linear(x, w1, b1, w1_scale, precision: str) -> torch.Tensor:
     """gamma's first linear + relu, fp32 or the in-pass W8A8 boundary.
 
-    int8: exact-range symmetric per-row quantization of ``x``, exact int8
-    accumulation, one requantize tail ``acc * (row_scale * w_scale) + b``.
+    int8: exact-range symmetric per-row quantization of ``x``
+    (:func:`quantize_rows`), exact int8 accumulation, one requantize tail
+    ``acc * (row_scale * w_scale) + b`` (the fused kernel's order, not the
+    unfused linear's).
     """
     if precision == "int8":
-        rs = div_rn(torch.clamp(torch.abs(x).amax(dim=-1, keepdim=True),
-                                min=_ROW_EPS), 127.0)
-        q = torch.clamp(torch.round(x / rs), -128.0, 127.0)
+        q, rs = quantize_rows(x)
         y = _int8_accumulate(q, w1) * (rs * w1_scale.float()) + b1
     else:
         y = torch.matmul(x, w1.float()) + b1

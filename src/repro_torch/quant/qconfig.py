@@ -17,10 +17,14 @@ PyTorch port of ``repro.quant.qconfig``.
 A quantized linear layer is a ``QuantizedLinear`` (a frozen dataclass of
 tensors); ``gnn/layers.linear_apply`` dispatches on it, so a transformed
 parameter tree runs through all six models with no model-specific code.
-The activation quantization (per-row scale, round, clip) is plain tensor
-code, as in the JAX package; only the matmul with its requantize tail is
-a kernel.  Divisions by a constant go through ``core.ieee.div_rn``, so the
-scales are the IEEE quotients XLA and the CUDA kernels compute.
+An int8-dynamic linear is one call, ``kernels.ops.quant_node_mlp_dynamic``:
+on the card one launch quantizes the rows and runs the matmul with its
+requantize tail (the JAX package hands the same row recipe to XLA as one
+fusion before its kernel); its plain version is
+``kernels/ref.quant_node_mlp_dynamic_ref``.  Static activation quantization
+is plain tensor code.  Divisions by a constant go through
+``core.ieee.div_rn``, so the scales are the IEEE quotients XLA and the CUDA
+kernels compute.
 """
 from __future__ import annotations
 
@@ -169,8 +173,9 @@ def quantized_linear(q: QuantizedLinear, x: torch.Tensor,
                      activation: str = "none", mode: str = "auto") -> torch.Tensor:
     """Forward one quantized linear layer: f32 in, f32 out.
 
-    int8 dynamic: per-row (per-node) exact-range scales computed here,
-    requantized by (row scale x w_scale) in the kernel's tail.  int8
+    int8 dynamic: per-row (per-node) exact-range scales and the int8 rows
+    computed with the product in one kernel call, requantized by
+    ``(acc * w_scale) * row_scale`` in its tail.  int8
     static: SmoothQuant divisor, calibrated (scale, zero-point), requantize
     by ``x_scale * w_scale``.  fixed: snap the input, fp32 NE PE, snap the
     output.
@@ -180,11 +185,8 @@ def quantized_linear(q: QuantizedLinear, x: torch.Tensor,
         y = ops.node_mlp(x_f, q.w_q, q.b, activation=activation, mode=mode)
         return fixed_round(y, q.word_bits, q.int_bits)
     if q.act_mode == "dynamic":
-        rs = div_rn(torch.clamp(torch.abs(x.float()).amax(dim=1, keepdim=True),
-                                min=_EPS), 127.0)
-        x_q = quantize_int8(x, rs)
-        return ops.quant_node_mlp(x_q, q.w_q, q.w_scale, q.b,
-                                  activation=activation, row_scale=rs, mode=mode)
+        return ops.quant_node_mlp_dynamic(x, q.w_q, q.w_scale, q.b,
+                                          activation=activation, mode=mode)
     x_q = quantize_int8(x * q.x_premul, q.x_scale, q.x_zero)
     scale = (q.x_scale * q.w_scale).float()
     return ops.quant_node_mlp(x_q, q.w_q, scale, q.b, activation=activation,

@@ -8,7 +8,8 @@ device is present (decided inside the test run, never at import):
 
 Tolerance: |kernel - plain| <= 1e-5 + 1e-5 |plain| (the same fp32 FMAs
 summed in another order); PNA 5e-3, whose std amplifies one rounding of
-``sqsum/c - mean^2``.  int8: ``quant_node_mlp`` 1e-6 + 1e-6 |plain|;
+``sqsum/c - mean^2``.  int8: ``quant_node_mlp`` (both entries) 1e-6 +
+1e-6 |plain|, its x_q probe bit for bit;
 ``fused_mp`` on exact aggregates bit for bit (GIN 2e-5); the int8 engine
 within the quantization-noise bound of ``tests/test_torch_quant.py``.
 ``flash_attention``: fp32 1e-5 + 1e-5 |plain| (fp32 products summed in
@@ -32,6 +33,7 @@ from repro_torch.kernels import fused_mp as FM
 from repro_torch.kernels import node_mlp as NM
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quant_mlp as QM
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import segment_reduce as SR
 from repro_torch.kernels import segment_times as ST
 
@@ -658,6 +660,100 @@ def test_int8_engine_on_card_matches_reference(cuda):
     fp32, _, _ = GNNEngine(cfg, params, fused=True, device=cuda).infer_stream(graphs)
     got, want, fp32 = (np.concatenate(a) for a in (outs, refs, fp32))
     assert np.abs(got - want).mean() <= 0.2 * np.abs(want - fp32).mean() + 1e-5
+
+
+def dynamic_rows(rng, m, k):
+    """fp32 rows for the int8-dynamic recipe: normal values at per-row
+    ranges 1e-3 .. 1e2; row 0 all zero (the 1e-8 floor); from row 1 every
+    third row ties, (j + 1/2) 2^-e with one +-127 2^-e (rs = 2^-e exactly)."""
+    x = (rng.normal(size=(m, k)) * 10.0 ** rng.uniform(-3, 2, size=(m, 1))).astype(np.float32)
+    x[0] = 0.0
+    for r in range(1, m, 3):
+        e = int(rng.integers(-3, 20))
+        x[r] = (rng.integers(-127, 127, size=k) + 0.5) * 2.0 ** -e
+        x[r, rng.integers(0, k)] = (-1) ** r * 127 * 2.0 ** -e
+    return x
+
+
+@pytest.mark.parametrize("activation", ["relu", "gelu", "none"])
+def test_quant_node_mlp_dynamic_kernel_matches_plain(cuda, activation):
+    """The dynamic entry (rows quantized in the kernel) against its plain
+    version, |kernel - plain| <= 1e-6 + 1e-6 |plain| (the same int8 rows and
+    exact accumulators; gelu's tanh may differ by an ulp).  Includes K past
+    one slice, past w whole in shared memory (K 2000, N 256: the ring) and
+    N past one block (257), at ragged M; one launch each, on the dynamic
+    entry."""
+    rng = np.random.default_rng(3)
+    gen = torch.Generator().manual_seed(3)
+    for m, k, n in ((37, 9, 100), (4097, 100, 200), (1, 200, 100), (65, 3, 63),
+                    (130, 960, 80), (40, 2000, 256), (20, 300, 257)):
+        _, w_q, scale, b, _ = _qmlp_case(gen, m, k, n, False, cuda)
+        x = to_t(dynamic_rows(rng, m, k), cuda)
+        before = dict(QM.launches_by_entry)
+        got = kops.quant_node_mlp_dynamic(x, w_q, scale, b, activation, mode="kernel")
+        assert QM.launches_by_entry == dict(before, dynamic=before["dynamic"] + 1)
+        want = kops.quant_node_mlp_dynamic(x, w_q, scale, b, activation, mode="reference")
+        assert QM.launches_by_entry == dict(before, dynamic=before["dynamic"] + 1)
+        assert_close(got.cpu().numpy(), want.cpu().numpy(), dict(rtol=1e-6, atol=1e-6))
+
+
+@pytest.mark.parametrize("k", [9, 64, 100, 33])
+def test_quant_node_mlp_dynamic_x_q_probe(cuda, k):
+    """An identity w_q (K = N), w_scale 1, bias 0, no activation: the output
+    is the kernel's x_q * rs, equal to the plain version's bit for bit on
+    all-zero rows, tie rows (round half to even) and ragged M."""
+    rng = np.random.default_rng(k)
+    eye = torch.eye(k, dtype=torch.int8, device=cuda)
+    one, zero = torch.ones(k, device=cuda), torch.zeros(k, device=cuda)
+    for m in (37, 4097):
+        x = to_t(dynamic_rows(rng, m, k), cuda)
+        got = kops.quant_node_mlp_dynamic(x, eye, one, zero, "none", mode="kernel")
+        want = kops.quant_node_mlp_dynamic(x, eye, one, zero, "none", mode="reference")
+        q, rs = kref.quantize_rows(x)
+        assert torch.equal(got, want) and torch.equal(want, q * rs)
+        assert int(((x / rs).remainder(1.0) == 0.5).sum()) > 0
+
+
+def test_quant_node_mlp_dynamic_wrapper_checks(cuda):
+    """fp32 x, w_scale of shape (N,) or (), no launch for an empty M, and a
+    refusal (ValueError) where K passes one block's shared memory."""
+    x = torch.randn((8, 4), device=cuda)
+    w_q = torch.ones((4, 3), dtype=torch.int8, device=cuda)
+    b = torch.zeros(3, device=cuda)
+    before = dict(QM.launches_by_entry)
+    with pytest.raises(TypeError, match="x"):
+        QM.quant_node_mlp_dynamic(x.to(torch.int8), w_q, torch.ones(3, device=cuda), b)
+    with pytest.raises(ValueError, match="w_scale"):
+        QM.quant_node_mlp_dynamic(x, w_q, torch.ones(4, device=cuda), b)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros((8, 60000), device=cuda)
+        QM.quant_node_mlp_dynamic(big, torch.zeros((60000, 3), dtype=torch.int8, device=cuda),
+                                  torch.ones(3, device=cuda), b)
+    out = QM.quant_node_mlp_dynamic(torch.empty((0, 4), device=cuda), w_q,
+                                    torch.ones(3, device=cuda), b)
+    assert out.shape == (0, 3) and QM.launches_by_entry == before
+    got = QM.quant_node_mlp_dynamic(x, w_q, torch.tensor(0.5, device=cuda), b)
+    want = kref.quant_node_mlp_dynamic_ref(x, w_q, torch.tensor(0.5, device=cuda), b)
+    assert torch.equal(got, want)
+    assert QM.launches_by_entry == dict(before, dynamic=before["dynamic"] + 1)
+
+
+def test_gat_int8_forward_launches_six_dynamic(cuda):
+    """GAT in int8 at paper width: one forward still launches quant_node_mlp
+    6 times (the encoder and the 5 layers' projections), all on the dynamic
+    entry, and no separate row-quantization ops."""
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import models as TM
+    from repro_torch.serve.gnn_engine import GNNEngine
+
+    cfg = TM.paper_config("gat")
+    params = TM.init(torch.Generator().manual_seed(0), cfg)
+    graph = [g[:4] for g in MoleculeStream(MOLHIV, seed=1).take(1)]
+    eng = GNNEngine(cfg, params, precision="int8", fused=True, device=cuda)
+    eng.infer_stream(graph)  # warm
+    before = dict(QM.launches_by_entry)
+    eng.infer_stream(graph)
+    assert QM.launches_by_entry == dict(before, dynamic=before["dynamic"] + 6)
 
 
 def test_quant_node_mlp_empty_output_launches_nothing(cuda):

@@ -17,6 +17,11 @@ Same numpy inputs through ``repro`` and ``repro_torch``:
     rtol 1e-6, two tanh implementations) and within rtol 1e-6, atol 1e-6
     of JAX's Pallas kernel (interpret mode; the tolerance of JAX's own
     kernel test); the accumulation is the exact int64 product;
+  * the int8-dynamic linear in one call (``kops.quant_node_mlp_dynamic``,
+    the port's ``quantized_linear``) is bitwise JAX's ``quantized_linear``
+    (gelu: rtol 1e-6), all-zero and tie rows included; the shared row
+    helper ``kernels.ref.quantize_rows`` leaves the fused int8 gamma
+    bitwise as it was;
   * ``fused_mp_ref`` int8 (gin, pna, dgn) on inputs whose aggregates are
     exact in fp32 (``exact_operands``): the gamma towers and their int8
     quantization ``q`` are bitwise JAX's, the output within 2e-5 (JAX's
@@ -53,6 +58,7 @@ from repro.quant import observers as JO
 from repro.quant import qconfig as JQ
 from repro.serve.gnn_engine import GNNEngine as JEngine
 from repro_torch.convert import from_jax_params
+from repro_torch.core.ieee import div_rn
 from repro_torch.core import message_passing as TMP
 from repro_torch.gnn import models as TM
 from repro_torch.kernels import ops as kops
@@ -345,6 +351,75 @@ def test_quant_node_mlp_ref_accumulates_exactly():
         assert np.abs(exact).max() < 2 ** 24 or k > 1032
         np.testing.assert_array_equal(got.numpy().astype(np.int64),
                                       exact.astype(np.float32).astype(np.int64))
+
+
+def _dynamic_rows(rng, m, k):
+    """fp32 rows for the int8-dynamic recipe: normal values at per-row
+    ranges 1e-3 .. 1e2; row 0 all zero (the 1e-8 floor); and, from row 1
+    every third row, ties: (j + 1/2) 2^-e with one +-127 2^-e, so that
+    rs = 2^-e exactly and x / rs = j + 1/2 (round half to even)."""
+    x = (rng.normal(size=(m, k)) * 10.0 ** rng.uniform(-3, 2, size=(m, 1))).astype(np.float32)
+    x[0] = 0.0
+    for r in range(1, m, 3):
+        e = int(rng.integers(-3, 20))
+        x[r] = (rng.integers(-127, 127, size=k) + 0.5) * 2.0 ** -e
+        x[r, rng.integers(0, k)] = (-1) ** r * 127 * 2.0 ** -e
+    return x
+
+
+@pytest.mark.parametrize("granularity", ["per_channel", "per_tensor"])
+@pytest.mark.parametrize("activation", ["relu", "gelu", "none"])
+@pytest.mark.parametrize("shape", [(37, 9, 100), (64, 100, 200), (5, 960, 80), (1, 3, 100)])
+def test_quant_node_mlp_dynamic_matches_jax_quantized_linear(shape, activation, granularity):
+    """``kops.quant_node_mlp_dynamic`` (plain, CPU) and the port's
+    ``quantized_linear`` on a dynamic ``QuantizedLinear`` are bitwise JAX's
+    ``quantized_linear`` (gelu within rtol 1e-6, two tanh implementations),
+    all-zero rows and ties included."""
+    m, k, n = shape
+    rng = np.random.default_rng(m * k + n)
+    x = _dynamic_rows(rng, m, k)
+    w = (rng.normal(size=(k, n)) * 0.2).astype(np.float32)
+    b = rng.normal(size=(n,)).astype(np.float32)
+    qcfg = dict(granularity=granularity)
+    jq = JQA._quantize_dynamic_linear(jnp.asarray(w), jnp.asarray(b), JQ.QConfig(**qcfg))
+    tq = TQA._quantize_dynamic_linear(torch.from_numpy(w), torch.from_numpy(b),
+                                      TQ.QConfig(**qcfg))
+    want = np.asarray(JQ.quantized_linear(jq, jnp.asarray(x), activation))
+    got = kops.quant_node_mlp_dynamic(to_t(x), tq.w_q, tq.w_scale, tq.b, activation)
+    via_qconfig = TQ.quantized_linear(tq, to_t(x), activation)
+    assert torch.equal(got, via_qconfig)
+    if activation == "gelu":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    else:
+        _bitwise(got, want)
+    # the row recipe itself: q and rs bitwise JAX's
+    q, rs = TREF.quantize_rows(to_t(x))
+    jrs = jnp.maximum(jnp.max(jnp.abs(jnp.asarray(x)), axis=1, keepdims=True), JQ._EPS) / 127.0
+    _bitwise(rs, jrs, "rs")
+    _bitwise(q.to(torch.int8), JQ.quantize_int8(jnp.asarray(x), jrs), "x_q")
+
+
+@pytest.mark.parametrize("k", [9, 100])
+def test_quantize_rows_gives_fused_gamma_unchanged(k):
+    """The shared row helper leaves ``fused_mp_ref``'s int8 gamma as it was:
+    bitwise the former inline recipe (its tail order ``acc * (rs * w_scale)
+    + b``) and bitwise JAX's ``_fused_gamma_linear``, on random, all-zero
+    and tie rows."""
+    rng = np.random.default_rng(k)
+    x = _dynamic_rows(rng, 40, k)
+    w1 = rng.integers(-127, 128, size=(k, 24)).astype(np.int8)
+    s1 = rng.uniform(1e-3, 1e-2, size=(24,)).astype(np.float32)
+    b1 = rng.normal(size=(24,)).astype(np.float32)
+    xt = to_t(x)
+    got = TREF._fused_gamma_linear(xt, to_t(w1), to_t(b1), to_t(s1), "int8")
+    rs = div_rn(torch.clamp(torch.abs(xt).amax(dim=-1, keepdim=True), min=TREF._ROW_EPS),
+                127.0)
+    q = torch.clamp(torch.round(xt / rs), -128.0, 127.0)
+    former = torch.clamp(TREF._int8_accumulate(q, to_t(w1)) * (rs * to_t(s1)) + to_t(b1),
+                         min=0.0)
+    assert torch.equal(got, former)
+    _bitwise(got, JREF._fused_gamma_linear(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1),
+                                           jnp.asarray(s1), "int8"))
 
 
 def _capture_towers(monkeypatch, module, store):
