@@ -17,9 +17,9 @@
 // these sizes a launch's latency chain (load, wait, compute, store) is the
 // real floor: the design shortens that chain.
 //
-// Design (sm_90a).  Phase marks (%globaltimer) showed a launch to be a short
-// chain of dependent steps, each paid once per block: so the design has few
-// steps, little code per step and no runtime branch inside one.
+// Design (sm_90a).  A launch is a short chain of dependent steps, each paid
+// once per block (phase marks: kernels/quant_mlp_phases.py), so the design
+// has few steps, little code per step and no runtime branch inside one.
 //   * Blocks of 32 rows x up to 256 columns (every path's N in one block, so
 //     x and w are read once a block), 512 threads: warp w computes the 16 x
 //     32 output tile (w & 1, column group w >> 1).  A (4096, .) product is 128
@@ -141,6 +141,27 @@ struct Args {
   int m, k, n;
   Plan p;
 };
+
+// Phase marks, built only with -DQUANT_MLP_PHASES (kernels/quant_mlp_phases.py):
+// thread 0 of each of the first MARK_BLOCKS blocks records %globaltimer at
+// the block's start (0), once its copies are issued (1), once x is in the
+// tile (2: the int8 entry at K <= 32 has nothing to do here), once w and x
+// have landed (3; with a ring of slices, before its first wait), after its
+// products (4) and after its tail's stores (5).  Without the define they
+// compile to nothing.
+#ifdef QUANT_MLP_PHASES
+constexpr int MARK_BLOCKS = 4096;
+__device__ unsigned long long phase_marks[MARK_BLOCKS][8];
+__device__ __forceinline__ void phase_mark(int i) {
+  if (threadIdx.x == 0 && blockIdx.x < MARK_BLOCKS && blockIdx.y == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    phase_marks[blockIdx.x][i] = t;
+  }
+}
+#else
+__device__ __forceinline__ void phase_mark(int) {}
+#endif
 
 // ---- PTX wrappers
 
@@ -266,6 +287,7 @@ __global__ void __launch_bounds__(THREADS) quant_mlp_kernel(const Args a) {
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int rows = min(BM, a.m - m0), ncols = min(BN, a.n - n0);
   const bool computes = GROUP * c < ncols;
+  phase_mark(0);
 
   // group 0: the tail's vectors (zero past the block's columns) and x: the
   // int8 rows, or the first batch of fp32 rows
@@ -316,6 +338,7 @@ __global__ void __launch_bounds__(THREADS) quant_mlp_kernel(const Args a) {
     }
   }
 
+  phase_mark(1);
   const bool direct = !DYN && slices == 1;  // the int8 entry's A from the raw rows
   if (DYN) {
     // batches of P.batch fp32 rows: thread (r, part) of `lanes` threads a
@@ -386,6 +409,7 @@ __global__ void __launch_bounds__(THREADS) quant_mlp_kernel(const Args a) {
       }
   }
 
+  phase_mark(2);
   int acc[4][4];
 #pragma unroll
   for (int q = 0; q < 4; ++q)
@@ -439,6 +463,7 @@ __global__ void __launch_bounds__(THREADS) quant_mlp_kernel(const Args a) {
   if (P.resident) {
     cp_async_wait_pending(0);
     __syncthreads();  // w, the tile and the vectors are in place
+    phase_mark(3);
     if (computes && slices > 0) {
       // slice s + 1's fragments load while slice s's products run
       unsigned af[4], bf[2][4];
@@ -453,6 +478,7 @@ __global__ void __launch_bounds__(THREADS) quant_mlp_kernel(const Args a) {
       }
     }
   } else {
+    phase_mark(3);
     for (int s = 0; s < slices; ++s) {
       // slice s has landed when at most (issued - s - 1) groups are pending
       cp_async_wait_pending(min(slices, MAX_STAGES - 1 + s) - s - 1);
@@ -470,6 +496,7 @@ __global__ void __launch_bounds__(THREADS) quant_mlp_kernel(const Args a) {
     }
     __syncthreads();  // (K = 0: the vectors)
   }
+  phase_mark(4);
   if (!computes) return;
 
   // acc[nt][2h + i] is row 16 mt + g + 8h, column 32c + 8t + 4i + nt
@@ -524,6 +551,7 @@ __global__ void __launch_bounds__(THREADS) quant_mlp_kernel(const Args a) {
         }
     }
   }
+  phase_mark(5);
 }
 
 // Largest dynamic shared memory opted into so far, per instance and device:
@@ -592,3 +620,10 @@ extern "C" int quant_mlp_dyn_f32(const float* x, const signed char* w,
                                  int m, int k, int n, int act, cudaStream_t stream) {
   return launch<true>(Args{x, w, w_scale, nullptr, b, y, m, k, n, Plan{}}, act, stream);
 }
+
+#ifdef QUANT_MLP_PHASES
+// The phase marks of the last launches (MARK_BLOCKS x 8 nanosecond stamps).
+extern "C" int quant_mlp_read_marks(unsigned long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, phase_marks, sizeof(phase_marks));
+}
+#endif

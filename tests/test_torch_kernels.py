@@ -9,6 +9,9 @@ oracles, dispatch rules and the build.
     ``mode="kernel"`` on a CPU tensor, and honours ``REPRO_KERNEL_MODE``.
   * The kernel wrappers refuse CPU tensors without launching; on CPU
     tensors ``kernels.ops`` runs int8 specs (JAX's answer within 2e-5).
+  * ``csrc/quant_mlp.cu``'s row quantizer (multiply by the reciprocal,
+    divide near half-integers), modelled in numpy float32, rounds as the
+    IEEE quotient does on random rows and near-ties.
   * The CUDA kernels themselves are held against the plain versions in
     ``tests/test_torch_on_card.py`` (it skips without a card) and, at full
     size, by ``python3 chip_smoke.py``.
@@ -272,6 +275,70 @@ def test_fused_mp_phases_needs_a_card(capsys, argv):
 
     assert fused_mp_phases.main(argv) == 1
     assert "CUDA" in capsys.readouterr().err
+
+
+def test_quant_mlp_phases_needs_a_card(capsys):
+    from repro_torch.kernels import quant_mlp_phases
+
+    assert quant_mlp_phases.main([]) == 1
+    assert "CUDA" in capsys.readouterr().err
+
+
+def test_quant_node_mlp_dynamic_refuses_cpu_tensors():
+    """The dynamic entry's wrapper launches nothing for CPU tensors, and
+    ``mode="kernel"`` on them raises; ``mode="auto"`` runs the plain
+    version (``kernels.ref.quant_node_mlp_dynamic_ref``)."""
+    x = torch.randn(5, 4)
+    w_q = torch.ones((4, 3), dtype=torch.int8)
+    args = (x, w_q, torch.ones(3), torch.zeros(3))
+    before = dict(QM.launches_by_entry)
+    with pytest.raises(ValueError, match="CUDA"):
+        QM.quant_node_mlp_dynamic(*args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kops.quant_node_mlp_dynamic(*args, mode="kernel")
+    assert torch.equal(kops.quant_node_mlp_dynamic(*args),
+                       TREF.quant_node_mlp_dynamic_ref(*args))
+    assert QM.launches_by_entry == before
+
+
+def _quantize_like_the_kernel(x, rs):
+    """``csrc/quant_mlp.cu:quantize4`` in numpy float32: q0 = RN(x * RN(1 /
+    rs)), the IEEE quotient only where q0 lies within 2^-20 |q0| of a
+    half-integer, then rint and clamp.  -> (q, fallback mask)."""
+    f32 = np.float32
+    q0 = (x * (f32(1) / rs).astype(f32)).astype(f32)
+    near = np.abs(q0 - (np.floor(q0) + f32(0.5))) <= np.abs(q0) * f32(2.0 ** -20)
+    q = np.where(near, (x / rs).astype(f32), q0)
+    return np.clip(np.rint(q), -128, 127), near
+
+
+def test_quant_mlp_quantizer_rounds_as_the_ieee_quotient():
+    """The dynamic entry's quantizer gives rint(RN(x / rs)) clamped, as
+    qconfig's recipe does, on random rows at binades 2^-30 .. 2^30 and on
+    near-ties: (j + 1/2) rs moved by 0 .. 8 ulps either way (the cases a
+    multiplication by the reciprocal can round across).  RN(1 / rs) within
+    half an ulp makes q0 within 1.5 ulp of x / rs, so a window of 2^-20 |q0|
+    around each half-integer leaves every other value on the quotient's
+    side."""
+    rng = np.random.default_rng(19)
+    f32 = np.float32
+    m = (np.exp2(rng.uniform(-30, 30, 20000)) * rng.uniform(1, 2, 20000)).astype(f32)
+    rs = (np.maximum(m, f32(1e-8)) / f32(127)).astype(f32)
+    xs = [(rng.uniform(-1, 1, m.size) * m).astype(f32), m, -m]
+    ties = ((rng.integers(-128, 127, m.size) + f32(0.5)) * rs).astype(f32)
+    for direction in (np.inf, -np.inf):
+        t = ties.copy()
+        for _ in range(9):
+            xs.append(t)
+            t = np.nextafter(t, f32(direction)).astype(f32)
+    fallbacks = []
+    for x in xs:
+        got, near = _quantize_like_the_kernel(x, rs)
+        want = np.clip(np.rint((x / rs).astype(f32)), -128, 127)
+        np.testing.assert_array_equal(got, want)
+        fallbacks.append(near.mean())
+    # the division runs for (nearly) every near-tie, for few random values
+    assert fallbacks[0] < 1e-3 and min(fallbacks[3:]) > 0.5
 
 
 def test_fused_mp_wrapper_has_one_library():
