@@ -98,6 +98,26 @@ fails the run), then runs these phases, one line each:
               unfused sums' atomics otherwise vary from run to run) fused
               gives the unfused result bit for bit: those linears do not
               lower
+  6. graphs   the executor's captured CUDA graphs: all six models
+              streamed (32 graphs) in fp32 and int8, GIN and GAT fp32
+              packed.  Under PyTorch's deterministic algorithms every
+              served output equals a direct eager call of
+              ``gnn.models.forward_program`` on the same prepared batch bit
+              for bit, the executor captures one graph per distinct
+              signature, and a second pass captures none and serves the
+              same bits.  On a fresh engine the captured forward's launches
+              (the wrappers' counters around ``Executor.warm``, less two
+              eager forwards: the direct one and the warm's own) equal one
+              eager forward's and pass ``check_launches``, and
+              ``torch.profiler`` finds the same kernels, as many of each,
+              in one replay.  Each line prints p50 / p99 through the graph
+              beside the eager forward's (timed in one loop), device ops a
+              forward, the busy share and the capture seconds; the phase
+              prints its peak allocated memory.  Then GIN is streamed once
+              with a ``Tracer`` and a ``MetricsRegistry`` attached: both
+              exports pass the port's validators, the events and counters
+              agree with the executor, and the admission line and the
+              dispatch census print
   3f. flash_attention kernel vs plain version at ChatGLM3-6B's prefill
               (B 8, Hq 32, Hkv 16 and 2, D 128, S 512, 1, 37, 1000, in the
               serving path's (B, S, H, D) layout) and Gemma-3-12B's layers
@@ -123,7 +143,11 @@ fails the run), then runs these phases, one line each:
               cache_len 2304, 8 new tokens; the same checks, 6 mma launches
               per prefill
   8. kernels  launch counts of each path (counters reset just before each
-              serve phase and read just after), and at the packed batch's
+              serve phase and read just after; a wrapper counts where it
+              runs: the eager warm forward and the launches recorded into
+              the capture, one of each per signature, while a replay runs
+              no wrapper, so phase 6's profiler counts give the launches
+              per replay, ``launches_per_replay``), and at the packed batch's
               shapes each kernel's time beside its plain version's, the
               library call's (node_mlp: ``torch.addmm`` + relu;
               segment_reduce: ``torch.segment_reduce``; quant_node_mlp:
@@ -230,6 +254,17 @@ INT8_PATH_KERNELS = {
 # int8-static and fixed GIN layers do not lower into fused_mp
 UNFUSABLE_PATH_KERNELS = {"int8-static": ("quant_node_mlp", "node_mlp"),
                           "fixed": ("node_mlp",)}
+# phase 6: (model, precision, packed) served through captured CUDA graphs
+GRAPH_PATHS = tuple((m, prec, False) for prec in ("fp32", "int8")
+                    for m in ("gin", "gcn", "gat", "pna", "dgn", "gin_vn")) + (
+    ("gin", "fp32", True), ("gat", "fp32", True))
+GRAPH_STREAM = 32
+GRAPH_PACKED_REPS = 8
+# kernel symbol in the profiler's records -> the wrapper counter it answers to
+KERNEL_SYMBOLS = (("node_mlp_", "node_mlp"), ("fused_mp_kernel", "fused_mp"),
+                  ("segment_reduce_kernel", "segment_reduce"),
+                  ("edge_softmax_kernel", "edge_softmax"),
+                  ("quant_mlp_kernel", "quant_node_mlp"))
 
 
 def device_line() -> str:
@@ -374,20 +409,40 @@ def call_ms(fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
+PROFILE_TRIES = 4
+
+
+def device_events(fn) -> list:
+    """The device records (``torch.profiler`` events on the card) of one
+    call of ``fn``, which must launch at least one kernel.  A session whose
+    record holds no kernel at all has lost it (the profiler can drop a whole
+    session's device activity, not only single records), so ``fn`` is run
+    and profiled again, up to ``PROFILE_TRIES`` sessions in all; raises if
+    every one lost its record."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if any(not e.name.startswith(("Memcpy", "Memset")) for e in events):
+            return events
+        print(f"[profiler] session {attempt} of {PROFILE_TRIES} recorded no kernel "
+              f"({len(events)} device records): profiled again")
+    raise AssertionError(f"the profiler recorded no kernel in {PROFILE_TRIES} sessions")
+
+
 def busy_share(fn):
     """(share of wall time the card is busy while ``fn`` runs, device
     operations it issued): device time summed by ``torch.profiler`` over
     the wall time of a second, unprofiled run (both end at a synchronise)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = [e.time_range.elapsed_us() for e in prof.events()
-           if e.device_type == DeviceType.CUDA]
+    dev = [e.time_range.elapsed_us() for e in device_events(fn)]
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
@@ -1111,7 +1166,9 @@ def check_launches(model: str, precision: str, launches: dict) -> None:
 def serve_model(model: str, device, packed_too: bool, precision: str = "fp32",
                 n_stream: int = 32) -> dict:
     """Drive the port's main path for ``model`` at ``precision`` and check
-    what comes out; returns the path's launch counts."""
+    what comes out; returns the path's launch counts (per signature one
+    eager warm forward and one capture, the same kernels in the same
+    counts: ``check_launches`` reads their ratios)."""
     import torch
     from repro_torch.configs.gengnn_models import get_gnn_config
     from repro_torch.core import batching as B
@@ -1250,6 +1307,202 @@ def serve_feature_dtypes(device) -> None:
     print(f"[gin dtypes] 8 graphs streamed with int64, then float64 node "
           f"features (served as int32 / float32) match the cpu path: "
           f"{'; '.join(errs)}")
+
+
+# ------------------------------------------------------------ phase 6: graphs
+
+
+def graph_engine(model: str, precision: str, device, executor=None):
+    """A fused GNNEngine of ``model`` at paper width, seed-0 params."""
+    import torch
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.gnn import init
+    from repro_torch.serve.gnn_engine import GNNEngine
+
+    cfg = get_gnn_config(model)
+    where = dict(device=device) if executor is None else dict(executor=executor)
+    return GNNEngine(cfg, init(torch.Generator().manual_seed(0), cfg),
+                     precision=precision, fused=True, **where)
+
+
+def graph_inputs(ex, model: str, packed: bool) -> list:
+    """The prepared batches of a [graphs] path: 32 streamed MolHIV-like
+    graphs, or one packed batch of 128 at the (4096, 12288, 128) budget."""
+    from repro_torch.core import batching as B
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+
+    if packed:
+        batch = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(128)]
+        budget = B.BucketBudget(**PACKED)
+        graph, _ = B.pack_graphs(batch, budget, device=ex.device)
+        return [ex.prepare_packed(graph, budget)]
+    return [ex.prepare_stream(g[:4], with_eigvec=model == "dgn")
+            for g in MoleculeStream(MOLHIV, seed=0).take(GRAPH_STREAM)]
+
+
+def eager_forward(tenant, p):
+    """The direct eager call of ``gnn.models.forward_program`` on a prepared
+    batch: the path the executor ran before it captured graphs."""
+    import torch
+    from repro_torch.gnn import models as M
+
+    fn = M.forward_program(tenant.cfg, num_graphs=p.num_graphs, fused=tenant.fused)
+    with torch.inference_mode():
+        return fn(tenant.params, *p.inputs)
+
+
+def replay_launches(fn) -> tuple:
+    """({counter name: launches}, device ops) of one call of ``fn`` as
+    ``torch.profiler`` records its device activity: the kernels a graph
+    replay runs, mapped to the wrappers' counters by symbol."""
+    names = [e.name for e in device_events(fn)]
+    counts = {name: 0 for _, name in KERNEL_SYMBOLS}
+    for n in names:
+        for symbol, name in KERNEL_SYMBOLS:
+            if symbol in n:
+                counts[name] += 1
+    return counts, len(names)
+
+
+def graphs_equal_eager(model: str, precision: str, packed: bool, device) -> int:
+    """Under PyTorch's deterministic algorithms (``index_add_``'s atomics
+    otherwise sum in a varying order): every served output equals the
+    direct eager forward on the same prepared batch bit for bit; one capture
+    per distinct signature; a second pass captures nothing and serves the
+    same bits.  Returns the number of signatures."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        ex = graph_engine(model, precision, device).executor
+        tenant = ex.tenant()
+        preps = graph_inputs(ex, model, packed)
+        sigs = len({p.signature for p in preps})
+        served = [ex.run(p)[0] for p in preps]
+        if ex.lowered_count != sigs:
+            raise AssertionError(f"{model} {precision}: {ex.lowered_count} captures "
+                                 f"for {sigs} signatures")
+        for i, (p, out) in enumerate(zip(preps, served)):
+            want = eager_forward(tenant, p).cpu().numpy()
+            if not np.array_equal(out, want):
+                raise AssertionError(f"{model} {precision} batch {i}: served output is not "
+                                     f"the eager forward's (max err "
+                                     f"{float(np.abs(out - want).max()):.3g})")
+        again = [ex.run(p)[0] for p in preps]
+        if ex.lowered_count != sigs:
+            raise AssertionError(f"{model} {precision}: the second pass captured "
+                                 f"{ex.lowered_count - sigs} more graphs")
+        if not all(np.array_equal(a, b) for a, b in zip(again, served)):
+            raise AssertionError(f"{model} {precision}: the second pass's outputs differ")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sigs
+
+
+def serve_graphs(model: str, precision: str, packed: bool, device) -> dict:
+    """One [graphs] path: the bit-for-bit check, then on a fresh engine the
+    launches of the captured forward (the wrappers' counters around the
+    warm, less two eager forwards': the direct one and the warm's own)
+    against the eager forward's and against a replay's kernels by the
+    profiler, stream p50 / p99 through the graph and eagerly in one loop,
+    device ops per replay and the busy share.  Returns the kernels'
+    launches a replay, by counter name."""
+    import torch
+
+    sigs = graphs_equal_eager(model, precision, packed, device)
+    ex = graph_engine(model, precision, device).executor
+    tenant = ex.tenant()
+    preps = graph_inputs(ex, model, packed)
+    reset_launches()
+    eager_forward(tenant, preps[0])
+    torch.cuda.synchronize()
+    eager = read_launches()
+    ex.warm(preps[0])  # an eager forward, then the capture
+    captured = {k: n - 2 * eager[k] for k, n in read_launches().items()}
+    check_launches(model, precision, captured)
+    if captured != eager:
+        raise AssertionError(f"{model} {precision}: captured forward launches {captured}, "
+                             f"eager {eager}")
+    replay, replay_ops = replay_launches(lambda: ex.run(preps[0]))
+    if replay != {name: captured[name] for _, name in KERNEL_SYMBOLS}:
+        raise AssertionError(f"{model} {precision}: a replay ran {replay} in "
+                             f"{replay_ops} device ops, the capture launched {captured}")
+    # the int8 gamma runs in fused_mp's own instances, which the profiler's
+    # names do not tell apart: a replay runs the launches the capture made
+    replay["fused_mp_int8"] = captured["fused_mp_int8"]
+    graph_ms, eager_ms = [], []
+    for p in preps * (GRAPH_PACKED_REPS if packed else 1):
+        graph_ms.append(ex.run(p)[1] * 1e3)
+        t0 = time.perf_counter()
+        eager_forward(tenant, p)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    busy, ops = busy_share(lambda: [ex.run(p) for p in preps])
+    tag = f"{model} {precision}{' packed' if packed else ''}"
+    what = (f"1 batch of 128 graphs ({PACKED['n_pad']}x{PACKED['e_pad']}), "
+            f"{len(graph_ms)} runs" if packed else f"{len(preps)} graphs streamed")
+    pct = lambda xs, q: float(np.percentile(xs, q))
+    print(f"[graphs {tag}] {what}: {sigs} signatures, {sigs} captures, 0 new on a "
+          f"second pass; served == eager forward bit for bit (deterministic "
+          f"algorithms); graph p50 {pct(graph_ms, 50):.3f} p99 {pct(graph_ms, 99):.3f} ms, "
+          f"eager p50 {pct(eager_ms, 50):.3f} p99 {pct(eager_ms, 99):.3f} ms; "
+          f"{ops / len(preps):.1f} device ops a forward through the graph "
+          f"({replay_ops} in one run), busy share {busy:.3f}; capture "
+          f"{ex.compile_seconds:.3f}s, warm {ex.warm_seconds:.3f}s; kernels a replay "
+          f"{ {k: replay[k] for _, k in KERNEL_SYMBOLS if replay[k]} } = the capture's")
+    return replay
+
+
+def serve_telemetry(device) -> None:
+    """GIN fp32 streamed once through an executor with a ``Tracer`` and a
+    ``MetricsRegistry`` attached: both exports pass the port's validators,
+    the counters agree with the executor, and the admission line prints."""
+    from repro_torch.obs import MetricsRegistry, Tracer, default_registry, export
+    from repro_torch.serve.clock import RealClock
+    from repro_torch.serve.executor import Executor
+
+    tracer, reg = Tracer(RealClock()), MetricsRegistry()
+    ex = Executor(device=device, tracer=tracer, metrics=reg)
+    eng = graph_engine("gin", "fp32", device, executor=ex)
+    preps = graph_inputs(ex, "gin", packed=False)
+    for p in preps:
+        ex.run(p)
+    n_metrics = export.validate_metrics_snapshot(export.metrics_snapshot(reg))
+    n_events = export.validate_trace_events(export.trace_events(tracer))
+    export.validate_metrics_snapshot(default_registry().snapshot())
+    count = lambda name: sum(s.name == name for s in tracer.spans)
+    want = {"program_build": len(ex._compiled), "warm": ex.lowered_count,
+            "executor_run": len(preps), "unpack_d2h": len(preps)}
+    got = {name: count(name) for name in want}
+    if got != want or reg.get("serve_warms_total").value() != ex.lowered_count:
+        raise AssertionError(f"telemetry: events {got}, expected {want}")
+    if abs(reg.get("serve_compile_seconds_total").value() - eng.compile_seconds) > 1e-9:
+        raise AssertionError("telemetry: capture seconds disagree with the executor")
+    census = default_registry().get("kernels_dispatch_total").series()
+    print(f"[telemetry] gin fp32, {len(preps)} graphs streamed with a Tracer and a "
+          f"MetricsRegistry: {n_metrics} metrics and {n_events} trace events valid; "
+          f"events {got}; device {reg.get('serve_device_seconds_total').value():.4f}s, "
+          f"d2h {reg.get('serve_d2h_seconds_total').value():.4f}s; "
+          f"{export.admission_line(reg)}; dispatch census "
+          f"{ {'/'.join(k): int(v) for k, v in sorted(census.items())} }")
+
+
+def graph_phase(device) -> dict:
+    """Phase 6: every [graphs] path and the telemetry run; prints the peak
+    memory the phase allocated."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = {}
+    for model, precision, packed in GRAPH_PATHS:
+        out[(model, precision, packed)] = serve_graphs(model, precision, packed, device)
+    serve_telemetry(device)
+    print(f"[graphs] peak allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+          f"over the phase, {start / 2**20:.1f} MiB of it held before the phase began "
+          f"(one graph and pool per engine and signature)")
+    return out
 
 
 # ------------------------------------------------------------ phases 9-9b
@@ -1825,7 +2078,8 @@ def time_flash_attention(device, launches: int, by_route: dict) -> dict:
 
 
 def run(device) -> list:
-    """Phases 2-9b and 8 on ``device``; returns the kernels' JSON rows."""
+    """Phases 2-7b, 6, 9-9b and 8 on ``device``; returns the kernels' JSON
+    rows."""
     check_node_mlp(device)
     check_fused_mp(device)
     check_segment_reduce(device)
@@ -1845,6 +2099,7 @@ def run(device) -> list:
     for precision in ("int8-static", "fixed"):
         paths[f"gin {precision}"] = serve_model("gin", device, packed_too=False,
                                                 precision=precision, n_stream=8)
+    graphs = graph_phase(device)
     for arch, overrides, serve_kw, lengths in LM_PATHS:
         paths[arch] = serve_lm(arch, overrides, serve_kw, lengths, device)
     packed, lay = packed_plan(device)
@@ -1862,6 +2117,10 @@ def run(device) -> list:
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
+        row["launches_per_replay"] = {
+            " ".join(k for k in (model, precision, "packed" if packed else "") if k):
+                replay.get(row["name"], 0)
+            for (model, precision, packed), replay in graphs.items()}
     return rows
 
 

@@ -139,8 +139,10 @@ def pna_scalers(degree: torch.Tensor, avg_degree: float) -> torch.Tensor:
     model hyperparameter), taken in float32 as the JAX package does."""
     deg = degree.to(torch.float32)
     logd = torch.log(deg + 1.0)
-    log_davg = torch.log(torch.tensor(avg_degree, dtype=torch.float32,
-                                      device=deg.device) + 1.0)
+    # made on the device by a fill, not copied from the host: a copy would
+    # synchronise, which a CUDA-graph capture refuses
+    log_davg = torch.log(torch.full((), avg_degree, dtype=torch.float32,
+                                    device=deg.device) + 1.0)
     amp = logd / log_davg
     att = log_davg / torch.clamp(logd, min=1e-6)
     att = torch.where(deg > 0, att, torch.zeros_like(att))

@@ -25,6 +25,9 @@ from repro_torch.kernels import _build
 THREAD_EDGES = 16
 WARP_EDGES = 512
 
+# counts the wrapper's calls that launch: eager launches and those a
+# CUDA-graph capture records (the executor's warm); a replay runs no
+# wrapper and is not counted here
 launches = 0
 
 _SIGNATURES = {

@@ -37,6 +37,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTE_CODES = {"simt": 0, "mma": 1}
 MMA_BLOCK_Q = 64  # query rows per CTA of the mma route (4 warps x 16)
 
+# counts the wrapper's calls that launch: eager launches and those a
+# CUDA-graph capture records (the executor's warm); a replay runs no
+# wrapper and is not counted here
 launches = 0
 launches_by_route = dict.fromkeys(ROUTE_CODES, 0)
 

@@ -44,6 +44,9 @@ ROWS = (32, 16)  # destinations per block (rows_for)
 # slice takes half); two slices are staged at a time, as in csrc/fused_mp.cu
 STAGE_WORDS = 4096
 
+# counts the wrapper's calls that launch: eager launches and those a
+# CUDA-graph capture records (the executor's warm); a replay runs no
+# wrapper and is not counted here
 launches = 0
 int8_launches = 0  # the launches among them with gamma's int8 linear
 

@@ -32,6 +32,9 @@ SHALLOW_MAX_K = 16
 TILED_K_SLICE, TILED_MAX_STAGES = 32, 8
 TILED_STAGE_BYTES = 4 * (64 * (TILED_K_SLICE + 4) + TILED_K_SLICE * 64)
 
+# counts the wrapper's calls that launch: eager launches and those a
+# CUDA-graph capture records (the executor's warm); a replay runs no
+# wrapper and is not counted here
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANT_CODES, 0)
 

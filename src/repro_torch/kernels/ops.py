@@ -15,6 +15,13 @@ per-call ``mode``, as in the JAX package.  There is no fallback: on a CUDA
 tensor the kernel launches or raises, and a kernel that fails to build
 raises.  The TPU package's VMEM-budget fallback has no counterpart here.
 
+Every decision is counted in the process-wide registry as
+``kernels_dispatch_total{op, path}`` (path ``kernel`` or ``reference``),
+as JAX's ``_record_dispatch`` counts it.  JAX counts at trace time, once
+per compile; the port counts where the wrapper runs, which on the
+executor's path is at warm (the eager forward) and at CUDA-graph capture,
+never at replay: a census of the programs built, not of requests.
+
 The fp32 kernels refuse other dtypes.  Where a plain version reads an
 operand in fp32 (``.float()``), the dispatch hands its kernel that fp32
 tensor, and ``node_mlp`` casts the kernel's output to the input's dtype
@@ -35,12 +42,22 @@ from repro_torch.kernels import node_mlp as _node_mlp_kernel
 from repro_torch.kernels import quant_mlp as _quant_mlp_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_reduce as _segment_kernel
+from repro_torch.obs.metrics import default_registry
 
 MODES = ("auto", "kernel", "reference")
 
 
-def _resolve(mode: str, t: torch.Tensor) -> bool:
-    """-> whether the CUDA kernel runs for tensor ``t``."""
+def _record_dispatch(op: str, use_kernel: bool) -> None:
+    """Count one dispatch decision in the process-wide registry
+    (``kernels_dispatch_total{op, path}``): a dict update, nothing staged
+    on the device."""
+    default_registry().counter("kernels_dispatch_total").inc(
+        op=op, path="kernel" if use_kernel else "reference")
+
+
+def _resolve(op: str, mode: str, t: torch.Tensor) -> bool:
+    """-> whether the CUDA kernel runs ``op`` for tensor ``t``; the
+    decision is counted (:func:`_record_dispatch`)."""
     env = os.environ.get("REPRO_KERNEL_MODE", "")
     if env:
         if env not in MODES:
@@ -50,14 +67,13 @@ def _resolve(mode: str, t: torch.Tensor) -> bool:
         mode = env
     if mode not in MODES:
         raise ValueError(f"unknown kernel mode {mode!r}; expected one of {MODES}")
-    if mode == "reference":
-        return False
-    on_cuda = t.device.type == "cuda"
+    on_cuda = mode != "reference" and t.device.type == "cuda"
     if mode == "kernel" and not on_cuda:
         raise RuntimeError(
             f"kernel mode needs CUDA tensors; got a tensor on {t.device} "
             "(the CUDA kernels have no CPU or interpret mode)"
         )
+    _record_dispatch(op, on_cuda)
     return on_cuda
 
 
@@ -79,7 +95,7 @@ def segment_reduce(
     """
     if perm is not None:
         values = values[perm.long()]
-    if not _resolve(mode, values):
+    if not _resolve("segment_reduce", mode, values):
         return ref.segment_reduce_sorted_ref(values, segment_ids, num_segments, op)
     return _segment_kernel.segment_reduce(
         values.float().contiguous(), offsets.contiguous(), num_segments, op
@@ -101,7 +117,7 @@ def edge_softmax(
     """
     if perm is not None:
         logits = logits[perm.long()]
-    if not _resolve(mode, logits):
+    if not _resolve("edge_softmax", mode, logits):
         return ref.edge_softmax_ref(logits, segment_ids, num_segments)
     return _edge_softmax_kernel.edge_softmax(
         logits.float().contiguous(), offsets.contiguous(), num_segments
@@ -111,7 +127,7 @@ def edge_softmax(
 def node_mlp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
              activation: str = "relu", mode: str = "auto") -> torch.Tensor:
     """Fused linear + bias + activation (the NE PE)."""
-    if not _resolve(mode, x):
+    if not _resolve("node_mlp", mode, x):
         return ref.node_mlp_ref(x, w, b, activation)
     y = _node_mlp_kernel.node_mlp(
         x.float().contiguous(), w.contiguous(), b.contiguous(), activation
@@ -125,7 +141,7 @@ def quant_node_mlp(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                    mode: str = "auto") -> torch.Tensor:
     """Quantized NE PE: int8 x int8 -> int32, then
     ``act((acc * scale) * row_scale + b)``; ``scale`` is (N,) or ()."""
-    if not _resolve(mode, x_q):
+    if not _resolve("quant_node_mlp", mode, x_q):
         return ref.quant_node_mlp_ref(x_q, w_q, scale, b, activation, row_scale)
     c = lambda t: None if t is None else t.contiguous()
     return _quant_mlp_kernel.quant_node_mlp(
@@ -139,7 +155,7 @@ def quant_node_mlp_dynamic(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Te
     """The int8-dynamic linear in one call: rows of ``x`` quantized to int8
     at their exact-range scales, then the quantized NE PE with those row
     scales; ``w_scale`` is (N,) or ()."""
-    if not _resolve(mode, x):
+    if not _resolve("quant_node_mlp", mode, x):
         return ref.quant_node_mlp_dynamic_ref(x, w_q, w_scale, b, activation)
     return _quant_mlp_kernel.quant_node_mlp_dynamic(
         x.float().contiguous(), w_q.contiguous(), w_scale.float().contiguous(),
@@ -172,7 +188,7 @@ def fused_mp(
     ``offsets`` (``core.layout.GraphLayout.offsets``): the CUDA kernel
     walks those ranges, the plain version reads ``ids_sorted``.
     """
-    if not _resolve(mode, msrc):
+    if not _resolve("fused_mp", mode, msrc):
         return ref.fused_mp_ref(
             spec, ids_sorted, src_sorted, in_degree, node_mask, msrc, x_res,
             nop=nop, eop=eop, ew=ew, w1=w1, b1=b1, w1_scale=w1_scale,
@@ -193,7 +209,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Blockwise GQA attention: q (B, Hq, S, D), k/v (B, Hkv, S, D) ->
     (B, Hq, S, D).  The CUDA kernel takes strided views (unit feature
     stride); the plain version is the quadratic oracle."""
-    if not _resolve(mode, q):
+    if not _resolve("flash_attention", mode, q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
     return _flash_kernel.flash_attention(q, k, v, causal=causal, window=window,

@@ -35,6 +35,9 @@ ENTRIES = ("static", "dynamic")
 BLOCK_M, BLOCK_N = 32, 256  # csrc/quant_mlp.cu: output rows and columns a block
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: K or N past one block's shared memory
 
+# counts the wrapper's calls that launch: eager launches and those a
+# CUDA-graph capture records (the executor's warm); a replay runs no
+# wrapper and is not counted here
 launches = 0
 launches_by_entry = dict.fromkeys(ENTRIES, 0)
 

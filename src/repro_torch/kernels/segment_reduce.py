@@ -24,6 +24,9 @@ from repro_torch.kernels import _build
 
 OP_CODES = {"sum": 0, "mean": 1, "sqsum": 2, "max": 3, "min": 4}
 
+# counts the wrapper's calls that launch: eager launches and those a
+# CUDA-graph capture records (the executor's warm); a replay runs no
+# wrapper and is not counted here
 launches = 0
 
 _SIGNATURES = {

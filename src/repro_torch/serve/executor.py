@@ -1,4 +1,4 @@
-"""The serving executor (reduced port of ``repro.serve.executor``).
+"""The serving executor (port of ``repro.serve.executor``).
 
     prepare  ->  warm  ->  run
 
@@ -7,24 +7,45 @@
   executor's device: padded graph, DGN's eigenvector input when asked
   for (host eigensolve, memoised), optional layout plan (packed batches
   carry their host-built plan), bucket key and warm signature.
-* **warm** — every (tenant, program, signature) executes once untimed
-  before it may be timed.  On the card that first run builds the CUDA
-  kernels (at first use) and sets up the libraries, so neither leaks into
-  a reported latency.
-* **run** — the one timed region: the forward, ended by
-  ``torch.cuda.synchronize()``, then the copy of the result to the host
-  (outside the timed region).
+* **warm** — every (tenant, program, signature) is made servable once,
+  untimed, before it may be timed.  On the card that is three steps: the
+  forward runs eagerly on a side stream (it builds the CUDA kernels at
+  first use, makes their shared-memory opt-ins and sets up the libraries),
+  then the forward is captured into a ``torch.cuda.CUDAGraph`` over static
+  copies of the batch's tensors (the ``Graph``, eigenvector and
+  ``GraphLayout`` leaves; the tenant's params are static already), then
+  the graph is replayed once.  The capture is accounted as
+  ``compile_seconds`` (JAX's trace + lower + compile), the eager run and
+  the first replay as ``warm_seconds``.  On the CPU, which a caller must
+  ask for, nothing is captured: the warm is one eager forward and
+  compile costs 0.  A capture that fails raises; there is no way back to
+  the eager path on the card.
+* **run** — :meth:`Executor.run_async` opens the timed region, copies the
+  batch's tensors into the signature's static buffers, replays the graph,
+  clones its output (a later replay overwrites the static one) and
+  records an event; :class:`PendingRun` harvests it: the event's
+  synchronise closes the timed region, then the output is copied to the
+  host under the ``unpack_d2h`` accounting.  ``run`` is
+  ``run_async(...).result()``.
 
 Programs are cached by ``(program_key, bucket_key, num_graphs)`` with
-``program_key = (cfg, precision, fused)``, so tenants of one
-architecture share them.  ``register(precision=...)`` quantizes once
-(``quant.apply.quantize_model``, calibrating first for int8-static) on the
-parameters as the caller gave them, then moves the quantized tree to the
-executor's device; every mode serves the transformed tree.  PyTorch runs eagerly: a program is the
-``gnn.models.forward_program`` closure, and there is no compile step.
-``torch.compile``, CUDA graphs, the AOT cache, the mesh and telemetry
-arrive with later slices.  The executor runs on ``device="cuda"`` unless
-the caller asks for the CPU, and raises if CUDA is missing.
+``program_key = (cfg, precision, fused)``, so tenants of one architecture
+share the record.  A captured graph holds the addresses of the params it
+was captured with, so, unlike JAX's executables, graphs are keyed by
+tenant: the warm signature is ``(tenant name, params signature) + batch
+signature``, and each tenant captures its own.  ``register(precision=...)``
+quantizes once (``quant.apply.quantize_model``, calibrating first for
+int8-static) on the parameters as the caller gave them, then moves the
+quantized tree to the executor's device.
+
+**Telemetry.**  ``tracer=`` / ``metrics=`` sinks (``repro_torch.obs``;
+attachable later by :meth:`Executor.attach_telemetry`) receive program
+builds, warms with their untimed cost, timed device seconds and the D2H
+copy, as in JAX.  Both default off, and then no extra clock is read.
+
+The executor runs on ``device="cuda"`` unless the caller asks for the CPU,
+and raises if CUDA is missing.  The AOT cache and the mesh arrive with
+later slices.
 """
 from __future__ import annotations
 
@@ -41,6 +62,8 @@ from repro_torch.core import layout as LY
 from repro_torch.data.pipeline import laplacian_eigvec
 from repro_torch.device import resolve_device
 from repro_torch.gnn import models as M
+from repro_torch.obs.metrics import MetricsRegistry, ServingInstruments
+from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serve.clock import Clock, RealClock
 
 DEFAULT_BUCKETS: Sequence[tuple] = ((32, 96), (64, 192), (128, 384), (256, 768))
@@ -63,6 +86,22 @@ def _tensor_leaves(obj):
             yield from _tensor_leaves(v)
 
 
+def _map_tensors(fn: Callable, obj):
+    """The nest with ``fn`` applied to every tensor; dataclasses (``Graph``,
+    ``GraphLayout``, ``QuantizedLinear``) are rebuilt around the results."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _map_tensors(fn, getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: _map_tensors(fn, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(fn, v) for v in obj)
+    return obj
+
+
 def trace_signature(graph: G.Graph, eigvec=None, layout=None) -> tuple:
     """Warm signature of one prepared input: whether it carries an
     eigenvector and a plan, plus (shape, dtype) of every tensor."""
@@ -80,19 +119,8 @@ def params_signature(params) -> tuple:
 
 def _params_to(params, device: torch.device):
     """The tree with every tensor on ``device`` (dtypes kept: int8 weights
-    stay int8); ``QuantizedLinear`` nodes are rebuilt around moved
-    fields."""
-    if isinstance(params, torch.Tensor):
-        return params.to(device)
-    if dataclasses.is_dataclass(params):
-        return dataclasses.replace(params, **{
-            f.name: _params_to(getattr(params, f.name), device)
-            for f in dataclasses.fields(params)})
-    if isinstance(params, dict):
-        return {k: _params_to(v, device) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return type(params)(_params_to(v, device) for v in params)
-    return params
+    stay int8)."""
+    return _map_tensors(lambda t: t.to(device), params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +135,11 @@ class PreparedBatch:
     num_graphs: int
     signature: tuple
 
+    @property
+    def inputs(self) -> tuple:
+        """The forward's batch arguments: ``(graph, eigvec, layout)``."""
+        return self.graph, self.eigvec, self.layout
+
 
 def prepared(graph: G.Graph, eigvec, layout, bucket_key: tuple,
              num_graphs: int) -> PreparedBatch:
@@ -116,13 +149,32 @@ def prepared(graph: G.Graph, eigvec, layout, bucket_key: tuple,
 
 
 @dataclasses.dataclass
-class _Program:
-    """Program-cache record: the forward closure plus warm bookkeeping."""
+class _Captured:
+    """One warm signature's CUDA graph: its static input leaves (in
+    :func:`_tensor_leaves` order of ``PreparedBatch.inputs``) and its static
+    output, which every replay overwrites."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Tuple[torch.Tensor, ...]
+    output: torch.Tensor
+
+
+@dataclasses.dataclass
+class _CompiledBucket:
+    """Program-cache record: the forward closure and, per warm signature,
+    its captured graph (``None`` on the CPU, where the forward runs
+    eagerly).  ``compile_s`` is capture seconds, ``warm_s`` the eager warm
+    forward plus the first replay; ``lowered_count`` counts the captures
+    (JAX: fresh trace + lower + compiles)."""
 
     fn: Callable
     num_graphs: Optional[int]
     warm: Set[tuple] = dataclasses.field(default_factory=set)
+    executables: Dict[tuple, Optional[_Captured]] = dataclasses.field(
+        default_factory=dict)
+    compile_s: float = 0.0
     warm_s: float = 0.0
+    lowered_count: int = 0
 
 
 @dataclasses.dataclass
@@ -148,13 +200,31 @@ class Executor:
     """The single program-cache / warm / timing path of the port."""
 
     def __init__(self, buckets: Sequence[tuple] = DEFAULT_BUCKETS,
-                 clock: Optional[Clock] = None, device="cuda"):
+                 clock: Optional[Clock] = None,
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.buckets = sorted(buckets)
+        # the one place real time is measured; a test injects a stepping clock
         self.clock = clock if clock is not None else RealClock()
         self.tenants: Dict[str, Tenant] = {}
-        self._programs: Dict[tuple, _Program] = {}
+        self._compiled: Dict[tuple, _CompiledBucket] = {}
         self._eigvec_lru: collections.OrderedDict = collections.OrderedDict()
+        # telemetry sinks, dark by default
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics
+        self._mi = ServingInstruments(metrics) if metrics is not None else None
+
+    def attach_telemetry(self, tracer: Optional[Tracer] = None,
+                         metrics: Optional[MetricsRegistry] = None) -> None:
+        """Adopt telemetry sinks after construction; sinks this executor
+        already carries are kept (the first attachment wins)."""
+        if tracer is not None and not self.tracer.enabled:
+            self.tracer = tracer
+        if metrics is not None and self.metrics is None:
+            self.metrics = metrics
+            self._mi = ServingInstruments(metrics)
 
     # ---------------------------------------------------------- tenants
 
@@ -200,13 +270,35 @@ class Executor:
             return self.tenants[model]
         if len(self.tenants) == 1:
             return next(iter(self.tenants.values()))
-        raise KeyError(f"model name required: tenants {sorted(self.tenants)}")
+        raise KeyError(
+            f"model name required: {len(self.tenants)} tenants registered "
+            f"({sorted(self.tenants)})"
+        )
+
+    # --------------------------------------------------------- plumbing
+
+    @property
+    def compile_seconds(self) -> float:
+        """Total CUDA-graph capture time across programs (0 on the CPU);
+        excluded from every reported latency."""
+        return sum(cb.compile_s for cb in self._compiled.values())
 
     @property
     def warm_seconds(self) -> float:
-        """Total untimed first-run time across programs (kernel build and
-        library set-up included); excluded from every reported latency."""
-        return sum(p.warm_s for p in self._programs.values())
+        """Total untimed warm time across programs: the eager forward (the
+        kernels' build included) and the first replay."""
+        return sum(cb.warm_s for cb in self._compiled.values())
+
+    @property
+    def untimed_seconds(self) -> float:
+        """compile + warm: everything excluded from reported latencies."""
+        return self.compile_seconds + self.warm_seconds
+
+    @property
+    def lowered_count(self) -> int:
+        """CUDA-graph captures across programs (the counterpart of JAX's
+        trace + lower + compiles; 0 on the CPU)."""
+        return sum(cb.lowered_count for cb in self._compiled.values())
 
     def bucket_for(self, n: int, e: int) -> tuple:
         """Smallest configured (N_pad, E_pad) bucket holding (n, e)."""
@@ -216,31 +308,82 @@ class Executor:
         raise ValueError(f"graph ({n},{e}) exceeds largest bucket {self.buckets[-1]}")
 
     def _program(self, tenant: Tenant, bucket_key: tuple,
-                 num_graphs: Optional[int]) -> _Program:
+                 num_graphs: Optional[int]) -> _CompiledBucket:
+        """The program record for (tenant architecture, bucket, slots);
+        ``num_graphs`` is part of the key."""
         key = (tenant.program_key, bucket_key, num_graphs)
-        prog = self._programs.get(key)
-        if prog is None:
+        cb = self._compiled.get(key)
+        if cb is None:
             fn = M.forward_program(tenant.cfg, num_graphs=num_graphs,
                                    fused=tenant.fused)
-            prog = self._programs[key] = _Program(fn=fn, num_graphs=num_graphs)
-        return prog
+            cb = self._compiled[key] = _CompiledBucket(fn=fn, num_graphs=num_graphs)
+            if self._mi is not None:
+                self._mi.programs_built.inc()
+            if self.tracer.enabled:
+                self.tracer.event("program_build", track="executor",
+                                  tenant=tenant.name, bucket=str(bucket_key),
+                                  num_graphs=num_graphs)
+        return cb
 
-    def _synchronize(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _capture(self, cb: _CompiledBucket, tenant: Tenant,
+                 p: PreparedBatch, t0: float) -> Tuple[_Captured, float, float]:
+        """Eager warm forward, capture and first replay of one signature on
+        the card; -> (captured graph, capture seconds, warm seconds)."""
+        static = _map_tensors(torch.clone, p.inputs)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            cb.fn(tenant.params, *static)
+            side.synchronize()
+            t1 = self.clock.now()
+            graph.capture_begin()
+            try:
+                out = cb.fn(tenant.params, *static)
+            finally:
+                graph.capture_end()
+        t2 = self.clock.now()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph.replay()
+        torch.cuda.synchronize(self.device)
+        t3 = self.clock.now()
+        cap = _Captured(graph=graph, inputs=tuple(_tensor_leaves(static)),
+                        output=out)
+        return cap, t2 - t1, (t1 - t0) + (t3 - t2)
 
-    def _warm(self, prog: _Program, sig: tuple, tenant: Tenant,
+    def _warm(self, cb: _CompiledBucket, sig: tuple, tenant: Tenant,
               p: PreparedBatch) -> float:
-        """Run ``sig`` once untimed (0.0 when already warm)."""
-        if sig in prog.warm:
+        """Make ``sig`` servable untimed: on the card capture its graph
+        (:meth:`_capture`), on the CPU run it once.  Returns the seconds
+        spent (0.0 when already warm)."""
+        if sig in cb.warm:
             return 0.0
         t0 = self.clock.now()
-        prog.fn(tenant.params, p.graph, p.eigvec, p.layout)
-        self._synchronize()
-        dt = self.clock.now() - t0
-        prog.warm.add(sig)
-        prog.warm_s += dt
-        return dt
+        if self.device.type == "cuda":
+            cap, compile_dt, warm_dt = self._capture(cb, tenant, p, t0)
+            cb.lowered_count += 1
+        else:
+            cb.fn(tenant.params, *p.inputs)
+            cap, compile_dt, warm_dt = None, 0.0, self.clock.now() - t0
+        cb.executables[sig] = cap
+        cb.warm.add(sig)
+        cb.compile_s += compile_dt
+        cb.warm_s += warm_dt
+        if self._mi is not None:
+            self._mi.warms.inc()
+            self._mi.compile_seconds.inc(compile_dt)
+            self._mi.warm_seconds.inc(warm_dt)
+        if self.tracer.enabled:
+            self.tracer.event("warm", track="executor",
+                              bucket=str(p.bucket_key), dur_s=warm_dt,
+                              compile_s=compile_dt)
+        return compile_dt + warm_dt
+
+    @staticmethod
+    def _signature(tenant: Tenant, p: PreparedBatch) -> tuple:
+        """The warm key: a graph is captured with the tenant's params'
+        addresses, so the tenant's name leads the JAX key."""
+        return (tenant.name, tenant.params_sig) + p.signature
 
     # ---------------------------------------------------------- prepare
 
@@ -293,22 +436,80 @@ class Executor:
                         ("packed", budget.n_pad, budget.e_pad, budget.g_pad),
                         budget.g_pad)
 
+    def has_program(self, bucket_key: tuple, num_graphs: int,
+                    model: Optional[str] = None) -> bool:
+        """Whether a program record exists for this tenant's architecture
+        at (bucket, slots)."""
+        key = (self.tenant(model).program_key, bucket_key, num_graphs)
+        return key in self._compiled
+
     # --------------------------------------------------------- warm/run
+
+    def _harvest(self, out: torch.Tensor, done, tenant: Tenant,
+                 p: PreparedBatch, t0: float) -> Tuple[np.ndarray, float]:
+        """Complete one dispatched execution: wait for its event, close the
+        timed region, then copy the output to the host under the
+        ``unpack_d2h`` accounting.  The extra clock reads happen only with
+        a live sink."""
+        if done is not None:
+            done.synchronize()
+        dt = self.clock.now() - t0
+        accounted = self._mi is not None or self.tracer.enabled
+        if accounted:
+            t2 = self.clock.now()
+        host = out.cpu().numpy()
+        if accounted:
+            d2h = self.clock.now() - t2
+            if self._mi is not None:
+                self._mi.device_seconds.inc(dt)
+                self._mi.d2h_seconds.inc(d2h)
+            if self.tracer.enabled:
+                self.tracer.event("executor_run", track="executor",
+                                  tenant=tenant.name, bucket=str(p.bucket_key),
+                                  dur_s=dt)
+                self.tracer.event("unpack_d2h", track="executor",
+                                  tenant=tenant.name, bucket=str(p.bucket_key),
+                                  dur_s=d2h)
+        return host, dt
+
+    def run_async(self, p: PreparedBatch,
+                  model: Optional[str] = None) -> "PendingRun":
+        """Dispatch one execution without waiting for it: warm the
+        signature (untimed), open the timed region, copy the batch into the
+        graph's static buffers, replay, clone the output, and return a
+        :class:`PendingRun` at once.  On the CPU the forward runs eagerly
+        here.  The in-flight window is the caller's to bound."""
+        tenant = self.tenant(model)
+        cb = self._program(tenant, p.bucket_key, p.num_graphs)
+        sig = self._signature(tenant, p)
+        with torch.inference_mode():
+            self._warm(cb, sig, tenant, p)
+            cap = cb.executables[sig]
+            t0 = self.clock.now()
+            if cap is None:
+                return PendingRun(self, cb.fn(tenant.params, *p.inputs), None,
+                                  tenant, p, t0)
+            for dst, src in zip(cap.inputs, _tensor_leaves(p.inputs)):
+                dst.copy_(src)
+            cap.graph.replay()
+            out = cap.output.clone()
+            done = torch.cuda.Event()
+            done.record()
+        return PendingRun(self, out, done, tenant, p, t0)
 
     def run(self, p: PreparedBatch,
             model: Optional[str] = None) -> Tuple[np.ndarray, float]:
-        """The one timed execution: warm (untimed) first, then time one
-        forward that ends at a device synchronise; returns the outputs on
-        the host and the seconds."""
+        """The one timed execution: ``(outputs on the host, seconds)``,
+        dispatch and an immediate harvest."""
+        return self.run_async(p, model=model).result()
+
+    def warm(self, p: PreparedBatch, model: Optional[str] = None) -> float:
+        """Warm this batch's signature without a timed execution; returns
+        the seconds spent (0.0 when already warm)."""
         tenant = self.tenant(model)
-        prog = self._program(tenant, p.bucket_key, p.num_graphs)
+        cb = self._program(tenant, p.bucket_key, p.num_graphs)
         with torch.inference_mode():
-            self._warm(prog, (tenant.params_sig,) + p.signature, tenant, p)
-            t0 = self.clock.now()
-            out = prog.fn(tenant.params, p.graph, p.eigvec, p.layout)
-            self._synchronize()
-            dt = self.clock.now() - t0
-        return out.cpu().numpy(), dt
+            return self._warm(cb, self._signature(tenant, p), tenant, p)
 
     # ------------------------------------------------------------- misc
 
@@ -318,15 +519,55 @@ class Executor:
         """DGN's eigenvector input (``data.pipeline.laplacian_eigvec``),
         memoised in a small LRU keyed by (edge lists, n, n_pad): a stream
         revisits graph shapes, and the host eigensolve is the costliest
-        prepare stage."""
+        prepare stage.  Lookups land in ``serve_eigvec_cache_total``."""
         s_arr, r_arr = np.ascontiguousarray(s), np.ascontiguousarray(r)
         key = (s_arr.tobytes(), r_arr.tobytes(), int(n), int(n_pad))
         vec = self._eigvec_lru.get(key)
         if vec is not None:
             self._eigvec_lru.move_to_end(key)
+            if self._mi is not None:
+                self._mi.eigvec_cache.inc(result="hit")
             return vec
         vec = laplacian_eigvec(s_arr, r_arr, n, n_pad)
         self._eigvec_lru[key] = vec
         if len(self._eigvec_lru) > self._EIGVEC_LRU_SIZE:
             self._eigvec_lru.popitem(last=False)
+        if self._mi is not None:
+            self._mi.eigvec_cache.inc(result="miss")
         return vec
+
+
+class PendingRun:
+    """One dispatched, unharvested execution, as :meth:`Executor.run_async`
+    returns it.
+
+    ``result()`` waits for the run's event, closes the timed region
+    (dispatch to harvest on the executor's clock), copies the output to the
+    host under the ``unpack_d2h`` accounting, and caches: a second call
+    returns the same ``(outputs, seconds)``.  The device output is dropped
+    once harvested; ``done`` flips then."""
+
+    __slots__ = ("_executor", "_out", "_done", "_tenant", "_prepared", "_t0",
+                 "_result")
+
+    def __init__(self, executor: Executor, out: torch.Tensor, done,
+                 tenant: Tenant, prepared: PreparedBatch, t0: float):
+        self._executor = executor
+        self._out = out
+        self._done = done
+        self._tenant = tenant
+        self._prepared = prepared
+        self._t0 = t0
+        self._result: Optional[Tuple[np.ndarray, float]] = None
+
+    @property
+    def done(self) -> bool:
+        return self._result is not None
+
+    def result(self) -> Tuple[np.ndarray, float]:
+        if self._result is None:
+            self._result = self._executor._harvest(
+                self._out, self._done, self._tenant, self._prepared, self._t0
+            )
+            self._out = self._done = None
+        return self._result

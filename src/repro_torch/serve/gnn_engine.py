@@ -5,17 +5,21 @@
   * ``infer_batched`` — fixed-size padded batching
   * ``infer_packed``  — one already-packed multi-graph batch
 
-Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``;
-raises if CUDA is missing.
+The facade holds no program cache, warm or timing logic of its own: every
+mode prepares its input through the executor's ``prepare_*`` family and
+runs it through the executor's one warm-before-timing path.  By default
+it owns a fresh single-tenant executor on ``device`` ("cuda" unless the
+caller passes "cpu"; raises if CUDA is missing); ``executor=`` attaches it
+as tenant ``name`` on an existing one instead.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.gnn import models as M
-from repro_torch.serve.executor import DEFAULT_BUCKETS, Executor
+from repro_torch.serve.executor import DEFAULT_BUCKETS, Executor, _CompiledBucket
 
 __all__ = ["GNNEngine", "DEFAULT_BUCKETS"]
 
@@ -29,20 +33,43 @@ class GNNEngine:
         precision: str = "fp32",
         calib_graphs: Optional[Sequence[tuple]] = None,
         fused: bool = False,
-        device="cuda",
+        device=None,
+        executor: Optional[Executor] = None,
+        name: str = "default",
     ):
         """``precision``: "fp32" (default), "int8" (W8A8, dynamic per-node
-        activation scales, no calibration), "int8-static" (calibrated
-        per-tensor scales; needs ``calib_graphs``, a few raw COO tuples)
-        or "fixed" (ap_fixed<W,I> emulation).  ``fused`` runs every GCN / GIN / PNA / DGN layer as one
-        ``fused_mp`` pass (GAT, int8-static and fixed layers keep the
-        unfused path)."""
-        self.executor = Executor(buckets=buckets, device=device)
+        activation scales), "int8-static" (calibrated per-tensor scales;
+        needs ``calib_graphs``, a few raw COO tuples) or "fixed"
+        (ap_fixed<W,I> emulation).  ``fused`` runs every GCN / GIN / PNA /
+        DGN layer as one ``fused_mp`` pass (GAT, int8-static and fixed
+        layers keep the unfused path).
+
+        ``executor`` registers this engine as tenant ``name`` on an
+        existing :class:`Executor`, sharing its bucket ladder and program
+        cache; ``buckets`` and ``device`` belong to the executor, so
+        passing them beside ``executor`` raises rather than being
+        ignored.  Without one the engine builds its own on ``device``
+        (default "cuda")."""
+        if executor is not None and (
+                tuple(buckets) != tuple(DEFAULT_BUCKETS) or device is not None):
+            raise ValueError(
+                "buckets/device belong to the executor: configure them on "
+                "the Executor you pass, not on the facade"
+            )
+        self.executor = executor or Executor(
+            buckets=buckets, device="cuda" if device is None else device)
         self._tenant = self.executor.register(
-            "default", cfg, params, precision=precision,
+            name, cfg, params, precision=precision,
             calib_graphs=calib_graphs, fused=fused,
         )
         self.cfg = cfg
+
+    # ---------------------------------------------------------- plumbing
+    # (views only: the state lives on the executor)
+
+    @property
+    def name(self) -> str:
+        return self._tenant.name
 
     @property
     def device(self):
@@ -58,23 +85,47 @@ class GNNEngine:
         return self._tenant.quant_report
 
     @property
+    def compile_seconds(self) -> float:
+        """CUDA-graph capture seconds across this tenant's program records
+        (0 on the CPU), excluded from every reported latency.  Filtered by
+        program key, so two facades on one executor never see each other's
+        cost unless they share an architecture, and with it the record."""
+        return sum(cb.compile_s for cb in self._compiled.values())
+
+    @property
     def warm_seconds(self) -> float:
-        return self.executor.warm_seconds
+        """Untimed warm seconds (eager forward with the kernels' build,
+        first replay) across this tenant's program records."""
+        return sum(cb.warm_s for cb in self._compiled.values())
+
+    @property
+    def _compiled(self) -> Dict[tuple, _CompiledBucket]:
+        """This tenant's program records, keyed by bucket key."""
+        pk = self._tenant.program_key
+        return {
+            bucket_key: cb
+            for (prog_key, bucket_key, _ng), cb in self.executor._compiled.items()
+            if prog_key == pk
+        }
+
+    # ------------------------------------------------------------- modes
 
     def infer_stream(self, graphs: Iterable[tuple], with_eigvec: bool = False):
         """graphs: raw (senders, receivers, node_feat, edge_feat[, label])
         tuples; ``with_eigvec`` computes DGN's eigenvector input per graph
         (in prepare, outside the timed region).  Returns (outputs,
-        per-graph latencies in seconds, untimed warm seconds)."""
+        per-graph latencies in seconds, untimed compile + warm seconds)."""
         ex = self.executor
         outs: List[np.ndarray] = []
         lats: List[float] = []
-        warm_before = ex.warm_seconds
+        untimed_before = self.compile_seconds + self.warm_seconds
         for graph in graphs:
-            out, dt = ex.run(ex.prepare_stream(graph, with_eigvec=with_eigvec))
+            p = ex.prepare_stream(graph, with_eigvec=with_eigvec)
+            out, dt = ex.run(p, model=self.name)
             lats.append(dt)
             outs.append(out[:1])
-        return outs, np.asarray(lats), ex.warm_seconds - warm_before
+        untimed = self.compile_seconds + self.warm_seconds - untimed_before
+        return outs, np.asarray(lats), untimed
 
     def infer_batched(self, graphs: Sequence[tuple], batch_size: int,
                       n_pad: int, e_pad: int, with_eigvec: bool = False):
@@ -84,8 +135,9 @@ class GNNEngine:
         total = 0.0
         for i in range(0, len(graphs), batch_size):
             chunk = graphs[i : i + batch_size]
-            out, dt = ex.run(ex.prepare_batched(chunk, batch_size, n_pad, e_pad,
-                                                with_eigvec=with_eigvec))
+            p = ex.prepare_batched(chunk, batch_size, n_pad, e_pad,
+                                   with_eigvec=with_eigvec)
+            out, dt = ex.run(p, model=self.name)
             total += dt
             outs.append(out[: len(chunk)])
         return np.concatenate(outs), total / len(graphs)
@@ -93,8 +145,9 @@ class GNNEngine:
     def infer_packed(self, packed, budget, eigvec=None, layout=None):
         """Run one packed batch (``core.batching.pack_graphs`` on this
         engine's device); DGN takes its packed eigenvector
-        (``core.batching.pack_eigvecs``).  Returns (outputs (G_pad, out),
-        seconds)."""
+        (``core.batching.pack_eigvecs``).  Every batch packed to one
+        ``budget`` shares one program record.  Returns (outputs (G_pad,
+        out), seconds)."""
         ex = self.executor
         return ex.run(ex.prepare_packed(packed, budget, eigvec=eigvec,
-                                        layout=layout))
+                                        layout=layout), model=self.name)

@@ -741,7 +741,8 @@ def test_quant_node_mlp_dynamic_wrapper_checks(cuda):
 def test_gat_int8_forward_launches_six_dynamic(cuda):
     """GAT in int8 at paper width: one forward still launches quant_node_mlp
     6 times (the encoder and the 5 layers' projections), all on the dynamic
-    entry, and no separate row-quantization ops."""
+    entry, and no separate row-quantization ops: 12 at the warm (the eager
+    forward and the CUDA-graph capture), none at a replay."""
     from repro_torch.data.pipeline import MOLHIV, MoleculeStream
     from repro_torch.gnn import models as TM
     from repro_torch.serve.gnn_engine import GNNEngine
@@ -750,10 +751,12 @@ def test_gat_int8_forward_launches_six_dynamic(cuda):
     params = TM.init(torch.Generator().manual_seed(0), cfg)
     graph = [g[:4] for g in MoleculeStream(MOLHIV, seed=1).take(1)]
     eng = GNNEngine(cfg, params, precision="int8", fused=True, device=cuda)
-    eng.infer_stream(graph)  # warm
     before = dict(QM.launches_by_entry)
-    eng.infer_stream(graph)
-    assert QM.launches_by_entry == dict(before, dynamic=before["dynamic"] + 6)
+    eng.infer_stream(graph)  # warm: an eager forward, then the capture
+    assert QM.launches_by_entry == dict(before, dynamic=before["dynamic"] + 12)
+    warm = dict(QM.launches_by_entry)
+    eng.infer_stream(graph)  # a replay runs no wrapper
+    assert QM.launches_by_entry == warm
 
 
 def test_quant_node_mlp_empty_output_launches_nothing(cuda):
@@ -918,3 +921,130 @@ def test_lm_server_on_card_matches_reference(cuda):
             steps.append(logits)
         outs.append(torch.stack(steps))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+# kernel symbol in the profiler's records -> the wrapper counter it answers to
+KERNEL_SYMBOLS = (("node_mlp_", NM), ("fused_mp_kernel", FM),
+                  ("segment_reduce_kernel", SR), ("edge_softmax_kernel", ES),
+                  ("quant_mlp_kernel", QM))
+
+
+def _graph_executor(cuda, model="gin", precision="fp32"):
+    from repro_torch.gnn import models as TM
+    from repro_torch.serve.executor import Executor
+
+    cfg = (TM.paper_config("gat", num_layers=2) if model == "gat"
+           else TM.paper_config(model, num_layers=2, hidden=32))
+    ex = Executor(device=cuda)
+    ex.register("m", cfg, TM.init(torch.Generator().manual_seed(0), cfg),
+                precision=precision, fused=True)
+    return ex
+
+
+def _graph_inputs(ex, packed, k=8):
+    from repro_torch.core import batching as TB
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+
+    graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=1).take(k)]
+    if not packed:
+        return [ex.prepare_stream(g) for g in graphs]
+    budget = TB.BucketBudget(n_pad=512, e_pad=1536, g_pad=k)
+    packed_graph, _ = TB.pack_graphs(graphs, budget, device=ex.device)
+    return [ex.prepare_packed(packed_graph, budget)]
+
+
+def _device_names(fn, tries=4):
+    """Names of the device records of one call of ``fn``, which launches
+    kernels; a profiler session whose record holds no kernel at all lost
+    it, and is made again, up to ``tries`` in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if any(not n.startswith(("Memcpy", "Memset")) for n in names):
+            return names
+    raise AssertionError(f"the profiler recorded no kernel in {tries} sessions")
+
+
+def _eager(ex, p):
+    from repro_torch.gnn import models as TM
+
+    tenant = ex.tenant()
+    fn = TM.forward_program(tenant.cfg, num_graphs=p.num_graphs, fused=tenant.fused)
+    with torch.inference_mode():
+        return fn(tenant.params, *p.inputs)
+
+
+def test_one_capture_per_signature_and_none_after_warm(cuda):
+    ex = _graph_executor(cuda)
+    preps = _graph_inputs(ex, packed=False)
+    first = [ex.run(p)[0] for p in preps]
+    sigs = len({p.signature for p in preps})
+    assert ex.lowered_count == sigs > 0 and ex.compile_seconds > 0
+    untimed = ex.untimed_seconds
+    again = [ex.run(p)[0] for p in preps]
+    assert ex.lowered_count == sigs and ex.untimed_seconds == untimed
+    for a, b in zip(first, again):
+        assert_close(a, b, TOL)
+
+
+@pytest.mark.parametrize("model,precision,packed", [
+    ("gin", "fp32", False), ("gin", "int8", False), ("gat", "fp32", True)])
+def test_replay_equals_eager_bit_for_bit(cuda, model, precision, packed):
+    """Under deterministic algorithms (``index_add_``'s atomics otherwise
+    sum in a varying order) a replay's output is the eager forward's, bit
+    for bit, on the same prepared batch."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        ex = _graph_executor(cuda, model, precision)
+        for p in _graph_inputs(ex, packed):
+            got, _ = ex.run(p)
+            np.testing.assert_array_equal(got, _eager(ex, p).cpu().numpy())
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_pending_runs_on_one_graph_do_not_alias(cuda):
+    """Two runs of one captured graph dispatched before either is harvested:
+    each returns its own batch's output (the static output is cloned at
+    dispatch), harvested in reverse."""
+    ex = _graph_executor(cuda)
+    preps = _graph_inputs(ex, packed=False, k=16)
+    p1 = preps[0]
+    p2 = next(p for p in preps[1:] if p.signature == p1.signature)
+    want1, want2 = ex.run(p1)[0], ex.run(p2)[0]
+    r1, r2 = ex.run_async(p1), ex.run_async(p2)
+    got2, got1 = r2.result()[0], r1.result()[0]
+    assert ex.lowered_count == 1 and r1.done and r2.done
+    assert_close(got1, want1, TOL)
+    assert_close(got2, want2, TOL)
+    assert not np.allclose(got1, got2)
+
+
+@pytest.mark.parametrize("model,precision", [("gin", "fp32"), ("gat", "int8")])
+def test_replay_launches_the_captured_kernels(cuda, model, precision):
+    """The capture launches what one eager forward launches (the counters
+    around the warm, less two eager forwards: the direct one and the warm's
+    own), and the profiler finds those kernels, as many of each, in one
+    replay, which itself moves no counter."""
+    ex = _graph_executor(cuda, model, precision)
+    p = _graph_inputs(ex, packed=False)[0]
+    counts = lambda: [mod.launches for _, mod in KERNEL_SYMBOLS]
+    before = counts()
+    _eager(ex, p)
+    eager = [a - b for a, b in zip(counts(), before)]
+    ex.warm(p)
+    captured = [a - b - 2 * e for a, b, e in zip(counts(), before, eager)]
+    assert captured == eager and sum(eager) > 0
+    before = counts()
+    names = _device_names(lambda: ex.run(p))
+    assert counts() == before
+    replay = [sum(symbol in n for n in names) for symbol, _ in KERNEL_SYMBOLS]
+    assert replay == captured

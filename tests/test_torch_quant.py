@@ -562,11 +562,11 @@ def test_executor_register_matches_jax(precision):
             torch.float32 if precision == "fixed" else torch.int8)
     got = [ex.run(ex.prepare_stream(g))[0][:1] for g in graphs]
     _noise_bound(np.concatenate(got), np.concatenate(want), np.concatenate(fp32))
-    programs = len(ex._programs)
-    warm = {k: set(p.warm) for k, p in ex._programs.items()}
+    programs = len(ex._compiled)
+    warm = {k: set(p.warm) for k, p in ex._compiled.items()}
     again = [ex.run(ex.prepare_stream(g))[0][:1] for g in graphs]
-    assert len(ex._programs) == programs
-    assert {k: p.warm for k, p in ex._programs.items()} == warm
+    assert len(ex._compiled) == programs
+    assert {k: p.warm for k, p in ex._compiled.items()} == warm
     np.testing.assert_array_equal(np.concatenate(again), np.concatenate(got))
 
 
