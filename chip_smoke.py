@@ -118,6 +118,44 @@ fails the run), then runs these phases, one line each:
               exports pass the port's validators, the events and counters
               agree with the executor, and the admission line and the
               dispatch census print
+  6b. stream  the stream scheduler and the pipeline at paper width, fused,
+              seed-0 params, under PyTorch's deterministic algorithms: GIN
+              fp32, GIN int8 and GAT fp32 (one ``GNNEngine`` each) and a
+              two-tenant ``Executor`` (GCN int8 + GAT fp32, JAX's verify line
+              ``--models gcn:int8,gat:fp32``), 512 graphs of
+              ``MoleculeStream(MOLHIV, 0)``, capacity 16 (rungs 1-16x the
+              base bucket, up to 32 graph slots), max wait 2 ms.  First a
+              flush's top-rung program: its capture launches one eager
+              forward's kernels and a replay runs them (``torch.profiler``).
+              One-tenant paths: ``PipelinedStream`` (inflight 2, staged and
+              not) beside the blocking ``infer_stream`` in one loop, twice
+              (the first round on cold stream signatures): outputs bit for
+              bit ``infer_stream``'s, peak in flight <= 2.  Then the
+              scheduler at loads (a) qps 0, (b) qps 5000, (c) 2x (a)'s
+              graphs/s with a 5 ms SLO and admit margin 0.7, each serial and
+              with ``PipelineConfig(inflight=2, host_cost="measured")`` and
+              with ``PipelineConfig(inflight=1)`` on the serial run's
+              compute timeline (``timed_as``):
+              served + shed = offered, served outputs within rtol 1e-4 atol
+              1e-5 (int8: atol 1e-4) of the per-graph stream, after the
+              eager ladder prewarm of the first run no capture and compile
+              0 in any later run (both tenants), serial and pipelined flush
+              the same requests at (a) (at (b) and (c) each loop closes its
+              flushes on its own timeline of measured compute, and the
+              count of flushes of the same requests is printed) and every
+              request served by both gives the same bits, the depth-1 run
+              gives the serial run's flush log, sheds and latencies exactly
+              and its outputs bit for bit at every load; run (a)'s flushes
+              are served again packed with ``stage=False`` (the
+              scheduler's) and ``stage=True``, bit for bit, and the median
+              pack and run ms of each are printed; the census
+              ``kernels_dispatch_total`` grows by
+              (JAX's warm keys) x one forward's census, all on
+              path="kernel".  Each line prints graphs/s, p50 / p99, shed
+              rate, flushes and their mean size and compute seconds (on the
+              scheduler's virtual timeline of measured compute), the
+              threaded runs' wall, graphs/s and peak in flight, and the
+              busy share over run (a), beside the card and its power limit
   3f. flash_attention kernel vs plain version at ChatGLM3-6B's prefill
               (B 8, Hq 32, Hkv 16 and 2, D 128, S 512, 1, 37, 1000, in the
               serving path's (B, S, H, D) layout) and Gemma-3-12B's layers
@@ -260,6 +298,19 @@ GRAPH_PATHS = tuple((m, prec, False) for prec in ("fp32", "int8")
     ("gin", "fp32", True), ("gat", "fp32", True))
 GRAPH_STREAM = 32
 GRAPH_PACKED_REPS = 8
+# phase 6b: the stream scheduler and the pipeline.  A path is a list of
+# (tenant, model, precision); one tenant serves through a GNNEngine, two
+# through one Executor (JAX's verify line --models gcn:int8,gat:fp32)
+STREAM_PATHS = ((("default", "gin", "fp32"),), (("default", "gin", "int8"),),
+                (("default", "gat", "fp32"),),
+                (("gcn:int8", "gcn", "int8"), ("gat:fp32", "gat", "fp32")))
+STREAM_GRAPHS = 512
+STREAM_CAPACITY = 16  # rungs 1-16x the base bucket, up to 32 graph slots
+STREAM_MAX_WAIT_S = 0.002
+STREAM_QPS = 5000.0
+STREAM_SLO_S = 0.005  # load (c): 2x the saturation rate of load (a)
+STREAM_ADMIT_MARGIN = 0.7
+STREAM_INT8_TOL = dict(rtol=0.0, atol=1e-4)  # tests/test_quant.py:352
 # kernel symbol in the profiler's records -> the wrapper counter it answers to
 KERNEL_SYMBOLS = (("node_mlp_", "node_mlp"), ("fused_mp_kernel", "fused_mp"),
                   ("segment_reduce_kernel", "segment_reduce"),
@@ -1505,6 +1556,395 @@ def graph_phase(device) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 6b: stream
+
+
+def census() -> dict:
+    """The process-wide dispatch census, ``{(op, path): count}``."""
+    from repro_torch.obs import default_registry
+
+    return dict(default_registry().counter("kernels_dispatch_total").series())
+
+
+def census_delta(before: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in census().items()
+            if v != before.get(k, 0.0)}
+
+
+def stream_target(path, device):
+    """(scheduler target, executor) of a stream path at paper width, fused,
+    seed-0 params (tenant i of several: seed i, as the launcher seeds them)."""
+    import torch
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.gnn import init
+    from repro_torch.serve.executor import Executor
+
+    if len(path) == 1:
+        eng = graph_engine(path[0][1], path[0][2], device)
+        return eng, eng.executor
+    ex = Executor(device=device)
+    for i, (name, model, precision) in enumerate(path):
+        cfg = get_gnn_config(model)
+        ex.register(name, cfg, init(torch.Generator().manual_seed(i), cfg),
+                    precision=precision, fused=True)
+    return ex, ex
+
+
+def warm_keys(ex, tenant) -> int:
+    """Warm signatures of ``tenant``'s program records: JAX warm keys, one
+    compiled program each (tenants of a path differ in architecture)."""
+    return sum(len(cb.warm) for (pk, _, _), cb in ex._compiled.items()
+               if pk == ex.tenant(tenant).program_key)
+
+
+def top_rung_batch(ex, graphs):
+    """A host-built prepared batch at the top rung of the (32, 96) ladder,
+    staged on the card (an eager forward reads it): as many of ``graphs``
+    as fit in (16 x 32, 16 x 96, 32 slots)."""
+    from repro_torch.core import batching as B
+
+    budget = B.BucketBudget(STREAM_CAPACITY * 32, STREAM_CAPACITY * 96,
+                            2 * STREAM_CAPACITY)
+    take, n, e = [], 0, 0
+    for g in graphs:
+        gn, ge = B.graph_sizes(g)
+        if not budget.admits(n, e, len(take), gn, ge):
+            break
+        take.append(g)
+        n, e = n + gn, e + ge
+    return B.pack_prepared(take, budget, device=ex.device, stage=True)[0]
+
+
+def flush_replay_matches_capture(ex, tenant: str, graphs) -> dict:
+    """A flush's top-rung program: the capture launches what one eager
+    forward launches and ``torch.profiler`` finds those kernels, as many of
+    each, in one replay; returns one forward's dispatch census."""
+    import torch
+
+    p = top_rung_batch(ex, graphs)
+    reset_launches()
+    before = census()
+    eager_forward(ex.tenant(tenant), p)
+    torch.cuda.synchronize()
+    one = census_delta(before)
+    eager = read_launches()
+    reset_launches()
+    ex.warm(p, model=tenant)  # an eager forward (its census muted), the capture
+    captured = {k: n - eager[k] for k, n in read_launches().items()}
+    if captured != eager:
+        raise AssertionError(f"stream {tenant}: captured flush launches {captured}, "
+                             f"eager {eager}")
+    replay, _ = replay_launches(lambda: ex.run(p, model=tenant))
+    if replay != {name: captured[name] for _, name in KERNEL_SYMBOLS}:
+        raise AssertionError(f"stream {tenant}: a flush replay ran {replay}, the "
+                             f"capture launched {captured}")
+    if not one or any(where != "kernel" for _, where in one):
+        raise AssertionError(f"stream {tenant}: one forward's census {one}")
+    return one
+
+
+def timed_as(ex, seconds=None):
+    """Swap ``ex.run`` for one that serves as usual and either records each
+    call's measured seconds in the returned list (``seconds`` None) or
+    reports ``seconds`` in call order instead of its own, so that a second
+    scheduler run sees the first run's compute timeline to the bit.  The
+    caller deletes ``ex.run`` afterwards."""
+    real, log = ex.run, []
+
+    def run(p, model=None):
+        out, dt = real(p, model=model)
+        if seconds is not None:
+            if len(log) >= len(seconds):
+                raise AssertionError(f"{len(log) + 1} flushes, the recorded "
+                                     f"timeline has {len(seconds)}")
+            dt = seconds[len(log)]
+        log.append(dt)
+        return out, dt
+
+    ex.run = run
+    return log
+
+
+def flush_rows(rep) -> tuple:
+    """The flush log and shed list as plain tuples, less the dispatch
+    instant (serial records the device start there, pipelined the
+    dispatch), plus the latencies: what a depth-1 pipelined run on the
+    serial run's compute timeline must reproduce exactly
+    (``tests/test_serve_pipeline.py:120``)."""
+    return ([(f.rids, f.reason, f.at_s, f.done_s, f.compute_s) for f in rep.flush_log],
+            [(s.rid, s.reason, s.at_s, s.projected_delay_s) for s in rep.shed],
+            rep.latencies_s.tobytes())
+
+
+def stage_flush_ms(ex, sched, rep, graphs) -> tuple:
+    """Serve run ``rep``'s flushes again, each packed by ``pack_prepared``
+    as the scheduler packs it (``stage=False``: the pinned host batch goes
+    to the replay's copies) and with ``stage=True`` (copied to the card
+    first, then device to device into the static buffers), alternating,
+    three rounds; both outputs must agree bit for bit.  Returns the median
+    wall ms of (pack, run) for each: ``{stage: (pack_ms, run_ms)}``."""
+    import torch
+    from repro_torch.core.batching import pack_prepared
+
+    times = {False: ([], []), True: ([], [])}
+    for _ in range(3):
+        for f in rep.flush_log:
+            rung = next(b for b in sched._ladders[f.sig]
+                        if b.n_pad == f.rung_multiple * f.sig[0])
+            raws = [graphs[r] for r in f.rids]
+            vecs = ([np.asarray(ex._eigvec(s, r, nf.shape[0], nf.shape[0]))
+                     for s, r, nf, _ in raws] if sched._needs_eigvec(f.model) else None)
+            outs = []
+            for stage in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prep, _ = pack_prepared(raws, rung, eigvecs=vecs, device=ex.device,
+                                        stage=stage)
+                t1 = time.perf_counter()
+                outs.append(ex.run(prep, model=f.model)[0])
+                t2 = time.perf_counter()
+                times[stage][0].append(t1 - t0)
+                times[stage][1].append(t2 - t1)
+            if not np.array_equal(*outs):
+                raise AssertionError(f"flush {f.rids}: staged and pinned batches "
+                                     f"served other bits")
+    return {stage: tuple(statistics.median(x) * 1e3 for x in t)
+            for stage, t in times.items()}
+
+
+def stream_report(rep) -> str:
+    sizes = rep.batch_sizes
+    return (f"{rep.graphs_per_s:.0f} graphs/s, p50 {rep.percentile_ms(50):.3f} "
+            f"p99 {rep.percentile_ms(99):.3f} ms, shed {rep.shed_rate:.3f}, "
+            f"{len(sizes)} flushes of {np.mean(sizes) if sizes else 0.0:.1f}, "
+            f"compute {rep.compute_s:.4f}s")
+
+
+def tenant_view(rep, tagged, name):
+    """The report seen through one tenant: other tenants' requests count
+    as not offered."""
+    mask = np.asarray([m == name for m in tagged])
+    return dataclasses.replace(
+        rep, outputs=[o for o, keep in zip(rep.outputs, mask) if keep],
+        latencies_s=rep.latencies_s[mask],
+        shed=[x for x in rep.shed if tagged[x.rid] == name])
+
+
+def check_served(tag: str, rep, refs, tol) -> None:
+    """served + shed = offered, something served, and every served output
+    within ``tol`` of the per-graph stream's."""
+    if rep.num_served + rep.num_shed != rep.num_requests or rep.num_served == 0:
+        raise AssertionError(f"{tag}: served {rep.num_served} + shed {rep.num_shed} "
+                             f"of {rep.num_requests} offered")
+    for rid, (out, ref) in enumerate(zip(rep.outputs, refs)):
+        if out is not None:
+            agree(f"{tag} request {rid}", out, ref, tol)
+
+
+def threaded_runs(target, ex, graphs, tag: str) -> tuple:
+    """``PipelinedStream`` (inflight 2, staged and not) beside the blocking
+    ``infer_stream`` in one loop, twice: the first round starts on a cold
+    set of stream signatures (the captures run on this thread while the
+    worker pins and copies), the second is timed.  Returns (per-graph
+    outputs, the timed round's line)."""
+    import torch
+    from repro_torch.serve.pipeline import PipelinedStream
+
+    for _ in range(2):
+        walls = {}
+        for what in ("pipelined, staged", "infer_stream", "pipelined, not staged"):
+            t0 = time.perf_counter()
+            if what == "infer_stream":
+                outs, stats = target.infer_stream(graphs)[0], {}
+            else:
+                outs, stats = PipelinedStream(ex, inflight=2,
+                                              stage=what.endswith(", staged")).run(graphs)
+            torch.cuda.synchronize()
+            walls[what] = (time.perf_counter() - t0, stats, [o[:1] for o in outs])
+        refs = walls["infer_stream"][2]
+        for what, (_, stats, outs) in walls.items():
+            if stats and (stats["peak_inflight"] > 2 or not all(
+                    np.array_equal(a, b) for a, b in zip(outs, refs))):
+                raise AssertionError(f"stream {tag} {what}: peak in flight "
+                                     f"{stats['peak_inflight']}, or outputs not "
+                                     f"infer_stream's bit for bit")
+    line = "threaded, one graph a run, warm round: " + "; ".join(
+        f"{what} wall {w:.4f} s, {len(graphs) / w:.0f} graphs/s"
+        + (f", peak in flight {st['peak_inflight']}" if st else "")
+        for what, (w, st, _) in walls.items())
+    return refs, line + ("; pipelined == infer_stream bit for bit, in flight <= 2, "
+                         "the cold round served")
+
+
+def serve_stream(path, device, card: str) -> dict:
+    """Phase 6b for one path, under PyTorch's deterministic algorithms:
+    ``threaded_runs`` (one-tenant paths), then the scheduler at loads (a)
+    qps 0, (b) qps 5000 and (c) 2x (a)'s graphs/s with a 5 ms SLO and
+    margin 0.7, each serial, pipelined (``host_cost="measured"``) and
+    depth-1 pipelined on the serial run's compute timeline, with the checks
+    of the module docstring; then run (a)'s flushes packed both ways
+    (``stage_flush_ms``) and the busy share over run (a).  Returns the
+    path's launches."""
+    import torch
+    from repro_torch.core.batching import graph_sizes
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.serve.pipeline import PipelineConfig
+    from repro_torch.serve.scheduler import StreamScheduler
+
+    tag = " + ".join(f"{m} {p}" for _, m, p in path)
+    graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(STREAM_GRAPHS)]
+    names = [name for name, _, _ in path]
+    tagged = [names[i % len(names)] for i in range(len(graphs))]
+    models = tagged if len(names) > 1 else None
+    tol = {name: STREAM_INT8_TOL if prec == "int8" else SERVE_TOL
+           for name, _, prec in path}
+    mine = lambda xs, name: [x for x, m in zip(xs, tagged) if m == name]
+    torch.use_deterministic_algorithms(True)
+    try:
+        target, ex = stream_target(path, device)
+        one = {name: flush_replay_matches_capture(ex, name, mine(graphs, name))
+               for name in names}
+        keys0 = {name: warm_keys(ex, name) for name in names}
+        before = census()
+        reset_launches()
+        lines = []
+        if len(names) == 1:
+            refs, line = threaded_runs(target, ex, graphs, tag)
+            lines.append((line, "wall clock"))
+        else:
+            refs = [ex.run(ex.prepare_stream(g), model=m)[0][:1]
+                    for g, m in zip(graphs, tagged)]
+        captures, runs, scheds = None, {}, {}
+        qps = {"a": 0.0, "b": STREAM_QPS}
+        for load in ("a", "b", "c"):
+            kw = {}
+            if load == "c":
+                qps["c"] = 2.0 * runs[("a", "serial")].graphs_per_s
+                kw = dict(slo_s=STREAM_SLO_S, admit_margin=STREAM_ADMIT_MARGIN)
+            # depth 1 at a free host cost, on the serial run's compute
+            # timeline: the one pipelined run that must flush as serial does
+            for mode, pipeline in (("serial", None),
+                                   ("pipelined", PipelineConfig(2, host_cost="measured")),
+                                   ("depth 1", PipelineConfig(1))):
+                sched = scheds[(load, mode)] = StreamScheduler(
+                    target, capacity=STREAM_CAPACITY, max_wait_s=STREAM_MAX_WAIT_S,
+                    prewarm="eager", pipeline=pipeline, **kw)
+                if mode != "pipelined":
+                    timeline = timed_as(ex, timeline if mode == "depth 1" else None)
+                try:
+                    rep = sched.run(graphs, qps=qps[load], models=models)
+                finally:
+                    ex.__dict__.pop("run", None)
+                if captures is None:  # the eager prewarm: each tenant's ladders
+                    captures = ex.lowered_count
+                    for name in names:
+                        sigs = {ex.bucket_for(*graph_sizes(g)) for g in mine(graphs, name)}
+                        cold = [b for sig in sigs for b in sched._ladders[sig]
+                                if not ex.has_program(("packed", b.n_pad, b.e_pad, b.g_pad),
+                                                      b.g_pad, model=name)]
+                        if cold:
+                            raise AssertionError(f"stream {tag}: {name} rungs {cold} "
+                                                 f"not warm after the eager prewarm")
+                elif ex.lowered_count != captures or rep.compile_s != 0.0:
+                    raise AssertionError(f"stream {tag} ({load}) {mode}: "
+                                         f"{ex.lowered_count - captures} captures, "
+                                         f"compile {rep.compile_s} s inside the stream")
+                for name in names:
+                    check_served(f"stream {tag} ({load}) {mode} {name}",
+                                 tenant_view(rep, tagged, name), mine(refs, name),
+                                 tol[name])
+                runs[(load, mode)] = rep
+            # the pipelined loop's measured host pack (eigvec, pack_prepared
+            # and its pinning): its EWMA per base bucket
+            sched = scheds[(load, "pipelined")]
+            packs = "/".join(f"{sched.pack_estimate_s(k) * 1e3:.3f}"
+                             for k in sorted(sched._ladders))
+            ser, depth1 = runs[(load, "serial")], runs[(load, "depth 1")]
+            if flush_rows(ser) != flush_rows(depth1) or not all(
+                    np.array_equal(a, b) for a, b in zip(ser.outputs, depth1.outputs)
+                    if a is not None):
+                raise AssertionError(f"stream {tag} ({load}): a depth-1 pipelined run on "
+                                     f"the serial run's compute timeline flushed, shed or "
+                                     f"served otherwise")
+            # at qps 0 the trace alone decides each flush; under a live rate a
+            # flush closes on the measured compute's timeline, so the two loops
+            # may pack differently.  A graph's output does not depend on the
+            # graphs packed beside it (every kernel and sum of the path works
+            # per row or per destination, deterministically), so every request
+            # served by both loops must give the same bits
+            ser, pipe = runs[(load, "serial")], runs[(load, "pipelined")]
+            same = {f.rids for f in ser.flush_log} & {f.rids for f in pipe.flush_log}
+            if load == "a" and ([f.rids for f in ser.flush_log]
+                                != [f.rids for f in pipe.flush_log]):
+                raise AssertionError(f"stream {tag} (a): serial and pipelined flushed "
+                                     f"other requests")
+            both = [r for r, (a, b) in enumerate(zip(ser.outputs, pipe.outputs))
+                    if a is not None and b is not None]
+            if not all(np.array_equal(ser.outputs[r], pipe.outputs[r]) for r in both):
+                raise AssertionError(f"stream {tag} ({load}): serial and pipelined "
+                                     f"outputs differ")
+            lines.append((
+                f"({load}) qps {qps[load]:.0f}"
+                + (f", slo {STREAM_SLO_S * 1e3:.0f} ms margin {STREAM_ADMIT_MARGIN}"
+                   if kw else "")
+                + f": serial {stream_report(ser)} | pipelined {stream_report(pipe)}, "
+                f"host pack EWMA {packs} ms a flush by base bucket; {len(same)} of {len(ser.flush_log)} / {len(pipe.flush_log)} flushes "
+                f"of the same requests; the {len(both)} requests served by both, "
+                f"bit for bit; depth 1 on the serial run's compute timeline: the same "
+                f"{len(ser.flush_log)} flushes, {len(ser.shed)} sheds and latencies, "
+                f"outputs bit for bit",
+                "virtual timeline of measured compute"))
+        launches = read_launches()
+        counted = census_delta(before)
+        want = {}
+        for name in names:
+            new = warm_keys(ex, name) - keys0[name]
+            for key, n in one[name].items():
+                want[key] = want.get(key, 0.0) + new * n
+        if counted != want:
+            raise AssertionError(f"stream {tag}: dispatch census {counted}, JAX's "
+                                 f"warm keys x one forward give {want}")
+        stage = stage_flush_ms(ex, scheds[("a", "serial")], runs[("a", "serial")], graphs)
+        busy, ops = busy_share(lambda: StreamScheduler(
+            target, capacity=STREAM_CAPACITY, max_wait_s=STREAM_MAX_WAIT_S,
+            prewarm="eager").run(graphs, qps=0.0, models=models))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for _, model, precision in path:
+        for kernel in (PATH_KERNELS if precision == "fp32" else INT8_PATH_KERNELS)[model]:
+            if launches[kernel] <= 0:
+                raise AssertionError(f"stream {tag}: {kernel} was never launched")
+    if len(path) == 1:
+        check_launches(path[0][1], path[0][2], launches)
+    for line, clock in lines:
+        print(f"[stream {tag}] {line} ({clock}; {card})")
+    print(f"[stream {tag}] run (a)'s {len(runs[('a', 'serial')].flush_log)} flushes again, "
+          f"median wall ms a flush: pinned host batch (stage=False, the scheduler's) "
+          f"pack {stage[False][0]:.3f} + run {stage[False][1]:.3f}; staged "
+          f"(stage=True) pack {stage[True][0]:.3f} + run {stage[True][1]:.3f}; "
+          f"outputs bit for bit ({card})")
+    tols = " / ".join(sorted({"int8 atol 1e-4" if p == "int8" else "rtol 1e-4 atol 1e-5"
+                              for _, _, p in path}))
+    print(f"[stream {tag}] {len(graphs)} MolHIV graphs, capacity {STREAM_CAPACITY}, "
+          f"max wait {STREAM_MAX_WAIT_S * 1e3:.0f} ms: {captures} captures before the "
+          f"scheduler's second run, none after (compile 0.0 s); served + shed = offered; "
+          f"served within {tols} of the per-graph stream; census "
+          f"{int(sum(counted.values()))} = JAX's warm keys x one forward, all kernel; "
+          f"a flush replay's kernels = its capture's; busy share over run (a) "
+          f"{busy:.3f} ({ops} device ops; {card}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def stream_phase(device, card: str) -> dict:
+    """Phase 6b: every stream path; returns their launches by path name."""
+    out = {}
+    for path in STREAM_PATHS:
+        name = "stream " + " + ".join(f"{m} {p}" for _, m, p in path)
+        out[name] = serve_stream(path, device, card)
+    return out
+
+
 # ------------------------------------------------------------ phases 9-9b
 
 
@@ -2078,8 +2518,8 @@ def time_flash_attention(device, launches: int, by_route: dict) -> dict:
 
 
 def run(device) -> list:
-    """Phases 2-7b, 6, 9-9b and 8 on ``device``; returns the kernels' JSON
-    rows."""
+    """Phases 2-7b, 6, 6b, 9-9b and 8 on ``device``; returns the kernels'
+    JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
     check_segment_reduce(device)
@@ -2100,6 +2540,7 @@ def run(device) -> list:
         paths[f"gin {precision}"] = serve_model("gin", device, packed_too=False,
                                                 precision=precision, n_stream=8)
     graphs = graph_phase(device)
+    paths.update(stream_phase(device, device_line()))
     for arch, overrides, serve_kw, lengths in LM_PATHS:
         paths[arch] = serve_lm(arch, overrides, serve_kw, lengths, device)
     packed, lay = packed_plan(device)

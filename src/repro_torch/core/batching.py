@@ -4,14 +4,16 @@
 A ``BucketBudget`` is the static capacity of one packed batch:
 ``(N_pad, E_pad, G_pad)``.  ``pack_graphs`` concatenates raw COO graphs
 against a budget and returns the padded ``Graph`` plus a ``PackMeta`` that
-makes unpacking exact.
+makes unpacking exact; ``pack_prepared`` adds the eigenvectors and the
+layout plan and stages the batch for the executor.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import graph as G
 from repro_torch.core import layout as LY
@@ -88,6 +90,42 @@ def pack_layout(packed: G.Graph) -> LY.GraphLayout:
     """The packed batch's ``GraphLayout`` plan, built on the host at pack
     time so the forward itself runs no sort."""
     return LY.host_layout(packed)
+
+
+def pack_prepared(
+    graphs: Sequence[RawGraph],
+    budget: BucketBudget,
+    eigvecs: Optional[Sequence[np.ndarray]] = None,
+    with_layout: bool = True,
+    device="cpu",
+    stage: bool = False,
+):
+    """Pack raw graphs and emit the whole pack-time payload as one
+    ``serve.executor.PreparedBatch``: padded graph, packed eigenvectors,
+    host-built ``GraphLayout`` plan, bucket key and warm signature; returns
+    ``(prepared, meta)``.  This is the packed mode's prepare stage: the
+    flushed program receives everything ready-made and runs no sort.
+
+    Everything is built on the host first (the plan from the host arrays,
+    so no device-to-host copy waits behind runs in flight), then the batch
+    is made ready for ``device`` at once (``serve.executor.staged``): on a
+    card its tensors are pinned, and ``Executor.run_async`` copies them
+    into its graph's static buffers without blocking (one host-to-device
+    copy a leaf).  ``stage=True`` also copies them to the card here, on the
+    current stream, as JAX's ``stage`` does with ``jax.device_put``; the
+    replay then copies them once more, device to device."""
+    from repro_torch.serve import executor as X  # deferred: serve imports core
+
+    packed, meta = pack_graphs(graphs, budget)
+    eig = None
+    if eigvecs is not None:
+        eig = torch.from_numpy(pack_eigvecs(eigvecs, meta))
+    layout = pack_layout(packed) if with_layout else None
+    prep = X.prepared(
+        packed, eig, layout,
+        ("packed", budget.n_pad, budget.e_pad, budget.g_pad), budget.g_pad,
+    )
+    return X.staged(prep, device, copy=stage), meta
 
 
 def pack_eigvecs(eigvecs: Sequence[np.ndarray], meta: PackMeta) -> np.ndarray:

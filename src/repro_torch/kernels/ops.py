@@ -18,9 +18,12 @@ raises.  The TPU package's VMEM-budget fallback has no counterpart here.
 Every decision is counted in the process-wide registry as
 ``kernels_dispatch_total{op, path}`` (path ``kernel`` or ``reference``),
 as JAX's ``_record_dispatch`` counts it.  JAX counts at trace time, once
-per compile; the port counts where the wrapper runs, which on the
-executor's path is at warm (the eager forward) and at CUDA-graph capture,
-never at replay: a census of the programs built, not of requests.
+per (program, signature) it compiles; the port counts where the wrapper
+runs, and the executor mutes every forward but one per such key
+(:func:`census_muted`): on the card the one recorded into the CUDA graph,
+on the CPU the warm forward.  So the census counts the programs built, not
+the requests served, as JAX's does.  The wrappers' launch counters are
+not muted: they count every launch.
 
 The fp32 kernels refuse other dtypes.  Where a plain version reads an
 operand in fp32 (``.float()``), the dispatch hands its kernel that fp32
@@ -31,6 +34,8 @@ itself, so fp32 pays nothing.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 
 import torch
@@ -46,11 +51,30 @@ from repro_torch.obs.metrics import default_registry
 
 MODES = ("auto", "kernel", "reference")
 
+# depth of the census_muted() blocks open in this thread (a new thread
+# starts with an empty context, so at 0)
+_muted = contextvars.ContextVar("census_muted", default=0)
+
+
+@contextlib.contextmanager
+def census_muted():
+    """Within the block no wrapper called on this thread records its
+    dispatch decision: the executor runs a program's forward several times
+    (the eager warm, the capture, each CPU run) and counts one of them.
+    Wrappers on other threads are counted as usual."""
+    token = _muted.set(_muted.get() + 1)
+    try:
+        yield
+    finally:
+        _muted.reset(token)
+
 
 def _record_dispatch(op: str, use_kernel: bool) -> None:
     """Count one dispatch decision in the process-wide registry
-    (``kernels_dispatch_total{op, path}``): a dict update, nothing staged
-    on the device."""
+    (``kernels_dispatch_total{op, path}``) unless :func:`census_muted`: a
+    dict update, nothing staged on the device."""
+    if _muted.get():
+        return
     default_registry().counter("kernels_dispatch_total").inc(
         op=op, path="kernel" if use_kernel else "reference")
 

@@ -6,7 +6,11 @@
   ``prepare_packed`` pad raw input into a ``PreparedBatch`` on the
   executor's device: padded graph, DGN's eigenvector input when asked
   for (host eigensolve, memoised), optional layout plan (packed batches
-  carry their host-built plan), bucket key and warm signature.
+  carry their host-built plan), bucket key and warm signature.  With
+  ``host=True`` the batch stays on the CPU; :func:`staged` pins it and,
+  when asked, copies it to the card without blocking
+  (``core.batching.pack_prepared`` pins, ``serve.pipeline.PipelinedStream``
+  pins and copies).
 * **warm** — every (tenant, program, signature) is made servable once,
   untimed, before it may be timed.  On the card that is three steps: the
   forward runs eagerly on a side stream (it builds the CUDA kernels at
@@ -14,18 +18,23 @@
   then the forward is captured into a ``torch.cuda.CUDAGraph`` over static
   copies of the batch's tensors (the ``Graph``, eigenvector and
   ``GraphLayout`` leaves; the tenant's params are static already), then
-  the graph is replayed once.  The capture is accounted as
+  the graph is replayed once.  The static buffers are allocated on the
+  executor's device whatever device the warming batch lies on, and the
+  capture runs in ``thread_local`` error mode, so a prepare worker's
+  pinning and copies on another thread (``serve/pipeline.py``) do not
+  invalidate it.  The capture is accounted as
   ``compile_seconds`` (JAX's trace + lower + compile), the eager run and
   the first replay as ``warm_seconds``.  On the CPU, which a caller must
   ask for, nothing is captured: the warm is one eager forward and
   compile costs 0.  A capture that fails raises; there is no way back to
   the eager path on the card.
 * **run** — :meth:`Executor.run_async` opens the timed region, copies the
-  batch's tensors into the signature's static buffers, replays the graph,
-  clones its output (a later replay overwrites the static one) and
-  records an event; :class:`PendingRun` harvests it: the event's
-  synchronise closes the timed region, then the output is copied to the
-  host under the ``unpack_d2h`` accounting.  ``run`` is
+  batch's tensors into the signature's static buffers (from pinned host
+  memory too, without blocking), replays the graph, clones its output (a
+  later replay overwrites the static one) and records an event;
+  :class:`PendingRun` harvests it: the event's synchronise closes the
+  timed region, then the output is copied to the host under the
+  ``unpack_d2h`` accounting.  ``run`` is
   ``run_async(...).result()``.
 
 Programs are cached by ``(program_key, bucket_key, num_graphs)`` with
@@ -37,6 +46,17 @@ signature``, and each tenant captures its own.  ``register(precision=...)``
 quantizes once (``quant.apply.quantize_model``, calibrating first for
 int8-static) on the parameters as the caller gave them, then moves the
 quantized tree to the executor's device.
+
+**Dispatch census.**  ``kernels_dispatch_total`` counts one forward per
+JAX warm key, ``(program record, params signature + batch signature)``:
+JAX traces once per such key, and two same-architecture tenants share its
+executable.  The executor mutes the census (``kernels.ops.census_muted``)
+for every other forward: on the card it counts the capture, not the eager
+warm forward; on the CPU the warm forward, not the runs; and nothing for
+a second tenant's warm of a key already counted.
+
+``Tenant.share_layout`` is always True: the per-call-sort path of JAX's
+``share_layout=False`` is not ported (ROADMAP queue 1, item 9).
 
 **Telemetry.**  ``tracer=`` / ``metrics=`` sinks (``repro_torch.obs``;
 attachable later by :meth:`Executor.attach_telemetry`) receive program
@@ -50,6 +70,7 @@ later slices.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
@@ -62,6 +83,7 @@ from repro_torch.core import layout as LY
 from repro_torch.data.pipeline import laplacian_eigvec
 from repro_torch.device import resolve_device
 from repro_torch.gnn import models as M
+from repro_torch.kernels import ops
 from repro_torch.obs.metrics import MetricsRegistry, ServingInstruments
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serve.clock import Clock, RealClock
@@ -148,6 +170,24 @@ def prepared(graph: G.Graph, eigvec, layout, bucket_key: tuple,
                          signature=trace_signature(graph, eigvec, layout))
 
 
+def staged(p: PreparedBatch, device, copy: bool = True) -> PreparedBatch:
+    """A host-built batch made ready for a run on ``device``.  On a card its
+    CPU tensors are pinned and, with ``copy``, sent to the card by
+    ``non_blocking`` copies on the current stream (the caching host
+    allocator keeps each pinned block until its copy is done); without
+    ``copy`` the pinned tensors go to :meth:`Executor.run_async` as they
+    are, which copies them into the graph's static buffers.  On the CPU
+    ``p`` itself.  The signature does not change: it keys on shapes and
+    dtypes."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return p
+    p = _map_tensors(lambda t: t.pin_memory() if t.device.type == "cpu" else t, p)
+    if copy:
+        p = _map_tensors(lambda t: t.to(device, non_blocking=True), p)
+    return p
+
+
 @dataclasses.dataclass
 class _Captured:
     """One warm signature's CUDA graph: its static input leaves (in
@@ -165,11 +205,14 @@ class _CompiledBucket:
     its captured graph (``None`` on the CPU, where the forward runs
     eagerly).  ``compile_s`` is capture seconds, ``warm_s`` the eager warm
     forward plus the first replay; ``lowered_count`` counts the captures
-    (JAX: fresh trace + lower + compiles)."""
+    (JAX: fresh trace + lower + compiles).  ``counted`` holds the JAX warm
+    keys (params signature + batch signature, no tenant name) whose forward
+    the dispatch census has recorded."""
 
     fn: Callable
     num_graphs: Optional[int]
     warm: Set[tuple] = dataclasses.field(default_factory=set)
+    counted: Set[tuple] = dataclasses.field(default_factory=set)
     executables: Dict[tuple, Optional[_Captured]] = dataclasses.field(
         default_factory=dict)
     compile_s: float = 0.0
@@ -194,6 +237,12 @@ class Tenant:
     @property
     def program_key(self) -> tuple:
         return (self.cfg, self.precision, self.fused)
+
+    @property
+    def share_layout(self) -> bool:
+        """Whether batches carry the shared ``GraphLayout`` plan: always, as
+        the port has no per-call-sort path (ROADMAP queue 1, item 9)."""
+        return True
 
 
 class Executor:
@@ -231,16 +280,22 @@ class Executor:
     def register(self, name: str, cfg: M.GNNConfig, params: dict,
                  precision: str = "fp32",
                  calib_graphs: Optional[Sequence[tuple]] = None,
-                 fused: bool = False) -> Tenant:
+                 fused: bool = False, share_layout: bool = True) -> Tenant:
         """Admit a model.  ``precision`` selects the serving arithmetic:
         "fp32", "int8" (dynamic per-node activation scales), "int8-static"
         (calibrated on ``calib_graphs``, raw COO tuples) or "fixed"
         (ap_fixed emulation), each with ``quant.apply.precision_qconfig``'s
         recipe.  Quantization runs once here, on ``params`` where the
         caller keeps them (calibration and transform see the same tree);
-        then the params move to the executor's device."""
+        then the params move to the executor's device.  ``share_layout``
+        must stay True: the per-call-sort path is not ported."""
         if name in self.tenants:
             raise ValueError(f"tenant {name!r} already registered")
+        if not share_layout:
+            raise ValueError(
+                "share_layout=False (the per-call-sort path) is not ported "
+                "yet (ROADMAP queue 1, item 9)"
+            )
         quant_report = None
         if precision != "fp32":
             from repro_torch.quant import apply as QA
@@ -325,21 +380,26 @@ class Executor:
                                   num_graphs=num_graphs)
         return cb
 
-    def _capture(self, cb: _CompiledBucket, tenant: Tenant,
-                 p: PreparedBatch, t0: float) -> Tuple[_Captured, float, float]:
+    def _capture(self, cb: _CompiledBucket, tenant: Tenant, p: PreparedBatch,
+                 t0: float, census) -> Tuple[_Captured, float, float]:
         """Eager warm forward, capture and first replay of one signature on
-        the card; -> (captured graph, capture seconds, warm seconds)."""
-        static = _map_tensors(torch.clone, p.inputs)
+        the card; -> (captured graph, capture seconds, warm seconds).  The
+        static buffers are copies of the batch's tensors on the executor's
+        device; the eager forward is kept out of the dispatch census, the
+        capture is counted under ``census`` (a context manager)."""
+        static = _map_tensors(lambda t: t.to(self.device, copy=True), p.inputs)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
-            cb.fn(tenant.params, *static)
+            with ops.census_muted():
+                cb.fn(tenant.params, *static)
             side.synchronize()
             t1 = self.clock.now()
-            graph.capture_begin()
+            graph.capture_begin(capture_error_mode="thread_local")
             try:
-                out = cb.fn(tenant.params, *static)
+                with census:
+                    out = cb.fn(tenant.params, *static)
             finally:
                 graph.capture_end()
         t2 = self.clock.now()
@@ -358,13 +418,20 @@ class Executor:
         spent (0.0 when already warm)."""
         if sig in cb.warm:
             return 0.0
+        # the dispatch census counts this warm's forward once per JAX warm
+        # key: a second tenant of the same key counts nothing
+        jax_sig = sig[1:]
+        census = (ops.census_muted() if jax_sig in cb.counted
+                  else contextlib.nullcontext())
         t0 = self.clock.now()
         if self.device.type == "cuda":
-            cap, compile_dt, warm_dt = self._capture(cb, tenant, p, t0)
+            cap, compile_dt, warm_dt = self._capture(cb, tenant, p, t0, census)
             cb.lowered_count += 1
         else:
-            cb.fn(tenant.params, *p.inputs)
+            with census:
+                cb.fn(tenant.params, *p.inputs)
             cap, compile_dt, warm_dt = None, 0.0, self.clock.now() - t0
+        cb.counted.add(jax_sig)  # only once the counted forward has returned
         cb.executables[sig] = cap
         cb.warm.add(sig)
         cb.compile_s += compile_dt
@@ -387,25 +454,30 @@ class Executor:
 
     # ---------------------------------------------------------- prepare
 
-    def prepare_stream(self, raw: tuple, with_eigvec: bool = False) -> PreparedBatch:
+    def prepare_stream(self, raw: tuple, with_eigvec: bool = False,
+                       host: bool = False) -> PreparedBatch:
         """One raw COO graph padded into the smallest bucket; no layout
-        plan (the forward builds it on the device: one sort)."""
+        plan (the forward builds it on the device: one sort).  ``host``
+        keeps the batch on the CPU (:func:`staged` moves it)."""
         s, r, nf, ef = raw[:4]
         nb, eb = self.bucket_for(nf.shape[0], len(s))
-        g = G.from_numpy(s, r, nf, ef, n_pad=nb, e_pad=eb, device=self.device)
+        device = "cpu" if host else self.device
+        g = G.from_numpy(s, r, nf, ef, n_pad=nb, e_pad=eb, device=device)
         eig = None
         if with_eigvec:
             eig = torch.as_tensor(self._eigvec(s, r, nf.shape[0], nb),
-                                  device=self.device)
+                                  device=device)
         return prepared(g, eig, None, ("stream", nb, eb), 1)
 
     def prepare_batched(self, chunk: Sequence[tuple], batch_size: int,
-                        n_pad: int, e_pad: int,
-                        with_eigvec: bool = False) -> PreparedBatch:
+                        n_pad: int, e_pad: int, with_eigvec: bool = False,
+                        host: bool = False) -> PreparedBatch:
         """One fixed-size padded batch of the chunk's raw graphs, with the
-        per-graph eigenvectors at the batch's node offsets when asked."""
+        per-graph eigenvectors at the batch's node offsets when asked;
+        ``host`` as for :meth:`prepare_stream`."""
+        device = "cpu" if host else self.device
         gs = [(g[0], g[1], g[2], g[3]) for g in chunk]
-        g = G.batch_graphs(gs, n_pad=n_pad, e_pad=e_pad, device=self.device)
+        g = G.batch_graphs(gs, n_pad=n_pad, e_pad=e_pad, device=device)
         eig = None
         if with_eigvec:
             vec = np.zeros((n_pad,), np.float32)
@@ -414,7 +486,7 @@ class Executor:
                 n = nf.shape[0]
                 vec[off : off + n] = self._eigvec(s, r, n, n)
                 off += n
-            eig = torch.as_tensor(vec, device=self.device)
+            eig = torch.as_tensor(vec, device=device)
         return prepared(g, eig, None, ("batched", n_pad, e_pad, batch_size),
                         batch_size)
 
@@ -438,10 +510,13 @@ class Executor:
 
     def has_program(self, bucket_key: tuple, num_graphs: int,
                     model: Optional[str] = None) -> bool:
-        """Whether a program record exists for this tenant's architecture
-        at (bucket, slots)."""
-        key = (self.tenant(model).program_key, bucket_key, num_graphs)
-        return key in self._compiled
+        """Whether this tenant has warmed a signature of the program record
+        at (bucket, slots): the scheduler's eager-prewarm skip check.  The
+        record is shared by same-architecture tenants, a captured graph is
+        not (JAX's shared executable is), so the check is per tenant."""
+        tenant = self.tenant(model)
+        cb = self._compiled.get((tenant.program_key, bucket_key, num_graphs))
+        return cb is not None and any(sig[0] == tenant.name for sig in cb.warm)
 
     # --------------------------------------------------------- warm/run
 
@@ -477,8 +552,11 @@ class Executor:
         """Dispatch one execution without waiting for it: warm the
         signature (untimed), open the timed region, copy the batch into the
         graph's static buffers, replay, clone the output, and return a
-        :class:`PendingRun` at once.  On the CPU the forward runs eagerly
-        here.  The in-flight window is the caller's to bound."""
+        :class:`PendingRun` at once; a batch in pinned host memory is
+        copied without blocking, and the pending run holds it until the
+        harvest.  On the CPU the forward runs eagerly here, outside the
+        dispatch census (its warm counted it).  The in-flight window is
+        the caller's to bound."""
         tenant = self.tenant(model)
         cb = self._program(tenant, p.bucket_key, p.num_graphs)
         sig = self._signature(tenant, p)
@@ -487,10 +565,11 @@ class Executor:
             cap = cb.executables[sig]
             t0 = self.clock.now()
             if cap is None:
-                return PendingRun(self, cb.fn(tenant.params, *p.inputs), None,
-                                  tenant, p, t0)
+                with ops.census_muted():
+                    out = cb.fn(tenant.params, *p.inputs)
+                return PendingRun(self, out, None, tenant, p, t0)
             for dst, src in zip(cap.inputs, _tensor_leaves(p.inputs)):
-                dst.copy_(src)
+                dst.copy_(src, non_blocking=True)
             cap.graph.replay()
             out = cap.output.clone()
             done = torch.cuda.Event()

@@ -80,6 +80,11 @@ class GNNEngine:
         return self._tenant.precision
 
     @property
+    def share_layout(self) -> bool:
+        """Always True: the shared layout plan (``Tenant.share_layout``)."""
+        return self._tenant.share_layout
+
+    @property
     def quant_report(self):
         """``quant.apply.QuantReport`` of the transform, None for fp32."""
         return self._tenant.quant_report

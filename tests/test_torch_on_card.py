@@ -1048,3 +1048,115 @@ def test_replay_launches_the_captured_kernels(cuda, model, precision):
     assert counts() == before
     replay = [sum(symbol in n for n in names) for symbol, _ in KERNEL_SYMBOLS]
     assert replay == captured
+
+
+# ------------------------------------------- the dispatch census, the scheduler
+
+
+def _census():
+    from repro_torch.obs.metrics import default_registry
+
+    return dict(default_registry().counter("kernels_dispatch_total").series())
+
+
+def _census_of(fn) -> dict:
+    before = _census()
+    fn()
+    return {k: v - before.get(k, 0.0) for k, v in _census().items()
+            if v != before.get(k, 0.0)}
+
+
+@pytest.mark.parametrize("model,precision", [("gin", "fp32"), ("gat", "int8")])
+def test_census_counts_one_forward_per_warm_signature(cuda, model, precision):
+    """K warm signatures count K x one forward's CPU census, all on
+    path="kernel": the capture is counted, the eager warm forward and the
+    replays are not; a second tenant of the same architecture and params
+    structure (one JAX warm key) counts nothing more."""
+    from repro_torch.serve.executor import Executor
+
+    ex = _graph_executor(cuda, model, precision)
+    preps = _graph_inputs(ex, packed=False)
+    k = len({p.signature for p in preps})
+    got = _census_of(lambda: [ex.run(p) for p in preps * 2])
+    cpu = Executor(device="cpu")
+    t = ex.tenant()
+    cpu.register("m", t.cfg, _graph_executor_params(model), precision=precision,
+                 fused=True)
+    one = _census_of(lambda: cpu.run(cpu.prepare_stream(
+        [g[:4] for g in _stream(1)][0])))
+    assert k > 1 and all(path == "reference" for _, path in one)
+    assert got == {(op, "kernel"): k * n for (op, _), n in one.items()}
+    ex.register("twin", t.cfg, _graph_executor_params(model), precision=precision,
+                fused=True)
+    assert _census_of(lambda: [ex.run(p, model="twin") for p in preps]) == {}
+    assert ex.lowered_count == 2 * k
+
+
+def _graph_executor_params(model):
+    from repro_torch.gnn import models as TM
+
+    cfg = (TM.paper_config("gat", num_layers=2) if model == "gat"
+           else TM.paper_config(model, num_layers=2, hidden=32))
+    return TM.init(torch.Generator().manual_seed(0), cfg)
+
+
+def _stream(k, seed=1):
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+
+    return MoleculeStream(MOLHIV, seed=seed).take(k)
+
+
+def test_scheduler_serial_and_pipelined_on_card(cuda):
+    """A packed stream through the scheduler on the card: serial and
+    pipelined loops flush the same requests and serve the same bits
+    (deterministic algorithms), both within 1e-5 of per-graph
+    ``infer_stream``; after the eager ladder prewarm a second run captures
+    nothing and reports no compile time."""
+    from repro_torch.serve.pipeline import PipelineConfig
+    from repro_torch.serve.scheduler import StreamScheduler
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        ex = _graph_executor(cuda, "gat")
+        graphs = [g[:4] for g in _stream(48)]
+        ser = StreamScheduler(ex, capacity=4, prewarm="eager")
+        rep = ser.run(graphs, qps=0.0, models=["m"] * len(graphs))
+        captures = ex.lowered_count
+        again = ser.run(graphs, qps=5000.0, models=["m"] * len(graphs))
+        assert ex.lowered_count == captures and again.compile_s == 0.0
+        pipe = StreamScheduler(ex, capacity=4, prewarm="eager",
+                               pipeline=PipelineConfig(2, host_cost="measured"))
+        prep = pipe.run(graphs, qps=0.0, models=["m"] * len(graphs))
+        assert [f.rids for f in prep.flush_log] == [f.rids for f in rep.flush_log]
+        for a, b in zip(rep.outputs, prep.outputs):
+            np.testing.assert_array_equal(a, b)
+        assert ex.lowered_count == captures
+        base = [ex.run(ex.prepare_stream(g))[0] for g in graphs]
+        for a, b in zip(rep.outputs, base):
+            assert_close(a, b, TOL)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.parametrize("stage", [True, False])
+def test_pipelined_stream_on_a_cold_executor(cuda, stage):
+    """The threaded runner on an executor with nothing captured: the warms
+    (captures) run on the caller thread while the worker pins and copies;
+    outputs equal ``infer_stream``'s bit for bit (deterministic
+    algorithms), and the in-flight window holds."""
+    from repro_torch.serve.pipeline import PipelinedStream
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        graphs = [g[:4] for g in _stream(24)]
+        cold = _graph_executor(cuda)
+        outs, stats = PipelinedStream(cold, inflight=2, stage=stage).run(graphs)
+        warm = _graph_executor(cuda)
+        base = [warm.run(warm.prepare_stream(g))[0] for g in graphs]
+        assert stats["peak_inflight"] <= 2 and len(outs) == len(base)
+        for a, b in zip(base, outs):
+            np.testing.assert_array_equal(a, b)
+        assert cold.lowered_count == len({warm.prepare_stream(g).signature
+                                          for g in graphs})
+    finally:
+        torch.use_deterministic_algorithms(False)
