@@ -168,18 +168,35 @@ fails the run), then runs these phases, one line each:
   9. LM       ChatGLM3-6B served at full width and depth (28 layers, bf16,
               random weights from a CUDA generator seeded 0) through
               ``LMServer.generate``: 8 prompts of 256-512 tokens, prompt_len
-              512, cache_len 1024, 32 new tokens; against an
+              512, cache_len 1024, 32 new tokens.  The first generate warms
+              prefill and the decode step eagerly and captures each as a
+              CUDA graph (the counters: flash_attention 2 x 28, warm +
+              capture, all on the mma route, nothing else); by the
+              profiler a prefill replay runs 28 mma flash kernels and a
+              decode replay none.  Then 5 runs each of generate (graphs,
+              capturing and launching nothing more) and of the eager loop
+              of ``lm.prefill`` / ``lm.decode_step``: the same tokens,
+              token for token, in every run; against an
               ``LMServer(mode="reference")`` on the same weights the prefill
-              logits and the decode logits, teacher-forced on the kernel
-              server's tokens, agree within max|d| <= 2e-2 max|ref| (JAX's
-              bound, tests/test_arch_smoke.py); decode after prefill(S-1)
-              matches prefill(S)'s last logits within the same bound;
-              flash_attention launches 28 times per prefill, all on the mma
-              route, and 0 per decode step; every token lies in [0, vocab)
+              logits and the decode logits, teacher-forced on the served
+              tokens, agree within max|d| <= 2e-2 max|ref| (JAX's bound,
+              tests/test_arch_smoke.py); decode after prefill(S-1) matches
+              prefill(S)'s last logits within the same bound; every token
+              lies in [0, vocab).  It prints prefill ms and decode ms a
+              token, median (min-max) of the runs, graph and eager; device
+              ops a decode replay and the busy share over 32 replays (and
+              over 8 eager steps); captures, capture seconds, graph-pool
+              memory; ``layers.decode_attention`` at the served shape
+              beside the JAX form it replaced (repeated fp32 cache) and its
+              bytes bound, within bf16 1.6e-2 + 1.6e-2 |JAX form|
   9b. LM      Gemma-3-12B at full width, 6 layers (one 5-local / 1-global
               group): B 2, prompts of 1024-2048 tokens, prompt_len 2048,
               cache_len 2304, 8 new tokens; the same checks, 6 mma launches
-              per prefill
+              a prefill replay
+  9c. LM      StarCoder2-15B at full width (d 6144, 48 / 4 -> 16 heads,
+              gelu MLP, tied embedding), 8 of its 40 layers: B 4, prompts of
+              512-1024 tokens, prompt_len 1024, cache_len 1280, 16 new
+              tokens; the same checks, 8 mma launches a prefill replay
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after; a wrapper counts where it
               runs: the eager warm forward and the launches recorded into
@@ -204,7 +221,9 @@ fails the run), then runs these phases, one line each:
               Gemma-3's global layer (bf16, causal) against
               ``scaled_dot_product_attention``, and there the CUDA-core
               (simt) route forced on the same bf16 tensors, the design the
-              mma route replaces on this path
+              mma route replaces on this path; its launches per replay
+              include the LM programs' (a prefill replay num_layers, a
+              decode replay 0)
 
 It prints the card line and a JSON object of the kernels before the last
 line, and ends with ``{"ok": true, "device": {...}}``.  Any mismatch or
@@ -245,7 +264,11 @@ LM_PATHS = (("chatglm3-6b", {}, dict(max_batch=8, prompt_len=512, cache_len=1024
                                      max_new_tokens=32), (256, 512)),
             ("gemma3-12b", dict(num_layers=6),
              dict(max_batch=2, prompt_len=2048, cache_len=2304, max_new_tokens=8),
-             (1024, 2048)))
+             (1024, 2048)),
+            ("starcoder2-15b", dict(num_layers=8),
+             dict(max_batch=4, prompt_len=1024, cache_len=1280, max_new_tokens=16),
+             (512, 1024)))
+LM_RUNS = 5  # generate (graphs) and the eager loop, each, per LM path
 # (K, N) of every linear the six int8 paths quantize: the encoders (9 ->
 # 100, 64, 80), GIN's edge embedding and MLP (also GIN+VN's virtual-node
 # MLPs), GCN's lin, GAT's proj, PNA's pre / post, DGN's post
@@ -1945,7 +1968,7 @@ def stream_phase(device, card: str) -> dict:
     return out
 
 
-# ------------------------------------------------------------ phases 9-9b
+# ------------------------------------------------------------ phases 9-9c
 
 
 def lm_bound_err(name: str, got, want) -> float:
@@ -1963,9 +1986,108 @@ def lm_bound_err(name: str, got, want) -> float:
     return rel
 
 
-def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> dict:
-    """Drive the port's LM serving path for ``arch`` at full width and
-    check it; returns the path's launch counts."""
+def eager_generate(params, cfg, scfg, tokens):
+    """The eager loop of ``lm.prefill`` / ``lm.decode_step`` at int
+    positions, greedy, as JAX's ``LMServer.generate`` runs its programs:
+    (tokens (B, max_new) numpy, prefill s with the first argmax, decode s a
+    token), each region ending at a synchronise."""
+    import torch
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, last, t = lm.prefill(params, {"tokens": tokens}, cfg, scfg.cache_len)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = torch.empty((tokens.shape[0], scfg.max_new_tokens), dtype=torch.int32,
+                      device=tokens.device)
+    for i in range(scfg.max_new_tokens):
+        out[:, i] = tok[:, 0]
+        logits, cache = lm.decode_step(params, cache, tok, t + i, cfg)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out.cpu().numpy(), t1 - t0, (t2 - t1) / scfg.max_new_tokens
+
+
+def decode_attention_jax_form(q, k_cache, v_cache, t, window, softcap):
+    """JAX's form of decode attention, which ``layers.decode_attention``
+    replaced: the cache repeated to q's heads and copied to fp32, fp32
+    einsums."""
+    import torch
+    from repro_torch.models import layers as L
+
+    b, _, h, d = q.shape
+    g = h // k_cache.shape[2]
+    qs = (q / math.sqrt(d)).reshape(b, h, d)
+    logits = torch.einsum("bhd,bkhd->bhk", qs.float(), L.repeat_kv(k_cache, g).float())
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = kpos <= t
+    if window:
+        mask &= kpos > t - window
+    p = torch.softmax(torch.where(mask, logits, L._NEG), dim=-1)
+    o = torch.einsum("bhk,bkhd->bhd", p, L.repeat_kv(v_cache, g).float())
+    return o[:, None].to(q.dtype)
+
+
+def time_decode_attention(arch: str, cfg, srv) -> dict:
+    """``layers.decode_attention`` at the served decode shape (the server's
+    filled cache of layer 0, its device position, a global layer's window):
+    device time against the JAX form it replaced (repeated, fp32 cache),
+    the bytes bound (q, the two caches and o moved once) and its error
+    against the JAX form in fp32 (P rounded to bf16 for P.V)."""
+    import torch
+    from repro_torch.models import layers as L
+
+    kc, vc = srv._cache[0]["k"][0], srv._cache[0]["v"][0]
+    b, s, hkv, d = kc.shape
+    gen = torch.Generator(device=kc.device).manual_seed(22)
+    q = torch.randn((b, 1, cfg.num_heads, d), generator=gen, device=kc.device).to(kc.dtype)
+    # the last slot a served decode writes
+    t = torch.full((), srv.scfg.prompt_len + srv.scfg.max_new_tokens - 1,
+                   dtype=torch.long, device=kc.device)
+    args = (q, kc, vc, t, 0, cfg.logit_softcap)
+    got = L.decode_attention(*args)
+    want = decode_attention_jax_form(*args)
+    err = checked_err(f"{arch} decode_attention vs the JAX form", got.float(),
+                      want.float(), FLASH_TOL["bfloat16"])
+    ms, _ = device_ms(lambda: L.decode_attention(*args), 20)
+    jax_ms, _ = device_ms(lambda: decode_attention_jax_form(*args), 10)
+    nbytes = kc.element_size() * (2 * kc.numel() + 2 * q.numel())
+    bound_ms, bound_by = bound(nbytes, 0.0,
+                               bf16_ops=4.0 * b * cfg.num_heads * s * d)
+    return dict(ms=ms, jax_form_ms=jax_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, ops=len(device_events(lambda: L.decode_attention(*args))))
+
+
+def decode_replays(srv, n: int):
+    """A call that rewinds ``srv``'s device position and step index to the
+    end of the prompt (two fills) and replays its decode graph ``n`` <=
+    max_new_tokens times: within the cache and the output however often
+    it is called (the cache past the prompt is rewritten before it is
+    read)."""
+    def run():
+        srv._pos.fill_(srv.scfg.prompt_len)
+        srv._step.zero_()
+        for _ in range(n):
+            srv.decode_graph.replay()
+    return run
+
+
+def spread(xs) -> str:
+    """"median (min-max)" of a list of seconds, in ms."""
+    ms = [x * 1e3 for x in xs]
+    return f"{statistics.median(ms):.3f} ({min(ms):.3f}-{max(ms):.3f})"
+
+
+def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tuple:
+    """Drive the port's LM serving path for ``arch`` at full width through
+    its CUDA graphs and check it; returns (the path's launch counts, the
+    flash launches of one prefill replay and of one decode replay by the
+    profiler)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -1989,19 +2111,48 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> dic
     tokens = torch.from_numpy(toks).to(device)
     srv = LMServer(params, cfg, scfg, device=device)
     ref_srv = LMServer(params, cfg, scfg, device=device, mode="reference")
-    srv.generate(prompts)  # warm: cuBLAS handles, allocator
+    # the main path: the first generate warms prefill and the step eagerly,
+    # captures both and replays them; the counters move at warm and capture
     reset_launches()
-    gen, stats = srv.generate(prompts)
+    gen, _ = srv.generate(prompts)
     launches = read_launches()
-    if launches["flash_attention.mma"] != cfg.num_layers or any(
+    n_layers = cfg.num_layers
+    if launches["flash_attention.mma"] != 2 * n_layers or any(
             n for k, n in launches.items()
             if k not in ("flash_attention", "flash_attention.mma")):
-        raise AssertionError(f"{arch}: launches {launches}; expected "
-                             f"{cfg.num_layers} flash_attention per generate, all "
+        raise AssertionError(f"{arch}: launches {launches}; expected 2 x {n_layers} "
+                             f"flash_attention (the warm prefill and the capture), all "
                              f"on the mma route")
     if gen.shape != (scfg.max_batch, scfg.max_new_tokens) or not (
             (gen >= 0) & (gen < cfg.vocab_size)).all():
         raise AssertionError(f"{arch}: tokens out of [0, {cfg.vocab_size}) or shape {gen.shape}")
+    # replays: num_layers mma flash kernels a prefill, none a decode step (the
+    # prefill replay rewinds the state the decode replay, up to PROFILE_TRIES
+    # of them, advances)
+    names = [e.name for e in device_events(srv.prefill_graph.replay)]
+    step_names = [e.name for e in device_events(srv.decode_graph.replay)]
+    replays = {"prefill": sum("flash_fwd" in n for n in names),
+               "decode": sum("flash_fwd" in n for n in step_names)}
+    if (replays != {"prefill": n_layers, "decode": 0}
+            or sum("flash_fwd_mma" in n for n in names) != n_layers):
+        raise AssertionError(f"{arch}: flash kernels a replay {replays}; expected "
+                             f"{n_layers} (mma) a prefill and 0 a decode step")
+
+    # graph against eager in one run: the same tokens, each timed LM_RUNS times
+    graph_runs, eager_runs = [], []
+    for _ in range(LM_RUNS):
+        reset_launches()
+        got, stats = srv.generate(prompts)
+        if any(read_launches().values()) or srv.captures != 2:
+            raise AssertionError(f"{arch}: a later generate captured or launched "
+                                 f"{read_launches()}; captures {srv.captures}")
+        eager, prefill_s, decode_s = eager_generate(params, cfg, scfg, tokens)
+        for name, toks_ in (("graph", got), ("eager loop", eager)):
+            if not np.array_equal(toks_, gen):
+                raise AssertionError(f"{arch}: the {name} tokens differ from the first "
+                                     f"generate's in {int((toks_ != gen).sum())} places")
+        graph_runs.append((stats["prefill_s"], stats["decode_s_per_token"]))
+        eager_runs.append((prefill_s, decode_s))
 
     def path(server, forced):
         """(prefill last logits, teacher-forced decode logits, flash
@@ -2028,9 +2179,9 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> dic
     forced = torch.from_numpy(gen).to(device)
     last_k, dec_k, n_prefill = path(srv, forced)
     last_r, dec_r, n_ref = path(ref_srv, forced)
-    if n_prefill != cfg.num_layers or n_ref != 0:
+    if n_prefill != n_layers or n_ref != 0:
         raise AssertionError(f"{arch}: prefill launched flash_attention {n_prefill} times "
-                             f"(reference mode {n_ref}); expected {cfg.num_layers} and 0")
+                             f"(reference mode {n_ref}); expected {n_layers} and 0")
     errs = {"prefill": lm_bound_err(f"{arch} prefill logits", last_k, last_r),
             "decode": lm_bound_err(f"{arch} teacher-forced decode logits", dec_k, dec_r)}
     # decode after prefill(S - 1) against prefill(S)'s last logits
@@ -2041,30 +2192,41 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> dic
     ref_gen, _ = ref_srv.generate(prompts)
     agree_tokens = float((ref_gen == gen).mean())
 
-    busy_prefill = busy_share(lambda: lm.prefill(params, {"tokens": tokens}, cfg,
-                                                 scfg.cache_len))
+    busy_graph = busy_share(decode_replays(srv, scfg.max_new_tokens))
     cache, _, t = lm.prefill(params, {"tokens": tokens}, cfg, scfg.cache_len)
     first = forced[:, :1]
-    busy_decode = busy_share(lambda: [lm.decode_step(params, cache, first, t + i, cfg)
-                                      for i in range(8)])
-    del cache, srv, ref_srv, params
+    busy_eager = busy_share(lambda: [lm.decode_step(params, cache, first, t + i, cfg)
+                                     for i in range(8)])
+    del cache
+    attn = time_decode_attention(arch, cfg, srv)
+    captures, capture_s, pool_gb = srv.captures, srv.capture_seconds, srv.pool_bytes / 1e9
+    del srv, ref_srv, params
     torch.cuda.empty_cache()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[lm {arch}] {cfg.num_layers} layers, d {cfg.d_model}, {n_params / 1e9:.3f} B "
+    col = lambda runs, i: spread([r[i] for r in runs])
+    print(f"[lm {arch}] {n_layers} layers, d {cfg.d_model}, {n_params / 1e9:.3f} B "
           f"params (init {init_s:.3f}s); B={scfg.max_batch} prompts "
           f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens padded to "
-          f"{scfg.prompt_len}, cache {scfg.cache_len}, {scfg.max_new_tokens} new: "
-          f"prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
-          f"{stats['decode_s_per_token'] * 1e3:.3f} ms/token; vs reference mode "
-          f"max|d|/max|ref| prefill {errs['prefill']:.3g}, decode {errs['decode']:.3g}, "
+          f"{scfg.prompt_len}, cache {scfg.cache_len}, {scfg.max_new_tokens} new; "
+          f"median (min-max) of {LM_RUNS} runs: graph prefill {col(graph_runs, 0)} ms, "
+          f"decode {col(graph_runs, 1)} ms/token; eager loop prefill "
+          f"{col(eager_runs, 0)} ms, decode {col(eager_runs, 1)} ms/token; graph tokens "
+          f"== eager loop's in every run; decode replay {len(step_names)} device ops "
+          f"({len(step_names) / n_layers:.1f} a layer), busy share over "
+          f"{scfg.max_new_tokens} replays "
+          f"{busy_graph[0]:.3f} (eager 8 steps {busy_eager[0]:.3f}, {busy_eager[1] // 8} "
+          f"ops a step); {captures} captures in {capture_s:.3f}s, graph pool "
+          f"{pool_gb:.3f} GB; vs reference mode max|d|/max|ref| prefill "
+          f"{errs['prefill']:.3g}, decode {errs['decode']:.3g}, "
           f"decode-after-prefill(S-1) {errs['decode_vs_prefill']:.3g}; tokens equal to "
-          f"the reference server's {agree_tokens:.3f}; flash_attention {n_prefill} per "
-          f"prefill (mma route), 0 per decode step; launches {launches}; device busy "
-          f"share: prefill "
-          f"{busy_prefill[0]:.3f} ({busy_prefill[1]} device ops), decode "
-          f"{busy_decode[0]:.3f} ({busy_decode[1] // 8} per step); peak memory "
+          f"the reference server's {agree_tokens:.3f}; flash_attention by the profiler "
+          f"{replays['prefill']} a prefill replay (mma), {replays['decode']} a decode "
+          f"replay; launches {launches} (warm + capture); decode_attention "
+          f"{attn['ms'] * 1e3:.2f} us a layer ({attn['ops']} ops; the JAX form "
+          f"{attn['jax_form_ms'] * 1e3:.2f} us; bound {attn['bound_ms'] * 1e3:.2f} us, "
+          f"{attn['bound_by']}; err {attn['max_abs_err']:.3g}); peak memory "
           f"{peak_gb:.1f} GB")
-    return launches
+    return launches, replays
 
 
 # ------------------------------------------------------------ phase 6
@@ -2518,7 +2680,7 @@ def time_flash_attention(device, launches: int, by_route: dict) -> dict:
 
 
 def run(device) -> list:
-    """Phases 2-7b, 6, 6b, 9-9b and 8 on ``device``; returns the kernels'
+    """Phases 2-7b, 6, 6b, 9-9c and 8 on ``device``; returns the kernels'
     JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
@@ -2541,8 +2703,11 @@ def run(device) -> list:
                                                 precision=precision, n_stream=8)
     graphs = graph_phase(device)
     paths.update(stream_phase(device, device_line()))
+    lm_replays = {}
     for arch, overrides, serve_kw, lengths in LM_PATHS:
-        paths[arch] = serve_lm(arch, overrides, serve_kw, lengths, device)
+        paths[arch], replays = serve_lm(arch, overrides, serve_kw, lengths, device)
+        lm_replays.update({f"{arch} {program}": {"flash_attention": n}
+                           for program, n in replays.items()})
     packed, lay = packed_plan(device)
     rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"],
                           design_split(paths["gin"], "node_mlp")),
@@ -2562,6 +2727,8 @@ def run(device) -> list:
             " ".join(k for k in (model, precision, "packed" if packed else "") if k):
                 replay.get(row["name"], 0)
             for (model, precision, packed), replay in graphs.items()}
+        row["launches_per_replay"].update(
+            {program: replay.get(row["name"], 0) for program, replay in lm_replays.items()})
     return rows
 
 

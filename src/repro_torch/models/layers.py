@@ -8,7 +8,8 @@ The port has one form per device: ``blocked_attention`` calls
 kernel on the card and the plain quadratic version on the CPU.  ``mode``
 ("auto" | "kernel" | "reference") reaches that dispatch from every caller.
 Decode-time attention over a KV cache stays plain torch, as JAX computes
-it outside Pallas.
+it outside Pallas: grouped-query, on the cache in place (no repeated or
+fp32 copy of it), at an int or a device-tensor position.
 
 Linears are ``torch.matmul`` on reshaped weights (XLA's einsums); RNG is
 an explicit ``torch.Generator``; ``stack`` prepends the group axis of
@@ -17,6 +18,7 @@ bidirectional encoder are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -46,9 +48,41 @@ def rms_norm_init(dim: int, stack=(), device="cpu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def rope_freqs(dim: int, theta: float, device="cpu") -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(dim: int, theta: float, device: torch.device) -> torch.Tensor:
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
     return 1.0 / (theta ** exps)
+
+
+def rope_freqs(dim: int, theta: float, device="cpu") -> torch.Tensor:
+    """The (dim / 2,) inverse frequencies, made once per (dim, theta,
+    device) and shared: callers must not write into them."""
+    return _rope_freqs(dim, float(theta), torch.device(device))
+
+
+def _rope_angles(positions: torch.Tensor, rot: int, theta: float, ndim: int,
+                 dtype: torch.dtype) -> tuple:
+    """(cos, sin) in ``dtype`` of the fp32 angles positions x freqs,
+    broadcastable against an ``ndim``-dimensional x[..., :rot]."""
+    ang = positions[..., None].float() * rope_freqs(rot, theta, positions.device)
+    while ang.dim() < ndim:
+        ang = ang[..., None, :]  # broadcast over the head dim(s)
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the first 2 * cos.shape[-1] dims of x in interleaved pairs."""
+    rot = 2 * cos.shape[-1]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., ::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
+    return torch.cat([out, xp], dim=-1) if xp.shape[-1] else out
+
+
+def _rope_dims(d: int, fraction: float) -> int:
+    return int(d * fraction) // 2 * 2
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -59,22 +93,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     The angles are fp32; cos and sin are cast to x's dtype before the
     rotation, as in JAX (in bf16 the rotation rounds in bf16).
     """
-    d = x.shape[-1]
-    rot = int(d * fraction) // 2 * 2
+    rot = _rope_dims(x.shape[-1], fraction)
     if rot == 0:
         return x
-    xr, xp = x[..., :rot], x[..., rot:]
-    freqs = rope_freqs(rot, theta, x.device)
-    ang = positions[..., None].float() * freqs  # (..., S, rot/2)
-    while ang.dim() < xr.dim():
-        ang = ang[..., None, :]  # broadcast over the head dim(s)
-    cos = torch.cos(ang).to(x.dtype)
-    sin = torch.sin(ang).to(x.dtype)
-    x1, x2 = xr[..., ::2], xr[..., 1::2]
-    o1 = x1 * cos - x2 * sin
-    o2 = x2 * cos + x1 * sin
-    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
-    return torch.cat([out, xp], dim=-1)
+    return _rotate(x, *_rope_angles(positions, rot, theta, x.dim(), x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -149,30 +171,49 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.transpose(1, 2)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     t: int, window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """Single-token attention over a cache, in plain torch.
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
+    """out (fp32) <- a @ b, batched.  The products of bf16 operands are exact
+    in fp32, so on the card cuBLAS takes bf16 operands with an fp32 result;
+    the CPU has no such product and multiplies fp32 copies."""
+    if a.is_cuda and a.dtype != torch.float32:
+        torch.bmm(a, b, out_dtype=torch.float32, out=out)
+    else:
+        torch.bmm(a.float(), b.float(), out=out)
 
-    q: (B, 1, H, D); caches: (B, S, Hkv, D); t: current position.
-    Positions > t (unwritten cache) and outside the window are masked.
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     t, window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """Single-token grouped-query attention over a cache, in plain torch.
+
+    q: (B, 1, H, D); caches: (B, S, Hkv, D); t: current position (an int or
+    a device tensor).  Positions > t (unwritten cache) and outside the
+    window are masked.  q is viewed as (B, Hkv, g, D) against the cache's
+    Hkv heads: no repeated and no fp32 copy of the cache is made.  One
+    sequence's cache read as (Hkv, S, D) has one batch stride, so each
+    sequence's products are one strided cuBLAS call on the cache in place
+    (the batch and head axes of the (B, S, Hkv, D) layout share no stride).
+    Logits, mask and softmax are fp32, as in JAX; P is rounded to the cache
+    dtype for P.V (fp32 accumulation), which JAX keeps in fp32.
     """
     b, _, h, d = q.shape
-    s = k_cache.shape[1]
-    g = h // k_cache.shape[2]
-    qs = (q / math.sqrt(d)).reshape(b, h, d)
-    kr = repeat_kv(k_cache, g)
-    vr = repeat_kv(v_cache, g)
-    logits = torch.einsum("bhd,bkhd->bhk", qs.float(), kr.float())
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    qs = (q / math.sqrt(d)).reshape(b, hkv, g, d)
+    logits = torch.empty((b, hkv, g, s), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        _bmm_f32(qs[i], k_cache[i].permute(1, 2, 0), logits[i])
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
     kpos = torch.arange(s, device=q.device)
     mask = kpos <= t
     if window:
         mask &= kpos > t - window
-    logits = torch.where(mask[None, None, :], logits, torch.full_like(logits, _NEG))
-    p = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhk,bkhd->bhd", p, vr.float())
-    return o[:, None].to(q.dtype)
+    logits = torch.where(mask, logits, _NEG)
+    p = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    o = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        _bmm_f32(p[i], v_cache[i].transpose(0, 1), o[i])
+    return o.reshape(b, 1, h, d).to(q.dtype)
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
@@ -189,33 +230,36 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
 
 def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
               positions: torch.Tensor | None = None, kv_cache: tuple | None = None,
-              t: int | None = None, mode: str = "auto"):
+              t=None, mode: str = "auto"):
     """Returns (out, new_kv).
 
     Prefill: x (B, S, D), kv_cache None -> flash attention over the prompt;
     new_kv is the (k, v) of every position, (B, S, Hkv_eff, hd).
     Decode: x (B, 1, D), kv_cache (k, v) of shape (B, S_cache, Hkv_eff, hd),
-    t = position; slot t of both caches is written in place and the caches
-    are returned.
+    t = position (an int, or a device tensor as JAX's traced ``t``); slot t
+    of both caches is written in place and the caches are returned.
+
+    k and v are projected with the stored Hkv heads and then repeated to
+    ``kv_heads_effective`` (the tied-copy KV padding): each repeated head is
+    the same dot products as JAX's projection by repeated weights, and a
+    decode step reads Hkv / Hkv_eff of wk and wv.
     """
     b, s, _ = x.shape
-    wk, wv = p["wk"], p["wv"]
-    hkv = wk.shape[1]
-    if cfg.kv_heads_effective > hkv:
-        rep = cfg.kv_heads_effective // hkv  # tied-copy KV padding, as JAX
-        wk = wk.repeat_interleave(rep, dim=1)
-        wv = wv.repeat_interleave(rep, dim=1)
     q = _linear(x, p["wq"])
-    k = _linear(x, wk)
-    v = _linear(x, wv)
+    k = _linear(x, p["wk"])
+    v = _linear(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     if positions is None:
         positions = (torch.arange(s, device=x.device)[None, :] if t is None
-                     else torch.full((b, 1), t, device=x.device))
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+                     else _position(t, x.device).expand(b, 1))
+    rot = _rope_dims(q.shape[-1], cfg.rope_fraction)
+    if rot:
+        cos, sin = _rope_angles(positions, rot, cfg.rope_theta, q.dim(), q.dtype)
+        q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
+    rep = cfg.kv_heads_effective // k.shape[2]
+    k, v = repeat_kv(k, rep), repeat_kv(v, rep)
     if kv_cache is None:
         if not cfg.causal:
             raise NotImplementedError("bidirectional attention (the whisper encoder) "
@@ -232,11 +276,22 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     return _linear(o, p["wo"], k_dims=2), new_kv
 
 
-def _cache_update(cache: torch.Tensor, kv: torch.Tensor, t: int) -> None:
-    """cache (B, S, Hkv, D)[:, t] <- kv (B, 1, Hkv, D), in place.
+def _position(t, device) -> torch.Tensor:
+    """A decode position as a (1, 1) int64 tensor on ``device``: a device
+    tensor is viewed, an int is made there (no host synchronisation)."""
+    if isinstance(t, torch.Tensor):
+        return t.reshape(1, 1)
+    return torch.full((1, 1), t, dtype=torch.long, device=device)
+
+
+def _cache_update(cache: torch.Tensor, kv: torch.Tensor, t) -> None:
+    """cache (B, S, Hkv, D)[:, t] <- kv (B, 1, Hkv, D), in place, at an int or
+    device-tensor position.
 
     JAX's ``dynamic_update_slice`` clamps a start past the end and
-    overwrites the last slot; this raises instead."""
-    if not 0 <= t < cache.shape[1]:
+    overwrites the last slot; an int position past the cache raises
+    instead.  A device position is not read back (that would synchronise):
+    ``LMServer`` refuses a configuration that would decode past its cache."""
+    if not isinstance(t, torch.Tensor) and not 0 <= t < cache.shape[1]:
         raise ValueError(f"cache position {t} outside a cache of {cache.shape[1]}")
-    cache[:, t] = kv[:, 0].to(cache.dtype)
+    cache.index_copy_(1, _position(t, cache.device).reshape(1), kv.to(cache.dtype))

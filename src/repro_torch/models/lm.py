@@ -86,12 +86,16 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cpu") -> list:
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int,
-            kernel_mode: str = "auto"):
+            kernel_mode: str = "auto", cache: list | None = None):
     """Run the prompt through the stack, building the decode cache.
 
     Each attention layer's K/V of the prompt (captured in the same forward
-    pass) is written into positions 0 .. S-1 of a zero cache of length
-    ``cache_len``.  Returns (cache, last_logits (B, V), t0 = S).
+    pass) is written into positions 0 .. S-1 of a cache of length
+    ``cache_len`` whose later positions are zero, as JAX's fresh cache is.
+    That cache is a new one, or ``cache`` (``init_cache``'s layout), which
+    the caller owns and which is overwritten in place: a server's static
+    cache outlives the CUDA graph that fills it.  Returns (cache,
+    last_logits (B, V), t0 = S).
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -102,18 +106,28 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int,
                                    kernel_mode=kernel_mode)
     hidden = L.rms_norm(x, params["final_norm"])
     last_logits = logits_fn(params, hidden[:, -1:], cfg)[:, 0]
-    cache = init_cache(cfg, b, cache_len, device=tokens.device)
+    owned = cache is not None
+    if not owned:
+        cache = init_cache(cfg, b, cache_len, device=tokens.device)
     for pos in range(cfg.group_size):
         for key, vals in captured[pos].items():
+            leaf = cache[pos][key]  # (G, B, cache_len, Hkv_eff, hd)
+            if leaf.shape[2] != cache_len:
+                raise ValueError(f"a cache of {leaf.shape[2]} positions for "
+                                 f"cache_len {cache_len}")
             for g, val in enumerate(vals):
-                cache[pos][key][g, :, :s] = val
+                leaf[g, :, :s] = val
+            if owned:
+                leaf[:, :, s:].zero_()
     return cache, last_logits, s
 
 
-def decode_step(params: dict, cache: list, tokens: torch.Tensor, t: int,
+def decode_step(params: dict, cache: list, tokens: torch.Tensor, t,
                 cfg: ModelConfig):
-    """One token step.  tokens: (B, 1); t: the position written.  The cache
-    is updated in place (slot t of every layer) and returned.
+    """One token step.  tokens: (B, 1); t: the position written, an int or
+    a device tensor (JAX's traced ``t``: the step then reads nothing back
+    to the host and can be captured).  The cache is updated in place (slot
+    t of every layer) and returned.
 
     Returns (logits (B, V), cache).
     """

@@ -61,13 +61,14 @@ def block_cache_init(cfg: ModelConfig, pos: int, batch: int, seq: int, dtype,
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
                 mode: str = "train", cache: Optional[dict] = None,
-                t: Optional[int] = None, positions: Optional[torch.Tensor] = None,
+                t=None, positions: Optional[torch.Tensor] = None,
                 kernel_mode: str = "auto"):
     """Returns (x, cache_out).
 
     mode="train":   cache_out = {}.
     mode="prefill": cache_out holds the prompt's K/V (B, S, ...).
-    mode="decode":  cache is this block's cache, updated in place and
+    mode="decode":  cache is this block's cache, updated in place at the
+                    position ``t`` (an int or a device tensor) and
                     returned as cache_out.
     ``kernel_mode`` goes to the attention's kernel dispatch.
     """
@@ -110,14 +111,15 @@ def stack_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype,
 
 
 def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
-                cache: Optional[list] = None, t: Optional[int] = None,
+                cache: Optional[list] = None, t=None,
                 positions: Optional[torch.Tensor] = None, kernel_mode: str = "auto"):
     """Run all layers.  Returns (x, cache_out).
 
     mode="prefill": cache_out is list[pos] of dicts of per-group lists of
     the K/V each layer produced (``lm.prefill`` writes them into its cache).
     mode="decode": ``cache`` (list[pos] of (G, ...) stacked dicts) is
-    updated in place and returned.  mode="train": cache_out is None.
+    updated in place at ``t`` (an int or a device tensor, passed down to
+    every layer) and returned.  mode="train": cache_out is None.
     """
     gs = cfg.group_size
     captured = [dict() for _ in range(gs)] if mode == "prefill" else None

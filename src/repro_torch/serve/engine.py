@@ -2,12 +2,28 @@
 cache (port of ``repro.serve.engine``).
 
 Prompts are left-padded with token 0 into one fixed (max_batch,
-prompt_len) batch; ``lm.prefill`` builds the cache (its attention is the
-flash kernel on the card), then ``lm.decode_step`` runs once per new
-token, updating the cache in place.  Generated tokens stay on the device
-and are copied to the host once.  Every duration is read through the
-injected ``Clock`` and each timed region ends at
-``torch.cuda.synchronize()`` on the card.
+prompt_len) batch.  JAX compiles two programs, prefill and the decode step
+(the cache donated, the position a traced value); the port's counterparts
+are two CUDA graphs over static state that the server makes once: the
+token batch, the cache, the decode position and step index as device
+tensors, the last token and the (max_batch, max_new_tokens) output.
+
+* **prefill** writes the prompt's K/V into the cache (zero past it, as
+  JAX's fresh cache is; its attention is the flash kernel on the card),
+  takes the first token and resets the position to ``prompt_len``;
+* **one decode step** writes the last token into the output at the step
+  index, runs ``lm.decode_step`` at the device position, takes the next
+  token and advances position and index on the device.
+
+Both are captured at the first ``generate`` on the card, from one memory
+pool, after an eager warm-up of each on the capture stream (kernel builds,
+cuBLAS handles and workspace, the flash kernel's attributes); a later
+``generate`` captures nothing.  ``generate`` copies the prompt in, replays
+prefill, replays the step ``max_new_tokens`` times (JAX's step count) and
+copies the output to the host once.  A failed capture or replay raises.
+On the CPU (``device="cpu"``) the same two functions run eagerly over the
+same state.  Every duration is read through the injected ``Clock`` and
+each timed region ends at ``torch.cuda.synchronize()`` on the card.
 
 Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 raises if CUDA is missing.  ``mode`` goes to the attention's kernel
@@ -42,7 +58,8 @@ class LMServer:
         """``params`` are moved to ``device`` (no copy when they are there).
         Raises ``ValueError`` when decoding would write past the cache:
         JAX's ``dynamic_update_slice`` clamps such a write onto the last
-        slot instead."""
+        slot instead, and the captured step cannot check its device
+        position."""
         if serve_cfg.prompt_len + serve_cfg.max_new_tokens > serve_cfg.cache_len:
             raise ValueError(
                 f"prompt_len {serve_cfg.prompt_len} + max_new_tokens "
@@ -53,10 +70,70 @@ class LMServer:
         self.scfg = serve_cfg
         self.mode = mode
         self.clock: Clock = clock if clock is not None else RealClock()
+        b, dev = serve_cfg.max_batch, self.device
+        self._tokens = torch.zeros((b, serve_cfg.prompt_len), dtype=torch.int32, device=dev)
+        self._cache = lm.init_cache(cfg, b, serve_cfg.cache_len, device=dev)
+        self._pos = torch.zeros((), dtype=torch.long, device=dev)
+        self._step = torch.zeros((), dtype=torch.long, device=dev)
+        self._tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        self._out = torch.zeros((b, serve_cfg.max_new_tokens), dtype=torch.int32,
+                                device=dev)
+        self.prefill_graph: Optional[torch.cuda.CUDAGraph] = None
+        self.decode_graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captures = 0  # CUDA graphs captured (2 once warm on the card)
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0  # memory the graphs' pool reserved at capture
 
     def _synchronize(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _prefill(self) -> None:
+        """The prompt batch into the cache; the first token; position
+        ``prompt_len``, step index 0."""
+        _, last, s = lm.prefill(self.params, {"tokens": self._tokens}, self.cfg,
+                                self.scfg.cache_len, kernel_mode=self.mode,
+                                cache=self._cache)
+        self._tok.copy_(torch.argmax(last, dim=-1)[:, None])
+        self._pos.fill_(s)
+        self._step.zero_()
+
+    def _decode(self) -> None:
+        """One greedy step: the last token into the output at the step
+        index, the step at the position, the next token; both advance."""
+        self._out.index_copy_(1, self._step.reshape(1), self._tok)
+        logits, _ = lm.decode_step(self.params, self._cache, self._tok, self._pos,
+                                   self.cfg)
+        self._tok.copy_(torch.argmax(logits, dim=-1)[:, None])
+        self._pos.add_(1)
+        self._step.add_(1)
+
+    def _capture(self) -> None:
+        """Warm both programs eagerly on a side stream, then capture each
+        into a CUDA graph on it, from one memory pool."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        prefill, decode = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.stream(side):
+            self._prefill()
+            self._decode()
+            side.synchronize()
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = self.clock.now()
+            for graph, fn in ((prefill, self._prefill), (decode, self._decode)):
+                graph.capture_begin(pool=pool)
+                try:
+                    fn()
+                finally:
+                    graph.capture_end()
+            side.synchronize()
+            self.capture_seconds += self.clock.now() - t0
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.prefill_graph, self.decode_graph = prefill, decode
+        self.captures += 2
 
     def generate(self, prompts: List[np.ndarray]):
         """prompts: list of integer arrays (<= prompt_len each).  Greedy
@@ -68,24 +145,22 @@ class LMServer:
         toks = np.zeros((scfg.max_batch, scfg.prompt_len), np.int32)
         for i, pr in enumerate(prompts):
             toks[i, -len(pr):] = pr  # left-pad with 0 (simplification)
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        graphs = self.device.type == "cuda"
+        if graphs and self.decode_graph is None:
+            self._capture()
+        prefill = self.prefill_graph.replay if graphs else self._prefill
+        step = self.decode_graph.replay if graphs else self._decode
+        self._tokens.copy_(torch.from_numpy(toks))
         t0 = self.clock.now()
-        cache, last_logits, t = lm.prefill(self.params, batch, self.cfg,
-                                           scfg.cache_len, kernel_mode=self.mode)
+        prefill()
         self._synchronize()
         prefill_s = self.clock.now() - t0
-        out = torch.empty((scfg.max_batch, scfg.max_new_tokens), dtype=torch.int32,
-                          device=self.device)
-        tok = torch.argmax(last_logits, dim=-1).to(torch.int32)[:, None]
         t0 = self.clock.now()
-        for i in range(scfg.max_new_tokens):
-            out[:, i] = tok[:, 0]
-            logits, cache = lm.decode_step(self.params, cache, tok, t, self.cfg)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-            t += 1
+        for _ in range(scfg.max_new_tokens):
+            step()
         self._synchronize()
         decode_s = self.clock.now() - t0
-        return out.cpu().numpy()[:b], {
+        return self._out.to("cpu", copy=True).numpy()[:b], {
             "prefill_s": prefill_s,
             "decode_s_per_token": decode_s / scfg.max_new_tokens,
         }

@@ -12,7 +12,11 @@ same numpy tokens:
     quadratic plain version on the CPU, JAX's the blocked online softmax);
   * ``LMServer.generate`` tokens against JAX's ``LMServer``, row by row up to
     the first step whose JAX top-2 logit gap is 1e-3 or less (past a near
-    tie the two may rightly pick different tokens).
+    tie the two may rightly pick different tokens); two successive
+    ``generate`` calls on one server (its static cache and state reused)
+    against two fresh servers (bit for bit) and against JAX's;
+  * ``prefill`` into a cache the caller owns (a server's static cache)
+    against a fresh one, bit for bit: the prompt's K/V, zeros past it.
 
 ChatGLM3 in bfloat16 is held to JAX's own bound for bf16 paths
 (``tests/test_arch_smoke.py``): max|delta| <= 2e-2 max|ref|.
@@ -109,14 +113,31 @@ def arch_case(request):
         logits, cache = srv._decode(jp, cache, jnp.asarray(tok), t)
         dec.append(np.array(logits))
         t = t + 1
-    prompts = _prompts(cfg, rng)
-    gen, _ = srv.generate(prompts)
-    greedy, gaps = _jax_greedy(srv, jp, prompts)
-    np.testing.assert_array_equal(gen, greedy)
+    served = []
+    for prompts in (_prompts(cfg, rng), _prompts(cfg, rng)):
+        gen, _ = srv.generate(prompts)
+        greedy, gaps = _jax_greedy(srv, jp, prompts)
+        np.testing.assert_array_equal(gen, greedy)
+        served.append((prompts, gen, gaps))
+    (prompts, gen, gaps), second = served
     return dict(arch=arch, cfg=get_reduced(arch, dtype="float32"),
                 params=from_jax_lm_params(jp_np), tokens=tokens, steps=steps,
                 hidden=hidden, last=last, t0=t0, cache=cache_np, decode=dec,
-                prompts=prompts, generated=gen, gaps=gaps)
+                prompts=prompts, generated=gen, gaps=gaps, second=second)
+
+
+def _assert_tokens_match(got, want, gaps):
+    """Row by row up to the first near tie of JAX's logits; at least half
+    the tokens compared."""
+    assert got.dtype == np.int32 and got.shape == want.shape
+    compared = 0
+    for row in range(got.shape[0]):
+        for step in range(got.shape[1]):
+            if gaps[row, step] <= GAP:
+                break
+            assert got[row, step] == want[row, step], (row, step)
+            compared += 1
+    assert compared >= got.size // 2
 
 
 def test_forward_hidden_matches_jax(arch_case):
@@ -150,16 +171,43 @@ def test_generate_matches_jax_server(arch_case):
     c = arch_case
     srv = LMServer(c["params"], c["cfg"], ServeConfig(**SERVE), device="cpu")
     got, stats = srv.generate(c["prompts"])
-    assert got.dtype == np.int32 and got.shape == c["generated"].shape
     assert stats["prefill_s"] > 0 and stats["decode_s_per_token"] > 0
-    compared = 0
-    for row in range(got.shape[0]):
-        for step in range(got.shape[1]):
-            if c["gaps"][row, step] <= GAP:
-                break
-            assert got[row, step] == c["generated"][row, step], (row, step)
-            compared += 1
-    assert compared >= got.size // 2
+    _assert_tokens_match(got, c["generated"], c["gaps"])
+
+
+def test_successive_generates_match_fresh_servers_and_jax(arch_case):
+    """One server's second ``generate`` reuses its static cache, position
+    and output: it gives a fresh server's tokens bit for bit, and both
+    calls give JAX's."""
+    c = arch_case
+    srv = LMServer(c["params"], c["cfg"], ServeConfig(**SERVE), device="cpu")
+    first, _ = srv.generate(c["prompts"])
+    prompts2, gen2, gaps2 = c["second"]
+    second, _ = srv.generate(prompts2)
+    for prompts, got in ((c["prompts"], first), (prompts2, second)):
+        fresh = LMServer(c["params"], c["cfg"], ServeConfig(**SERVE), device="cpu")
+        np.testing.assert_array_equal(got, fresh.generate(prompts)[0])
+    _assert_tokens_match(first, c["generated"], c["gaps"])
+    _assert_tokens_match(second, gen2, gaps2)
+    assert srv.captures == 0  # no graphs on the CPU
+
+
+def test_prefill_into_an_owned_cache_matches_a_fresh_one(arch_case):
+    c = arch_case
+    batch = {"tokens": torch.from_numpy(c["tokens"])}
+    fresh, last, t0 = TLM.prefill(c["params"], batch, c["cfg"], SERVE["cache_len"])
+    owned = TLM.init_cache(c["cfg"], B, SERVE["cache_len"])
+    gen = torch.Generator().manual_seed(1)
+    for leaf in owned:  # a used cache: every slot written
+        for w in leaf.values():
+            w.copy_(torch.randn(w.shape, generator=gen))
+    got, last2, t2 = TLM.prefill(c["params"], batch, c["cfg"], SERVE["cache_len"],
+                                 cache=owned)
+    assert got is owned and t2 == t0 == S and torch.equal(last2, last)
+    for a, b in zip(got, fresh):
+        for key in ("k", "v"):
+            assert torch.equal(a[key], b[key])
+            assert not a[key][:, :, S:].any()
 
 
 def test_kernel_mode_raises_on_cpu_and_launches_nothing(arch_case):

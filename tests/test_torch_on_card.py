@@ -14,7 +14,9 @@ summed in another order); PNA 5e-3, whose std amplifies one rounding of
 within the quantization-noise bound of ``tests/test_torch_quant.py``.
 ``flash_attention``: fp32 1e-5 + 1e-5 |plain| (fp32 products summed in
 another order), bf16 1.6e-2 + 1.6e-2 |plain| (two bf16 ulps at 1); the fp32
-LM server against its reference mode 1e-4.  The
+LM server against its reference mode 1e-4, and the LM server's CUDA graphs
+give the eager loop's tokens exactly (the same kernels on the same
+inputs).  The
 numpy operand helpers are shared with ``tests/test_torch_kernels.py``,
 ``tests/test_torch_segment_kernels.py`` and ``tests/test_torch_quant.py``.
 """
@@ -893,7 +895,10 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
 def test_lm_server_on_card_matches_reference(cuda):
     """Reduced ChatGLM3 in fp32: the server's flash-kernel prefill against
     its reference mode (plain attention on the card), then the decode
-    logits teacher-forced on the kernel server's tokens."""
+    logits teacher-forced on the kernel server's tokens.  The flash
+    wrapper counts where it runs: the first ``generate`` warms prefill
+    eagerly and captures it (2 x num_layers launches), a second one only
+    replays the graphs and counts nothing."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import lm
     from repro_torch.serve.engine import LMServer, ServeConfig
@@ -904,8 +909,11 @@ def test_lm_server_on_card_matches_reference(cuda):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, n) for n in (13, 24)]
     before = FA.launches
-    gen, _ = LMServer(params, cfg, scfg, device=cuda).generate(prompts)
-    assert FA.launches == before + cfg.num_layers
+    srv = LMServer(params, cfg, scfg, device=cuda)
+    gen, _ = srv.generate(prompts)
+    assert FA.launches == before + 2 * cfg.num_layers
+    np.testing.assert_array_equal(srv.generate(prompts)[0], gen)
+    assert FA.launches == before + 2 * cfg.num_layers
     assert ((gen >= 0) & (gen < cfg.vocab_size)).all()
     toks = np.zeros((2, 24), np.int64)
     for i, pr in enumerate(prompts):
@@ -921,6 +929,57 @@ def test_lm_server_on_card_matches_reference(cuda):
             steps.append(logits)
         outs.append(torch.stack(steps))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+def _eager_greedy(params, cfg, scfg, prompts, device):
+    """The eager loop of ``lm.prefill`` / ``lm.decode_step`` at int
+    positions, greedy, as JAX's ``LMServer.generate`` runs it."""
+    from repro_torch.models import lm
+
+    toks = np.zeros((scfg.max_batch, scfg.prompt_len), np.int32)
+    for i, pr in enumerate(prompts):
+        toks[i, -len(pr):] = pr
+    cache, last, t = lm.prefill(params, {"tokens": torch.from_numpy(toks).to(device)},
+                                cfg, scfg.cache_len)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    out = []
+    for i in range(scfg.max_new_tokens):
+        out.append(tok[:, 0])
+        logits, cache = lm.decode_step(params, cache, tok, t + i, cfg)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    return torch.stack(out, 1).cpu().numpy()[:len(prompts)]
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("arch", ("chatglm3-6b", "gemma3-12b", "starcoder2-15b"))
+def test_lm_graphs_give_the_eager_loops_tokens(cuda, arch, dtype):
+    """The captured prefill and decode step give the eager loop's tokens,
+    token for token; a second ``generate`` captures nothing; a prefill
+    replay runs num_layers flash kernels and a decode replay none (by the
+    profiler: a replay runs no wrapper)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import LMServer, ServeConfig
+
+    cfg = get_reduced(arch, dtype=dtype)
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(1), cfg)
+    scfg = ServeConfig(max_batch=3, prompt_len=24, cache_len=40, max_new_tokens=8)
+    rng = np.random.default_rng(2)
+    srv = LMServer(params, cfg, scfg, device=cuda)
+    launches = []
+    for n in (2, 3):  # the second call: other prompts on the same graphs
+        prompts = [rng.integers(1, cfg.vocab_size, k) for k in rng.integers(5, 25, n)]
+        before = FA.launches
+        gen, stats = srv.generate(prompts)
+        launches.append(FA.launches - before)
+        np.testing.assert_array_equal(gen, _eager_greedy(params, cfg, scfg, prompts, cuda))
+        assert srv.captures == 2 and stats["decode_s_per_token"] > 0
+    # warm + capture of prefill, then a generate that only replays
+    assert launches == [2 * cfg.num_layers, 0]
+    prefill = _device_names(srv.prefill_graph.replay)  # rewinds position and step
+    decode = _device_names(srv.decode_graph.replay)  # <= 4 replays of 8 steps
+    assert sum("flash_fwd" in n for n in prefill) == cfg.num_layers
+    assert not any("flash_fwd" in n for n in decode)
 
 
 # ------------------------------------------------------------ CUDA graphs
