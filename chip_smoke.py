@@ -118,6 +118,22 @@ fails the run), then runs these phases, one line each:
               exports pass the port's validators, the events and counters
               agree with the executor, and the admission line and the
               dispatch census print
+  6c. layout  the per-call-sort path (``share_layout=False``): GCN, GIN,
+              GAT, PNA, DGN and GIN+VN in fp32 and GAT and GIN in int8 at
+              paper width, 32 MolHIV graphs streamed through the executor's
+              CUDA graphs with ``fused=True`` (unfused without a plan, as in
+              JAX) beside the shared plan's unfused executor.  Under
+              PyTorch's deterministic algorithms every per-call output is
+              the shared path's bit for bit.  On fresh executors (whose
+              ``index_add_`` does not sort): the per-call warms launch no
+              fused_mp and every kernel of the unfused path (counters reset
+              before, read after); the sort kernels of one replay of each
+              path by the profiler (by name; not ``searchsorted``) are in the
+              ratio of the ``aten.sort`` calls of one eager forward (shared
+              1, per-call one per reduction: GCN / GIN / GIN+VN / GAT 5, PNA
+              and DGN 16); GAT's edge_softmax and segment_reduce launches a
+              replay equal the shared path's (5 each); p50 / p99 of both
+              paths timed in one loop (3 passes of the 32 graphs)
   6b. stream  the stream scheduler and the pipeline at paper width, fused,
               seed-0 params, under PyTorch's deterministic algorithms: GIN
               fp32, GIN int8 and GAT fp32 (one ``GNNEngine`` each) and a
@@ -156,6 +172,25 @@ fails the run), then runs these phases, one line each:
               scheduler's virtual timeline of measured compute), the
               threaded runs' wall, graphs/s and peak in flight, and the
               busy share over run (a), beside the card and its power limit
+  10. coldstart the kernel-library cache (``serve/aot.py``) across processes,
+              since this one has loaded ``build/repro_torch/``'s libraries:
+              ``python -m repro_torch.launch.serve --gnn gin --fused --stream
+              --n-graphs 64 --aot-cache <fresh dir> --prewarm-persist
+              --metrics-json ... --trace-out ...`` twice: the first run builds
+              (aot_miss > 0 = its nvcc processes, aot_hit 0), the second
+              builds nothing (aot_miss = aot_stale = 0, aot_hit > 0, no nvcc
+              process) and captures as many graphs; each prints
+              ``cold_start_s``, and both runs' artifacts pass ``python -m
+              repro_torch.obs.check_artifacts`` and agree with the line.
+              Process A serves GIN through the scheduler on a fresh cache and
+              saves params, graphs and outputs; process B, given the cache
+              and the saved state only, serves the same outputs bit for bit
+              (deterministic algorithms) with no miss and no nvcc.  Then
+              node_mlp's cached library is truncated and fused_mp's record
+              given another driver: a third run counts 1 miss and 1 stale
+              entry (2 nvcc processes) and both entries load as hits
+              afterwards.  The work directory (``build/coldstart``) is
+              removed at the end
   3f. flash_attention kernel vs plain version at ChatGLM3-6B's prefill
               (B 8, Hq 32, Hkv 16 and 2, D 128, S 512, 1, 37, 1000, in the
               serving path's (B, S, H, D) layout) and Gemma-3-12B's layers
@@ -321,6 +356,11 @@ GRAPH_PATHS = tuple((m, prec, False) for prec in ("fp32", "int8")
     ("gin", "fp32", True), ("gat", "fp32", True))
 GRAPH_STREAM = 32
 GRAPH_PACKED_REPS = 8
+# phase 6c: (model, precision) served on the per-call-sort path
+# (share_layout=False) beside the shared plan, 32 streamed graphs each
+LAYOUT_PATHS = tuple((m, "fp32") for m in ("gcn", "gin", "gat", "pna", "dgn", "gin_vn")
+                     ) + (("gat", "int8"), ("gin", "int8"))
+LAYOUT_REPS = 3
 # phase 6b: the stream scheduler and the pipeline.  A path is a list of
 # (tenant, model, precision); one tenant serves through a GNNEngine, two
 # through one Executor (JAX's verify line --models gcn:int8,gat:fp32)
@@ -1386,8 +1426,10 @@ def serve_feature_dtypes(device) -> None:
 # ------------------------------------------------------------ phase 6: graphs
 
 
-def graph_engine(model: str, precision: str, device, executor=None):
-    """A fused GNNEngine of ``model`` at paper width, seed-0 params."""
+def graph_engine(model: str, precision: str, device, executor=None,
+                 fused: bool = True, share_layout: bool = True):
+    """A GNNEngine of ``model`` at paper width, seed-0 params (fused, on the
+    shared plan, unless asked otherwise)."""
     import torch
     from repro_torch.configs.gengnn_models import get_gnn_config
     from repro_torch.gnn import init
@@ -1396,7 +1438,8 @@ def graph_engine(model: str, precision: str, device, executor=None):
     cfg = get_gnn_config(model)
     where = dict(device=device) if executor is None else dict(executor=executor)
     return GNNEngine(cfg, init(torch.Generator().manual_seed(0), cfg),
-                     precision=precision, fused=True, **where)
+                     precision=precision, fused=fused, share_layout=share_layout,
+                     **where)
 
 
 def graph_inputs(ex, model: str, packed: bool) -> list:
@@ -1420,7 +1463,8 @@ def eager_forward(tenant, p):
     import torch
     from repro_torch.gnn import models as M
 
-    fn = M.forward_program(tenant.cfg, num_graphs=p.num_graphs, fused=tenant.fused)
+    fn = M.forward_program(tenant.cfg, num_graphs=p.num_graphs,
+                           share_layout=tenant.share_layout, fused=tenant.fused)
     with torch.inference_mode():
         return fn(tenant.params, *p.inputs)
 
@@ -1577,6 +1621,144 @@ def graph_phase(device) -> dict:
           f"over the phase, {start / 2**20:.1f} MiB of it held before the phase began "
           f"(one graph and pool per engine and signature)")
     return out
+
+
+# ------------------------------------------------------------ phase 6c: layout
+
+
+def sort_kernels(events) -> int:
+    """Sort kernels among a session's device records, by name (PyTorch's
+    in-place small sorts and CUB's radix sorts; not ``searchsorted``)."""
+    return sum("sort" in e.name.lower() and "searchsorted" not in e.name.lower()
+               for e in events)
+
+
+def aten_sorts(fn) -> int:
+    """``aten.sort`` calls made by one call of ``fn`` (eager)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket is torch.ops.aten.sort:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def check_percall_launches(model: str, precision: str, launches: dict) -> None:
+    """The per-call path runs every layer unfused (no plan, no fused_mp):
+    node_mlp (quant_node_mlp too in int8) and, for GAT, its two segment
+    kernels in the counts of one forward."""
+    if launches["fused_mp"] or launches["fused_mp_int8"]:
+        raise AssertionError(f"{model} {precision} per-call: fused_mp ran ({launches})")
+    if model == "gat":
+        check_launches(model, precision, launches)
+        return
+    need = ("node_mlp",) + (("quant_node_mlp",) if precision == "int8" else ())
+    for kernel in need:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{model} {precision} per-call: {kernel} was never "
+                                 f"launched")
+
+
+def layout_pair(model: str, precision: str, device):
+    """(shared executor, per-call executor) of ``model``: the shared plan
+    unfused, and ``share_layout=False`` with ``fused=True`` (which, without a
+    plan, is the same unfused path: the one difference is the sorts)."""
+    shared = graph_engine(model, precision, device, fused=False).executor
+    percall = graph_engine(model, precision, device, share_layout=False).executor
+    return shared, percall
+
+
+def serve_layout(model: str, precision: str, device) -> dict:
+    """One [layout] path: 32 MolHIV graphs streamed through both executors'
+    CUDA graphs.  Under deterministic algorithms the per-call outputs equal
+    the shared path's bit for bit; then, on fresh executors (without
+    deterministic algorithms, whose ``index_add_`` would itself sort), the
+    per-call path's launches (counters reset before it, read after), the
+    sort kernels of one replay of each path by the profiler beside the
+    ``aten.sort`` calls of one eager forward, the segment kernels a replay,
+    and both paths' p50 / p99 timed in one loop.  Returns the per-call
+    path's kernels a replay, by counter name."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        shared, percall = layout_pair(model, precision, device)
+        preps = graph_inputs(shared, model, packed=False)
+        for i, p in enumerate(preps):
+            want, got = shared.run(p)[0], percall.run(p)[0]
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{model} {precision} graph {i}: per-call output is not the "
+                    f"shared path's (max err {float(np.abs(got - want).max()):.3g})")
+        sigs = percall.lowered_count
+    finally:
+        torch.use_deterministic_algorithms(False)
+    shared, percall = layout_pair(model, precision, device)
+    preps = graph_inputs(shared, model, packed=False)
+    for p in preps:  # capture every signature of both outside the counts
+        shared.warm(p)
+    reset_launches()
+    for p in preps:
+        percall.warm(p)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_percall_launches(model, precision, launches)
+    p0 = preps[0]
+    s_events, p_events = (device_events(lambda: ex.run(p0)) for ex in (shared, percall))
+    s_sorts, p_sorts = sort_kernels(s_events), sort_kernels(p_events)
+    a_shared = aten_sorts(lambda: eager_forward(shared.tenant(), p0))
+    a_percall = aten_sorts(lambda: eager_forward(percall.tenant(), p0))
+    if a_shared != 1 or a_percall < percall.tenant().cfg.num_layers:
+        raise AssertionError(f"{model} {precision}: aten.sort a forward, shared "
+                             f"{a_shared}, per-call {a_percall}")
+    if s_sorts * a_percall != p_sorts * a_shared or not p_sorts:
+        raise AssertionError(f"{model} {precision}: sort kernels a replay, shared "
+                             f"{s_sorts}, per-call {p_sorts}, not in the ratio of "
+                             f"aten.sort a forward {a_shared}:{a_percall}")
+    s_replay, s_ops = replay_launches(lambda: shared.run(p0))
+    p_replay, p_ops = replay_launches(lambda: percall.run(p0))
+    segment = {k: p_replay[k] for k in ("edge_softmax", "segment_reduce")}
+    if segment != {k: s_replay[k] for k in segment}:
+        raise AssertionError(f"{model} {precision}: per-call segment kernels a replay "
+                             f"{segment}, shared {s_replay}")
+    if model == "gat" and segment != {"edge_softmax": 5, "segment_reduce": 5}:
+        raise AssertionError(f"gat {precision} per-call: {segment} a replay, not 5 each")
+    s_ms, p_ms = [], []
+    for _ in range(LAYOUT_REPS):
+        for p in preps:
+            s_ms.append(shared.run(p)[1] * 1e3)
+            p_ms.append(percall.run(p)[1] * 1e3)
+    pct = lambda xs, q: float(np.percentile(xs, q))
+    print(f"[layout {model} {precision}] {len(preps)} graphs streamed, per-call "
+          f"(share_layout=False, fused=True: unfused without a plan) vs shared "
+          f"(unfused): bit for bit (deterministic algorithms), {sigs} captures; sort "
+          f"kernels a replay: shared {s_sorts}, per-call {p_sorts} (aten.sort an eager "
+          f"forward: {a_shared}, {a_percall}); graph p50 / p99 ms: shared "
+          f"{pct(s_ms, 50):.3f} / {pct(s_ms, 99):.3f}, per-call {pct(p_ms, 50):.3f} / "
+          f"{pct(p_ms, 99):.3f} ({len(p_ms)} runs each, one loop); device ops a "
+          f"replay: shared {s_ops}, per-call {p_ops}; per-call kernels "
+          f"{ {k: p_replay[k] for _, k in KERNEL_SYMBOLS if p_replay[k]} }; segment "
+          f"kernels a replay {segment} = shared; warm launches "
+          f"{ {k: v for k, v in launches.items() if v and '.' not in k} }")
+    return launches, p_replay
+
+
+def layout_phase(device) -> tuple:
+    """Phase 6c: every [layout] path; -> ({path: warm launches}, {path:
+    kernels a replay})."""
+    launches, replays = {}, {}
+    for model, precision in LAYOUT_PATHS:
+        name = f"{model} {precision} per-call"
+        launches[name], replays[name] = serve_layout(model, precision, device)
+    return launches, replays
 
 
 # ------------------------------------------------------------ phase 6b: stream
@@ -1966,6 +2148,189 @@ def stream_phase(device, card: str) -> dict:
         name = "stream " + " + ".join(f"{m} {p}" for _, m, p in path)
         out[name] = serve_stream(path, device, card)
     return out
+
+
+# ------------------------------------------------------------ phase 10: cold start
+
+# the launcher line every cold-start run prints (serve_gnn under --aot-cache)
+COLD_FIELDS = ("cold_start_s", "aot_hit", "aot_miss", "aot_stale", "lowered",
+               "nvcc_runs")
+COLD_TIMEOUT_S = 600
+# process A of the restart check: serve GIN fused through the scheduler with
+# a fresh cache, save params, graphs and outputs; process B: the same from
+# the saved state and the cache alone (argv: mode, cache dir, state file)
+RESTART_CHILD = """
+import sys
+import numpy as np
+import torch
+from repro_torch.configs.gengnn_models import get_gnn_config
+from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+from repro_torch.gnn import init
+from repro_torch.kernels import _build
+from repro_torch.serve.aot import AOTCache
+from repro_torch.serve.gnn_engine import GNNEngine
+from repro_torch.serve.scheduler import StreamScheduler
+
+mode, cache_dir, state_path = sys.argv[1:4]
+torch.use_deterministic_algorithms(True)
+cfg = get_gnn_config("gin")
+if mode == "save":
+    params = init(torch.Generator().manual_seed(0), cfg)
+    graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(64)]
+else:
+    state = torch.load(state_path, weights_only=False)
+    params, graphs = state["params"], state["graphs"]
+eng = GNNEngine(cfg, params, fused=True, aot_cache=AOTCache(cache_dir))
+sched = StreamScheduler(eng, capacity=4)
+sched.prewarm_ladders(graphs)
+rep = sched.run(graphs, qps=0.0)
+outs = [np.asarray(o) for o in rep.outputs]
+stats = eng.executor.aot_stats()
+if mode == "save":
+    torch.save({"params": params, "graphs": graphs, "outputs": outs}, state_path)
+else:
+    same = all(np.array_equal(a, b) for a, b in zip(outs, state["outputs"]))
+    if not same or len(outs) != len(state["outputs"]):
+        sys.exit("restarted process served other outputs")
+print("RESTART mode=%s hit=%d miss=%d stale=%d nvcc_runs=%d lowered=%d graphs=%d" % (
+    mode, stats["hit"], stats["miss"], stats["stale"], _build.nvcc_runs,
+    eng.executor.lowered_count, len(outs)))
+"""
+
+
+def child_env() -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def run_child(argv: list, what: str) -> str:
+    """Run one child process to its end (killed at ``COLD_TIMEOUT_S``);
+    raises with its output unless it exits 0."""
+    r = subprocess.run(argv, capture_output=True, text=True, env=child_env(),
+                       timeout=COLD_TIMEOUT_S, cwd=str(ROOT))
+    if r.returncode != 0:
+        raise AssertionError(f"{what} exited {r.returncode}:\n{r.stdout[-4000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    return r.stdout
+
+
+def cold_start_run(cache_dir: Path, out_dir: Path, tag: str) -> dict:
+    """``python -m repro_torch.launch.serve --gnn gin --fused --stream`` on
+    64 graphs with ``--aot-cache`` and ``--prewarm-persist``, writing both
+    telemetry artifacts, which the port's checker then validates; -> the
+    cold-start line's fields and the wall seconds of the process."""
+    metrics, trace = out_dir / f"metrics-{tag}.json", out_dir / f"trace-{tag}.json"
+    t0 = time.perf_counter()
+    out = run_child([sys.executable, "-m", "repro_torch.launch.serve", "--gnn", "gin",
+                     "--fused", "--stream", "--n-graphs", "64", "--aot-cache",
+                     str(cache_dir), "--prewarm-persist", "--metrics-json",
+                     str(metrics), "--trace-out", str(trace)], f"cold-start run {tag}")
+    wall = time.perf_counter() - t0
+    line = next((l for l in out.splitlines() if l.startswith("cold_start_s=")), None)
+    if line is None:
+        raise AssertionError(f"cold-start run {tag} printed no cold-start line:\n{out}")
+    fields = {k: float(v) for k, v in (f.split("=") for f in line.split())}
+    if set(fields) != set(COLD_FIELDS):
+        raise AssertionError(f"cold-start run {tag}: fields {sorted(fields)}")
+    checked = run_child([sys.executable, "-m", "repro_torch.obs.check_artifacts",
+                         "--metrics-json", str(metrics), "--trace-out", str(trace)],
+                        f"artifact check {tag}")
+    doc = json.loads(metrics.read_text())["metrics"]
+    aot = {s["labels"]["result"]: s["value"]
+           for s in doc["serve_aot_cache_total"]["series"]}
+    if {k: aot.get(k, 0.0) for k in ("hit", "miss", "stale")} != {
+            k: fields[f"aot_{k}"] for k in ("hit", "miss", "stale")}:
+        raise AssertionError(f"cold-start run {tag}: serve_aot_cache_total {aot}, "
+                             f"line {fields}")
+    return dict(fields, wall_s=wall, checked=" ".join(checked.split()))
+
+
+def restart_fields(out: str) -> dict:
+    line = next(l for l in out.splitlines() if l.startswith("RESTART "))
+    return {k: v for k, v in (f.split("=") for f in line.split()[1:])}
+
+
+def coldstart_phase(card: str) -> None:
+    """Phase 10: the kernel-library cache across processes (this process
+    has loaded build/repro_torch/'s libraries and cannot show a cold start).
+    Two launcher runs on one fresh cache: the first builds (misses, no
+    hit), the second builds nothing (hits only, no nvcc process) and
+    captures as many graphs; both runs' artifacts pass the checker.  A
+    process A serves and saves its outputs with a fresh cache, a process B
+    given only that cache and the saved state serves them bit for bit with
+    no nvcc.  Then one entry's library is truncated and another's record
+    gets another driver: a third run counts a miss and a stale entry and
+    heals both (every entry a hit again under this environment)."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve.aot import AOTCache, environment_fingerprint
+
+    work = ROOT / "build" / "coldstart"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        cache_dir = work / "aot"
+        first = cold_start_run(cache_dir, work, "1")
+        second = cold_start_run(cache_dir, work, "2")
+        if not (first["aot_miss"] > 0 and first["aot_hit"] == 0
+                and first["nvcc_runs"] == first["aot_miss"]):
+            raise AssertionError(f"first cold-start run: {first}")
+        if not (second["aot_miss"] == second["aot_stale"] == 0 and second["aot_hit"] > 0
+                and second["nvcc_runs"] == 0):
+            raise AssertionError(f"second cold-start run: {second}")
+        if first["lowered"] != second["lowered"] or not first["lowered"]:
+            raise AssertionError(f"captures: first {first['lowered']}, second "
+                                 f"{second['lowered']}")
+        for tag, r in (("first", first), ("second", second)):
+            print(f"[coldstart {tag}] gin fp32 fused, 64 graphs streamed, ladders "
+                  f"prewarmed: cold_start_s {r['cold_start_s']:.3f} (process wall "
+                  f"{r['wall_s']:.3f}s), aot hit {r['aot_hit']:.0f} miss "
+                  f"{r['aot_miss']:.0f} stale {r['aot_stale']:.0f}, nvcc processes "
+                  f"{r['nvcc_runs']:.0f}, captures {r['lowered']:.0f}; artifacts: "
+                  f"{r['checked']}; {card}")
+        state = work / "state.pt"
+        restart_dir = work / "aot-restart"
+        a = restart_fields(run_child([sys.executable, "-c", RESTART_CHILD, "save",
+                                      str(restart_dir), str(state)], "process A"))
+        b = restart_fields(run_child([sys.executable, "-c", RESTART_CHILD, "load",
+                                      str(restart_dir), str(state)], "process B"))
+        if not (int(a["miss"]) > 0 and int(b["miss"]) == int(b["stale"]) == 0
+                and int(b["hit"]) > 0 and int(b["nvcc_runs"]) == 0):
+            raise AssertionError(f"restart: process A {a}, process B {b}")
+        print(f"[coldstart restart] process A (fresh cache): {a['graphs']} graphs "
+              f"served and saved, aot miss {a['miss']}, nvcc processes "
+              f"{a['nvcc_runs']}, captures {a['lowered']}; process B (the cache "
+              f"and the saved state only): the same outputs bit for bit "
+              f"(deterministic algorithms), aot hit {b['hit']} miss {b['miss']} "
+              f"stale {b['stale']}, nvcc processes {b['nvcc_runs']}, captures "
+              f"{b['lowered']}")
+        cache = AOTCache(cache_dir)
+        keys = {name: _build.cache_key(name) for name in ("node_mlp", "fused_mp")}
+        lib = Path(cache.library_path(keys["node_mlp"]))
+        lib.write_bytes(lib.read_bytes()[: lib.stat().st_size // 2])
+        rec_path = Path(cache.entry_path(keys["fused_mp"]))
+        rec = json.loads(rec_path.read_text())
+        rec["fingerprint"]["driver"] = "0.0-another-driver"
+        rec_path.write_text(json.dumps(rec))
+        third = cold_start_run(cache_dir, work, "3")
+        if not (third["aot_miss"] == 1 and third["aot_stale"] == 1
+                and third["nvcc_runs"] == 2):
+            raise AssertionError(f"third cold-start run: {third}")
+        fingerprint = environment_fingerprint()
+        healed = {name: cache.load(key, fingerprint) is not None
+                  for name, key in keys.items()}
+        if not all(healed.values()):
+            raise AssertionError(f"entries not healed: {healed}")
+        print(f"[coldstart heal] node_mlp's library truncated and fused_mp's record "
+              f"given another driver: the third run counts aot miss "
+              f"{third['aot_miss']:.0f} stale {third['aot_stale']:.0f} hit "
+              f"{third['aot_hit']:.0f}, nvcc processes {third['nvcc_runs']:.0f}, "
+              f"cold_start_s {third['cold_start_s']:.3f}; afterwards both entries "
+              f"load as hits under this environment ({healed})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ------------------------------------------------------------ phases 9-9c
@@ -2680,8 +3045,8 @@ def time_flash_attention(device, launches: int, by_route: dict) -> dict:
 
 
 def run(device) -> list:
-    """Phases 2-7b, 6, 6b, 9-9c and 8 on ``device``; returns the kernels'
-    JSON rows."""
+    """Phases 2-7b, 6, 6c, 6b, 10, 9-9c and 8 on ``device``; returns the
+    kernels' JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
     check_segment_reduce(device)
@@ -2702,7 +3067,10 @@ def run(device) -> list:
         paths[f"gin {precision}"] = serve_model("gin", device, packed_too=False,
                                                 precision=precision, n_stream=8)
     graphs = graph_phase(device)
+    layout_launches, layout_replays = layout_phase(device)
+    paths.update(layout_launches)
     paths.update(stream_phase(device, device_line()))
+    coldstart_phase(device_line())
     lm_replays = {}
     for arch, overrides, serve_kw, lengths in LM_PATHS:
         paths[arch], replays = serve_lm(arch, overrides, serve_kw, lengths, device)
@@ -2727,6 +3095,8 @@ def run(device) -> list:
             " ".join(k for k in (model, precision, "packed" if packed else "") if k):
                 replay.get(row["name"], 0)
             for (model, precision, packed), replay in graphs.items()}
+        row["launches_per_replay"].update(
+            {path: replay.get(row["name"], 0) for path, replay in layout_replays.items()})
         row["launches_per_replay"].update(
             {program: replay.get(row["name"], 0) for program, replay in lm_replays.items()})
     return rows

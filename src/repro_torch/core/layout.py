@@ -101,16 +101,27 @@ def ensure_layout(layout: Optional[GraphLayout], graph: G.Graph) -> GraphLayout:
     return build_layout(graph) if layout is None else layout
 
 
+def csr_plan(
+    layout: Optional[GraphLayout], graph: G.Graph
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(perm, ids_sorted, offsets, src_sorted) — from the plan, or freshly
+    sorted (one sort: the per-call-sort path).  ``offsets`` are the CSR
+    ranges the segment kernels walk."""
+    if layout is not None:
+        return layout.perm, layout.ids_sorted, layout.offsets, layout.src_sorted
+    n = graph.num_nodes
+    dst = torch.where(graph.edge_mask, graph.dst, torch.full_like(graph.dst, n))
+    perm, ids_sorted, offsets = sg.sort_by_segment(dst, n)
+    return perm, ids_sorted, offsets, graph.src[perm.long()]
+
+
 def edge_plan(
     layout: Optional[GraphLayout], graph: G.Graph
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(perm, ids_sorted, src_sorted) — from the plan, or freshly sorted."""
-    if layout is not None:
-        return layout.perm, layout.ids_sorted, layout.src_sorted
-    n = graph.num_nodes
-    dst = torch.where(graph.edge_mask, graph.dst, torch.full_like(graph.dst, n))
-    perm, ids_sorted, _ = sg.sort_by_segment(dst, n)
-    return perm, ids_sorted, graph.src[perm.long()]
+    """(perm, ids_sorted, src_sorted) — from the plan, or freshly sorted
+    (JAX's three-value contract; :func:`csr_plan` adds the offsets)."""
+    perm, ids_sorted, _, src_sorted = csr_plan(layout, graph)
+    return perm, ids_sorted, src_sorted
 
 
 def segment_reduce(

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core import layout as LY
 from repro_torch.core import scatter_gather as sg
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import Graph, in_degree
 from repro_torch.kernels import ops as kops
 
 PhiFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -149,14 +149,22 @@ def pna_scalers(degree: torch.Tensor, avg_degree: float) -> torch.Tensor:
     return torch.stack([torch.ones_like(logd), amp, att], dim=-1)
 
 
-def pna_aggregate(graph: Graph, messages: torch.Tensor,
-                  layout: LY.GraphLayout) -> torch.Tensor:
-    """PNA's A(.): 4 aggregators x 3 degree scalers -> (N_pad, 12 F), over
-    one permuted message stream and the plan's ``pna_scalers``."""
+def pna_aggregate(graph: Graph, messages: torch.Tensor, avg_degree: float,
+                  layout: Optional[LY.GraphLayout] = None) -> torch.Tensor:
+    """PNA's A(.): 4 aggregators x 3 degree scalers -> (N_pad, 12 F).  With
+    a plan the four reductions share one permuted message stream and the
+    scalers come off the plan (``pna_scalers``, else its in-degree); without
+    one each reduction sorts privately and the scalers come from the
+    graph's in-degree (the same integers, so the same bits)."""
     agg = gather_scatter(graph, messages, ops=("mean", "std", "max", "min"),
                          layout=layout)
     n, f4 = agg.shape
-    out = agg[:, None, :] * layout.pna_scalers[:, :, None]  # (N, 3, 4F)
+    if layout is not None and layout.pna_scalers is not None:
+        scalers = layout.pna_scalers
+    else:
+        degree = layout.in_degree if layout is not None else in_degree(graph)
+        scalers = pna_scalers(degree, avg_degree)
+    out = agg[:, None, :] * scalers[:, :, None]  # (N, 3, 4F)
     return out.reshape(n, 3 * f4)
 
 
@@ -164,7 +172,7 @@ def gat_attention(
     graph: Graph,
     logits: torch.Tensor,
     xp: torch.Tensor,
-    layout: LY.GraphLayout,
+    layout: Optional[LY.GraphLayout] = None,
     mode: str = "auto",
 ) -> torch.Tensor:
     """GAT's A(.): per-destination softmax, then the attention-weighted sum.
@@ -172,35 +180,39 @@ def gat_attention(
     ``logits`` (E_pad, H) in COO order; ``xp`` (N_pad, H, F) per-head
     features; returns (N_pad, H * F).  The softmax normaliser couples all of
     a destination's edges before any message folds in, so GAT does not
-    lower to ``fused_mp``: its two segment kernels run over the plan here.
-    Padding edges get weight 0, so their messages are 0 (and past
-    ``offsets[N]``, where the kernel never reads).
+    lower to ``fused_mp``: its two segment kernels run over the plan here,
+    or, without one, over a plan sorted once in this call.  Padding edges
+    get weight 0, so their messages are 0 (and past ``offsets[N]``, where
+    the kernel never reads).
     """
     n = graph.num_nodes
-    alpha = kops.edge_softmax(logits, layout.ids_sorted, layout.offsets, n,
-                              mode=mode, perm=layout.perm)  # (E, H) sorted
-    msg = xp[layout.src_sorted.long()] * alpha[:, :, None]
+    perm, ids_sorted, offsets, src_sorted = LY.csr_plan(layout, graph)
+    alpha = kops.edge_softmax(logits, ids_sorted, offsets, n, mode=mode,
+                              perm=perm)  # (E, H) sorted
+    msg = xp[src_sorted.long()] * alpha[:, :, None]
     h_f = xp.shape[1] * xp.shape[2]
-    return kops.segment_reduce(msg.reshape(-1, h_f), layout.ids_sorted,
-                               layout.offsets, n, op="sum", mode=mode)
+    return kops.segment_reduce(msg.reshape(-1, h_f), ids_sorted, offsets, n,
+                               op="sum", mode=mode)
 
 
 def dgn_directional_weights(graph: Graph, eigvec: torch.Tensor,
-                            layout: LY.GraphLayout):
+                            layout: Optional[LY.GraphLayout] = None):
     """-> (w_e (E,), denom (N,), wsum (N,)): DGN's directional weights
     w_ij = (phi_j - phi_i) / sum_k |phi_k - phi_i| per in-edge (COO order),
-    their per-destination |dphi| normaliser and sum of weights."""
+    their per-destination |dphi| normaliser and sum of weights.  The plan
+    caches them (``core.layout.with_dgn_weights``); without one both sums
+    sort privately, bit for bit the cached values."""
     src, dst = graph.src.long(), graph.dst.long()
     dphi = eigvec[src] - eigvec[dst]
     dphi = torch.where(graph.edge_mask, dphi, torch.zeros_like(dphi))
-    denom = LY.segment_reduce(layout, torch.abs(dphi)[:, None], "sum")[:, 0]
+    denom = gather_scatter(graph, torch.abs(dphi)[:, None], layout=layout)[:, 0]
     w_e = dphi / torch.clamp(denom[dst], min=1e-6)
-    wsum = LY.segment_reduce(layout, w_e[:, None], "sum")[:, 0]
+    wsum = gather_scatter(graph, w_e[:, None], layout=layout)[:, 0]
     return w_e, denom, wsum
 
 
 def dgn_aggregate(graph: Graph, messages: torch.Tensor, w_e: torch.Tensor,
-                  layout: LY.GraphLayout) -> torch.Tensor:
+                  layout: Optional[LY.GraphLayout] = None) -> torch.Tensor:
     """DGN's A(.): [mean, w-weighted sum] -> (N_pad, 2 F); ``w_e`` is the
     (E,) COO-order directional weight vector."""
     mean_agg = gather_scatter(graph, messages, ops=("mean",), layout=layout)

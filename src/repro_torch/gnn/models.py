@@ -108,7 +108,10 @@ def init(gen: torch.Generator, cfg: GNNConfig, device="cpu") -> dict:
 # ``extras["fused"]`` a body declares an ``mp.MPSpec`` + operands and runs
 # the whole layer as one fused_mp pass.  Bodies whose linears cannot lower
 # (int8-static, ap_fixed: the operand probes return None) keep the closure
-# form; GAT opts out structurally.
+# form; GAT opts out structurally.  Without a plan (``share_layout=False``,
+# the per-call-sort path) ``extras["layout"]`` is None: every body takes the
+# closure form, its graph-static values come from the graph, and each
+# reduction sorts privately, as in JAX.
 # ---------------------------------------------------------------------------
 
 
@@ -126,11 +129,14 @@ def _lin1_operands(lin1) -> dict:
 def _gcn_layer(g: G.Graph, x, lp, cfg, extras):
     # x' = W^T sum_{j in N(i) U {i}} x_j / sqrt((d_i+1)(d_j+1)) + b
     layout = extras["layout"]
-    inv_sqrt = layout.gcn_inv_sqrt
+    if layout is not None:
+        inv_sqrt = layout.gcn_inv_sqrt
+    else:
+        inv_sqrt = torch.rsqrt(G.in_degree(g).to(torch.float32) + 1.0)
     xw = L.linear_apply(lp["lin"], x, mode=cfg.kernel_mode)
     xs = xw * inv_sqrt[:, None]
 
-    if extras["fused"]:
+    if extras["fused"] and layout is not None:
         spec = mp.MPSpec(phi="copy", ops=("sum",), gamma="gcn")
         return mp.mp_layer(
             g, xs, layout=layout, spec=spec, mode=cfg.kernel_mode,
@@ -157,7 +163,7 @@ def _gin_layer(g: G.Graph, x, lp, cfg, extras):
     # phi(x, e) = relu(x_src + edge_embed)
     layout = extras["layout"]
     lin1 = edge_wb = lin2_wb = None
-    if extras["fused"]:
+    if extras["fused"] and layout is not None:
         lin1 = L.fused_linear_operands(lp["mlp"][0])
         edge_wb = L.fused_dequant_weights(lp["edge"])
         lin2_wb = L.fused_dequant_weights(lp["mlp"][1])
@@ -202,7 +208,8 @@ def _gat_layer(g: G.Graph, x, lp, cfg, extras):
     a_src = (xp * lp["att_src"]).sum(-1)  # (N, H)
     a_dst = (xp * lp["att_dst"]).sum(-1)
     logits = Fn.leaky_relu(a_src[g.src.long()] + a_dst[g.dst.long()], 0.2)
-    agg = mp.gat_attention(g, logits, xp, extras["layout"], mode=cfg.kernel_mode)
+    agg = mp.gat_attention(g, logits, xp, layout=extras["layout"],
+                           mode=cfg.kernel_mode)
     out = Fn.elu(agg)
     return torch.where(g.node_mask[:, None], out, torch.zeros_like(out))
 
@@ -211,7 +218,8 @@ def _pna_layer(g: G.Graph, x, lp, cfg, extras):
     layout = extras["layout"]
     xp = L.linear_apply(lp["pre"], x, activation="relu", mode=cfg.kernel_mode)
 
-    lin1 = L.fused_linear_operands(lp["post"]) if extras["fused"] else None
+    fusable = extras["fused"] and layout is not None
+    lin1 = L.fused_linear_operands(lp["post"]) if fusable else None
     if lin1 is not None:
         spec = mp.MPSpec(phi="copy", ops=("sum", "sqsum", "max", "min"),
                          gamma="pna", precision=_spec_precision(lin1))
@@ -224,13 +232,15 @@ def _pna_layer(g: G.Graph, x, lp, cfg, extras):
     def phi(x_src, x_dst, e):
         return x_src
 
+    def aggregate(graph, messages, layout_):
+        return mp.pna_aggregate(graph, messages, cfg.avg_degree, layout=layout_)
+
     def gamma(xp_, tower):
         out = L.linear_apply(lp["post"], tower, activation="relu",
                              mode=cfg.kernel_mode)
         return out + x  # skip connection (§4.3) from the layer input
 
-    return mp.mp_layer(g, xp, phi, gamma, aggregate=mp.pna_aggregate,
-                       layout=layout)
+    return mp.mp_layer(g, xp, phi, gamma, aggregate=aggregate, layout=layout)
 
 
 def _dgn_layer(g: G.Graph, x, lp, cfg, extras):
@@ -239,9 +249,13 @@ def _dgn_layer(g: G.Graph, x, lp, cfg, extras):
     weights off the plan (computed once per forward).  Fused, the weighted
     sum is ``fused_mp``'s "wsum" accumulator over plan-ordered weights."""
     layout = extras["layout"]
-    w_e, wsum = layout.dgn_w_e, layout.dgn_wsum
+    if layout is not None:
+        w_e, wsum = layout.dgn_w_e, layout.dgn_wsum
+    else:  # the per-call path recomputes them in every layer, as JAX does
+        w_e, _, wsum = mp.dgn_directional_weights(g, extras["eigvec"])
 
-    lin1 = L.fused_linear_operands(lp["post"]) if extras["fused"] else None
+    fusable = extras["fused"] and layout is not None
+    lin1 = L.fused_linear_operands(lp["post"]) if fusable else None
     if lin1 is not None:
         spec = mp.MPSpec(phi="copy", ops=("sum", "wsum"), gamma="dgn",
                          precision=_spec_precision(lin1))
@@ -286,6 +300,7 @@ def apply(
     eigvec: Optional[torch.Tensor] = None,
     num_graphs: Optional[int] = None,
     layout: Optional[LY.GraphLayout] = None,
+    share_layout: bool = True,
     fused: bool = False,
 ) -> torch.Tensor:
     """Forward pass -> (num_graphs, out_dim) for graph tasks or
@@ -293,15 +308,25 @@ def apply(
 
     ``eigvec`` is DGN's (N_pad,) Laplacian eigenvector input.  ``layout``
     is the shared edge plan: pass one built at pack time for a zero-sort
-    forward, or leave it ``None`` to build it here (one sort).  ``fused``
-    runs each layer as one ``fused_mp`` pass over the plan (GAT, and
-    layers whose quantized linears cannot lower, keep the unfused path).
+    forward, or leave it ``None`` to build it here (one sort).
+    ``share_layout=False`` drops the plan (a given one too) and takes the
+    per-call-sort path: every aggregation sorts its own edges, bit for bit
+    the shared forward; kept for the parity tests and the sort-count A/B,
+    as in JAX.  ``fused`` runs each layer as one ``fused_mp`` pass over the
+    plan (GAT, layers whose quantized linears cannot lower, and every layer
+    without a plan keep the unfused path).
     """
     m = g.num_nodes if num_graphs is None else num_graphs
     layer_fn = _LAYERS[cfg.model]
-    layout = LY.for_model(layout, g, cfg.model, avg_degree=cfg.avg_degree,
-                          eigvec=eigvec)
-    extras = {"layout": layout, "fused": fused}
+    if share_layout:
+        layout = LY.for_model(layout, g, cfg.model, avg_degree=cfg.avg_degree,
+                              eigvec=eigvec)
+    else:
+        if cfg.model == "dgn" and eigvec is None:
+            raise ValueError("dgn needs its Laplacian eigenvector input: pass "
+                             "eigvec= (serving: with_eigvec=True)")
+        layout = None
+    extras = {"eigvec": eigvec, "layout": layout, "fused": fused}
     x = L.linear_apply(params["encoder"], g.node_feat, mode=cfg.kernel_mode)
     # promotes as jnp.where(mask, x, 0.0): an integer encoder output -> f32
     x = torch.where(g.node_mask[:, None], x, 0.0)
@@ -328,14 +353,16 @@ def apply(
 def forward_program(
     cfg: GNNConfig,
     num_graphs: Optional[int] = None,
+    share_layout: bool = True,
     fused: bool = False,
 ) -> Callable:
     """:func:`apply` with its statics bound: a ``(params, graph, eigvec,
     layout) -> logits`` closure, built once per program-cache entry by
-    ``serve.executor.Executor``."""
+    ``serve.executor.Executor``.  ``share_layout`` and ``fused`` change
+    which ops the program runs, never its positional signature."""
 
     def program(params, g: G.Graph, eigvec, layout):
         return apply(params, g, cfg, eigvec=eigvec, num_graphs=num_graphs,
-                     layout=layout, fused=fused)
+                     layout=layout, share_layout=share_layout, fused=fused)
 
     return program

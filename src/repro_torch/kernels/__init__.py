@@ -11,7 +11,8 @@
                      (the LM substrate's prefill attention), fp32 or bf16
   node_mlp.py, quant_mlp.py, fused_mp.py, segment_reduce.py, edge_softmax.py,
   flash_attention.py ctypes wrappers of the six kernels (+ launch counters)
-  _build.py          nvcc build (sm_90a) into build/repro_torch/, at first use
+  _build.py          nvcc build (sm_90a) at first use, into build/repro_torch/
+                     or a fingerprinted cache (serve/aot.py)
   ops.py             dispatch: kernel for CUDA tensors, ref.py for CPU ones
   ref.py             plain PyTorch versions (the correctness contract)
 """

@@ -13,6 +13,11 @@ GNN, ``--stream``, ``--models`` and ``--arch`` paths of
       --n-graphs 64 --qps 8000 --priority 0,0,1 --slo-ms 0:10,1:50 --pipeline
   PYTHONPATH=src python -m repro_torch.launch.serve --models gcn:int8,gat:fp32 \
       --fused --n-graphs 32 --qps 1000 --slo-ms 20
+  PYTHONPATH=src python -m repro_torch.launch.serve --gnn gin --fused --stream \
+      --n-graphs 64 --aot-cache /tmp/aot --prewarm-persist \
+      --metrics-json /tmp/metrics.json --trace-out /tmp/trace.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --gnn gat --stream \
+      --no-share-layout --n-graphs 32
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn gcn --batched --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn dgn --fused --n-graphs 32
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn gin --device cpu
@@ -39,11 +44,28 @@ its first prefill also builds the flash-attention kernel.
 prints the JAX launcher's lines: graphs/s, latency percentiles, flushes
 and the admission line of its metrics registry.  ``--models`` registers
 each ``model[:precision]`` spec as a tenant of one executor behind one
-scheduler.  ``--metrics-json``, ``--trace-out`` and ``--no-share-layout``
-are not ported yet (ROADMAP queue 1, item 9), nor ``--aot-cache``,
-``--prewarm-persist`` and ``--gnn-mesh`` (items 10 and 11).
+scheduler.  ``--metrics-json`` and ``--trace-out`` write the stream's
+metrics snapshot and its virtual-clock trace (check them with ``python -m
+repro_torch.obs.check_artifacts``); ``--no-share-layout`` serves the
+per-call-sort path.
+
+Cold start: ``--aot-cache DIR`` keeps the CUDA kernels' libraries in a
+fingerprinted cache (``serve/aot.py``), so a restarted server runs no
+``nvcc``; ``--prewarm-persist`` captures every bucket ladder before the
+stream.  With ``--aot-cache`` the launcher prints JAX's line
+``cold_start_s=... aot_hit=... aot_miss=... aot_stale=... lowered=...``
+and ``nvcc_runs=...``: ``cold_start_s`` runs from launcher entry to
+ladder-warm (the interpreter's start and imports excluded), ``aot_miss``
+and ``aot_stale`` are lookups that ran ``nvcc``, ``nvcc_runs`` the
+compiler processes this process started, and ``lowered`` the CUDA-graph
+captures, which a restart repeats (graphs are not serialized).
+
+Not taken: ``--gnn-mesh`` (the sharded GNN mesh is ROADMAP queue 1, item
+11) and ``--xla-flags-file`` (XLA's compiler options have no CUDA
+meaning).
 """
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -78,6 +100,62 @@ def _priorities(args, n):
     return [cycle[i % len(cycle)] for i in range(n)]
 
 
+def _aot_setup(args):
+    """The kernel-library cache from ``--aot-cache`` (None without it)."""
+    if not args.aot_cache:
+        return None
+    from repro_torch.serve.aot import AOTCache
+
+    return AOTCache(args.aot_cache)
+
+
+def _report_cold_start(args, executor, scheduler, graphs, registry,
+                       models=None):
+    """With ``--aot-cache``: prewarm the bucket ladders when
+    ``--prewarm-persist`` asks (the kernels' libraries load, from the cache
+    or built into it, and every rung is captured), then print the
+    cold-start line and set ``serve_cold_start_seconds``."""
+    if not args.aot_cache:
+        return
+    from repro_torch.kernels import _build
+
+    if args.prewarm_persist and scheduler is not None and graphs:
+        scheduler.prewarm_ladders(graphs, models=models)
+    elapsed = time.perf_counter() - args._t0
+    stats = executor.aot_stats()
+    print(f"cold_start_s={elapsed:.3f} aot_hit={stats['hit']} "
+          f"aot_miss={stats['miss']} aot_stale={stats['stale']} "
+          f"lowered={executor.lowered_count} nvcc_runs={_build.nvcc_runs}")
+    if registry is not None:
+        from repro_torch.obs.metrics import ServingInstruments
+
+        ServingInstruments(registry).cold_start.set(elapsed)
+
+
+def _telemetry(args):
+    """(tracer, registry) for the stream paths: the registry always (it
+    holds the admission ledger), a ``Tracer`` on a ``VirtualClock`` only
+    when ``--trace-out`` asks for the artifact."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serve.clock import VirtualClock
+
+    registry = MetricsRegistry()
+    tracer = Tracer(VirtualClock()) if args.trace_out else None
+    return tracer, registry
+
+
+def _emit_telemetry(args, tracer, registry) -> None:
+    """Write the artifacts ``--metrics-json`` / ``--trace-out`` ask for."""
+    from repro_torch.obs import export
+
+    if args.metrics_json:
+        export.write_metrics_json(registry, args.metrics_json)
+        print(f"  metrics-json -> {args.metrics_json}")
+    if args.trace_out:
+        export.write_trace(tracer, args.trace_out)
+        print(f"  trace-out -> {args.trace_out}")
+
+
 def _report_stream(rep, registry, head: str, extra: str) -> None:
     """The stream's lines: throughput, latency percentiles, flushes, and
     the admission line rendered from the metrics registry."""
@@ -102,11 +180,10 @@ def serve_gnn_multitenant(args):
     from repro_torch.configs.gengnn_models import get_gnn_config
     from repro_torch.data.pipeline import MOLHIV, MoleculeStream
     from repro_torch.gnn import init
-    from repro_torch.obs import MetricsRegistry
     from repro_torch.serve.executor import Executor
     from repro_torch.serve.scheduler import StreamScheduler
 
-    ex = Executor(device=args.device)
+    ex = Executor(device=args.device, aot_cache=_aot_setup(args))
     specs = []
     for i, spec in enumerate(args.models.split(",")):
         model, _, precision = spec.partition(":")
@@ -117,15 +194,16 @@ def serve_gnn_multitenant(args):
         if precision == "int8-static":
             calib = [g[:4] for g in MoleculeStream(MOLHIV, seed=97).take(16)]
         ex.register(spec, cfg, params, precision=precision, calib_graphs=calib,
-                    fused=args.fused)
+                    share_layout=not args.no_share_layout, fused=args.fused)
         specs.append(spec)
-    registry = MetricsRegistry()
+    tracer, registry = _telemetry(args)
     sched = StreamScheduler(ex, capacity=args.pack,
                             max_wait_s=args.max_wait_ms * 1e-3,
-                            with_eigvec="auto", metrics=registry,
-                            **_slo_kwargs(args))
+                            with_eigvec="auto", tracer=tracer,
+                            metrics=registry, **_slo_kwargs(args))
     graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(args.n_graphs)]
     models = [specs[i % len(specs)] for i in range(len(graphs))]
+    _report_cold_start(args, ex, sched, graphs, registry, models=models)
     rep = sched.run(graphs, qps=args.qps, models=models,
                     priorities=_priorities(args, len(graphs)))
     counts = {s: models.count(s) for s in specs}
@@ -134,6 +212,7 @@ def serve_gnn_multitenant(args):
                    f"tenants {counts})",
                    f"{len(ex._compiled)} program records, "
                    f"{ex.lowered_count} captures, ")
+    _emit_telemetry(args, tracer, registry)
 
 
 def serve_gnn(args):
@@ -149,7 +228,8 @@ def serve_gnn(args):
         # calibration stream disjoint from the served one (seed split)
         calib = [g[:4] for g in MoleculeStream(MOLHIV, seed=97).take(16)]
     eng = GNNEngine(cfg, params, precision=args.precision, calib_graphs=calib,
-                    fused=args.fused, device=args.device)
+                    share_layout=not args.no_share_layout, fused=args.fused,
+                    device=args.device, aot_cache=_aot_setup(args))
     if eng.quant_report is not None:
         r = eng.quant_report
         print(f"[quant] {args.precision}: {r.quantized} linears quantized, "
@@ -157,14 +237,15 @@ def serve_gnn(args):
     graphs = MoleculeStream(MOLHIV, seed=0).take(args.n_graphs)
     with_eigvec = args.gnn == "dgn"
     if args.stream:
-        from repro_torch.obs import MetricsRegistry
         from repro_torch.serve.scheduler import StreamScheduler
 
-        registry = MetricsRegistry()
+        tracer, registry = _telemetry(args)
         sched = StreamScheduler(eng, capacity=args.pack,
                                 max_wait_s=args.max_wait_ms * 1e-3,
-                                with_eigvec=with_eigvec, metrics=registry,
-                                **_slo_kwargs(args))
+                                with_eigvec=with_eigvec, tracer=tracer,
+                                metrics=registry, **_slo_kwargs(args))
+        _report_cold_start(args, eng.executor, sched, [g[:4] for g in graphs],
+                           registry)
         rep = sched.run([g[:4] for g in graphs], qps=args.qps,
                         priorities=_priorities(args, len(graphs)))
         if rep.num_requests == 0:
@@ -175,6 +256,7 @@ def serve_gnn(args):
                        f"{args.max_wait_ms}ms, pack x{args.pack}"
                        f"{', pipeline x' + str(args.inflight) if args.pipeline else ''})",
                        "")
+        _emit_telemetry(args, tracer, registry)
         return
     if args.batched:
         outs, per_graph_s = eng.infer_batched(
@@ -190,6 +272,10 @@ def serve_gnn(args):
     print(f"{args.gnn}: {len(outs)} graphs, mean {np.mean(lats)*1e6:.0f} us/graph "
           f"(p50 {np.percentile(lats,50)*1e6:.0f}, p99 {np.percentile(lats,99)*1e6:.0f}; "
           f"compile {warm_s:.1f}s excluded)")
+    if args.aot_cache:
+        stats = eng.executor.aot_stats()
+        print(f"  aot: hit {stats['hit']} miss {stats['miss']} "
+              f"stale {stats['stale']}; {eng.executor.lowered_count} captures")
 
 
 def serve_lm(args):
@@ -214,6 +300,7 @@ def serve_lm(args):
 
 
 def main(argv=None):
+    t0 = time.perf_counter()  # cold-start epoch: launcher entry
     from repro_torch.configs import ARCHS
     from repro_torch.configs.gengnn_models import GNN_MODELS
 
@@ -278,9 +365,32 @@ def main(argv=None):
                     help="stream: bound on dispatched-but-unharvested "
                          "flushes in pipelined mode (1 = serial dispatch "
                          "order; default 2 = double buffering)")
+    ap.add_argument("--metrics-json", default="",
+                    help="stream: write the metrics-registry snapshot "
+                         "(repro-metrics/v1 JSON) here after the run")
+    ap.add_argument("--trace-out", default="",
+                    help="stream: write the run's Chrome/Perfetto "
+                         "trace-event JSON here (the scheduler's "
+                         "virtual-clock timeline; open in "
+                         "ui.perfetto.dev)")
+    ap.add_argument("--no-share-layout", action="store_true",
+                    help="GNN: disable the shared GraphLayout plan and "
+                         "re-sort edges inside every aggregation (the "
+                         "pre-layout behaviour; A/B benchmarking only)")
+    ap.add_argument("--aot-cache", default="",
+                    help="GNN: persistent cache directory of the CUDA "
+                         "kernels' libraries, fingerprinted by torch, CUDA, "
+                         "nvcc, driver and GPU; a warm cache serves a "
+                         "restart without one nvcc run (CUDA graphs are "
+                         "captured again)")
+    ap.add_argument("--prewarm-persist", action="store_true",
+                    help="GNN stream: warm every (tenant, signature) "
+                         "bucket ladder before serving, populating "
+                         "--aot-cache so the next restart builds nothing")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
+    args._t0 = t0
     if args.arch:
         serve_lm(args)
     elif args.models:

@@ -35,8 +35,13 @@ package's words; on CUDA the executor's metrics mean:
   interpret path and no VMEM fallback): at warm and at capture, never at
   replay, so it is a census of the programs built, not of requests.
 
-``serve_aot_cache_total`` and ``serve_cold_start_seconds`` have no writer
-in the port yet.
+* ``serve_aot_cache_total{result}`` — lookups of the kernel-library cache
+  (``serve/aot.py``; hit, miss or stale), one per library at its first
+  load in the process, written by the executor; a miss or a stale entry
+  ran ``nvcc``;
+* ``serve_cold_start_seconds`` — launcher entry to ladder-warm, written by
+  ``launch/serve.py`` under ``--aot-cache`` (the CUDA context, the
+  libraries' load or build, every capture).
 
 Snapshots sort metric names and label sets, so two identical simulated
 runs serialize to identical JSON.  Histograms use fixed cumulative ``le``

@@ -1,1 +1,2 @@
-"""Serving stack of the port: clock, executor, GNN engine facade."""
+"""Serving stack of the port: clock, executor, GNN engine facade, the
+kernel-library cache (``aot.py``)."""

@@ -38,11 +38,12 @@
   ``run_async(...).result()``.
 
 Programs are cached by ``(program_key, bucket_key, num_graphs)`` with
-``program_key = (cfg, precision, fused)``, so tenants of one architecture
-share the record.  A captured graph holds the addresses of the params it
-was captured with, so, unlike JAX's executables, graphs are keyed by
-tenant: the warm signature is ``(tenant name, params signature) + batch
-signature``, and each tenant captures its own.  ``register(precision=...)``
+``program_key = (cfg, precision, share_layout, fused)``, in JAX's order,
+so tenants of one architecture share the record.  A captured graph holds
+the addresses of the params it was captured with, so, unlike JAX's
+executables, graphs are keyed by tenant: the warm signature is ``(tenant
+name, params signature) + batch signature``, and each tenant captures its
+own.  ``register(precision=...)``
 quantizes once (``quant.apply.quantize_model``, calibrating first for
 int8-static) on the parameters as the caller gave them, then moves the
 quantized tree to the executor's device.
@@ -55,17 +56,34 @@ for every other forward: on the card it counts the capture, not the eager
 warm forward; on the CPU the warm forward, not the runs; and nothing for
 a second tenant's warm of a key already counted.
 
-``Tenant.share_layout`` is always True: the per-call-sort path of JAX's
-``share_layout=False`` is not ported (ROADMAP queue 1, item 9).
+``register(share_layout=False)`` admits a tenant on the per-call-sort
+path (``gnn.models.apply(share_layout=False)``): its batches carry no plan
+(``prepare_packed(model=...)`` and the scheduler's packer build none for
+it) and every aggregation of its forward sorts its own edges, bit for bit
+the shared forward.  JAX keeps that path for the layout-parity tests and
+the sort-count A/B, and so does the port.
 
 **Telemetry.**  ``tracer=`` / ``metrics=`` sinks (``repro_torch.obs``;
 attachable later by :meth:`Executor.attach_telemetry`) receive program
 builds, warms with their untimed cost, timed device seconds and the D2H
 copy, as in JAX.  Both default off, and then no extra clock is read.
 
+**Kernel-library cache.**  With ``aot_cache=`` (a ``serve.aot.AOTCache``)
+the CUDA kernels' libraries are looked up on disk before ``nvcc`` runs,
+under the environment fingerprint (``_fingerprint``: torch, CUDA, the
+``nvcc`` release, the driver, the GPU, the ``nvcc`` flags), and written
+back on a miss or a stale entry (``kernels/_build.py``).  That is the
+port's counterpart of JAX's persisted executables: a CUDA graph cannot be
+serialized, so ``lowered_count`` (captures) is the same in a restarted
+process, and what a warm cache saves is the compiler.  Each lookup, made
+at the first load of a library (inside a warm's eager forward), counts in
+``aot_stats()`` and, when the sinks are on, in
+``serve_aot_cache_total{result}`` and an ``aot_load`` trace event.  The
+libraries are per process: the cache set by the last executor built with
+one serves every later first load.
+
 The executor runs on ``device="cuda"`` unless the caller asks for the CPU,
-and raises if CUDA is missing.  The AOT cache and the mesh arrive with
-later slices.
+and raises if CUDA is missing.  The mesh arrives with a later slice.
 """
 from __future__ import annotations
 
@@ -83,9 +101,10 @@ from repro_torch.core import layout as LY
 from repro_torch.data.pipeline import laplacian_eigvec
 from repro_torch.device import resolve_device
 from repro_torch.gnn import models as M
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.obs.metrics import MetricsRegistry, ServingInstruments
 from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.serve.aot import AOTCache, environment_fingerprint
 from repro_torch.serve.clock import Clock, RealClock
 
 DEFAULT_BUCKETS: Sequence[tuple] = ((32, 96), (64, 192), (128, 384), (256, 768))
@@ -230,19 +249,17 @@ class Tenant:
     cfg: M.GNNConfig
     params: dict
     precision: str = "fp32"
+    share_layout: bool = True
     fused: bool = False
     quant_report: object = None
     params_sig: tuple = ()
 
     @property
     def program_key(self) -> tuple:
-        return (self.cfg, self.precision, self.fused)
-
-    @property
-    def share_layout(self) -> bool:
-        """Whether batches carry the shared ``GraphLayout`` plan: always, as
-        the port has no per-call-sort path (ROADMAP queue 1, item 9)."""
-        return True
+        """Program records are shared by tenants with equal keys: the
+        forward depends on (cfg, precision, layout sharing, fusion), never
+        on the parameter values."""
+        return (self.cfg, self.precision, self.share_layout, self.fused)
 
 
 class Executor:
@@ -252,8 +269,13 @@ class Executor:
                  clock: Optional[Clock] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 device="cuda"):
+                 device="cuda", aot_cache: Optional[AOTCache] = None):
         self.device = resolve_device(device)
+        self.aot = aot_cache
+        self._env_fp: Optional[dict] = None  # lazy: reads the device
+        self._aot_seen = 0  # lookups of ``aot.log`` already reported
+        if aot_cache is not None:
+            _build.use_cache(aot_cache, self._fingerprint())
         self.buckets = sorted(buckets)
         # the one place real time is measured; a test injects a stepping clock
         self.clock = clock if clock is not None else RealClock()
@@ -288,14 +310,10 @@ class Executor:
         recipe.  Quantization runs once here, on ``params`` where the
         caller keeps them (calibration and transform see the same tree);
         then the params move to the executor's device.  ``share_layout``
-        must stay True: the per-call-sort path is not ported."""
+        (default on) threads one ``GraphLayout`` plan through every layer;
+        off, the tenant serves the per-call-sort path."""
         if name in self.tenants:
             raise ValueError(f"tenant {name!r} already registered")
-        if not share_layout:
-            raise ValueError(
-                "share_layout=False (the per-call-sort path) is not ported "
-                "yet (ROADMAP queue 1, item 9)"
-            )
         quant_report = None
         if precision != "fp32":
             from repro_torch.quant import apply as QA
@@ -312,7 +330,8 @@ class Executor:
             )
         params = _params_to(params, self.device)
         tenant = Tenant(name=name, cfg=cfg, params=params, precision=precision,
-                        fused=fused, quant_report=quant_report,
+                        share_layout=share_layout, fused=fused,
+                        quant_report=quant_report,
                         params_sig=params_signature(params))
         self.tenants[name] = tenant
         return tenant
@@ -352,8 +371,39 @@ class Executor:
     @property
     def lowered_count(self) -> int:
         """CUDA-graph captures across programs (the counterpart of JAX's
-        trace + lower + compiles; 0 on the CPU)."""
+        trace + lower + compiles; 0 on the CPU).  Unlike JAX's, not 0 in a
+        process restarted on a warm cache: graphs are not serialized, so
+        every process captures its own."""
         return sum(cb.lowered_count for cb in self._compiled.values())
+
+    # ------------------------------------------------------ AOT plumbing
+
+    def _fingerprint(self) -> dict:
+        """The environment fingerprint the kernel-library cache checks
+        (``serve.aot.environment_fingerprint``), computed once."""
+        if self._env_fp is None:
+            self._env_fp = environment_fingerprint()
+        return dict(self._env_fp)
+
+    def aot_stats(self) -> Dict[str, int]:
+        """Kernel-library cache outcomes (zeros when no cache is set)."""
+        return (dict(self.aot.stats) if self.aot is not None
+                else {"hit": 0, "miss": 0, "stale": 0})
+
+    def _report_aot(self, tenant: Tenant, bucket_key: tuple) -> None:
+        """Mirror the cache lookups made since the last report (a warm's
+        first loads of the kernel libraries) into the sinks."""
+        if self.aot is None:
+            return
+        new = self.aot.log[self._aot_seen:]
+        self._aot_seen += len(new)
+        for key, result in new:
+            if self._mi is not None:
+                self._mi.aot_cache.inc(result=result)
+            if self.tracer.enabled:
+                self.tracer.event("aot_load", track="executor",
+                                  tenant=tenant.name, bucket=str(bucket_key),
+                                  library=key[0], result=result)
 
     def bucket_for(self, n: int, e: int) -> tuple:
         """Smallest configured (N_pad, E_pad) bucket holding (n, e)."""
@@ -370,6 +420,7 @@ class Executor:
         cb = self._compiled.get(key)
         if cb is None:
             fn = M.forward_program(tenant.cfg, num_graphs=num_graphs,
+                                   share_layout=tenant.share_layout,
                                    fused=tenant.fused)
             cb = self._compiled[key] = _CompiledBucket(fn=fn, num_graphs=num_graphs)
             if self._mi is not None:
@@ -432,6 +483,7 @@ class Executor:
                 cb.fn(tenant.params, *p.inputs)
             cap, compile_dt, warm_dt = None, 0.0, self.clock.now() - t0
         cb.counted.add(jax_sig)  # only once the counted forward has returned
+        self._report_aot(tenant, p.bucket_key)
         cb.executables[sig] = cap
         cb.warm.add(sig)
         cb.compile_s += compile_dt
@@ -491,10 +543,11 @@ class Executor:
                         batch_size)
 
     def prepare_packed(self, packed: G.Graph, budget, eigvec=None,
-                       layout=None) -> PreparedBatch:
+                       layout=None, model: Optional[str] = None) -> PreparedBatch:
         """One already-packed batch (``core.batching``), with its packed
-        eigenvector (``core.batching.pack_eigvecs``) for DGN; without a
-        plan the host plan is built here."""
+        eigenvector (``core.batching.pack_eigvecs``) for DGN.  Without a
+        plan the host plan is built here when tenant ``model`` shares
+        layouts; a per-call tenant's batch carries none."""
         if packed.device != self.device:
             raise ValueError(
                 f"packed graph is on {packed.device}, executor on {self.device}"
@@ -502,7 +555,7 @@ class Executor:
         if eigvec is not None:
             eigvec = torch.as_tensor(eigvec, dtype=torch.float32,
                                      device=self.device)
-        if layout is None:
+        if layout is None and self.tenant(model).share_layout:
             layout = B.pack_layout(packed)
         return prepared(packed, eigvec, layout,
                         ("packed", budget.n_pad, budget.e_pad, budget.g_pad),

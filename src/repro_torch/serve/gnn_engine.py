@@ -32,35 +32,45 @@ class GNNEngine:
         buckets: Sequence[tuple] = DEFAULT_BUCKETS,
         precision: str = "fp32",
         calib_graphs: Optional[Sequence[tuple]] = None,
+        share_layout: bool = True,
         fused: bool = False,
         device=None,
         executor: Optional[Executor] = None,
         name: str = "default",
+        aot_cache=None,
     ):
         """``precision``: "fp32" (default), "int8" (W8A8, dynamic per-node
         activation scales), "int8-static" (calibrated per-tensor scales;
         needs ``calib_graphs``, a few raw COO tuples) or "fixed"
-        (ap_fixed<W,I> emulation).  ``fused`` runs every GCN / GIN / PNA /
-        DGN layer as one ``fused_mp`` pass (GAT, int8-static and fixed
-        layers keep the unfused path).
+        (ap_fixed<W,I> emulation).
+
+        ``share_layout`` (default on) threads one ``GraphLayout`` plan per
+        forward through every layer; off, the per-call-sort path, kept for
+        the parity tests and the sort-count A/B.  ``fused`` runs every GCN /
+        GIN / PNA / DGN layer as one ``fused_mp`` pass over the plan (GAT,
+        int8-static and fixed layers, and every layer without a plan, keep
+        the unfused path).
 
         ``executor`` registers this engine as tenant ``name`` on an
         existing :class:`Executor`, sharing its bucket ladder and program
-        cache; ``buckets`` and ``device`` belong to the executor, so
-        passing them beside ``executor`` raises rather than being
-        ignored.  Without one the engine builds its own on ``device``
-        (default "cuda")."""
+        cache; ``buckets``, ``device`` and ``aot_cache`` (a
+        ``serve.aot.AOTCache`` of the kernel libraries) belong to the
+        executor, so passing them beside ``executor`` raises rather than
+        being ignored.  Without one the engine builds its own on
+        ``device`` (default "cuda")."""
         if executor is not None and (
-                tuple(buckets) != tuple(DEFAULT_BUCKETS) or device is not None):
+                tuple(buckets) != tuple(DEFAULT_BUCKETS) or device is not None
+                or aot_cache is not None):
             raise ValueError(
-                "buckets/device belong to the executor: configure them on "
-                "the Executor you pass, not on the facade"
+                "buckets/device/aot_cache belong to the executor: configure "
+                "them on the Executor you pass, not on the facade"
             )
         self.executor = executor or Executor(
-            buckets=buckets, device="cuda" if device is None else device)
+            buckets=buckets, device="cuda" if device is None else device,
+            aot_cache=aot_cache)
         self._tenant = self.executor.register(
             name, cfg, params, precision=precision,
-            calib_graphs=calib_graphs, fused=fused,
+            calib_graphs=calib_graphs, share_layout=share_layout, fused=fused,
         )
         self.cfg = cfg
 
@@ -76,13 +86,29 @@ class GNNEngine:
         return self.executor.device
 
     @property
+    def params(self) -> dict:
+        """The tenant's params as served (on the executor's device,
+        quantized for precisions other than fp32)."""
+        return self._tenant.params
+
+    @property
     def precision(self) -> str:
         return self._tenant.precision
 
     @property
     def share_layout(self) -> bool:
-        """Always True: the shared layout plan (``Tenant.share_layout``)."""
+        """Whether forwards consume the shared plan (False: the
+        per-call-sort path)."""
         return self._tenant.share_layout
+
+    @property
+    def fused(self) -> bool:
+        return self._tenant.fused
+
+    @property
+    def buckets(self) -> Sequence[tuple]:
+        """The executor's bucket ladder."""
+        return self.executor.buckets
 
     @property
     def quant_report(self):
@@ -155,4 +181,5 @@ class GNNEngine:
         out), seconds)."""
         ex = self.executor
         return ex.run(ex.prepare_packed(packed, budget, eigvec=eigvec,
-                                        layout=layout), model=self.name)
+                                        layout=layout, model=self.name),
+                      model=self.name)

@@ -1219,3 +1219,109 @@ def test_pipelined_stream_on_a_cold_executor(cuda, stage):
                                           for g in graphs})
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+# ------------------------------------------- per-call sorts and the library cache
+
+
+@pytest.mark.parametrize("model", ["gin", "gat"])
+def test_percall_replay_equals_the_shared_path(cuda, model):
+    """``share_layout=False`` through the executor's CUDA graphs: outputs bit
+    for bit the shared (unfused) executor's, under deterministic
+    algorithms; GAT launches its segment kernels on the per-call plan."""
+    from repro_torch.gnn import models as TM
+    from repro_torch.serve.executor import Executor
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = (TM.paper_config("gat", num_layers=2) if model == "gat"
+               else TM.paper_config(model, num_layers=2, hidden=32))
+        params = TM.init(torch.Generator().manual_seed(0), cfg)
+        ex = Executor(device=cuda)
+        ex.register("shared", cfg, params)
+        ex.register("percall", cfg, params, fused=True, share_layout=False)
+        before = (ES.launches, SR.launches, FM.launches)
+        for p in _graph_inputs(ex, packed=False):
+            a, _ = ex.run(p, model="shared")
+            b, _ = ex.run(p, model="percall")
+            np.testing.assert_array_equal(a, b)
+        assert FM.launches == before[2]
+        if model == "gat":
+            assert ES.launches > before[0] and SR.launches > before[1]
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_aot_cache_builds_with_nvcc_then_hits(cuda, tmp_path):
+    """A real ``nvcc`` build through the kernel-library cache: a miss
+    writes the library back, the next lookup is a hit that runs no
+    compiler, and the cached library loads with its C entry points."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve.aot import AOTCache, environment_fingerprint
+
+    cache, saved = AOTCache(tmp_path / "aot"), _build._cache
+    fingerprint = environment_fingerprint()
+    assert fingerprint["device_name"] == torch.cuda.get_device_name(0)
+    assert fingerprint["nvcc"] != "none" and fingerprint["driver"] != "none"
+    runs = _build.nvcc_runs
+    _build.use_cache(cache, fingerprint)
+    try:
+        logs = _build.build(["segment_reduce"])
+        assert "registers" in logs["segment_reduce"] and _build.nvcc_runs == runs + 1
+        assert cache.stats == {"hit": 0, "miss": 1, "stale": 0}
+        assert _build.build(["segment_reduce"]) == {} and _build.nvcc_runs == runs + 1
+        path = _build.ensure_library("segment_reduce")
+        assert cache.stats["hit"] == 2 and str(path).startswith(cache.root)
+        assert hasattr(ctypes.CDLL(str(path)), "segment_reduce_blocks")
+    finally:
+        _build._cache = saved
+
+
+RESTART_CHILD = """
+import sys
+import numpy as np
+import torch
+from repro_torch.gnn import models as TM
+from repro_torch.kernels import _build
+from repro_torch.serve.aot import AOTCache
+from repro_torch.serve.gnn_engine import GNNEngine
+from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+
+torch.use_deterministic_algorithms(True)
+cfg = TM.paper_config("gin", num_layers=2, hidden=32)
+eng = GNNEngine(cfg, TM.init(torch.Generator().manual_seed(0), cfg), fused=True,
+                aot_cache=AOTCache(sys.argv[1]))
+graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=1).take(8)]
+outs, _, _ = eng.infer_stream(graphs)
+np.save(sys.argv[2], np.concatenate(outs))
+s = eng.executor.aot_stats()
+print("RESTART hit=%d miss=%d stale=%d nvcc_runs=%d" % (
+    s["hit"], s["miss"], s["stale"], _build.nvcc_runs))
+"""
+
+
+def test_restarted_process_runs_no_nvcc(cuda, tmp_path):
+    """Process A fills a fresh cache while it serves GIN; process B, given
+    only the cache directory, serves the same outputs bit for bit
+    (deterministic algorithms) with every library a hit and no ``nvcc``."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = dict(os.environ,
+               PYTHONPATH=str(Path(__file__).resolve().parent.parent / "src"))
+    runs = []
+    for tag in ("a", "b"):
+        r = subprocess.run([sys.executable, "-c", RESTART_CHILD, str(tmp_path / "aot"),
+                            str(tmp_path / f"{tag}.npy")], capture_output=True,
+                           text=True, env=env, timeout=600)
+        assert r.returncode == 0, r.stdout + r.stderr
+        line = next(l for l in r.stdout.splitlines() if l.startswith("RESTART"))
+        runs.append(dict(f.split("=") for f in line.split()[1:]))
+    a, b = runs
+    assert int(a["miss"]) > 0 and int(a["nvcc_runs"]) == int(a["miss"])
+    assert int(b["hit"]) > 0 and b["miss"] == b["stale"] == b["nvcc_runs"] == "0"
+    np.testing.assert_array_equal(np.load(tmp_path / "a.npy"), np.load(tmp_path / "b.npy"))

@@ -551,7 +551,8 @@ def test_executor_register_matches_jax(precision):
     ex = Executor(device="cpu")
     tenant = ex.register("gin", tcfg, tp, precision=precision,
                          calib_graphs=calib, fused=True)
-    assert tenant.program_key == (tcfg, precision, True)
+    # JAX's key: (cfg, precision, share_layout, fused)
+    assert tenant.program_key == (tcfg, precision, True, True)
     assert isinstance(tp["encoder"], dict)  # the caller's tree is untouched
     if precision == "fp32":
         assert tenant.quant_report is None

@@ -792,10 +792,20 @@ def test_second_same_architecture_tenant_prewarms_its_own_ladder():
 
 
 def test_share_layout_false_is_refused():
+    """The per-call-sort path is no longer refused: a ``share_layout=False``
+    tenant registers and serves its stream through the scheduler bit for
+    bit the shared (unfused) tenant; the facade still defaults to the
+    shared plan."""
     jcfg, tcfg = small_config("gin")
-    ex = Executor(device="cpu")
-    with pytest.raises(ValueError, match="item 9"):
-        ex.register("m", tcfg, converted(jcfg)[1], share_layout=False)
+    ex = Executor(buckets=((16, 32),), device="cpu")
+    ex.register("m", tcfg, converted(jcfg)[1], share_layout=False)
+    ex.register("s", tcfg, converted(jcfg)[1])
+    assert not ex.tenant("m").share_layout
+    graphs = raw_graphs(4, nodes=(5, 14))
+    a = StreamScheduler(ex, capacity=2).run(graphs, qps=0.0, models=["m"] * 4)
+    b = StreamScheduler(ex, capacity=2).run(graphs, qps=0.0, models=["s"] * 4)
+    for x, y in zip(a.outputs, b.outputs):
+        np.testing.assert_array_equal(x, y)
     assert GNNEngine(tcfg, converted(jcfg)[1], device="cpu").share_layout is True
 
 
