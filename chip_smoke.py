@@ -232,6 +232,39 @@ fails the run), then runs these phases, one line each:
               gelu MLP, tied embedding), 8 of its 40 layers: B 4, prompts of
               512-1024 tokens, prompt_len 1024, cache_len 1280, 16 new
               tokens; the same checks, 8 mma launches a prefill replay
+  9m. moe     the MoE family's new code (no kernel of its own): the slot
+              helpers (``dispatch_to_slots``, ``rank_within_segment``,
+              ``combine_from_slots``) on the card equal the CPU's bit for
+              bit at ``MOE_SLOT_CASES`` (the served dispatches, one tied
+              segment, a valid mask: CUDA's stable sort); ``moe_apply``
+              dispatch vs dense at ample capacity in fp32, JAX's own case
+              through the model within 1e-4 and one full-width layer of
+              each MoE arch within 1e-4 max|dense|; captured
+              ``moe_apply`` at the two archs' served prefill and decode
+              shapes and a reduced Qwen3-MoE server's decode replay equal
+              their eager calls bit for bit under deterministic algorithms
+  9d. LM      Qwen3-MoE-30B-A3B at full width (d 2048, 32 / 4 -> 16 heads,
+              QK-norm, 128 experts top-8 renormalized, expert d_ff 768), 8
+              of its 48 layers: B 8, prompts of 256-512 tokens, prompt_len
+              512, cache_len 1024, 32 new tokens
+  9e. LM      Mixtral-8x7B at full width (d 4096, 32 / 8 -> 16 heads, 8
+              experts top-2, d_ff 14336, window 4096), 4 of its 32 layers:
+              B 2, prompts of 4352-5120 tokens (prefill runs past the
+              window), prompt_len 5120, cache_len 5376, 8 new tokens.
+              9d and 9e run the checks of 9-9c, and: the reference mode's
+              router picks other experts than the kernel path's where two
+              nearly tie (the attentions differ by bf16 roundings), so
+              the differing token routings, their largest logit gap and
+              the free-routing errors are printed, and the reference runs
+              again teacher-forced on the kernel path's routing (its own
+              router weights on the kernel path's experts), which is held
+              to the bound; decode after prefill(S-1) against prefill(S)
+              runs as JAX's test does, in fp32 (the weights cast) at
+              capacity factor max(8, E / k) (JAX's test's 8, or the factor
+              at which a row's capacity holds every token), on prefill(S)'s
+              routing, and is printed in bf16; they print the share of a prefill's (token,
+              expert) assignments kept at capacity and the decode step's
+              weight-read floor (every expert's weights a step)
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after; a wrapper counts where it
               runs: the eager warm forward and the launches recorded into
@@ -258,17 +291,19 @@ fails the run), then runs these phases, one line each:
               (simt) route forced on the same bf16 tensors, the design the
               mma route replaces on this path; its launches per replay
               include the LM programs' (a prefill replay num_layers, a
-              decode replay 0)
+              decode replay 0; the MoE paths' too)
 
-It prints the card line and a JSON object of the kernels before the last
-line, and ends with ``{"ok": true, "device": {...}}``.  Any mismatch or
+It prints its total seconds, the card line and a JSON object of the
+kernels before the last line, and ends with ``{"ok": true, "device": {...}}``.  Any mismatch or
 exception exits non-zero; without CUDA it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -279,6 +314,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS under PyTorch's deterministic algorithms (phase 9m) needs its
+# workspace set before the first GEMM of the process: 8 buffers of 4 MiB
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 on CUDA cores, int8 on the
 # tensor cores, HBM3
@@ -302,8 +340,31 @@ LM_PATHS = (("chatglm3-6b", {}, dict(max_batch=8, prompt_len=512, cache_len=1024
              (1024, 2048)),
             ("starcoder2-15b", dict(num_layers=8),
              dict(max_batch=4, prompt_len=1024, cache_len=1280, max_new_tokens=16),
-             (512, 1024)))
+             (512, 1024)),
+            ("qwen3-moe-30b-a3b", dict(num_layers=8),
+             dict(max_batch=8, prompt_len=512, cache_len=1024, max_new_tokens=32),
+             (256, 512)),
+            # prompts past the 4096 window
+            ("mixtral-8x7b", dict(num_layers=4),
+             dict(max_batch=2, prompt_len=5120, cache_len=5376, max_new_tokens=8),
+             (4352, 5120)))
 LM_RUNS = 5  # generate (graphs) and the eager loop, each, per LM path
+# the decode-after-prefill check of an MoE path runs as JAX's
+# tests/test_arch_smoke.py:47-57 does, in fp32 (on a copy of the weights)
+# and where neither run drops a token: at capacity factor 8, or E / k where
+# that is larger (a row's capacity then holds every token: Qwen3-MoE's 16;
+# its padded prompt rows route their pad tokens alike, and at 8 one expert
+# of a row overflows 256 slots)
+MOE_CHECK_CF = 8.0
+# phase 9m: (segments, elements, capacity, share valid) of the slot helpers
+# on the card against the CPU: the served dispatches (Qwen3-MoE prefill B 8
+# x S 512 x top-8 on 128 experts x 8 rows, its decode; Mixtral prefill
+# B 2 x S 5120 x top-2 on 8 experts x 2 rows, its decode), one segment for
+# all (every key tied), a valid mask
+MOE_SLOT_CASES = ((1024, 32768, 40, None), (1024, 64, 8, None),
+                  (16, 20480, 1600, None), (16, 4, 8, None), (1, 5000, 64, None),
+                  (64, 20000, 300, 0.6))
+MOE_DENSE_BOUND = 1e-4  # dispatch vs dense, fp32 (tests/test_train_serve.py:94)
 # (K, N) of every linear the six int8 paths quantize: the encoders (9 ->
 # 100, 64, 80), GIN's edge embedding and MLP (also GIN+VN's virtual-node
 # MLPs), GCN's lin, GAT's proj, PNA's pre / post, DGN's post
@@ -2336,19 +2397,156 @@ def coldstart_phase(card: str) -> None:
 # ------------------------------------------------------------ phases 9-9c
 
 
-def lm_bound_err(name: str, got, want) -> float:
-    """max|got - want| / max|want|; raises unless finite, of the same
-    shape and within ``LM_BOUND``."""
+def rel_err(name: str, got, want) -> float:
+    """max|got - want| / max|want|; raises unless finite and of the same
+    shape."""
     import torch
 
     got, want = got.float(), want.float()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: shape {tuple(got.shape)} / {tuple(want.shape)} "
                              f"or not finite")
-    rel = float((got - want).abs().max() / want.abs().max())
-    if not rel <= LM_BOUND:
-        raise AssertionError(f"{name}: max|d| / max|ref| = {rel:.3g} > {LM_BOUND}")
-    return rel
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@contextlib.contextmanager
+def routing(mode: str, calls: list):
+    """``models.moe._route`` observed or forced, one call an MoE layer.
+
+    mode "record": each call appends (its experts (T, k), the gap between
+    each token's k-th and (k+1)-th router logit) to ``calls``.  mode
+    "force": each call takes the experts of the next entry of ``calls`` and
+    weighs them with its own router probabilities (renormalized where the
+    config says): a path teacher-forced on another's routing, as the decode
+    checks are teacher-forced on its tokens.  Raises unless a forced run
+    used every entry."""
+    import torch
+    from repro_torch.models import moe as MOE
+
+    orig = MOE._route
+    pending = iter(calls)
+    used = [0]
+
+    def recorded(p, x2d, cfg, with_aux):
+        out = orig(p, x2d, cfg, with_aux)
+        logits = torch.matmul(x2d.float(), p["router"].float())
+        top = torch.topk(logits, cfg.experts_per_token + 1, dim=-1).values
+        calls.append((out[1].clone(), top[:, -2] - top[:, -1]))
+        return out
+
+    def forced(p, x2d, cfg, with_aux):
+        top_e = next(pending)[0]
+        used[0] += 1
+        if top_e.shape != (x2d.shape[0], cfg.experts_per_token):
+            raise AssertionError(f"forced routing of {tuple(top_e.shape)} for "
+                                 f"{x2d.shape[0]} tokens")
+        probs = torch.softmax(torch.matmul(x2d.float(), p["router"].float()), dim=-1)
+        top_p = torch.gather(probs, 1, top_e)
+        if cfg.norm_topk:
+            top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+        return top_p, top_e, None
+
+    MOE._route = recorded if mode == "record" else forced
+    try:
+        yield calls
+    finally:
+        MOE._route = orig
+    if mode == "force" and used[0] != len(calls):
+        raise AssertionError(f"a forced run took {used[0]} of {len(calls)} routings")
+
+
+def route_flips(ref: list, other: list) -> tuple:
+    """(tokens ``other`` routes to another expert set than ``ref``, token
+    routings, the largest logit gap ``other`` has at such a token; 0 when
+    none): two recordings of the same calls."""
+    import torch
+
+    if len(ref) != len(other):
+        raise AssertionError(f"{len(ref)} routings against {len(other)}")
+    flipped, total, gap = 0, 0, 0.0
+    for (a, _), (b, margin) in zip(ref, other):
+        diff = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        flipped += int(diff.sum())
+        total += diff.numel()
+        if diff.any():
+            gap = max(gap, float(torch.where(diff, margin, 0.0).max()))
+    return flipped, total, gap
+
+
+def dispatch_stats(cfg, calls: list, b: int, s: int) -> tuple:
+    """(the share of (token, expert) assignments each recorded prefill
+    routing, rows of ``s`` tokens, keeps at ``cfg``'s capacity; the largest
+    load of one expert in one row over them)."""
+    import torch
+    from repro_torch.core import scatter_gather as sg
+    from repro_torch.models import moe as MOE
+
+    shares, load = [], 0
+    for top_e, _ in calls:
+        k = top_e.shape[1]
+        seg = top_e.reshape(b, s * k) * b + torch.arange(b, device=top_e.device)[:, None]
+        rank = sg.rank_within_segment(seg.reshape(-1), cfg.num_experts * b)
+        shares.append(float((rank < MOE.capacity(cfg, s)).float().mean()))
+        load = max(load, int(rank.max()) + 1)
+    return shares, load
+
+
+def float_in_place(tree) -> None:
+    """Every tensor of a nested dict / list replaced by its fp32 copy, one
+    at a time (the tree's other references gone, the old leaf is freed)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, w in list(items):
+        if isinstance(w, (dict, list)):
+            float_in_place(w)
+        else:
+            tree[key] = w.float()
+
+
+def decode_after_prefill(params, cfg, tokens, cache_len: int) -> dict:
+    """Decode of the last token after prefill(S-1), against prefill(S)'s
+    last logits, teacher-forced on prefill(S)'s routing (the decode's own
+    attention can flip a near tie).  Returns {"step", "last", "note"}: the
+    note gives the capacity, the largest load of an expert in a row, the
+    routings that differ unforced and the forced error."""
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+
+    full = []
+    with routing("record", full):
+        _, last, _ = lm.prefill(params, {"tokens": tokens}, cfg, cache_len)
+    b, s = tokens.shape
+    k, n_layers = cfg.experts_per_token, len(full)
+    _, load = dispatch_stats(cfg, full, b, s)
+    pre = [top_e.reshape(b, s, k) for top_e, _ in full]
+    shorter = [(p[:, :-1].reshape(-1, k), None) for p in pre]
+    last_tok = [(p[:, -1], None) for p in pre]
+    steps = []
+    with routing("record", steps):
+        cache, _, t = lm.prefill(params, {"tokens": tokens[:, :-1]}, cfg, cache_len)
+        step, _ = lm.decode_step(params, cache, tokens[:, -1:], t, cfg)
+    del cache
+    free = rel_err("", step, last)
+    prefix_flips = route_flips(shorter, steps[:n_layers])[0]
+    step_flips = route_flips(last_tok, steps[n_layers:])
+    with routing("force", shorter + last_tok):
+        cache, _, t = lm.prefill(params, {"tokens": tokens[:, :-1]}, cfg, cache_len)
+        step, _ = lm.decode_step(params, cache, tokens[:, -1:], t, cfg)
+    del cache
+    note = (f"at capacity factor {cfg.capacity_factor:g} (capacity "
+            f"{MOE.capacity(cfg, s)}, largest load {load}): {prefix_flips} prompt-token "
+            f"routings differ from prefill(S)'s, {step_flips[0]} of {step_flips[1]} "
+            f"last-token routings (largest logit gap {step_flips[2]:.3g}); max|d|/max|ref| "
+            f"free {free:.3g}, on prefill(S)'s routing {rel_err('', step, last):.3g}")
+    return {"step": step, "last": last, "note": note}
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors in a nested dict / list."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
 
 
 def eager_generate(params, cfg, scfg, tokens):
@@ -2442,6 +2640,156 @@ def decode_replays(srv, n: int):
     return run
 
 
+def capture_matches_eager(fn):
+    """Under PyTorch's deterministic algorithms: ``fn()`` (a tensor from
+    static inputs) warmed on a side stream, captured into a CUDA graph and
+    replayed, against an eager call.  Returns (bit for bit, capture s)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            out = fn()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        graph.replay()
+        want = fn()
+        torch.cuda.synchronize()
+        return torch.equal(out, want), capture_s
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def moe_layer(arch: str, device, dtype, **overrides):
+    """(config, one MoE layer's parameters) of ``arch`` at full width, drawn
+    on the card from seed 3 in fp32 and cast to ``dtype``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+
+    cfg = get_config(arch, **overrides)
+    p = MOE.moe_init(torch.Generator(device=device).manual_seed(3), cfg)
+    return cfg, {k: w.to(dtype) for k, w in p.items()}
+
+
+def check_moe(device) -> None:
+    """Phase 9m: the MoE path's new code on the card (no kernel of its own:
+    sort, gathers and cuBLAS GEMMs).  Prints one line."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import scatter_gather as sg
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serve.engine import LMServer, ServeConfig
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(9)
+    # 1. the slot helpers on CUDA against the CPU, bit for bit (CUDA's
+    # stable sort: the first `capacity` of a segment in input order)
+    for n_seg, e, cap, share in MOE_SLOT_CASES:
+        ids = torch.from_numpy(rng.integers(0, n_seg, e).astype(np.int32))
+        vals = torch.from_numpy(rng.normal(size=(e, 64)).astype(np.float32))
+        valid = (torch.from_numpy(rng.random(e) < share) if share is not None else None)
+        cpu = sg.dispatch_to_slots(vals, ids, n_seg, cap, valid)
+        gpu = sg.dispatch_to_slots(vals.to(device), ids.to(device), n_seg, cap,
+                                   None if valid is None else valid.to(device))
+        pairs = list(zip(("slots", "slot_index", "kept"), cpu, gpu))
+        pairs += [("combined", sg.combine_from_slots(*cpu), sg.combine_from_slots(*gpu)),
+                  ("rank", sg.rank_within_segment(ids, n_seg),
+                   sg.rank_within_segment(ids.to(device), n_seg))]
+        for name, a, b in pairs:
+            if a.dtype != b.dtype or not torch.equal(a, b.cpu()):
+                raise AssertionError(f"moe slots ({n_seg}, {e}, {cap}, {share}): {name} "
+                                     f"on the card differs from the CPU's")
+    # 2. dispatch against the dense baseline at ample capacity, fp32: JAX's
+    # own case through the model (tests/test_train_serve.py:78-94), then one
+    # layer of each arch at full width and a capacity that keeps every token
+    kw = dict(num_layers=2, d_model=32, num_heads=2, num_kv_heads=2, d_ff=48,
+              vocab_size=64, num_experts=4, experts_per_token=2, family="moe",
+              capacity_factor=4.0, attn_chunk=16, loss_chunk=16, remat=False,
+              dtype="float32")
+    cfg = ModelConfig(**kw).validate()
+    params = lm.init_params(torch.Generator(device=device).manual_seed(1), cfg)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 64, (2, 16))).to(device)}
+    h1, _ = lm.forward_hidden(params, batch, cfg)
+    h2, _ = lm.forward_hidden(params, batch, dataclasses.replace(cfg, moe_impl="dense"))
+    errs = [checked_err("moe dispatch vs dense (JAX's case)", h1, h2,
+                        dict(rtol=MOE_DENSE_BOUND, atol=MOE_DENSE_BOUND))]
+    for arch in ("qwen3-moe-30b-a3b", "mixtral-8x7b"):
+        cfg, p = moe_layer(arch, device, torch.float32)
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                                  / cfg.experts_per_token)
+        x = torch.randn((2, 32, cfg.d_model), generator=torch.Generator(
+            device=device).manual_seed(4), device=device)
+        got, _ = MOE.moe_apply(p, x, cfg)
+        want, _ = MOE.moe_apply(p, x, dataclasses.replace(cfg, moe_impl="dense"))
+        rel = rel_err(f"{arch} moe dispatch vs dense", got, want)
+        if not rel <= MOE_DENSE_BOUND:
+            raise AssertionError(f"{arch} moe dispatch vs dense: max|d|/max|dense| "
+                                 f"{rel:.3g} > {MOE_DENSE_BOUND}")
+        errs.append(rel)
+        del p
+    # 3. captured against eager, bit for bit, under deterministic algorithms:
+    # moe_apply at each arch's served prefill and decode shapes (bf16), then
+    # a reduced Qwen3-MoE server's decode replay against its eager step
+    captures = []
+    for arch, b, s in (("qwen3-moe-30b-a3b", 8, 512), ("qwen3-moe-30b-a3b", 8, 1),
+                       ("mixtral-8x7b", 2, 5120), ("mixtral-8x7b", 2, 1)):
+        cfg, p = moe_layer(arch, device, torch.bfloat16)
+        x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(
+            device=device).manual_seed(5), device=device).to(torch.bfloat16)
+        same, capture_s = capture_matches_eager(lambda: MOE.moe_apply(p, x, cfg, False)[0])
+        if not same:
+            raise AssertionError(f"{arch} moe_apply at (B {b}, S {s}): the replay "
+                                 f"differs from the eager call")
+        captures.append(f"{arch} S {s} {capture_s:.3f}s")
+        del p
+    torch.cuda.empty_cache()
+    cfg = get_reduced("qwen3-moe-30b-a3b", head_dim=64)
+    params = lm.init_params(torch.Generator(device=device).manual_seed(6), cfg)
+    scfg = ServeConfig(max_batch=4, prompt_len=24, cache_len=40, max_new_tokens=8)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (9, 24, 17, 3)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        srv = LMServer(params, cfg, scfg, device=device)
+        gen, _ = srv.generate(prompts)
+        srv.prefill_graph.replay()  # position and step back to the prompt's end
+        state = [srv._tok, srv._pos, srv._step, srv._out] + [
+            w for c in srv._cache for w in c.values()]
+        start = [w.clone() for w in state]
+        srv.decode_graph.replay()
+        replayed = [w.clone() for w in state]
+        for w, w0 in zip(state, start):
+            w.copy_(w0)
+        srv._decode()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(replayed, state)):
+            raise AssertionError("reduced qwen3-moe: the decode replay differs from the "
+                                 "eager step")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise AssertionError("reduced qwen3-moe: tokens out of range")
+    print(f"[moe] slot helpers on the card == the CPU's bit for bit (slots, slot_index, "
+          f"kept, rank, combined) at {len(MOE_SLOT_CASES)} shapes (the served "
+          f"dispatches up to 32768 elements, one tied segment, a valid mask); dispatch "
+          f"vs dense at ample capacity, fp32: JAX's case {errs[0]:.3g}, full-width layer "
+          f"max|d|/max|dense| Qwen3-MoE {errs[1]:.3g}, Mixtral {errs[2]:.3g} (bound "
+          f"{MOE_DENSE_BOUND}); captured moe_apply == eager bit for bit under "
+          f"deterministic algorithms ({', '.join(captures)}); a reduced Qwen3-MoE "
+          f"server's decode replay == its eager step bit for bit (cache, token, "
+          f"output); {time.perf_counter() - t_start:.1f}s")
+
+
 def spread(xs) -> str:
     """"median (min-max)" of a list of seconds, in ms."""
     ms = [x * 1e3 for x in xs]
@@ -2456,6 +2804,7 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
     from repro_torch.serve.engine import LMServer, ServeConfig
     from repro_torch.serve.executor import params_signature
 
@@ -2542,18 +2891,62 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
         return last, torch.stack(logits, 1), n_prefill
 
     forced = torch.from_numpy(gen).to(device)
-    last_k, dec_k, n_prefill = path(srv, forced)
-    last_r, dec_r, n_ref = path(ref_srv, forced)
+    moe = bool(cfg.num_experts)
+    kernel_routes, free_routes = [], []
+    with routing("record", kernel_routes):
+        last_k, dec_k, n_prefill = path(srv, forced)
+    with routing("record", free_routes):
+        last_r, dec_r, n_ref = path(ref_srv, forced)
     if n_prefill != n_layers or n_ref != 0:
         raise AssertionError(f"{arch}: prefill launched flash_attention {n_prefill} times "
                              f"(reference mode {n_ref}); expected {n_layers} and 0")
-    errs = {"prefill": lm_bound_err(f"{arch} prefill logits", last_k, last_r),
-            "decode": lm_bound_err(f"{arch} teacher-forced decode logits", dec_k, dec_r)}
+    moe_note = ""
+    if moe:
+        # the two attentions differ by bf16 roundings, which flip a router's
+        # choice where two experts nearly tie: reported, then the reference
+        # runs again on the kernel path's routing and is held to the bound
+        flips = route_flips(kernel_routes, free_routes)
+        free = (rel_err("", last_k, last_r), rel_err("", dec_k, dec_r))
+        with routing("force", kernel_routes):
+            last_r, dec_r, _ = path(ref_srv, forced)
+        kept, load = dispatch_stats(cfg, kernel_routes[:n_layers], scfg.max_batch,
+                                    scfg.prompt_len)
+        moe_note = (f"; routing against the reference's: {flips[0]} of {flips[1]} token "
+                    f"routings differ (largest logit gap {flips[2]:.3g}), free-routing "
+                    f"max|d|/max|ref| prefill {free[0]:.3g}, decode {free[1]:.3g}; held "
+                    f"on the kernel path's routing; prefill keeps "
+                    f"{statistics.mean(kept):.4f} of its (token, expert) assignments "
+                    f"(layers {min(kept):.4f}-{max(kept):.4f}) at capacity "
+                    f"{MOE.capacity(cfg, scfg.prompt_len)}, largest load of an expert "
+                    f"in a row {load}")
+    failures = []
+
+    def held(name: str, got, want) -> float:
+        """``rel_err``; a failure (raised after the line prints) past
+        ``LM_BOUND``."""
+        rel = rel_err(f"{arch} {name}", got, want)
+        if not rel <= LM_BOUND:
+            failures.append(f"{arch} {name}: max|d| / max|ref| = {rel:.3g} > {LM_BOUND}")
+        return rel
+
+    errs = {"prefill": held("prefill logits", last_k, last_r),
+            "decode": held("teacher-forced decode logits", dec_k, dec_r)}
     # decode after prefill(S - 1) against prefill(S)'s last logits
-    cache, _, t = lm.prefill(params, {"tokens": tokens[:, :-1]}, cfg, scfg.cache_len)
-    step, _ = lm.decode_step(params, cache, tokens[:, -1:], t, cfg)
-    errs["decode_vs_prefill"] = lm_bound_err(f"{arch} decode after prefill(S-1)", step, last_k)
-    del cache
+    if moe:
+        # an MoE path as JAX's test runs it (tests/test_arch_smoke.py:47-57):
+        # in fp32, at a capacity where neither run drops a token, below on a
+        # copy of the weights; here in bf16 for the record
+        cf = max(MOE_CHECK_CF, cfg.num_experts / cfg.experts_per_token)
+        cfg_c = dataclasses.replace(cfg, capacity_factor=cf)
+        bf16_step = decode_after_prefill(params, cfg_c, tokens, scfg.cache_len)
+    else:
+        cache, _, t = lm.prefill(params, {"tokens": tokens[:, :-1]}, cfg, scfg.cache_len)
+        step, _ = lm.decode_step(params, cache, tokens[:, -1:], t, cfg)
+        del cache
+        errs["decode_vs_prefill"] = held("decode after prefill(S-1)", step, last_k)
+    # the reference server's capture holds its plain attention's (B, H, S, S)
+    # buffers in its pool: give it the memory the eager checks left cached
+    torch.cuda.empty_cache()
     ref_gen, _ = ref_srv.generate(prompts)
     agree_tokens = float((ref_gen == gen).mean())
 
@@ -2565,7 +2958,25 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     del cache
     attn = time_decode_attention(arch, cfg, srv)
     captures, capture_s, pool_gb = srv.captures, srv.capture_seconds, srv.pool_bytes / 1e9
-    del srv, ref_srv, params
+    if moe:
+        # a dispatch decode step runs every expert's GEMMs over its slots,
+        # so it reads every weight but the embedding's rows
+        read = tree_bytes(params) - (0 if cfg.tie_embeddings else tree_bytes(params["embed"]))
+        floor = read / PEAK_HBM_BYTES_S * 1e3
+        med = statistics.median(r[1] for r in graph_runs) * 1e3
+        moe_note += (f"; decode weight-read floor {read / 1e9:.3f} GB = {floor:.3f} ms/token "
+                     f"at {PEAK_HBM_BYTES_S / 1e12:.2f} TB/s (graph decode {med / floor:.2f}x)")
+    del srv, ref_srv
+    if moe:
+        moe_note += f"; decode after prefill(S-1), bf16 {bf16_step['note']}"
+        float_in_place(params)
+        torch.cuda.empty_cache()
+        fp32 = decode_after_prefill(params, dataclasses.replace(cfg_c, dtype="float32"),
+                                    tokens, scfg.cache_len)
+        errs["decode_vs_prefill"] = held("decode after prefill(S-1), fp32", fp32["step"],
+                                         fp32["last"])
+        moe_note += f"; fp32 (held) {fp32['note']}"
+    del params
     torch.cuda.empty_cache()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     col = lambda runs, i: spread([r[i] for r in runs])
@@ -2590,7 +3001,9 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
           f"{attn['ms'] * 1e3:.2f} us a layer ({attn['ops']} ops; the JAX form "
           f"{attn['jax_form_ms'] * 1e3:.2f} us; bound {attn['bound_ms'] * 1e3:.2f} us, "
           f"{attn['bound_by']}; err {attn['max_abs_err']:.3g}); peak memory "
-          f"{peak_gb:.1f} GB")
+          f"{peak_gb:.1f} GB{moe_note}")
+    if failures:
+        raise AssertionError("; ".join(failures))
     return launches, replays
 
 
@@ -3045,8 +3458,8 @@ def time_flash_attention(device, launches: int, by_route: dict) -> dict:
 
 
 def run(device) -> list:
-    """Phases 2-7b, 6, 6c, 6b, 10, 9-9c and 8 on ``device``; returns the
-    kernels' JSON rows."""
+    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9e and 8 on ``device``; returns
+    the kernels' JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
     check_segment_reduce(device)
@@ -3071,6 +3484,7 @@ def run(device) -> list:
     paths.update(layout_launches)
     paths.update(stream_phase(device, device_line()))
     coldstart_phase(device_line())
+    check_moe(device)
     lm_replays = {}
     for arch, overrides, serve_kw, lengths in LM_PATHS:
         paths[arch], replays = serve_lm(arch, overrides, serve_kw, lengths, device)
@@ -3109,6 +3523,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     build_kernels()
     card = device_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3117,6 +3532,7 @@ def main() -> int:
           f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     rows = run(torch.device("cuda"))
+    print(f"[total] {time.perf_counter() - t0:.1f}s, the kernels' build included")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """Model configurations of the port.
 
 ``gengnn_models`` holds the paper's six GNNs.  The LM registry lists the
-dense GQA decoders the port serves (copies of ``repro.configs``' modules of
-the same names): ``get_config(arch)`` gives the published configuration,
-``get_reduced(arch)`` the same-family smoke-test reduction.  The JAX
-package's other seven architectures (MoE, MLA, hybrid/SSM, VLM, audio)
-need modules the port does not have yet.
+decoders the port serves (copies of ``repro.configs``' modules of the same
+names): the dense GQA family and the MoE family.  ``get_config(arch)``
+gives the published configuration, ``get_reduced(arch)`` the same-family
+smoke-test reduction.  The JAX package's other five architectures (MLA,
+hybrid/SSM, VLM, audio) need modules the port does not have yet.
 """
 from importlib import import_module
 
@@ -13,6 +13,8 @@ REGISTRY = {
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
 }
 
 ARCHS = tuple(REGISTRY)

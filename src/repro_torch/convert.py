@@ -10,7 +10,9 @@ whose leaves ``tree_map`` turns into numpy arrays) converts into the port's
 int8 weights stay int8 and every other numeric field becomes float32.
 
 ``from_jax_lm_params`` converts the LM substrate's tree (``repro.models.lm``'s
-``P.values(init_params(...))``, leaves as numpy), keeping each leaf's type.
+``P.values(init_params(...))``, leaves as numpy), keeping each leaf's type:
+the MoE layers' ``router``, ``wi`` and ``wo`` map leaf for leaf like the
+rest, with or without ``kv_pad_to``.
 """
 from __future__ import annotations
 

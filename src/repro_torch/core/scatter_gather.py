@@ -6,6 +6,14 @@ JAX segment ops silently drop ids outside ``[0, num_segments)``;
 therefore routes such ids to a sink row ``num_segments`` and slices it off,
 which reproduces the JAX semantics (padding edges and padded nodes carry
 out-of-range ids by design).
+
+The slot helpers (``rank_within_segment``, ``dispatch_to_slots``,
+``combine_from_slots``) are the MoE routing's merged scatter-gather:
+one stable sort, a rank within each segment, a bounded slot buffer.  They
+read nothing back to the host, so a CUDA graph can capture them, and they
+write no index twice: the slots are gathered from the sorted order, not
+scattered into (JAX scatters, and only its discarded sink row sees
+duplicate writes).
 """
 from __future__ import annotations
 
@@ -94,6 +102,72 @@ def sort_by_segment(
     probe = torch.arange(num_segments + 1, dtype=torch.int32, device=ids.device)
     offsets = torch.searchsorted(ids_sorted, probe, side="left")
     return perm.to(torch.int32), ids_sorted, offsets.to(torch.int32)
+
+
+def _rank(ids: torch.Tensor, num_segments: int):
+    """(perm, offsets, rank) of int32 ``ids`` in [0, num_segments]: the
+    stable sort and each element's position within its segment."""
+    perm, _, offsets = sort_by_segment(ids, num_segments)
+    # index within the sorted run = sorted position - segment start
+    seg_start = offsets[ids.clamp(0, num_segments)[perm.long()].long()]
+    rank_sorted = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device) - seg_start
+    # back to input order (perm is a permutation: no index written twice)
+    rank = torch.empty_like(rank_sorted).index_copy_(0, perm.long(), rank_sorted)
+    return perm, offsets, rank
+
+
+def rank_within_segment(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Position of each element within its segment (0-based, int32), in
+    input order: the stable sort makes the first element of a segment
+    rank 0.  The capacity-slot assignment of :func:`dispatch_to_slots`."""
+    return _rank(segment_ids.to(torch.int32), num_segments)[2]
+
+
+def dispatch_to_slots(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    capacity: int,
+    valid: torch.Tensor | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gather ``values`` (E, F) into a dense (num_segments, capacity, F)
+    slot array: element -> segment with bounded fan-in.  The first
+    ``capacity`` elements of a segment, in input order, are kept; the rest
+    and those with ``valid`` False are dropped (the GShard / Switch
+    semantics, a bounded FPGA FIFO).  Ids lie in [0, num_segments).
+
+    Returns (slots, slot_index, kept): slot_index (E,) int32 is
+    ``capacity * segment + rank`` for a kept element and the sink
+    ``num_segments * capacity`` for a dropped one; kept (E,) bool.  Slot
+    (s, j) holds the element at sorted position offsets[s] + j, when that
+    lies inside segment s, else zeros: the same array as JAX's scatter.
+    """
+    e, f = values.shape
+    ids = segment_ids.to(torch.int32)
+    if valid is not None:
+        ids = torch.where(valid, ids, torch.full_like(ids, num_segments))
+    perm, offsets, rank = _rank(ids, num_segments)
+    kept = (rank < capacity) & (ids < num_segments)
+    slot = torch.where(kept, ids * capacity + rank,
+                       torch.full_like(ids, num_segments * capacity))
+    pos = offsets[:-1, None] + torch.arange(capacity, dtype=torch.int32,
+                                            device=ids.device)
+    filled = pos < offsets[1:, None]  # (num_segments, capacity)
+    if e == 0:
+        return (values.new_zeros((num_segments, capacity, f)), slot, kept)
+    src = perm[pos.clamp(max=e - 1).reshape(-1).long()]
+    slots = values.index_select(0, src.long()).reshape(num_segments, capacity, f)
+    return slots.masked_fill_(~filled[..., None], 0), slot, kept
+
+
+def combine_from_slots(slots: torch.Tensor, slot_index: torch.Tensor,
+                       kept: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`dispatch_to_slots`: each element's slot row,
+    zeros for a dropped element (the identity of a sum-combine)."""
+    num_segments, capacity, f = slots.shape
+    flat = slots.reshape(num_segments * capacity, f)
+    safe = slot_index.clamp(max=num_segments * capacity - 1).long()
+    return flat.index_select(0, safe).masked_fill_(~kept[:, None], 0)
 
 
 def sorted_segment_reduce(

@@ -1,2 +1,2 @@
-"""The port's LM substrate: the dense decoder family (config, layers,
-transformer stack, lm)."""
+"""The port's LM substrate: the dense and MoE decoder families (config,
+layers, moe, transformer stack, lm)."""

@@ -1,5 +1,5 @@
-"""Top-level decoder-only language model of the dense family: embeddings,
-stack, head, prefill and decode (port of ``repro.models.lm``).
+"""Top-level decoder-only language model of the dense and MoE families:
+embeddings, stack, head, prefill and decode (port of ``repro.models.lm``).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``blocks`` (``transformer.stack_init``'s list) and, untied, ``lm_head``
@@ -33,7 +33,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     or more dimensions (the stacked block norms included) is cast to the
     model dtype and the rest stay fp32.  Each block position is cast as
     soon as it is drawn, so at most one position's stacked leaves exist in
-    fp32 at a time (ChatGLM3-6B: 16.4 GB)."""
+    fp32 at a time (ChatGLM3-6B: 16.4 GB; Mixtral-8x7B at 4 layers: 23 GB,
+    its experts' ``wi`` 15 GB of it)."""
     dt = _dt(cfg)
     cast = lambda t: t.to(dt) if t.dim() >= 2 else t
     p: dict = {"embed": cast(P.init_normal(gen, (cfg.vocab_size, cfg.d_model))),
@@ -69,11 +70,12 @@ def logits_fn(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 
 def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
                    kernel_mode: str = "auto"):
-    """Forward to the final hidden states (B, S, D).  batch: {"tokens":
-    (B, S)}."""
+    """Forward to the final hidden states.  batch: {"tokens": (B, S)}.
+    Returns (hidden (B, S, D), aux_loss): aux the fp32 MoE load-balance
+    loss summed over layers (0 for a dense model), as JAX's."""
     x = embed_tokens(params, batch["tokens"], cfg)
-    x, _ = T.stack_apply(params["blocks"], x, cfg, kernel_mode=kernel_mode)
-    return L.rms_norm(x, params["final_norm"])
+    x, _, aux = T.stack_apply(params["blocks"], x, cfg, kernel_mode=kernel_mode)
+    return L.rms_norm(x, params["final_norm"]), aux
 
 
 # ---------------------------------------------------------------------------
@@ -102,8 +104,8 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int,
     if s > cache_len:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of {cache_len}")
     x = embed_tokens(params, tokens, cfg)
-    x, captured = T.stack_apply(params["blocks"], x, cfg, mode="prefill",
-                                   kernel_mode=kernel_mode)
+    x, captured, _ = T.stack_apply(params["blocks"], x, cfg, mode="prefill",
+                                      kernel_mode=kernel_mode)
     hidden = L.rms_norm(x, params["final_norm"])
     last_logits = logits_fn(params, hidden[:, -1:], cfg)[:, 0]
     owned = cache is not None
@@ -132,7 +134,7 @@ def decode_step(params: dict, cache: list, tokens: torch.Tensor, t,
     Returns (logits (B, V), cache).
     """
     x = embed_tokens(params, tokens, cfg)
-    x, cache = T.stack_apply(params["blocks"], x, cfg, mode="decode",
-                                cache=cache, t=t)
+    x, cache, _ = T.stack_apply(params["blocks"], x, cfg, mode="decode",
+                                   cache=cache, t=t)
     hidden = L.rms_norm(x, params["final_norm"])
     return logits_fn(params, hidden[:, 0], cfg), cache

@@ -1,15 +1,19 @@
-"""Decoder stack of the dense family (port of ``repro.models.transformer``).
+"""Decoder stack of the dense and MoE families (port of
+``repro.models.transformer``).
 
 Layers are grouped into super-blocks of ``cfg.group_size`` (the pattern
-period: Gemma-3's 5:1 local:global = 6, dense models = 1).  Parameters of
-position ``pos`` in the group are stacked over the ``num_groups`` axis,
-``(G, ...)``, as in JAX, so a converted JAX tree maps leaf for leaf; the
-stack runs the groups as a Python loop (JAX's ``stack_mode="unroll"``).
+period: Gemma-3's 5:1 local:global = 6, dense and every-layer MoE models
+= 1).  Parameters of position ``pos`` in the group are stacked over the
+``num_groups`` axis, ``(G, ...)``, as in JAX, so a converted JAX tree maps
+leaf for leaf; the stack runs the groups as a Python loop (JAX's
+``stack_mode="unroll"``).
 
-Only the attention mixer with a dense MLP is ported; the MoE, Mamba, RWKV,
-VLM and audio branches raise ``NotImplementedError`` naming their ROADMAP
-item.  Without MoE there is no auxiliary loss, so JAX's ``aux`` is not
-returned.
+The attention mixer is ported with both FFNs, the dense MLP and the MoE
+(``models.moe``); the MLA, Mamba, RWKV, VLM and audio branches raise
+``NotImplementedError`` naming their ROADMAP item.  ``stack_apply``
+returns JAX's third element, the MoE load-balance loss summed over layers,
+in train mode (``forward_hidden``); JAX's compiled prefill and decode
+discard it, and the port's do not compute it (None).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
 _LATER = "is not ported yet (ROADMAP queue 1, item 12: {})"
@@ -33,8 +38,6 @@ def _check_supported(cfg: ModelConfig, pos: int) -> None:
                                   + _LATER.format("hybrid and SSM"))
     if cfg.attention == "mla":
         raise NotImplementedError("MLA " + _LATER.format("MiniCPM3"))
-    if cfg.ffn_kind(pos) == "moe":
-        raise NotImplementedError("the MoE FFN " + _LATER.format("Mixtral, Qwen3-MoE"))
 
 
 # ---------------------------------------------------------------------------
@@ -47,7 +50,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, pos: int, stack=()) -> di
     return {"ln1": L.rms_norm_init(cfg.d_model, stack, gen.device),
             "ln2": L.rms_norm_init(cfg.d_model, stack, gen.device),
             "mixer": L.gqa_init(gen, cfg, stack),
-            "ffn": L.mlp_init(gen, cfg, stack)}
+            "ffn": (MOE.moe_init(gen, cfg, stack) if cfg.ffn_kind(pos) == "moe"
+                    else L.mlp_init(gen, cfg, stack))}
 
 
 def block_cache_init(cfg: ModelConfig, pos: int, batch: int, seq: int, dtype,
@@ -63,7 +67,8 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
                 mode: str = "train", cache: Optional[dict] = None,
                 t=None, positions: Optional[torch.Tensor] = None,
                 kernel_mode: str = "auto"):
-    """Returns (x, cache_out).
+    """Returns (x, cache_out, aux): aux the MoE layer's load-balance loss in
+    train mode, else None.
 
     mode="train":   cache_out = {}.
     mode="prefill": cache_out holds the prompt's K/V (B, S, ...).
@@ -83,8 +88,13 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
     if decode or mode == "prefill":
         cache_out["k"], cache_out["v"] = kvc
     x = x + out
-    out2 = L.mlp_apply(p["ffn"], L.rms_norm(x, p["ln2"]), cfg)
-    return x + out2, cache_out
+    h2 = L.rms_norm(x, p["ln2"])
+    aux = None
+    if cfg.ffn_kind(pos) == "moe":
+        out2, aux = MOE.moe_apply(p["ffn"], h2, cfg, with_aux=mode == "train")
+    else:
+        out2 = L.mlp_apply(p["ffn"], h2, cfg)
+    return x + out2, cache_out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -113,16 +123,20 @@ def stack_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype,
 def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
                 cache: Optional[list] = None, t=None,
                 positions: Optional[torch.Tensor] = None, kernel_mode: str = "auto"):
-    """Run all layers.  Returns (x, cache_out).
+    """Run all layers.  Returns (x, cache_out, aux).
 
     mode="prefill": cache_out is list[pos] of dicts of per-group lists of
     the K/V each layer produced (``lm.prefill`` writes them into its cache).
     mode="decode": ``cache`` (list[pos] of (G, ...) stacked dicts) is
     updated in place at ``t`` (an int or a device tensor, passed down to
-    every layer) and returned.  mode="train": cache_out is None.
+    every layer) and returned.  mode="train": cache_out is None and aux the
+    fp32 sum of the layers' load-balance losses, in JAX's order (0 without
+    an MoE layer); in the other modes aux is None.
     """
     gs = cfg.group_size
     captured = [dict() for _ in range(gs)] if mode == "prefill" else None
+    aux = (torch.zeros((), dtype=torch.float32, device=x.device) if mode == "train"
+           else None)
     for g in range(cfg.num_groups):
         for pos in range(gs):
             gp = {name: (leaf[g] if not isinstance(leaf, dict)
@@ -130,9 +144,11 @@ def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "tr
                   for name, leaf in groups[pos].items()}
             c = ({k: w[g] for k, w in cache[pos].items()} if cache is not None
                  else None)
-            x, nc = block_apply(gp, x, cfg, pos, mode=mode, cache=c, t=t,
-                                positions=positions, kernel_mode=kernel_mode)
+            x, nc, a = block_apply(gp, x, cfg, pos, mode=mode, cache=c, t=t,
+                                   positions=positions, kernel_mode=kernel_mode)
+            if a is not None:
+                aux = aux + a
             if captured is not None:
                 for k, val in nc.items():
                     captured[pos].setdefault(k, []).append(val)
-    return x, (cache if mode == "decode" else captured)
+    return x, (cache if mode == "decode" else captured), aux

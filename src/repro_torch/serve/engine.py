@@ -25,6 +25,10 @@ On the CPU (``device="cpu"``) the same two functions run eagerly over the
 same state.  Every duration is read through the injected ``Clock`` and
 each timed region ends at ``torch.cuda.synchronize()`` on the card.
 
+Dense and MoE decoders serve alike: the MoE layers' routing (top-k, the
+slot dispatch's sort and gathers) reads nothing back to the host, so the
+graphs capture it with the rest.
+
 Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 raises if CUDA is missing.  ``mode`` goes to the attention's kernel
 dispatch (``kernels.ops``), as ``GNNEngine``'s does.

@@ -1,12 +1,13 @@
-"""The port's dense LM serving path (``repro_torch.models``,
+"""The port's LM serving path (``repro_torch.models``,
 ``repro_torch.serve.engine``) against the JAX package's, on the CPU.
 
 For the reduced ChatGLM3, Gemma-3 (window 8 across its 5:1 local:global
-group) and StarCoder2 configs in float32, JAX's ``init_params(PRNGKey(0))``
-is converted with ``convert.from_jax_lm_params`` and both packages run the
-same numpy tokens:
+group), StarCoder2, Qwen3-MoE (8 experts, top-2 renormalized, QK-norm) and
+Mixtral (4 experts, top-2, window 8) configs in float32, JAX's
+``init_params(PRNGKey(0))`` is converted with ``convert.from_jax_lm_params``
+and both packages run the same numpy tokens:
 
-  * ``forward_hidden``, ``prefill`` (cache contents and ``last_logits``) and
+  * ``forward_hidden`` (its MoE load-balance loss at rtol 1e-5), ``prefill`` (cache contents and ``last_logits``) and
     four teacher-forced ``decode_step`` logits at rtol = atol = 1e-4 (fp32
     matmuls summed in another order; the port's prefill attention is the
     quadratic plain version on the CPU, JAX's the blocked online softmax);
@@ -102,8 +103,8 @@ def arch_case(request):
     srv = JLMServer(jp, cfg, JServeConfig(**SERVE))
     rng = np.random.default_rng(7)
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    fwd = jax.jit(lambda p, b: JLM.forward_hidden(p, b, cfg)[0])
-    hidden = np.array(fwd(jp, {"tokens": jnp.asarray(tokens)}))
+    fwd = jax.jit(lambda p, b: JLM.forward_hidden(p, b, cfg))
+    hidden, aux = (np.array(a) for a in fwd(jp, {"tokens": jnp.asarray(tokens)}))
     cache, last, t = srv._prefill(jp, {"tokens": jnp.asarray(tokens)})
     # copies: the compiled decode donates the cache it is given
     cache_np, last, t0 = jax.tree_util.tree_map(np.array, cache), np.array(last), int(t)
@@ -122,7 +123,7 @@ def arch_case(request):
     (prompts, gen, gaps), second = served
     return dict(arch=arch, cfg=get_reduced(arch, dtype="float32"),
                 params=from_jax_lm_params(jp_np), tokens=tokens, steps=steps,
-                hidden=hidden, last=last, t0=t0, cache=cache_np, decode=dec,
+                hidden=hidden, aux=aux, last=last, t0=t0, cache=cache_np, decode=dec,
                 prompts=prompts, generated=gen, gaps=gaps, second=second)
 
 
@@ -142,9 +143,12 @@ def _assert_tokens_match(got, want, gaps):
 
 def test_forward_hidden_matches_jax(arch_case):
     c = arch_case
-    hidden = TLM.forward_hidden(c["params"], {"tokens": torch.from_numpy(c["tokens"])},
-                                c["cfg"])
+    hidden, aux = TLM.forward_hidden(c["params"], {"tokens": torch.from_numpy(c["tokens"])},
+                                     c["cfg"])
     _close(hidden, c["hidden"])
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    _close(aux, c["aux"], dict(rtol=1e-5, atol=0))
+    assert (float(aux) > 0) == bool(c["cfg"].num_experts)
 
 
 def test_prefill_and_decode_match_jax(arch_case):
@@ -255,8 +259,8 @@ def test_kv_padding_is_semantics_preserving():
     assert cfg1.kv_heads_effective == 8 and cfg0.kv_heads_effective == 2
     params = TLM.init_params(torch.Generator().manual_seed(0), cfg0)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg0.vocab_size, (B, S)))
-    h0 = TLM.forward_hidden(params, {"tokens": tokens}, cfg0)
-    h1 = TLM.forward_hidden(params, {"tokens": tokens}, cfg1)
+    h0, _ = TLM.forward_hidden(params, {"tokens": tokens}, cfg0)
+    h1, _ = TLM.forward_hidden(params, {"tokens": tokens}, cfg1)
     np.testing.assert_allclose(_np(h0), _np(h1), rtol=1e-5, atol=1e-5)
     cache, _, _ = TLM.prefill(params, {"tokens": tokens}, cfg1, S)
     jcache = JLM.init_cache(jget_reduced("starcoder2-15b", dtype="float32", kv_pad_to=8),
@@ -314,7 +318,7 @@ def test_unported_families_raise():
     from repro_torch.models.config import ModelConfig
 
     gen = torch.Generator().manual_seed(0)
-    for kw, what in ((dict(num_experts=4, experts_per_token=2), "MoE"),
+    for kw, what in ((dict(attention="mla"), "MLA"),
                      (dict(attention="none", ssm_type="mamba"), "mamba"),
                      (dict(family="audio"), "audio")):
         with pytest.raises(NotImplementedError, match=what):
@@ -348,8 +352,9 @@ def test_layer_helpers_match_jax():
 def test_launcher_serves_reduced_lm_on_cpu(capsys):
     from repro_torch.launch.serve import main
 
-    main(["--arch", "chatglm3-6b", "--reduced", "--device", "cpu", "--max-new", "3"])
-    out = capsys.readouterr().out
-    assert "generated:" in out and "ms/token" in out
+    for arch in ("chatglm3-6b", "qwen3-moe-30b-a3b"):
+        main(["--arch", arch, "--reduced", "--device", "cpu", "--max-new", "3"])
+        out = capsys.readouterr().out
+        assert "generated:" in out and "ms/token" in out
     with pytest.raises(SystemExit):
         main(["--arch", "chatglm3-6b", "--gnn", "gin", "--device", "cpu"])

@@ -35,8 +35,10 @@ GQA_TOL = dict(rtol=1e-5, atol=1e-5)
 B, S_CACHE, D = 2, 24, 16
 # (kind, window, softcap) of each decode_attention case
 ATTN_KINDS = (("plain", 0, 0.0), ("window", 5, 0.0), ("softcap", 0, 3.0))
-# arch -> kv_pad_to giving tied KV copies at the reduced size (heads 4 / 4 / 8)
-PADS = {"chatglm3-6b": 4, "gemma3-12b": 4, "starcoder2-15b": 8}
+# arch -> kv_pad_to giving tied KV copies at the reduced size (heads 4 / 4 / 8
+# / 4 / 4)
+PADS = {"chatglm3-6b": 4, "gemma3-12b": 4, "starcoder2-15b": 8,
+        "qwen3-moe-30b-a3b": 4, "mixtral-8x7b": 4}
 
 
 def _np(t):

@@ -16,11 +16,13 @@ within the quantization-noise bound of ``tests/test_torch_quant.py``.
 another order), bf16 1.6e-2 + 1.6e-2 |plain| (two bf16 ulps at 1); the fp32
 LM server against its reference mode 1e-4, and the LM server's CUDA graphs
 give the eager loop's tokens exactly (the same kernels on the same
-inputs).  The
+inputs); an MoE server's captured decode step gives its eager step's
+cache and token bit for bit under deterministic algorithms.  The
 numpy operand helpers are shared with ``tests/test_torch_kernels.py``,
 ``tests/test_torch_segment_kernels.py`` and ``tests/test_torch_quant.py``.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -40,6 +42,10 @@ from repro_torch.kernels import segment_reduce as SR
 from repro_torch.kernels import segment_times as ST
 
 torch.set_num_threads(1)
+
+# cuBLAS under PyTorch's deterministic algorithms needs its workspace set
+# before the process's first GEMM: 8 buffers of 4 MiB
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 PNA_TOL = dict(rtol=5e-3, atol=5e-3)
@@ -950,8 +956,80 @@ def _eager_greedy(params, cfg, scfg, prompts, device):
     return torch.stack(out, 1).cpu().numpy()[:len(prompts)]
 
 
+def test_moe_lm_server_on_card_matches_reference(cuda):
+    """Reduced Qwen3-MoE in fp32: the server's flash-kernel prefill and its
+    decode logits, teacher-forced on the server's tokens, against its
+    reference mode (plain attention on the card); the first ``generate``
+    launches 2 x num_layers flash kernels (warm + capture), a second one
+    none and gives the same tokens."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import LMServer, ServeConfig
+
+    cfg = get_reduced("qwen3-moe-30b-a3b", dtype="float32")
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    scfg = ServeConfig(max_batch=2, prompt_len=24, cache_len=40, max_new_tokens=6)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (13, 24)]
+    before = FA.launches
+    srv = LMServer(params, cfg, scfg, device=cuda)
+    gen, _ = srv.generate(prompts)
+    np.testing.assert_array_equal(srv.generate(prompts)[0], gen)
+    assert FA.launches == before + 2 * cfg.num_layers
+    assert ((gen >= 0) & (gen < cfg.vocab_size)).all()
+    toks = np.zeros((2, 24), np.int64)
+    for i, pr in enumerate(prompts):
+        toks[i, -len(pr):] = pr
+    tokens = torch.from_numpy(toks).to(cuda)
+    forced = torch.from_numpy(gen).to(cuda)
+    outs = []
+    for mode in ("kernel", "reference"):
+        cache, last, t = lm.prefill(params, {"tokens": tokens}, cfg, 40, kernel_mode=mode)
+        steps = [last]
+        for i in range(gen.shape[1]):
+            logits, cache = lm.decode_step(params, cache, forced[:, i:i + 1], t + i, cfg)
+            steps.append(logits)
+        outs.append(torch.stack(steps))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+def test_moe_decode_replay_equals_the_eager_step(cuda):
+    """Under deterministic algorithms a reduced Qwen3-MoE server's captured
+    decode step (top-k routing, the slot dispatch's sort and gathers, the
+    expert GEMMs) gives its eager step's cache, token and output bit for
+    bit from the same state."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import LMServer, ServeConfig
+
+    cfg = get_reduced("qwen3-moe-30b-a3b", head_dim=64)
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(6), cfg)
+    scfg = ServeConfig(max_batch=4, prompt_len=24, cache_len=40, max_new_tokens=8)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (9, 24, 17, 3)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        srv = LMServer(params, cfg, scfg, device=cuda)
+        srv.generate(prompts)
+        srv.prefill_graph.replay()  # position and step back to the prompt's end
+        state = [srv._tok, srv._pos, srv._step, srv._out] + [
+            w for c in srv._cache for w in c.values()]
+        start = [w.clone() for w in state]
+        srv.decode_graph.replay()
+        replayed = [w.clone() for w in state]
+        for w, w0 in zip(state, start):
+            w.copy_(w0)
+        srv._decode()
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(a, b) for a, b in zip(replayed, state))
+    assert not all(torch.equal(a, b) for a, b in zip(replayed, start))  # a step ran
+
+
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-@pytest.mark.parametrize("arch", ("chatglm3-6b", "gemma3-12b", "starcoder2-15b"))
+@pytest.mark.parametrize("arch", ("chatglm3-6b", "gemma3-12b", "starcoder2-15b",
+                                  "qwen3-moe-30b-a3b", "mixtral-8x7b"))
 def test_lm_graphs_give_the_eager_loops_tokens(cuda, arch, dtype):
     """The captured prefill and decode step give the eager loop's tokens,
     token for token; a second ``generate`` captures nothing; a prefill
