@@ -195,11 +195,13 @@ fails the run), then runs these phases, one line each:
               (B 8, Hq 32, Hkv 16 and 2, D 128, S 512, 1, 37, 1000, in the
               serving path's (B, S, H, D) layout) and Gemma-3-12B's layers
               (B 2, Hq 16, Hkv 16 and 8, D 256, S 2048, window 0 and 1024),
-              one softcap case, fp32 and bf16 (fp32 |kernel - plain| <= 1e-5
-              + 1e-5 |plain|, fp32 products summed in another order; bf16
-              1.6e-2 + 1.6e-2 |plain|, two bf16 ulps at 1); each case runs on
-              the route ``flash_attention.route`` names (bf16: mma, fp32:
-              simt)
+              one softcap case, and MiniCPM3-4B's MLA prefill, the (D, Dv) =
+              (96, 64) instance (H 40, B 2 at S 1, 63, 65 and B 8 at S 1025),
+              fp32 and bf16 (fp32 |kernel - plain| <= 1e-5 + 1e-5 |plain|,
+              fp32 products summed in another order; bf16 1.6e-2 + 1.6e-2
+              |plain|, two bf16 ulps at 1); each case runs on the route
+              ``flash_attention.route`` names (bf16: mma, fp32: simt), and
+              the (96, 64) bf16 cases on the simt route too
   9. LM       ChatGLM3-6B served at full width and depth (28 layers, bf16,
               random weights from a CUDA generator seeded 0) through
               ``LMServer.generate``: 8 prompts of 256-512 tokens, prompt_len
@@ -208,7 +210,7 @@ fails the run), then runs these phases, one line each:
               CUDA graph (the counters: flash_attention 2 x 28, warm +
               capture, all on the mma route, nothing else); by the
               profiler a prefill replay runs 28 mma flash kernels and a
-              decode replay none.  Then 5 runs each of generate (graphs,
+              decode replay none.  Then 3 runs each of generate (graphs,
               capturing and launching nothing more) and of the eager loop
               of ``lm.prefill`` / ``lm.decode_step``: the same tokens,
               token for token, in every run; against an
@@ -263,8 +265,26 @@ fails the run), then runs these phases, one line each:
               capacity factor max(8, E / k) (JAX's test's 8, or the factor
               at which a row's capacity holds every token), on prefill(S)'s
               routing, and is printed in bf16; they print the share of a prefill's (token,
-              expert) assignments kept at capacity and the decode step's
-              weight-read floor (every expert's weights a step)
+              expert) assignments kept at capacity.  Every LM path prints
+              its decode step's weight-read floor (every weight but the
+              embedding's rows; an MoE step reads every expert's)
+  9f. LM      MiniCPM3-4B at full width and depth (62 layers, MLA: q_lora
+              768, kv_lora 256, nope 64 + rope 32, v 64, 40 heads): B 8,
+              prompts of 512-1024 tokens, prompt_len 1024, cache_len 1280,
+              32 new tokens; the checks of 9-9c, 62 mma flash launches a
+              prefill replay, all at (96, 64); the absorbed decode
+              (``layers.mla_decode_attention``) a layer beside the JAX form
+              (fp32 cache copies) and its bytes bound
+  9g. LM      Jamba-v0.1 at full width, 8 of its 32 layers (one period: 7
+              Mamba + 1 attention, 4 MoE layers of 16 experts top-2 and 4
+              dense): B 4, prompts of 512-1024 tokens, prompt_len 1024,
+              cache_len 1280, 16 new tokens; the checks of 9d / 9e, 1 mma
+              flash launch a prefill replay
+  9h. LM      RWKV6-1.6B at full width and depth (24 layers, no
+              attention): B 8, prompts of 256-512 tokens, prompt_len 512,
+              cache_len 576, 32 new tokens; the checks of 9-9c, no flash
+              launch (its prefill graph holds the per-token scan: 3
+              kernels a token a layer)
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after; a wrapper counts where it
               runs: the eager warm forward and the launches recorded into
@@ -285,13 +305,14 @@ fails the run), then runs these phases, one line each:
               quantization's eager ops, then the int8 entry), beside the
               probe on its 128 blocks (fused_mp fp32 at GIN's, PNA's and GCN's shapes, int8
               at GIN's and PNA's, each with its destinations per block and
-              its live tiles); flash_attention at ChatGLM3's prefill shape and at
-              Gemma-3's global layer (bf16, causal) against
+              its live tiles); flash_attention at ChatGLM3's prefill shape,
+              Gemma-3's global layer and MiniCPM3's MLA prefill (bf16,
+              causal; the (96, 64) instance its own kernels row) against
               ``scaled_dot_product_attention``, and there the CUDA-core
               (simt) route forced on the same bf16 tensors, the design the
               mma route replaces on this path; its launches per replay
-              include the LM programs' (a prefill replay num_layers, a
-              decode replay 0; the MoE paths' too)
+              include the LM programs' (a prefill replay one an attention
+              layer, a decode replay 0)
 
 It prints its total seconds, the card line and a JSON object of the
 kernels before the last line, and ends with ``{"ok": true, "device": {...}}``.  Any mismatch or
@@ -347,8 +368,20 @@ LM_PATHS = (("chatglm3-6b", {}, dict(max_batch=8, prompt_len=512, cache_len=1024
             # prompts past the 4096 window
             ("mixtral-8x7b", dict(num_layers=4),
              dict(max_batch=2, prompt_len=5120, cache_len=5376, max_new_tokens=8),
-             (4352, 5120)))
-LM_RUNS = 5  # generate (graphs) and the eager loop, each, per LM path
+             (4352, 5120)),
+            # MLA: the flash kernel's (96, 64) instance in all 62 layers
+            ("minicpm3-4b", {},
+             dict(max_batch=8, prompt_len=1024, cache_len=1280, max_new_tokens=32),
+             (512, 1024)),
+            # one period of the hybrid: 7 Mamba + 1 attention layer, 4 MoE
+            ("jamba-v0.1-52b", dict(num_layers=8),
+             dict(max_batch=4, prompt_len=1024, cache_len=1280, max_new_tokens=16),
+             (512, 1024)),
+            # attention-free: no kernel on the path
+            ("rwkv6-1.6b", {},
+             dict(max_batch=8, prompt_len=512, cache_len=576, max_new_tokens=32),
+             (256, 512)))
+LM_RUNS = 3  # generate (graphs) and the eager loop, each, per LM path
 # the decode-after-prefill check of an MoE path runs as JAX's
 # tests/test_arch_smoke.py:47-57 does, in fp32 (on a copy of the weights)
 # and where neither run drops a token: at capacity factor 8, or E / k where
@@ -584,31 +617,55 @@ def call_ms(fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
-PROFILE_TRIES = 4
+# sessions of one device_events call; each may replay a decode graph once,
+# so at most the smallest max_new_tokens of LM_PATHS (8)
+PROFILE_TRIES = 6
+PROFILE_KEEP = 2  # sessions that recorded kernels, the larger record kept
 
 
-def device_events(fn) -> list:
+class ProfilerLost(AssertionError):
+    """Every profiler session of a ``device_events`` call lost its record."""
+
+
+def device_events(fn, tries: int = PROFILE_TRIES, keep: int = PROFILE_KEEP) -> list:
     """The device records (``torch.profiler`` events on the card) of one
-    call of ``fn``, which must launch at least one kernel.  A session whose
-    record holds no kernel at all has lost it (the profiler can drop a whole
-    session's device activity, not only single records), so ``fn`` is run
-    and profiled again, up to ``PROFILE_TRIES`` sessions in all; raises if
-    every one lost its record."""
+    call of ``fn``, which must launch the same kernels at every call.  The
+    profiler can drop single records, a whole session's device activity, and
+    several sessions in a row: ``fn`` is profiled until ``keep`` sessions
+    have recorded a kernel, and the largest record is returned; a
+    session with no kernel is reported; up to ``tries`` sessions in all;
+    raises ``ProfilerLost`` if none recorded a kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(1, PROFILE_TRIES + 1):
+    kept = []
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if any(not e.name.startswith(("Memcpy", "Memset")) for e in events):
-            return events
-        print(f"[profiler] session {attempt} of {PROFILE_TRIES} recorded no kernel "
-              f"({len(events)} device records): profiled again")
-    raise AssertionError(f"the profiler recorded no kernel in {PROFILE_TRIES} sessions")
+            kept.append(events)
+            if len(kept) == keep:
+                break
+            continue
+        print(f"[profiler] session {attempt} of {tries} recorded no kernel "
+              f"({len(events)} device records)")
+    if kept:
+        return max(kept, key=len)
+    raise ProfilerLost(f"the profiler recorded no kernel in {tries} sessions")
+
+
+def op_count(fn):
+    """Device ops of one call of ``fn`` for a report line, from one profiler
+    session, or None where it lost its record (printed as not measured; the
+    checks that need the profiler's records use ``device_events``)."""
+    try:
+        return len(device_events(fn, tries=1))
+    except ProfilerLost:
+        return None
 
 
 def busy_share(fn):
@@ -617,7 +674,7 @@ def busy_share(fn):
     the wall time of a second, unprofiled run (both end at a synchronise)."""
     import torch
 
-    dev = [e.time_range.elapsed_us() for e in device_events(fn)]
+    dev = [e.time_range.elapsed_us() for e in device_events(fn, keep=1)]
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
@@ -1164,17 +1221,18 @@ def check_fused_mp_int8(device) -> None:
 # ------------------------------------------------------------ phase 3f
 
 
-def attention_inputs(gen, b, hq, hkv, s, d, dtype, device, layout="bhsd"):
-    """q (B, Hq, S, D), k, v (B, Hkv, S, D) from ``gen``; "bshd" gives
-    (B, H, S, D) views of (B, S, H, D) tensors, the serving path's layout."""
+def attention_inputs(gen, b, hq, hkv, s, d, dtype, device, layout="bhsd", dv=None):
+    """q (B, Hq, S, D), k (B, Hkv, S, D), v (B, Hkv, S, Dv) from ``gen`` (Dv
+    None: D); "bshd" gives (B, H, S, D) views of (B, S, H, D) tensors, the
+    serving path's layout."""
     import torch
 
-    def one(h):
+    def one(h, width):
         if layout == "bshd":
-            return torch.randn((b, s, h, d), generator=gen).to(device, dtype).transpose(1, 2)
-        return torch.randn((b, h, s, d), generator=gen).to(device, dtype)
+            return torch.randn((b, s, h, width), generator=gen).to(device, dtype).transpose(1, 2)
+        return torch.randn((b, h, s, width), generator=gen).to(device, dtype)
 
-    return one(hq), one(hkv), one(hkv)
+    return one(hq, d), one(hkv, d), one(hkv, dv or d)
 
 
 def check_flash_attention(device) -> None:
@@ -1190,30 +1248,47 @@ def check_flash_attention(device) -> None:
     cases += [(2, 16, hkv, 2048, 256, w, 0.0, "bhsd") for hkv in (16, 8)
               for w in (0, 1024)]
     cases.append((2, 16, 8, 600, 256, 0, 30.0, "bshd"))
-    worst = {}
+    # MiniCPM3's MLA prefill, (D, Dv) = (96, 64), H 40: ragged S
+    cases += [(2, 40, 40, s, 96, 0, 0.0, "bshd") for s in (1, 63, 65)]
+    cases.append((8, 40, 40, 1025, 96, 0, 0.0, "bshd"))
+    worst, mla_worst = {}, {}
     ran = dict.fromkeys(FA.ROUTE_CODES, 0)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for b, hq, hkv, s, d, window, softcap, layout in cases:
-            q, k, v = attention_inputs(gen, b, hq, hkv, s, d, dtype, device, layout)
+            dv = dict(FA.MLA_HEAD_DIMS).get(d, d)
+            q, k, v = attention_inputs(gen, b, hq, hkv, s, d, dtype, device, layout, dv)
             kw = dict(window=window, softcap=softcap)
-            case = f"flash_attention {name} {(b, hq, hkv, s, d, window, softcap, layout)}"
+            case = (f"flash_attention {name} "
+                    f"{(b, hq, hkv, s, d, dv, window, softcap, layout)}")
             before = dict(FA.launches_by_route)
             got = kops.flash_attention(q, k, v, mode="kernel", **kw)
             want = kops.flash_attention(q, k, v, mode="reference", **kw)
             err = checked_err(case, got.float(), want.float(), FLASH_TOL[name])
-            if got.dtype != dtype or got.shape != q.shape:
+            if got.dtype != dtype or got.shape != (*q.shape[:3], dv):
                 raise AssertionError(f"flash_attention: output {got.dtype} {tuple(got.shape)}")
-            chosen = FA.route(dtype, d)
+            chosen = FA.route(dtype, d, dv)
             if FA.launches_by_route != dict(before, **{chosen: before[chosen] + 1}):
                 raise AssertionError(f"{case}: launches {FA.launches_by_route}, expected "
                                      f"one on the {chosen} route")
             ran[chosen] += 1
             worst[name] = max(worst.get(name, 0.0), err)
+            if dv != d:
+                mla_worst[f"{name} {chosen}"] = max(mla_worst.get(f"{name} {chosen}", 0.0),
+                                                    err)
+            if dv != d and chosen == "mma":  # the instance's other route too
+                simt = FA.flash_attention(q, k, v, force_route="simt", **kw)
+                err = checked_err(f"{case} simt route", simt.float(), want.float(),
+                                  FLASH_TOL[name])
+                mla_worst[f"{name} simt"] = max(mla_worst.get(f"{name} simt", 0.0), err)
+            del q, k, v, got, want
     print(f"[flash_attention] {len(cases)} shapes x fp32/bf16 (ChatGLM3 B=8 Hq=32 "
           f"Hkv 16/2 D=128 S 512/1/37/1000; Gemma-3 B=2 Hq=16 Hkv 16/8 D=256 "
-          f"S=2048 window 0/1024; softcap 30) match the plain version, each on its "
-          f"route {ran}: max abs err " + " ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+          f"S=2048 window 0/1024; softcap 30; MiniCPM3 (D, Dv) = (96, 64) H=40 B=2 "
+          f"S 1/63/65, B=8 S 1025) match the plain version, each on its route {ran}: "
+          f"max abs err " + " ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + "; the (96, 64) instance by route "
+          + " ".join(f"{k} {v:.3g}" for k, v in mla_worst.items()))
 
 
 # ------------------------------------------------------------ phases 4-5c
@@ -2596,16 +2671,87 @@ def decode_attention_jax_form(q, k_cache, v_cache, t, window, softcap):
     return o[:, None].to(q.dtype)
 
 
-def time_decode_attention(arch: str, cfg, srv) -> dict:
-    """``layers.decode_attention`` at the served decode shape (the server's
-    filled cache of layer 0, its device position, a global layer's window):
-    device time against the JAX form it replaced (repeated, fp32 cache),
-    the bytes bound (q, the two caches and o moved once) and its error
-    against the JAX form in fp32 (P rounded to bf16 for P.V)."""
+def mla_decode_jax_form(q_nope, q_rope, ckv, krope, w_uk, w_uv, t):
+    """JAX's absorbed MLA decode (``src/repro/models/layers.py``'s
+    ``mla_apply`` with a cache): the latent caches and w_uv copied to fp32,
+    fp32 einsums, probabilities kept in fp32."""
     import torch
     from repro_torch.models import layers as L
 
-    kc, vc = srv._cache[0]["k"][0], srv._cache[0]["v"][0]
+    dn, dr = q_nope.shape[-1], q_rope.shape[-1]
+    q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], w_uk)
+    logits = (torch.einsum("bhr,bkr->bhk", q_abs.float(), ckv.float())
+              + torch.einsum("bhr,bkr->bhk", q_rope[:, 0].float(), krope.float()))
+    logits = logits / math.sqrt(dn + dr)
+    kpos = torch.arange(ckv.shape[1], device=ckv.device)
+    p = torch.softmax(torch.where(kpos <= t, logits, L._NEG), dim=-1)
+    o_lat = torch.einsum("bhk,bkr->bhr", p, ckv.float())
+    return torch.einsum("bhr,rhk->bhk", o_lat, w_uv.float())
+
+
+def time_mla_decode(arch: str, cfg, srv, pos: int) -> dict:
+    """``layers.mla_decode_attention`` (the absorbed form) at the served
+    decode shape: the server's filled latent cache of its first MLA layer,
+    that layer's w_uk / w_uv, the last slot a served decode writes; device
+    time against the JAX form (fp32 copies of the cache), the bound (bytes:
+    both caches, q, w_uk, w_uv read once, o written once) and the error
+    against the JAX form (P rounded to bf16 for P . ckv)."""
+    import torch
+    from repro_torch.models import layers as L
+
+    ckv, kr = srv._cache[pos]["ckv"][0], srv._cache[pos]["krope"][0]
+    mixer = srv.params["blocks"][pos]["mixer"]
+    w_uk, w_uv = mixer["w_uk"][0], mixer["w_uv"][0]
+    b, s, kvr = ckv.shape
+    h, dn, dr, dv = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    gen = torch.Generator(device=ckv.device).manual_seed(23)
+    q_nope, q_rope = (torch.randn((b, 1, h, n), generator=gen, device=ckv.device)
+                      .to(ckv.dtype) for n in (dn, dr))
+    t = torch.full((), srv.scfg.prompt_len + srv.scfg.max_new_tokens - 1,
+                   dtype=torch.long, device=ckv.device)
+    args = (q_nope, q_rope, ckv, kr, w_uk, w_uv, t)
+    got = L.mla_decode_attention(*args)
+    want = mla_decode_jax_form(*args)
+    err = checked_err(f"{arch} mla_decode_attention vs the JAX form", got, want,
+                      FLASH_TOL["bfloat16"])
+    ms, timer = device_ms(lambda: L.mla_decode_attention(*args), 20)
+    jax_ms, _ = device_ms(lambda: mla_decode_jax_form(*args), 10)
+    nbytes = ckv.element_size() * sum(x.numel() for x in args[:6]) + 4 * b * h * dv
+    bound_ms, bound_by = bound(nbytes, 2.0 * b * h * kvr * dv,
+                               bf16_ops=2.0 * b * h * (dn * kvr + s * (2 * kvr + dr)))
+    return dict(name="mla_decode_attention", ms=ms, timer=timer, jax_form_ms=jax_ms,
+                bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err,
+                ops=op_count(lambda: L.mla_decode_attention(*args)))
+
+
+def attn_note(attn) -> str:
+    """The decode attention's timing, for an LM path's line."""
+    if attn is None:
+        return "no attention layer to time in the decode step"
+    ops = "ops not measured" if attn["ops"] is None else f"{attn['ops']} ops"
+    return (f"{attn['name']} {attn['ms'] * 1e3:.2f} us a layer ({attn['timer']}; {ops}; the JAX "
+            f"form {attn['jax_form_ms'] * 1e3:.2f} us; bound {attn['bound_ms'] * 1e3:.2f} "
+            f"us, {attn['bound_by']}; err {attn['max_abs_err']:.3g})")
+
+
+def time_decode_attention(arch: str, cfg, srv):
+    """The decode attention of the first attention layer (None without one;
+    MLA: ``time_mla_decode``).  GQA: ``layers.decode_attention`` at the
+    served decode shape (the server's filled cache, its device position, a
+    global layer's window): device time against the JAX form it replaced
+    (repeated, fp32 cache), the bytes bound (q, the two caches and o moved
+    once) and its error against the JAX form in fp32 (P rounded to bf16 for
+    P.V)."""
+    import torch
+    from repro_torch.models import layers as L
+
+    pos = next((i for i in range(cfg.group_size) if cfg.mixer_kind(i) == "attn"), None)
+    if pos is None:
+        return None
+    if cfg.attention == "mla":
+        return time_mla_decode(arch, cfg, srv, pos)
+    kc, vc = srv._cache[pos]["k"][0], srv._cache[pos]["v"][0]
     b, s, hkv, d = kc.shape
     gen = torch.Generator(device=kc.device).manual_seed(22)
     q = torch.randn((b, 1, cfg.num_heads, d), generator=gen, device=kc.device).to(kc.dtype)
@@ -2617,13 +2763,15 @@ def time_decode_attention(arch: str, cfg, srv) -> dict:
     want = decode_attention_jax_form(*args)
     err = checked_err(f"{arch} decode_attention vs the JAX form", got.float(),
                       want.float(), FLASH_TOL["bfloat16"])
-    ms, _ = device_ms(lambda: L.decode_attention(*args), 20)
+    ms, timer = device_ms(lambda: L.decode_attention(*args), 20)
     jax_ms, _ = device_ms(lambda: decode_attention_jax_form(*args), 10)
     nbytes = kc.element_size() * (2 * kc.numel() + 2 * q.numel())
     bound_ms, bound_by = bound(nbytes, 0.0,
                                bf16_ops=4.0 * b * cfg.num_heads * s * d)
-    return dict(ms=ms, jax_form_ms=jax_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=err, ops=len(device_events(lambda: L.decode_attention(*args))))
+    return dict(name="decode_attention", ms=ms, timer=timer, jax_form_ms=jax_ms,
+                bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err,
+                ops=op_count(lambda: L.decode_attention(*args)))
 
 
 def decode_replays(srv, n: int):
@@ -2800,7 +2948,8 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     """Drive the port's LM serving path for ``arch`` at full width through
     its CUDA graphs and check it; returns (the path's launch counts, the
     flash launches of one prefill replay and of one decode replay by the
-    profiler)."""
+    profiler).  The flash kernel runs once an attention layer a prefill
+    (MLA's at (96, 64)) and never in a decode step."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -2831,26 +2980,28 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     gen, _ = srv.generate(prompts)
     launches = read_launches()
     n_layers = cfg.num_layers
-    if launches["flash_attention.mma"] != 2 * n_layers or any(
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(n_layers))
+    n_moe = sum(cfg.ffn_kind(i) == "moe" for i in range(n_layers))
+    if launches["flash_attention.mma"] != 2 * n_attn or any(
             n for k, n in launches.items()
             if k not in ("flash_attention", "flash_attention.mma")):
-        raise AssertionError(f"{arch}: launches {launches}; expected 2 x {n_layers} "
+        raise AssertionError(f"{arch}: launches {launches}; expected 2 x {n_attn} "
                              f"flash_attention (the warm prefill and the capture), all "
                              f"on the mma route")
     if gen.shape != (scfg.max_batch, scfg.max_new_tokens) or not (
             (gen >= 0) & (gen < cfg.vocab_size)).all():
         raise AssertionError(f"{arch}: tokens out of [0, {cfg.vocab_size}) or shape {gen.shape}")
-    # replays: num_layers mma flash kernels a prefill, none a decode step (the
+    # replays: n_attn mma flash kernels a prefill, none a decode step (the
     # prefill replay rewinds the state the decode replay, up to PROFILE_TRIES
     # of them, advances)
     names = [e.name for e in device_events(srv.prefill_graph.replay)]
     step_names = [e.name for e in device_events(srv.decode_graph.replay)]
     replays = {"prefill": sum("flash_fwd" in n for n in names),
                "decode": sum("flash_fwd" in n for n in step_names)}
-    if (replays != {"prefill": n_layers, "decode": 0}
-            or sum("flash_fwd_mma" in n for n in names) != n_layers):
+    if (replays != {"prefill": n_attn, "decode": 0}
+            or sum("flash_fwd_mma" in n for n in names) != n_attn):
         raise AssertionError(f"{arch}: flash kernels a replay {replays}; expected "
-                             f"{n_layers} (mma) a prefill and 0 a decode step")
+                             f"{n_attn} (mma) a prefill and 0 a decode step")
 
     # graph against eager in one run: the same tokens, each timed LM_RUNS times
     graph_runs, eager_runs = [], []
@@ -2897,9 +3048,9 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
         last_k, dec_k, n_prefill = path(srv, forced)
     with routing("record", free_routes):
         last_r, dec_r, n_ref = path(ref_srv, forced)
-    if n_prefill != n_layers or n_ref != 0:
+    if n_prefill != n_attn or n_ref != 0:
         raise AssertionError(f"{arch}: prefill launched flash_attention {n_prefill} times "
-                             f"(reference mode {n_ref}); expected {n_layers} and 0")
+                             f"(reference mode {n_ref}); expected {n_attn} and 0")
     moe_note = ""
     if moe:
         # the two attentions differ by bf16 roundings, which flip a router's
@@ -2909,7 +3060,7 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
         free = (rel_err("", last_k, last_r), rel_err("", dec_k, dec_r))
         with routing("force", kernel_routes):
             last_r, dec_r, _ = path(ref_srv, forced)
-        kept, load = dispatch_stats(cfg, kernel_routes[:n_layers], scfg.max_batch,
+        kept, load = dispatch_stats(cfg, kernel_routes[:n_moe], scfg.max_batch,
                                     scfg.prompt_len)
         moe_note = (f"; routing against the reference's: {flips[0]} of {flips[1]} token "
                     f"routings differ (largest logit gap {flips[2]:.3g}), free-routing "
@@ -2931,7 +3082,14 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
 
     errs = {"prefill": held("prefill logits", last_k, last_r),
             "decode": held("teacher-forced decode logits", dec_k, dec_r)}
-    # decode after prefill(S - 1) against prefill(S)'s last logits
+    # decode after prefill(S - 1) against prefill(S)'s last logits; a
+    # recurrent path (Mamba, RWKV) as JAX's test runs it, in fp32 below,
+    # here in bf16 for the record: under the random init its layers amplify
+    # bf16 roundings (on the CPU, RWKV-6 at 24 reduced layers: the port's
+    # bf16 prefill logits 0.117 max|ref| from JAX's on the same weights,
+    # ChatGLM3's 0.012; fp32 1e-5), and on the card prefill(S) and the
+    # decode step round apart (other GEMM kernels)
+    recurrent = any(cfg.mixer_kind(i) != "attn" for i in range(cfg.group_size))
     if moe:
         # an MoE path as JAX's test runs it (tests/test_arch_smoke.py:47-57):
         # in fp32, at a capacity where neither run drops a token, below on a
@@ -2943,7 +3101,10 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
         cache, _, t = lm.prefill(params, {"tokens": tokens[:, :-1]}, cfg, scfg.cache_len)
         step, _ = lm.decode_step(params, cache, tokens[:, -1:], t, cfg)
         del cache
-        errs["decode_vs_prefill"] = held("decode after prefill(S-1)", step, last_k)
+        if recurrent:
+            bf16_rel = rel_err(f"{arch} decode after prefill(S-1)", step, last_k)
+        else:
+            errs["decode_vs_prefill"] = held("decode after prefill(S-1)", step, last_k)
     # the reference server's capture holds its plain attention's (B, H, S, S)
     # buffers in its pool: give it the memory the eager checks left cached
     torch.cuda.empty_cache()
@@ -2958,14 +3119,14 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     del cache
     attn = time_decode_attention(arch, cfg, srv)
     captures, capture_s, pool_gb = srv.captures, srv.capture_seconds, srv.pool_bytes / 1e9
-    if moe:
-        # a dispatch decode step runs every expert's GEMMs over its slots,
-        # so it reads every weight but the embedding's rows
-        read = tree_bytes(params) - (0 if cfg.tie_embeddings else tree_bytes(params["embed"]))
-        floor = read / PEAK_HBM_BYTES_S * 1e3
-        med = statistics.median(r[1] for r in graph_runs) * 1e3
-        moe_note += (f"; decode weight-read floor {read / 1e9:.3f} GB = {floor:.3f} ms/token "
-                     f"at {PEAK_HBM_BYTES_S / 1e12:.2f} TB/s (graph decode {med / floor:.2f}x)")
+    # a decode step reads every weight but the embedding's rows (a dispatch
+    # MoE step runs every expert's GEMMs over its slots); a tied embedding
+    # is the head and read whole
+    read = tree_bytes(params) - (0 if cfg.tie_embeddings else tree_bytes(params["embed"]))
+    floor = read / PEAK_HBM_BYTES_S * 1e3
+    med = statistics.median(r[1] for r in graph_runs) * 1e3
+    floor_note = (f"; decode weight-read floor {read / 1e9:.3f} GB = {floor:.3f} ms/token "
+                  f"at {PEAK_HBM_BYTES_S / 1e12:.2f} TB/s (graph decode {med / floor:.2f}x)")
     del srv, ref_srv
     if moe:
         moe_note += f"; decode after prefill(S-1), bf16 {bf16_step['note']}"
@@ -2976,6 +3137,17 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
         errs["decode_vs_prefill"] = held("decode after prefill(S-1), fp32", fp32["step"],
                                          fp32["last"])
         moe_note += f"; fp32 (held) {fp32['note']}"
+    elif recurrent:
+        float_in_place(params)
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        _, last32, _ = lm.prefill(params, {"tokens": tokens}, cfg32, scfg.cache_len)
+        cache, _, t = lm.prefill(params, {"tokens": tokens[:, :-1]}, cfg32, scfg.cache_len)
+        step, _ = lm.decode_step(params, cache, tokens[:, -1:], t, cfg32)
+        del cache
+        errs["decode_vs_prefill"] = held("decode after prefill(S-1), fp32", step, last32)
+        moe_note += (f"; decode after prefill(S-1) max|d|/max|ref| bf16 {bf16_rel:.3g}, "
+                     f"fp32 (held) {errs['decode_vs_prefill']:.3g}")
     del params
     torch.cuda.empty_cache()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2996,12 +3168,9 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
           f"{errs['prefill']:.3g}, decode {errs['decode']:.3g}, "
           f"decode-after-prefill(S-1) {errs['decode_vs_prefill']:.3g}; tokens equal to "
           f"the reference server's {agree_tokens:.3f}; flash_attention by the profiler "
-          f"{replays['prefill']} a prefill replay (mma), {replays['decode']} a decode "
-          f"replay; launches {launches} (warm + capture); decode_attention "
-          f"{attn['ms'] * 1e3:.2f} us a layer ({attn['ops']} ops; the JAX form "
-          f"{attn['jax_form_ms'] * 1e3:.2f} us; bound {attn['bound_ms'] * 1e3:.2f} us, "
-          f"{attn['bound_by']}; err {attn['max_abs_err']:.3g}); peak memory "
-          f"{peak_gb:.1f} GB{moe_note}")
+          f"{replays['prefill']} a prefill replay (mma; {n_attn} attention layers), "
+          f"{replays['decode']} a decode replay; launches {launches} (warm + capture); "
+          f"{attn_note(attn)}; peak memory {peak_gb:.1f} GB{floor_note}{moe_note}")
     if failures:
         raise AssertionError("; ".join(failures))
     return launches, replays
@@ -3394,14 +3563,18 @@ def time_fused_mp_int8(device, packed, lay, launches: int) -> dict:
                 launches=launches, library_ms=None, **main, all_shapes=rows)
 
 
-def time_flash_attention(device, launches: int, by_route: dict) -> dict:
+def time_flash_attention(device, launches: int, by_route: dict, mla_launches: int,
+                         mla_by_route: dict) -> list:
     """``flash_attention`` (bf16, causal, the path's (B, S, H, D) layout) at
     ChatGLM3's prefill shape (B 8, Hq 32, Hkv 16 after kv_pad_to, S 512, D
-    128) and Gemma-3's global layer (B 2, Hq 16, Hkv 16, S 2048, D 256):
-    the kernel on the route the path takes (mma), the CUDA-core route it
-    replaces there (simt, forced on the same bf16 tensors), the plain
-    version and ``scaled_dot_product_attention`` on the same tensors
-    (``is_causal``, ``enable_gqa``)."""
+    128), Gemma-3's global layer (B 2, Hq 16, Hkv 16, S 2048, D 256) and
+    MiniCPM3's MLA prefill (B 8, H 40, S 1024, D 96, Dv 64): the kernel on
+    the route the path takes (mma), the CUDA-core route it replaces there
+    (simt, forced on the same bf16 tensors), the plain version and
+    ``scaled_dot_product_attention`` on the same tensors (``is_causal``,
+    ``enable_gqa``).  Returns two kernel rows: the (D, D) instances' (at
+    ChatGLM3's shape, with ``launches``) and the (96, 64) instance's (at
+    MiniCPM3's, with ``mla_launches``)."""
     import torch
     import torch.nn.functional as Fn
     from repro_torch.kernels import flash_attention as FA
@@ -3409,9 +3582,12 @@ def time_flash_attention(device, launches: int, by_route: dict) -> dict:
 
     gen = torch.Generator().manual_seed(18)
     rows = []
-    for name, (b, hq, hkv, s, d) in (("chatglm3-6b prefill", (8, 32, 16, 512, 128)),
-                                     ("gemma3-12b global layer", (2, 16, 16, 2048, 256))):
-        q, k, v = attention_inputs(gen, b, hq, hkv, s, d, torch.bfloat16, device, "bshd")
+    for name, (b, hq, hkv, s, d, dv) in (
+            ("chatglm3-6b prefill", (8, 32, 16, 512, 128, 128)),
+            ("gemma3-12b global layer", (2, 16, 16, 2048, 256, 256)),
+            ("minicpm3-4b prefill", (8, 40, 40, 1024, 96, 64))):
+        q, k, v = attention_inputs(gen, b, hq, hkv, s, d, torch.bfloat16, device, "bshd",
+                                   dv)
         kern = lambda: kops.flash_attention(q, k, v, mode="kernel")
         simt = lambda: FA.flash_attention(q, k, v, force_route="simt")
         plain = lambda: kops.flash_attention(q, k, v, mode="reference")
@@ -3429,29 +3605,35 @@ def time_flash_attention(device, launches: int, by_route: dict) -> dict:
         simt_ms, _ = device_ms(simt, 10)
         plain_ms, _ = device_ms(plain, 10)
         library_ms, _ = device_ms(lib)
-        # q, k, v read once, o written once; 4 D operations per causal pair
-        nbytes = 2.0 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+        # q, k, v read once, o written once; 2 (D + Dv) operations per causal
+        # pair (a D-long and a Dv-long dot product)
+        nbytes = 2.0 * (b * hq * s * (d + dv) + b * hkv * s * (d + dv))
         pairs = s * (s + 1) / 2
-        bound_ms, bound_by = bound(nbytes, 0.0, bf16_ops=4.0 * b * hq * d * pairs)
+        bound_ms, bound_by = bound(nbytes, 0.0, bf16_ops=2.0 * (d + dv) * b * hq * pairs)
         row = dict(max_abs_err=err, ms=ms, timer=timer, call_ms=call_ms(kern),
-                   design=FA.route(q.dtype, d), simt_ms=simt_ms, simt_max_abs_err=simt_err,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=library_ms,
-                   shape=dict(name=name, b=b, hq=hq, hkv=hkv, s=s, d=d,
+                   design=FA.route(q.dtype, d, dv), simt_ms=simt_ms,
+                   simt_max_abs_err=simt_err, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms,
+                   shape=dict(name=name, b=b, hq=hq, hkv=hkv, s=s, d=d, dv=dv,
                               dtype="bfloat16", causal=True, layout="bshd"))
         rows.append(row)
-        print(f"[time] flash_attention {name} B={b} Hq={hq} Hkv={hkv} S={s} D={d} bf16 "
+        print(f"[time] flash_attention {name} B={b} Hq={hq} Hkv={hkv} S={s} D={d} Dv={dv} bf16 "
               f"causal: err {err:.3g}; {row['design']} {ms:.4f} ms ({timer}; per call "
               f"{row['call_ms']:.4f} ms), simt route {simt_ms:.4f} (err {simt_err:.3g}), "
               f"plain {plain_ms:.4f}, sdpa {library_ms:.4f}, bound {bound_ms:.5f} "
               f"({bound_by})")
         del q, k, v
         torch.cuda.empty_cache()
-    main = {k: v for k, v in rows[0].items() if k != "design"}
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:90",
-                launches=launches, launches_by_route=by_route, **main, all_shapes=rows)
+    main, mla = ({k: v for k, v in r.items() if k != "design"} for r in (rows[0], rows[2]))
+    common = dict(route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                  replaces="src/repro/kernels/flash_attention.py:90")
+    # the (96, 64) instance's row counts the launches of the MiniCPM3 path,
+    # whose every flash launch is at (96, 64); "counter" names the wrapper
+    # counter both rows read
+    return [dict(name="flash_attention", **common, launches=launches,
+                 launches_by_route=by_route, **main, all_shapes=rows),
+            dict(name="flash_attention_d96_dv64", counter="flash_attention", **common,
+                 launches=mla_launches, launches_by_route=mla_by_route, **mla)]
 
 
 # ------------------------------------------------------------ entry point
@@ -3499,20 +3681,23 @@ def run(device) -> list:
             time_quant_node_mlp(device, lay, paths["gin int8"]["quant_node_mlp"],
                                 design_split(paths["gin int8"], "quant_node_mlp")),
             time_fused_mp_int8(device, packed, lay,
-                               paths["gin int8"]["fused_mp_int8"]),
-            time_flash_attention(device, paths["chatglm3-6b"]["flash_attention"],
-                                 design_split(paths["chatglm3-6b"], "flash_attention"))]
+                               paths["gin int8"]["fused_mp_int8"])]
+    rows += time_flash_attention(device, paths["chatglm3-6b"]["flash_attention"],
+                                 design_split(paths["chatglm3-6b"], "flash_attention"),
+                                 paths["minicpm3-4b"]["flash_attention"],
+                                 design_split(paths["minicpm3-4b"], "flash_attention"))
     for row in rows:
-        row["launches_by_path"] = {path: counts[row["name"]]
+        counter = row.get("counter", row["name"])
+        row["launches_by_path"] = {path: counts[counter]
                                    for path, counts in paths.items()}
         row["launches_per_replay"] = {
             " ".join(k for k in (model, precision, "packed" if packed else "") if k):
-                replay.get(row["name"], 0)
+                replay.get(counter, 0)
             for (model, precision, packed), replay in graphs.items()}
         row["launches_per_replay"].update(
-            {path: replay.get(row["name"], 0) for path, replay in layout_replays.items()})
+            {path: replay.get(counter, 0) for path, replay in layout_replays.items()})
         row["launches_per_replay"].update(
-            {program: replay.get(row["name"], 0) for program, replay in lm_replays.items()})
+            {program: replay.get(counter, 0) for program, replay in lm_replays.items()})
     return rows
 
 

@@ -2,10 +2,12 @@
 
 ``gengnn_models`` holds the paper's six GNNs.  The LM registry lists the
 decoders the port serves (copies of ``repro.configs``' modules of the same
-names): the dense GQA family and the MoE family.  ``get_config(arch)``
-gives the published configuration, ``get_reduced(arch)`` the same-family
-smoke-test reduction.  The JAX package's other five architectures (MLA,
-hybrid/SSM, VLM, audio) need modules the port does not have yet.
+names): the dense GQA family, MLA (MiniCPM3), the MoE family, the
+attention / Mamba hybrid (Jamba) and the attention-free RWKV-6.
+``get_config(arch)`` gives the published configuration,
+``get_reduced(arch)`` the same-family smoke-test reduction.  The JAX
+package's other two architectures (VLM, audio) need modules the port does
+not have yet.
 """
 from importlib import import_module
 
@@ -15,6 +17,9 @@ REGISTRY = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 
 ARCHS = tuple(REGISTRY)

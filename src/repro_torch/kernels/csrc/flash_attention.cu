@@ -3,33 +3,37 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention (the Pallas
 // _flash_kernel), which is also the deployment form of the LM substrate's
-// models/layers.py:blocked_attention.  For q (B, Hq, S, D), k, v
-// (B, Hkv, S, D), Hq % Hkv == 0, query head h reads KV head h / (Hq / Hkv):
+// models/layers.py:blocked_attention.  For q (B, Hq, S, D), k (B, Hkv, S, D),
+// v (B, Hkv, S, DV), Hq % Hkv == 0, query head h reads KV head h / (Hq / Hkv):
 //
 //     s[i, j] = (q_i . k_j) * scale            scale = 1 / sqrt(D)
 //     s       = tanh(s / softcap) * softcap    when softcap > 0
 //     s[i, j] masked unless j <= i (causal) and j > i - window (window > 0)
 //     o_i     = sum_j softmax_j(s[i, :]) v_j   accumulated in fp32
 //
-// written in the input dtype.  Beyond the Pallas kernel: S of any length (the
-// tail rows and columns are masked), D in {8, 16, 32, 64, 128, 256}, explicit
-// strides for q, k, v and o (so (B, S, H, D) tensors go in as transposed views,
-// no copy), and an optional softcap.
+// written in the input dtype, o (B, Hq, S, DV).  Beyond the Pallas kernel: S of
+// any length (the tail rows and columns are masked), DV = D in {8, 16, 32, 64,
+// 128, 256} and MLA's (D, DV) = (96, 64) (MiniCPM3's prefill: nope 64 + rope 32
+// against a value head of 64, as JAX's blocked_attention takes dv != d),
+// explicit strides for q, k, v and o (so (B, S, H, D) tensors go in as
+// transposed views, no copy), and an optional softcap.
 //
 // Bound on the H100: per (query, key) pair in the causal band the kernel does
-// 4 D operations (two D-long dot products); q, k, v and o are read or written
-// once.  At ChatGLM3's prefill (B 8, Hq 32, Hkv 16, S 512, D 128, bf16) that
+// 2 (D + DV) operations (a D-long and a DV-long dot product); q, k, v and o
+// are read or written once.  At ChatGLM3's prefill (B 8, Hq 32, Hkv 16, S 512, D 128, bf16) that
 // is 17.2 GFLOP against 100.7 MB (q and o 33.6 MB each, k and v 16.8 MB each):
 // 17.4 us on the bf16 tensor cores, 30.0 us on bytes (chip_smoke.py's
 // time_flash_attention counts the same).  At Gemma-3's global layer (B 2,
 // Hq = Hkv = 16, S 2048, D 256) it is 68.8 GFLOP against 134 MB: 69.5 us on
-// the tensor cores, 40.1 us on bytes.
+// the tensor cores, 40.1 us on bytes.  At MiniCPM3's prefill (B 8, H 40,
+// S 1024, D 96, DV 64) it is 53.7 GFLOP against 210 MB: 54.3 us on the tensor
+// cores, 62.6 us on bytes.
 //
-// Two designs ("routes"), chosen by the caller from (dtype, D) up front
+// Two designs ("routes"), chosen by the caller from (dtype, D, DV) up front
 // (kernels/flash_attention.py:route) and never swapped after a failure:
 //
-// "mma" — bf16 at D in {64, 128, 256}: the FlashAttention-2 shape on the
-// tensor cores.  One CTA of 4 warps per (64-row query tile, batch x query
+// "mma" — bf16 at (D, DV) in {(64, 64), (128, 128), (256, 256), (96, 64)}: the
+// FlashAttention-2 shape on the tensor cores.  One CTA of 4 warps per (64-row query tile, batch x query
 // head), each warp owning 16 query rows; the Pallas kernel's sequential k grid
 // axis becomes a loop over KV tiles of 64 rows (32 at D = 256, 16 with a
 // softcap there, to fit the registers) inside the CTA, visiting only the
@@ -44,19 +48,22 @@
 // a template switch, so the uncapped instance carries no tanh path).  P is
 // rounded to bf16 once to feed the PV mma, as every tensor-core flash kernel
 // does.  Q, K and V are copied as bf16 with 16-byte cp.async (zero-filled
-// past S) into shared memory whose rows are XOR-swizzled in 16-byte chunks, so
-// ldmatrix is free of bank conflicts; K and V ride a ring of stages (three at
+// past S) into shared memory whose rows are XOR-swizzled in 16-byte chunks (at
+// 96 columns padded by one chunk instead: mma::Tile), so ldmatrix is free of
+// bank conflicts; K and V ride a ring of stages (three at
 // D <= 128, two at 256), the next tile's copy overlapping this tile's mma.  Q sits in registers at D <= 128
 // and is re-read from shared memory per k step at D = 256; each lane's
 // ldmatrix addresses are four precomputed offsets per operand plus
 // immediates, which keeps the D = 256 instances free of spills.  Shared
 // memory: Q 8 / 16 / 32 KB plus the stages of K and V, 56 / 112 / 96 KB in
-// all at D = 64 / 128 / 256 (64 KB with a softcap at 256), two CTAs per SM.  The
+// all at D = 64 / 128 / 256 (64 KB with a softcap at 256; 76 KB at (96, 64):
+// the Q and K rows 96 wide plus their pad, V's 64), two CTAs per SM.  Q, K and
+// the QK^T k-loop are sized by D, V, the O registers and the output by DV.  The
 // output is staged through the warp's own Q rows and written as 16-byte rows.
 // This route needs 16-byte-aligned data and (batch, head, row) strides that are
 // multiples of 8 elements (the wrapper checks; this entry refuses otherwise).
 //
-// "simt" — fp32 at every D, bf16 at D in {8, 16, 32}: fp32 FMAs on the CUDA
+// "simt" — fp32 at every (D, DV), bf16 at D in {8, 16, 32}: fp32 FMAs on the CUDA
 // cores (fp32 cannot reach the tensor cores without TF32, which the port
 // forbids: the JAX kernel and its oracle are IEEE fp32).  One CTA of 256
 // threads per (batch, query head, 64-row query tile); each KV tile is staged
@@ -64,7 +71,7 @@
 // column reads hit distinct banks).  A 16 x 16 thread grid computes the 64 x
 // 64 score tile, 4 x 4 scores per thread; each query row's running max and sum
 // are reduced across its 16 threads with shuffles and kept in registers,
-// beside the thread's 4 rows x D/16 columns of the fp32 accumulator.  The
+// beside the thread's 4 rows x DV/16 columns of the fp32 accumulator.  The
 // probabilities pass through shared memory (over the K tile) to the P.V
 // product.  expf and tanhf are the accurate libdevice ones.
 //
@@ -98,22 +105,22 @@ struct Strides {  // in elements; the last (feature) stride is 1
   long long b, h, s;
 };
 
-template <int D>
+template <int D, int DV>
 __host__ __device__ constexpr size_t smem_floats() {
   // Q tile, K tile (reused for P), V tile
   return (size_t)BQ * (D + 1)
          + ((size_t)BK * (D + 1) > (size_t)BQ * PP ? (size_t)BK * (D + 1) : (size_t)BQ * PP)
-         + (size_t)BK * D;
+         + (size_t)BK * DV;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int hq,
     int group, int s, int causal, int window, float scale, float softcap) {
   constexpr int DP = D + 1;               // padded row of the Q and K tiles
-  constexpr int CN = (D + TX - 1) / TX;   // output columns per thread
-  constexpr size_t KP = smem_floats<D>() - (size_t)BQ * DP - (size_t)BK * D;
+  constexpr int CN = (DV + TX - 1) / TX;  // output columns per thread
+  constexpr size_t KP = smem_floats<D, DV>() - (size_t)BQ * DP - (size_t)BK * DV;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * DP;
@@ -154,7 +161,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
       const int r = i / D, c = i % D, kpos = k0 + r;
       const bool in = kpos < s;
       Ks[r * DP + c] = in ? to_f(kb[kpos * ks.s + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f(vb[kpos * vs.s + c]) : 0.f;
+      if (c < DV) Vs[r * DV + c] = in ? to_f(vb[kpos * vs.s + c]) : 0.f;
     }
     __syncthreads();
 
@@ -224,8 +231,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 #pragma unroll
       for (int c = 0; c < CN; ++c) {
         const int d = tx + TX * c;
-        if (D % TX == 0 || d < D) {
-          const float vv = Vs[j * D + d];
+        if (DV % TX == 0 || d < DV) {
+          const float vv = Vs[j * DV + d];
 #pragma unroll
           for (int i = 0; i < RM; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
         }
@@ -241,17 +248,17 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 #pragma unroll
     for (int c = 0; c < CN; ++c) {
       const int d = tx + TX * c;
-      if (D % TX == 0 || d < D) store(ob + qpos * os.s + d, acc[i][c] / denom);
+      if (DV % TX == 0 || d < DV) store(ob + qpos * os.s + d, acc[i][c] / denom);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
            Strides ks, Strides vs, Strides os, int b, int hq, int hkv, int s,
            int causal, int window, float scale, float softcap, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, D>;
+  const size_t smem = smem_floats<D, DV>() * sizeof(float);
+  auto kernel = flash_fwd_kernel<T, D, DV>;
   // above 48 KB of shared memory only after opting in (per device: every call)
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -266,13 +273,18 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides qs,
 }
 
 template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v, void* o, Strides qs,
-               Strides ks, Strides vs, Strides os, int b, int hq, int hkv, int s,
-               int causal, int window, float scale, float softcap, cudaStream_t stream) {
-#define FA_CASE(DIM)                                                                   \
-  case DIM:                                                                            \
-    return launch<T, DIM>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window, \
-                          scale, softcap, stream);
+int dispatch_d(int d, int dv, const void* q, const void* k, const void* v, void* o,
+               Strides qs, Strides ks, Strides vs, Strides os, int b, int hq, int hkv,
+               int s, int causal, int window, float scale, float softcap,
+               cudaStream_t stream) {
+  if (d == 96 && dv == 64)  // MLA (MiniCPM3): nope 64 + rope 32 against v 64
+    return launch<T, 96, 64>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
+                             scale, softcap, stream);
+  if (dv != d) return (int)cudaErrorInvalidValue;
+#define FA_CASE(DIM)                                                                        \
+  case DIM:                                                                                 \
+    return launch<T, DIM, DIM>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window, \
+                               scale, softcap, stream);
   switch (d) {
     FA_CASE(8)
     FA_CASE(16)
@@ -298,8 +310,29 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int BQ = WARPS * 16;  // query rows per CTA, 16 per warp
 
-template <int D, bool CAPPED>
+// A bf16 tile of D columns in shared memory.  At D % 64 == 0 its rows are
+// D long and XOR-swizzled: chunk c (16 bytes) of row r sits at chunk
+// c ^ (r % 8), so the 8 rows an ldmatrix reads at one chunk column land in 8
+// distinct bank groups.  Other widths (MLA's 96: 12 chunks, which an 8-chunk
+// swizzle would carry past the row) pad each row by one chunk instead: a
+// pitch of 13 chunks (208 bytes) puts 8 consecutive rows at 8 distinct bank
+// groups too.
+template <int D>
+struct Tile {
+  static_assert(D % 16 == 0, "whole 16-element mma steps");
+  static constexpr bool SWIZZLED = D % 64 == 0;
+  static constexpr int PITCH = SWIZZLED ? D : D + 8;  // elements per row
+  // element offset of (row, 16-byte chunk c)
+  static __device__ __forceinline__ int at(int row, int c) {
+    return SWIZZLED ? row * D + ((c ^ (row & 7)) << 3) : row * PITCH + (c << 3);
+  }
+};
+
+// D: the query / key head dim (Q and K tiles, the QK^T k-loop); DV <= D: the
+// value head dim (V tiles, the O accumulator, the output)
+template <int D, int DV, bool CAPPED>
 struct Cfg {
+  static_assert(DV <= D, "the output is staged in the Q tile's rows");
   // key rows per KV tile: fewer at D = 256 to fit the registers (the
   // softcap's tanh needs more of them)
   static constexpr int BK = D < 256 ? 64 : CAPPED ? 16 : 32;
@@ -307,37 +340,31 @@ struct Cfg {
   // (a warp is at most one tile ahead of another); two at D = 256, where
   // three would leave one CTA per SM
   static constexpr int STAGES = D < 256 ? 3 : 2;
-  static constexpr int CH = D / 8;               // 16-byte chunks per row
+  static constexpr int PQ = Tile<D>::PITCH, PV = Tile<DV>::PITCH;
   static constexpr bool Q_IN_REGS = D <= 128;
   // Q tile, then the stages of (K tile, V tile), all bf16
-  static constexpr size_t SMEM = (size_t)(BQ + 2 * STAGES * BK) * D * sizeof(bf16);
-  static_assert(D % 64 == 0, "the swizzle needs 8 chunks per row");
+  static constexpr size_t SMEM = (size_t)(BQ * PQ + STAGES * BK * (PQ + PV)) * sizeof(bf16);
 };
-
-// Element offset of (row, 16-byte chunk c) in a swizzled tile of D columns:
-// chunk c of row r sits at chunk c ^ (r % 8), so the 8 rows an ldmatrix
-// reads at one chunk column land in 8 distinct bank groups.
-template <int D>
-__device__ __forceinline__ int swz(int row, int c) {
-  return row * D + ((c ^ (row & 7)) << 3);
-}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// Byte offsets of one lane's ldmatrix row in a swizzled tile: row `row` at
-// chunk 2 kk + lo sits at at(kk), and row + 8 i at at(kk) + 16 i D, since
-// (2 kk + lo) ^ (row % 8) only depends on kk % 4 below its multiple of 8.
-// Four registers per operand, the rest immediates.
+// Byte offsets of one lane's ldmatrix row in a tile: row `row` at chunk
+// 2 kk + lo sits at at(kk), and row + 8 i at at(kk) + 16 i PITCH.  Swizzled,
+// (2 kk + lo) ^ (row % 8) only depends on kk % 4 below its multiple of 8: four
+// registers per operand, the rest immediates; padded, one register.
 template <int D>
 struct FragAddr {
-  unsigned off[4];
+  unsigned off[Tile<D>::SWIZZLED ? 4 : 1];
   __device__ __forceinline__ FragAddr(int row, int lo) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) off[j] = 2 * (row * D + (((2 * j + lo) ^ (row & 7)) << 3));
+    for (int j = 0; j < (Tile<D>::SWIZZLED ? 4 : 1); ++j) off[j] = 2 * Tile<D>::at(row, 2 * j + lo);
   }
-  __device__ __forceinline__ unsigned at(int kk) const { return off[kk & 3] + (kk >> 2) * 128; }
+  __device__ __forceinline__ unsigned at(int kk) const {
+    if constexpr (Tile<D>::SWIZZLED) return off[kk & 3] + (kk >> 2) * 128;
+    else return off[0] + kk * 32;
+  }
 };
 
 // 16-byte global -> shared copy; src_bytes 0 zero-fills the destination
@@ -383,7 +410,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // Copy rows r0 .. r0 + R - 1 (those below s; the rest zero-filled) of a
-// (rows, D) bf16 matrix with row stride `stride` into a swizzled tile.
+// (rows, D) bf16 matrix with row stride `stride` into a tile.
 template <int D, int R>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride,
                                           int r0, int s, int tid) {
@@ -393,23 +420,23 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long 
   for (int i = 0; i < R * CH / THREADS; ++i) {
     const int idx = tid + i * THREADS, r = idx / CH, c = idx % CH, pos = r0 + r;
     const bool in = pos < s;
-    cp_async16(smem_u32(dst + swz<D>(r, c)), src + (long long)(in ? pos : 0) * stride + c * 8,
+    cp_async16(smem_u32(dst + Tile<D>::at(r, c)), src + (long long)(in ? pos : 0) * stride + c * 8,
                in ? 16 : 0);
   }
 }
 
-template <int D, bool CAPPED>
+template <int D, int DV, bool CAPPED>
 __global__ void __launch_bounds__(THREADS, 2) flash_fwd_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int hq, int group,
     int s, int causal, int window, float scale, float softcap) {
-  using C = Cfg<D, CAPPED>;
-  constexpr int BK = C::BK;
+  using C = Cfg<D, DV, CAPPED>;
+  constexpr int BK = C::BK, PQ = C::PQ, PV = C::PV;
   constexpr int NT = BK / 8;  // score n-tiles (8 keys) per KV tile
-  constexpr int DT = D / 8;   // output n-tiles (8 features)
+  constexpr int DT = DV / 8;  // output n-tiles (8 features)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* KV = Qs + BQ * D;  // stage st: K at KV + st * 2 * BK * D, V BK * D after
+  bf16* KV = Qs + BQ * PQ;  // stage st: K at KV + st * BK * (PQ + PV), V BK * PQ after
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;  // the mma fragments' row and column pair
@@ -428,9 +455,9 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_mma(
   const int kt0 = k_begin / BK, n_tiles = (k_end + BK - 1) / BK - kt0;
 
   auto load_kv = [&](int stage, int kt) {
-    bf16* Ks = KV + stage * 2 * BK * D;
+    bf16* Ks = KV + stage * BK * (PQ + PV);
     load_rows<D, BK>(Ks, kb, ks.s, kt * BK, s, tid);
-    load_rows<D, BK>(Ks + BK * D, vb, vs.s, kt * BK, s, tid);
+    load_rows<DV, BK>(Ks + BK * PQ, vb, vs.s, kt * BK, s, tid);
   };
   load_rows<D, BQ>(Qs, qb, qs.s, q0, s, tid);
   cp_async_commit();
@@ -442,7 +469,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_mma(
   // V's transposed B fragments (two 8-feature n-tiles per x4)
   const FragAddr<D> qa(warp * 16 + (lane & 15), lane >> 4);
   const FragAddr<D> ka((lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1);
-  const FragAddr<D> va((lane & 7) + (((lane >> 3) & 1) << 3), lane >> 4);
+  const FragAddr<DV> va((lane & 7) + (((lane >> 3) & 1) << 3), lane >> 4);
   const unsigned q_base = smem_u32(Qs), kv_base = smem_u32(KV);
   unsigned qf[C::Q_IN_REGS ? D / 16 : 1][4];
   if constexpr (C::Q_IN_REGS) {
@@ -475,8 +502,8 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_mma(
       cp_async_wait<0>();
     }
     __syncthreads();
-    const unsigned k_base = kv_base + (it % C::STAGES) * 4 * BK * D;  // bytes
-    const unsigned v_base = k_base + 2 * BK * D;
+    const unsigned k_base = kv_base + (it % C::STAGES) * 2 * BK * (PQ + PV);  // bytes
+    const unsigned v_base = k_base + 2 * BK * PQ;
     const int k0 = (kt0 + it) * BK;
 
     // S = Q K^T: B fragments of two 8-key n-tiles per ldmatrix.x4
@@ -497,7 +524,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_mma(
 #pragma unroll
       for (int nn = 0; nn < BK / 16; ++nn) {
         unsigned bk[4];
-        ldmatrix_x4(bk, k_base + ka.at(kk) + nn * 32 * D);
+        ldmatrix_x4(bk, k_base + ka.at(kk) + nn * 32 * PQ);
         mma_bf16(sacc[2 * nn], a, bk[0], bk[1]);
         mma_bf16(sacc[2 * nn + 1], a, bk[2], bk[3]);
       }
@@ -558,9 +585,9 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_mma(
                              pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
                              pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
+      for (int dn = 0; dn < DV / 16; ++dn) {
         unsigned bv[4];
-        ldmatrix_x4_trans(bv, v_base + va.at(dn) + kk * 32 * D);
+        ldmatrix_x4_trans(bv, v_base + va.at(dn) + kk * 32 * PV);
         mma_bf16(oacc[2 * dn], a, bv[0], bv[1]);
         mma_bf16(oacc[2 * dn + 1], a, bv[2], bv[3]);
       }
@@ -580,28 +607,28 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_mma(
   const int srow = warp * 16 + g;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
-    *reinterpret_cast<__nv_bfloat162*>(Qs + swz<D>(srow, j) + 2 * t4) =
+    *reinterpret_cast<__nv_bfloat162*>(Qs + Tile<D>::at(srow, j) + 2 * t4) =
         __floats2bfloat162_rn(oacc[j][0] / den[0], oacc[j][1] / den[0]);
-    *reinterpret_cast<__nv_bfloat162*>(Qs + swz<D>(srow + 8, j) + 2 * t4) =
+    *reinterpret_cast<__nv_bfloat162*>(Qs + Tile<D>::at(srow + 8, j) + 2 * t4) =
         __floats2bfloat162_rn(oacc[j][2] / den[1], oacc[j][3] / den[1]);
   }
   __syncwarp();
 #pragma unroll
-  for (int i = lane; i < 16 * C::CH; i += 32) {
-    const int r = warp * 16 + i / C::CH, c = i % C::CH, qpos = q0 + r;
+  for (int i = lane; i < 16 * DT; i += 32) {
+    const int r = warp * 16 + i / DT, c = i % DT, qpos = q0 + r;
     if (qpos < s)
       *reinterpret_cast<uint4*>(ob + qpos * os.s + c * 8) =
-          *reinterpret_cast<const uint4*>(Qs + swz<D>(r, c));
+          *reinterpret_cast<const uint4*>(Qs + Tile<D>::at(r, c));
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, Strides qs, Strides ks,
            Strides vs, Strides os, int b, int hq, int hkv, int s, int causal, int window,
            float scale, float softcap, cudaStream_t stream) {
   const bool capped = softcap > 0.f;
-  const size_t smem = capped ? Cfg<D, true>::SMEM : Cfg<D, false>::SMEM;
-  auto kernel = capped ? flash_fwd_mma<D, true> : flash_fwd_mma<D, false>;
+  const size_t smem = capped ? Cfg<D, DV, true>::SMEM : Cfg<D, DV, false>::SMEM;
+  auto kernel = capped ? flash_fwd_mma<D, DV, true> : flash_fwd_mma<D, DV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -625,18 +652,20 @@ bool aligned(const void* p, const Strides& st, int b, int h, int s) {
 
 }  // namespace
 
-// Plain C entry point (loaded through ctypes).  q (B, Hq, S, D), k and v
-// (B, Hkv, S, D), o (B, Hq, S, D), each addressed through its (batch, head,
-// row) strides in elements with a unit feature stride; dtype 0 = fp32, 1 =
-// bf16 (all four tensors).  window 0 = no window.  route 0 = "simt", 1 =
-// "mma" (bf16, D in {64, 128, 256}, aligned as mma::aligned says); a route
-// with no instance for (dtype, D) is refused.  Launches on `stream`, does not
-// synchronise, and returns the launch's cudaError_t (0 on success).
+// Plain C entry point (loaded through ctypes).  q and k (B, Hq / Hkv, S, D),
+// v (B, Hkv, S, DV), o (B, Hq, S, DV), each addressed through its (batch,
+// head, row) strides in elements with a unit feature stride; dtype 0 = fp32,
+// 1 = bf16 (all four tensors).  window 0 = no window.  (D, DV) is (d, d) at d
+// in {8, 16, 32, 64, 128, 256} or (96, 64).  route 0 = "simt", 1 = "mma"
+// (bf16 at (64, 64), (128, 128), (256, 256) or (96, 64), aligned as
+// mma::aligned says); a route with no instance for (dtype, D, DV) is refused.
+// Launches on `stream`, does not synchronise, and returns the launch's
+// cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, int b, int hq, int hkv, int s, int d, int causal, int window,
+    long long o_ss, int b, int hq, int hkv, int s, int d, int dv, int causal, int window,
     int dtype, int route, float scale, float softcap, cudaStream_t stream) {
   if (b <= 0 || hq <= 0 || s <= 0) return (int)cudaSuccess;
   if (hkv <= 0 || hq % hkv != 0 || window < 0) return (int)cudaErrorInvalidValue;
@@ -646,26 +675,30 @@ extern "C" int flash_attention_fwd(
     if (dtype != 1 || !mma::aligned(q, qs, b, hq, s) || !mma::aligned(k, ks, b, hkv, s) ||
         !mma::aligned(v, vs, b, hkv, s) || !mma::aligned(o, os, b, hq, s))
       return (int)cudaErrorInvalidValue;
+    if (d == 96 && dv == 64)
+      return mma::launch<96, 64>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
+                                 scale, softcap, stream);
+    if (dv != d) return (int)cudaErrorInvalidValue;
     switch (d) {
       case 64:
-        return mma::launch<64>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
-                               scale, softcap, stream);
+        return mma::launch<64, 64>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
+                                   scale, softcap, stream);
       case 128:
-        return mma::launch<128>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
-                                scale, softcap, stream);
+        return mma::launch<128, 128>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal,
+                                     window, scale, softcap, stream);
       case 256:
-        return mma::launch<256>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
-                                scale, softcap, stream);
+        return mma::launch<256, 256>(q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal,
+                                     window, scale, softcap, stream);
       default:
         return (int)cudaErrorInvalidValue;
     }
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal, window,
-                             scale, softcap, stream);
+    return dispatch_d<float>(d, dv, q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal,
+                             window, scale, softcap, stream);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, qs, ks, vs, os, b, hq, hkv, s, causal,
-                                     window, scale, softcap, stream);
+    return dispatch_d<__nv_bfloat16>(d, dv, q, k, v, o, qs, ks, vs, os, b, hq, hkv, s,
+                                     causal, window, scale, softcap, stream);
   return (int)cudaErrorInvalidValue;
 }

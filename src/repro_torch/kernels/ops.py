@@ -230,9 +230,11 @@ def fused_mp(
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
                     mode: str = "auto", softcap: float = 0.0) -> torch.Tensor:
-    """Blockwise GQA attention: q (B, Hq, S, D), k/v (B, Hkv, S, D) ->
-    (B, Hq, S, D).  The CUDA kernel takes strided views (unit feature
-    stride); the plain version is the quadratic oracle."""
+    """Blockwise GQA attention: q (B, Hq, S, D), k (B, Hkv, S, D), v (B,
+    Hkv, S, Dv) -> (B, Hq, S, Dv), scaled by 1 / sqrt(D).  The CUDA kernel
+    takes strided views (unit feature stride) and the head dims it has an
+    instance for (``flash_attention.has_instance``); the plain version is
+    the quadratic oracle."""
     if not _resolve("flash_attention", mode, q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)

@@ -256,8 +256,11 @@ def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
     window: int | None = None, scale: float | None = None, softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Full (quadratic) GQA attention: q (B, Hq, S, D), k/v (B, Hkv, S, D)
-    with Hq % Hkv == 0 -> (B, Hq, S, D) in q's dtype, computed in fp32.
+    """Full (quadratic) GQA attention: q (B, Hq, S, D), k (B, Hkv, S, D),
+    v (B, Hkv, S, Dv) with Hq % Hkv == 0 -> (B, Hq, S, Dv) in q's dtype,
+    computed in fp32.  The scale defaults to 1 / sqrt(D), D the query / key
+    head dim, and P is contracted with v's own width (Dv may differ from D:
+    MLA's prefill, as JAX's ``blocked_attention``).
 
     ``window`` None or 0 = full; the causal mask applies when ``causal``;
     ``softcap`` > 0 applies ``tanh(s / c) * c`` to the scaled scores before

@@ -33,10 +33,11 @@ disjoint from the served one (seed 97); every precision but fp32 prints a
 ``[quant]`` report line.  The printed latency line has the JAX launcher's
 format; its "compile ... excluded" figure is the untimed warm-up (the
 eager first run with the kernels' build, the CUDA-graph capture and the
-first replay).  ``--arch`` serves one of the dense LMs (full or
-``--reduced``) with random weights from seed 0 and prints the generated
-tokens and the prefill / per-token decode times, as the JAX launcher does;
-its first prefill also builds the flash-attention kernel.
+first replay).  ``--arch`` serves one of the registry's LMs (dense, MLA,
+MoE, hybrid or SSM; full or ``--reduced``) with random weights from seed 0
+and prints the generated tokens and the prefill / per-token decode times,
+as the JAX launcher does; its first prefill also builds the
+flash-attention kernel (RWKV-6 has no attention and builds none).
 
 ``--stream`` serves the graphs through ``serve.scheduler.StreamScheduler``
 (arrivals at ``--qps`` on its virtual clock, flushes packed up to
@@ -312,7 +313,8 @@ def main(argv=None):
                            "model[:precision] specs (e.g. gcn:int8,gat:fp32) "
                            "registered on one shared executor + scheduler")
     what.add_argument("--arch", choices=ARCHS,
-                      help="serve a dense LM: batched prefill + greedy decode")
+                      help="serve an LM (dense, MLA, MoE, hybrid or SSM): batched "
+                           "prefill + greedy decode")
     ap.add_argument("--reduced", action="store_true",
                     help="LM: the same-family smoke-test reduction")
     ap.add_argument("--prompt-len", type=int, default=16)

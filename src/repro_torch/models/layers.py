@@ -1,5 +1,5 @@
-"""Transformer building blocks of the dense decoders: norms, RoPE, dense
-MLPs, GQA attention (port of ``repro.models.layers``).
+"""Transformer building blocks of the decoders: norms, RoPE, dense MLPs,
+GQA attention and MLA (port of ``repro.models.layers``).
 
 The JAX package gives attention two executable forms with one meaning:
 the jnp ``blocked_attention`` and the Pallas flash kernel for the TPU.
@@ -11,9 +11,13 @@ Decode-time attention over a KV cache stays plain torch, as JAX computes
 it outside Pallas: grouped-query, on the cache in place (no repeated or
 fp32 copy of it), at an int or a device-tensor position.
 
+MLA (MiniCPM3) prefills in the expanded form, per-head keys and values
+from the latent through the same flash kernel at (D, Dv) = (96, 64), and
+decodes in the absorbed form over its latent cache, in plain torch.
+
 Linears are ``torch.matmul`` on reshaped weights (XLA's einsums); RNG is
 an explicit ``torch.Generator``; ``stack`` prepends the group axis of
-``models.transformer`` to every parameter.  MLA, cross-attention and the
+``models.transformer`` to every parameter.  Cross-attention and the
 bidirectional encoder are not ported yet.
 """
 from __future__ import annotations
@@ -112,9 +116,14 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
     if cfg.mlp_type == "gelu":  # starcoder2
         return {"wi": P.init_normal(gen, (d, f), stack=stack),
                 "wo": P.init_normal(gen, (f, d), stack=stack)}
-    raise NotImplementedError(
-        f"mlp_type {cfg.mlp_type!r} (RWKV's channel mix) is not ported yet "
-        "(ROADMAP queue 1, item 12: hybrid and SSM)")
+    if cfg.mlp_type == "relu_sq":  # rwkv6 channel mix (ssm.rwkv_channel_mix)
+        dev = gen.device
+        return {"wk": P.init_normal(gen, (d, f), stack=stack),
+                "wv": P.init_normal(gen, (f, d), stack=stack),
+                "wr": P.init_normal(gen, (d, d), stack=stack),
+                "mix_k": P.init_zeros((d,), stack, device=dev),
+                "mix_r": P.init_zeros((d,), stack, device=dev)}
+    raise ValueError(f"mlp_type {cfg.mlp_type!r}")
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor, k_dims: int = 1) -> torch.Tensor:
@@ -134,7 +143,9 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return _linear(act * up, p["wo"])
     if cfg.mlp_type == "gelu":
         return _linear(Fn.gelu(_linear(x, p["wi"]), approximate="tanh"), p["wo"])
-    raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
+    if cfg.mlp_type == "relu_sq":
+        raise ValueError("rwkv channel-mix is applied via ssm.rwkv_channel_mix")
+    raise ValueError(f"mlp_type {cfg.mlp_type!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -155,8 +166,9 @@ def repeat_kv(k: torch.Tensor, g: int) -> torch.Tensor:
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       window: int = 0, softcap: float = 0.0,
                       mode: str = "auto") -> torch.Tensor:
-    """Causal GQA attention.  q: (B, S, H, D); k, v: (B, S, Hkv, D) ->
-    (B, S, H, D).
+    """Causal GQA attention.  q: (B, S, H, D); k: (B, S, Hkv, D); v: (B, S,
+    Hkv, Dv) -> (B, S, H, Dv), scaled by 1 / sqrt(D) (Dv may differ from D:
+    MLA prefill).
 
     The (B, S, H, D) tensors go to ``kernels.ops.flash_attention`` as
     (B, H, S, D) views: on the card the flash kernel reads them through
@@ -262,8 +274,8 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     k, v = repeat_kv(k, rep), repeat_kv(v, rep)
     if kv_cache is None:
         if not cfg.causal:
-            raise NotImplementedError("bidirectional attention (the whisper encoder) "
-                                      "is not ported yet (ROADMAP queue 1, item 12)")
+            raise NotImplementedError("bidirectional attention (the Whisper encoder) "
+                                      "is not ported yet (ROADMAP queue 1, item 12.5)")
         o = blocked_attention(q, k, v, window=window, softcap=cfg.logit_softcap,
                               mode=mode)
         new_kv = (k, v)
@@ -276,6 +288,102 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     return _linear(o, p["wo"], k_dims=2), new_kv
 
 
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (MiniCPM3)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dev = gen.device
+    return {"w_dq": P.init_normal(gen, (d, qr), stack=stack),
+            "q_norm": P.init_ones((qr,), stack, device=dev),
+            "w_uq": P.init_normal(gen, (qr, h, dn + dr), stack=stack),
+            "w_dkv": P.init_normal(gen, (d, kvr), stack=stack),
+            "kv_norm": P.init_ones((kvr,), stack, device=dev),
+            "w_kr": P.init_normal(gen, (d, dr), stack=stack),
+            "w_uk": P.init_normal(gen, (kvr, h, dn), stack=stack),
+            "w_uv": P.init_normal(gen, (kvr, h, dv), stack=stack),
+            "wo": P.init_normal(gen, (h, dv, d), stack=stack)}
+
+
+def mla_decode_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                         ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
+                         w_uk: torch.Tensor, w_uv: torch.Tensor, t) -> torch.Tensor:
+    """MLA's absorbed single-token attention over its latent cache, in plain
+    torch: scores in the kv_lora space, no per-head key or value made.
+
+    q_nope (B, 1, H, dn), q_rope (B, 1, H, dr) (rotated); caches ckv (B, S,
+    kvr), krope (B, S, dr); w_uk (kvr, H, dn), w_uv (kvr, H, dv); t the
+    position (an int or a device tensor; keys past it masked).  Returns o
+    (B, H, dv) in fp32.  As JAX: q_abs = q_nope . w_uk in the model dtype,
+    logits, mask and softmax in fp32, o_lat . w_uv in fp32.  The cache is
+    read in place, never copied to fp32: bf16 products are exact in fp32
+    (``_bmm_f32``), and P is rounded to the cache dtype for P . ckv (fp32
+    accumulation), which JAX keeps in fp32, as ``decode_attention`` does.
+    """
+    b, _, h, dn = q_nope.shape
+    s, dr = krope_cache.shape[1], krope_cache.shape[2]
+    # (H, B, dn) @ (H, dn, kvr) -> (B, H, kvr)
+    q_abs = torch.bmm(q_nope[:, 0].transpose(0, 1), w_uk.permute(1, 2, 0)).transpose(0, 1)
+    logits = torch.empty((b, h, s), dtype=torch.float32, device=q_nope.device)
+    rope = torch.empty_like(logits)
+    _bmm_f32(q_abs, ckv_cache.transpose(1, 2), logits)
+    _bmm_f32(q_rope[:, 0], krope_cache.transpose(1, 2), rope)
+    logits = (logits + rope) * (1.0 / math.sqrt(dn + dr))
+    kpos = torch.arange(s, device=q_nope.device)
+    logits = torch.where(kpos <= t, logits, _NEG)
+    probs = torch.softmax(logits, dim=-1).to(ckv_cache.dtype)
+    o_lat = torch.empty((b, h, ckv_cache.shape[2]), dtype=torch.float32,
+                        device=q_nope.device)
+    _bmm_f32(probs, ckv_cache, o_lat)
+    # (H, B, kvr) @ (H, kvr, dv) -> (B, H, dv), fp32
+    return torch.bmm(o_lat.transpose(0, 1), w_uv.float().transpose(0, 1)).transpose(0, 1)
+
+
+def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor | None = None, cache: tuple | None = None,
+              t=None, mode: str = "auto"):
+    """MLA attention.  Returns (out (B, S, D), (c_kv, k_rope)).
+
+    Prefill (cache None): the expanded form.  Per-head k_nope and v from
+    the latent c_kv, k_rope (B, S, dr) shared by every head; the key
+    [k_nope ; k_rope] is made contiguous (B, S, H, dn + dr) and
+    ``blocked_attention`` runs at (D, Dv) = (dn + dr, dv): the flash kernel
+    at (96, 64) for MiniCPM3.  Returns the prompt's (c_kv, k_rope), the
+    latent cache (B, S, kvr), (B, S, dr).
+    Decode (cache (ckv, krope), t): slot t of both caches is written in
+    place (an int or a device position) and ``mla_decode_attention``
+    scores in the latent space; the caches are returned.
+    """
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    if positions is None:
+        positions = (torch.arange(s, device=x.device)[None, :] if t is None
+                     else _position(t, x.device).expand(b, 1))
+    q_lat = rms_norm(_linear(x, p["w_dq"]), p["q_norm"])
+    q = _linear(q_lat, p["w_uq"])  # (B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    c_kv = rms_norm(_linear(x, p["w_dkv"]), p["kv_norm"])
+    k_rope = apply_rope(_linear(x, p["w_kr"]), positions, cfg.rope_theta)  # (B, S, dr)
+    if cache is None:
+        k_nope = _linear(c_kv, p["w_uk"])  # (B, S, H, dn)
+        v = _linear(c_kv, p["w_uv"])  # (B, S, H, dv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+        o = blocked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, mode=mode)
+        return _linear(o, p["wo"], k_dims=2), (c_kv, k_rope)
+    ckv_cache, krope_cache = cache
+    _cache_update(ckv_cache, c_kv, t)
+    _cache_update(krope_cache, k_rope, t)
+    o = mla_decode_attention(q_nope, q_rope, ckv_cache, krope_cache, p["w_uk"],
+                             p["w_uv"], t)
+    return _linear(o.to(x.dtype)[:, None], p["wo"], k_dims=2), (ckv_cache, krope_cache)
+
+
 def _position(t, device) -> torch.Tensor:
     """A decode position as a (1, 1) int64 tensor on ``device``: a device
     tensor is viewed, an int is made there (no host synchronisation)."""
@@ -285,8 +393,9 @@ def _position(t, device) -> torch.Tensor:
 
 
 def _cache_update(cache: torch.Tensor, kv: torch.Tensor, t) -> None:
-    """cache (B, S, Hkv, D)[:, t] <- kv (B, 1, Hkv, D), in place, at an int or
-    device-tensor position.
+    """cache (B, S, ...)[:, t] <- kv (B, 1, ...), in place, at an int or
+    device-tensor position (a GQA cache (B, S, Hkv, D), MLA's latent ones
+    (B, S, kvr) and (B, S, dr)).
 
     JAX's ``dynamic_update_slice`` clamps a start past the end and
     overwrites the last slot; an int position past the cache raises

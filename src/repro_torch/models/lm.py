@@ -1,5 +1,6 @@
-"""Top-level decoder-only language model of the dense and MoE families:
-embeddings, stack, head, prefill and decode (port of ``repro.models.lm``).
+"""Top-level decoder-only language model of the dense, MLA, MoE, hybrid
+and SSM families: embeddings, stack, head, prefill and decode (port of
+``repro.models.lm``).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``blocks`` (``transformer.stack_init``'s list) and, untied, ``lm_head``
@@ -91,13 +92,15 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int,
             kernel_mode: str = "auto", cache: list | None = None):
     """Run the prompt through the stack, building the decode cache.
 
-    Each attention layer's K/V of the prompt (captured in the same forward
-    pass) is written into positions 0 .. S-1 of a cache of length
-    ``cache_len`` whose later positions are zero, as JAX's fresh cache is.
-    That cache is a new one, or ``cache`` (``init_cache``'s layout), which
-    the caller owns and which is overwritten in place: a server's static
-    cache outlives the CUDA graph that fills it.  Returns (cache,
-    last_logits (B, V), t0 = S).
+    JAX's rule: each layer's sequence entries of the prompt (GQA's K/V,
+    MLA's latent ckv / krope, captured in the same forward pass) are
+    written into positions 0 .. S-1 of a cache of length ``cache_len``
+    whose later positions are zero, as JAX's fresh cache is; its final
+    recurrent states (Mamba's conv / ssm, RWKV's shift / wkv / cm_shift)
+    are copied whole.  That cache is a new one, or ``cache``
+    (``init_cache``'s layout), which the caller owns and which is
+    overwritten in place: a server's static cache outlives the CUDA graph
+    that fills it.  Returns (cache, last_logits (B, V), t0 = S).
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -113,13 +116,18 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int,
         cache = init_cache(cfg, b, cache_len, device=tokens.device)
     for pos in range(cfg.group_size):
         for key, vals in captured[pos].items():
-            leaf = cache[pos][key]  # (G, B, cache_len, Hkv_eff, hd)
-            if leaf.shape[2] != cache_len:
+            # (G, B, cache_len, ...) for a sequence entry, (G, B, ...) a state
+            leaf = cache[pos][key]
+            seq = key in T.SEQ_CACHE_KEYS
+            if seq and leaf.shape[2] != cache_len:
                 raise ValueError(f"a cache of {leaf.shape[2]} positions for "
                                  f"cache_len {cache_len}")
             for g, val in enumerate(vals):
-                leaf[g, :, :s] = val
-            if owned:
+                if seq:
+                    leaf[g, :, :s] = val
+                else:
+                    leaf[g].copy_(val)
+            if owned and seq:
                 leaf[:, :, s:].zero_()
     return cache, last_logits, s
 

@@ -1,19 +1,23 @@
-"""Decoder stack of the dense and MoE families (port of
+"""Decoder stack of the dense, MLA, MoE, hybrid and SSM families (port of
 ``repro.models.transformer``).
 
 Layers are grouped into super-blocks of ``cfg.group_size`` (the pattern
-period: Gemma-3's 5:1 local:global = 6, dense and every-layer MoE models
-= 1).  Parameters of position ``pos`` in the group are stacked over the
-``num_groups`` axis, ``(G, ...)``, as in JAX, so a converted JAX tree maps
-leaf for leaf; the stack runs the groups as a Python loop (JAX's
-``stack_mode="unroll"``).
+period: Jamba's 1:7 attention:Mamba = 8, Gemma-3's 5:1 local:global = 6,
+dense and every-layer MoE models = 1).  Parameters of position ``pos`` in
+the group are stacked over the ``num_groups`` axis, ``(G, ...)``, as in
+JAX, so a converted JAX tree maps leaf for leaf; the stack runs the groups
+as a Python loop (JAX's ``stack_mode="unroll"``).
 
-The attention mixer is ported with both FFNs, the dense MLP and the MoE
-(``models.moe``); the MLA, Mamba, RWKV, VLM and audio branches raise
-``NotImplementedError`` naming their ROADMAP item.  ``stack_apply``
-returns JAX's third element, the MoE load-balance loss summed over layers,
-in train mode (``forward_hidden``); JAX's compiled prefill and decode
-discard it, and the port's do not compute it (None).
+Every mixer is ported (GQA and MLA attention, Mamba, RWKV-6 time mix) with
+every FFN (the dense MLP, the MoE of ``models.moe``, RWKV's channel mix);
+the VLM and audio families and bidirectional attention raise
+``NotImplementedError`` naming their ROADMAP item.  A block's cache holds
+sequence entries (GQA's k / v, MLA's ckv / krope: ``SEQ_CACHE_KEYS``) and
+recurrent states (Mamba's conv / ssm, RWKV's shift / wkv and the channel
+mix's cm_shift); a decode step writes both into the cache in place.
+``stack_apply`` returns JAX's third element, the MoE load-balance loss
+summed over layers, in train mode (``forward_hidden``); JAX's compiled
+prefill and decode discard it, and the port's do not compute it (None).
 """
 from __future__ import annotations
 
@@ -23,21 +27,22 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
-_LATER = "is not ported yet (ROADMAP queue 1, item 12: {})"
+_LATER = "is not ported yet (ROADMAP queue 1, item {})"
+SEQ_CACHE_KEYS = ("k", "v", "ckv", "krope")  # cache entries indexed by position
 
 
-def _check_supported(cfg: ModelConfig, pos: int) -> None:
+def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "audio":
-        raise NotImplementedError("the audio encoder-decoder " + _LATER.format("Whisper"))
+        raise NotImplementedError("the audio encoder-decoder "
+                                  + _LATER.format("12.5: Whisper"))
     if cfg.family == "vlm":
-        raise NotImplementedError("the VLM family " + _LATER.format("InternVL2"))
-    if cfg.mixer_kind(pos) != "attn":
-        raise NotImplementedError(f"the {cfg.mixer_kind(pos)} mixer "
-                                  + _LATER.format("hybrid and SSM"))
-    if cfg.attention == "mla":
-        raise NotImplementedError("MLA " + _LATER.format("MiniCPM3"))
+        raise NotImplementedError("the VLM family " + _LATER.format("12.4: InternVL2"))
+    if not cfg.causal:
+        raise NotImplementedError("bidirectional attention (the Whisper encoder) "
+                                  + _LATER.format("12.5"))
 
 
 # ---------------------------------------------------------------------------
@@ -46,21 +51,50 @@ def _check_supported(cfg: ModelConfig, pos: int) -> None:
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, pos: int, stack=()) -> dict:
-    _check_supported(cfg, pos)
+    _check_supported(cfg)
+    kind = cfg.mixer_kind(pos)
+    if kind == "attn":
+        mixer = (L.mla_init(gen, cfg, stack) if cfg.attention == "mla"
+                 else L.gqa_init(gen, cfg, stack))
+    elif kind == "mamba":
+        mixer = SSM.mamba_init(gen, cfg, stack)
+    else:
+        mixer = SSM.rwkv6_init(gen, cfg, stack)
     return {"ln1": L.rms_norm_init(cfg.d_model, stack, gen.device),
             "ln2": L.rms_norm_init(cfg.d_model, stack, gen.device),
-            "mixer": L.gqa_init(gen, cfg, stack),
+            "mixer": mixer,
             "ffn": (MOE.moe_init(gen, cfg, stack) if cfg.ffn_kind(pos) == "moe"
                     else L.mlp_init(gen, cfg, stack))}
 
 
 def block_cache_init(cfg: ModelConfig, pos: int, batch: int, seq: int, dtype,
                      stack=(), device="cpu") -> dict:
-    """Zero decode cache of one block position: k, v of shape
-    (*stack, B, S, Hkv_eff, hd)."""
-    shp = tuple(stack) + (batch, seq, cfg.kv_heads_effective, cfg.head_dim_)
-    return {"k": torch.zeros(shp, dtype=dtype, device=device),
-            "v": torch.zeros(shp, dtype=dtype, device=device)}
+    """Zero decode cache of one block position, JAX's entries, shapes and
+    dtypes behind ``stack``: GQA's k, v (B, S, Hkv_eff, hd) or MLA's ckv (B,
+    S, kvr) and krope (B, S, dr) in ``dtype``; Mamba's conv (B, dc-1, di)
+    in ``dtype`` and ssm (B, di, ds) in fp32; RWKV's shift (B, 1, D) in
+    ``dtype`` and wkv (B, H, hd, hd) in fp32; the channel mix's cm_shift
+    (B, 1, D) in ``dtype``."""
+    st = tuple(stack)
+    zeros = lambda *shape, dt=dtype: torch.zeros(st + shape, dtype=dt, device=device)
+    kind = cfg.mixer_kind(pos)
+    c: dict = {}
+    if kind == "attn" and cfg.attention == "mla":
+        c["ckv"] = zeros(batch, seq, cfg.kv_lora_rank)
+        c["krope"] = zeros(batch, seq, cfg.qk_rope_dim)
+    elif kind == "attn":
+        c["k"] = zeros(batch, seq, cfg.kv_heads_effective, cfg.head_dim_)
+        c["v"] = zeros(batch, seq, cfg.kv_heads_effective, cfg.head_dim_)
+    elif kind == "mamba":
+        c["conv"] = zeros(batch, cfg.d_conv - 1, cfg.d_inner)
+        c["ssm"] = zeros(batch, cfg.d_inner, cfg.d_state, dt=torch.float32)
+    else:
+        c["shift"] = zeros(batch, 1, cfg.d_model)
+        c["wkv"] = zeros(batch, cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.rwkv_head_dim,
+                         dt=torch.float32)
+    if cfg.mlp_type == "relu_sq":
+        c["cm_shift"] = zeros(batch, 1, cfg.d_model)
+    return c
 
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
@@ -71,30 +105,67 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
     train mode, else None.
 
     mode="train":   cache_out = {}.
-    mode="prefill": cache_out holds the prompt's K/V (B, S, ...).
-    mode="decode":  cache is this block's cache, updated in place at the
-                    position ``t`` (an int or a device tensor) and
-                    returned as cache_out.
+    mode="prefill": cache_out holds the prompt's sequence entries (B, S,
+                    ...) and the final recurrent states.
+    mode="decode":  cache is this block's cache: sequence entries written
+                    at the position ``t`` (an int or a device tensor) and
+                    the new recurrent states copied in, both in place (the
+                    cache's tensors are views a CUDA graph replays into);
+                    it is returned as cache_out.
     ``kernel_mode`` goes to the attention's kernel dispatch.
     """
-    _check_supported(cfg, pos)
-    decode = mode == "decode"
+    _check_supported(cfg)
+    kind = cfg.mixer_kind(pos)
+    decode, prefill = mode == "decode", mode == "prefill"
     cache_out: dict = {}
     h = L.rms_norm(x, p["ln1"])
-    kv_cache = (cache["k"], cache["v"]) if decode else None
-    out, kvc = L.gqa_apply(p["mixer"], h, cfg, cfg.window_for_layer(pos),
-                           positions=positions, kv_cache=kv_cache, t=t,
-                           mode=kernel_mode)
-    if decode or mode == "prefill":
-        cache_out["k"], cache_out["v"] = kvc
+    if kind == "attn" and cfg.attention == "mla":
+        out, kvc = L.mla_apply(p["mixer"], h, cfg, positions=positions,
+                               cache=(cache["ckv"], cache["krope"]) if decode else None,
+                               t=t, mode=kernel_mode)
+        if decode or prefill:
+            cache_out["ckv"], cache_out["krope"] = kvc
+    elif kind == "attn":
+        out, kvc = L.gqa_apply(p["mixer"], h, cfg, cfg.window_for_layer(pos),
+                               positions=positions,
+                               kv_cache=(cache["k"], cache["v"]) if decode else None,
+                               t=t, mode=kernel_mode)
+        if decode or prefill:
+            cache_out["k"], cache_out["v"] = kvc
+    else:
+        names = ("conv", "ssm") if kind == "mamba" else ("shift", "wkv")
+        apply = SSM.mamba_apply if kind == "mamba" else SSM.rwkv6_time_mix
+        out, st = apply(p["mixer"], h, cfg,
+                        state={n: cache[n] for n in names} if decode else None,
+                        return_state=prefill)
+        if decode or prefill:
+            cache_out.update(_states_into(cache if decode else None, st))
     x = x + out
     h2 = L.rms_norm(x, p["ln2"])
     aux = None
     if cfg.ffn_kind(pos) == "moe":
         out2, aux = MOE.moe_apply(p["ffn"], h2, cfg, with_aux=mode == "train")
+    elif cfg.mlp_type == "relu_sq":
+        out2, st = SSM.rwkv_channel_mix(
+            p["ffn"], h2, cfg, state={"shift": cache["cm_shift"]} if decode else None,
+            return_state=prefill)
+        if decode or prefill:
+            cache_out.update(_states_into(cache if decode else None,
+                                          {"cm_shift": st["shift"]}))
     else:
         out2 = L.mlp_apply(p["ffn"], h2, cfg)
     return x + out2, cache_out, aux
+
+
+def _states_into(cache: Optional[dict], states: dict) -> dict:
+    """New recurrent states: copied into ``cache``'s tensors in place when
+    there is a cache (decode; the copied entries are returned), else
+    returned as they are (prefill)."""
+    if cache is None:
+        return states
+    for name, val in states.items():
+        cache[name].copy_(val)
+    return {name: cache[name] for name in states}
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +197,8 @@ def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "tr
     """Run all layers.  Returns (x, cache_out, aux).
 
     mode="prefill": cache_out is list[pos] of dicts of per-group lists of
-    the K/V each layer produced (``lm.prefill`` writes them into its cache).
+    the sequence entries and final states each layer produced
+    (``lm.prefill`` writes them into its cache).
     mode="decode": ``cache`` (list[pos] of (G, ...) stacked dicts) is
     updated in place at ``t`` (an int or a device tensor, passed down to
     every layer) and returned.  mode="train": cache_out is None and aux the

@@ -21,3 +21,7 @@ def init_normal(gen: torch.Generator, shape, scale=None, stack=(),
 
 def init_ones(shape, stack=(), dtype=torch.float32, device="cpu") -> torch.Tensor:
     return torch.ones(tuple(stack) + tuple(shape), dtype=dtype, device=device)
+
+
+def init_zeros(shape, stack=(), dtype=torch.float32, device="cpu") -> torch.Tensor:
+    return torch.zeros(tuple(stack) + tuple(shape), dtype=dtype, device=device)

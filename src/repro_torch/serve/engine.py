@@ -8,11 +8,14 @@ are two CUDA graphs over static state that the server makes once: the
 token batch, the cache, the decode position and step index as device
 tensors, the last token and the (max_batch, max_new_tokens) output.
 
-* **prefill** writes the prompt's K/V into the cache (zero past it, as
-  JAX's fresh cache is; its attention is the flash kernel on the card),
+* **prefill** writes the prompt's sequence entries into the cache (K/V,
+  or MLA's latent ckv / krope; zero past the prompt, as JAX's fresh cache
+  is; its attention is the flash kernel on the card) and the final
+  recurrent states (Mamba's conv / ssm, RWKV's shift / wkv / cm_shift),
   takes the first token and resets the position to ``prompt_len``;
 * **one decode step** writes the last token into the output at the step
-  index, runs ``lm.decode_step`` at the device position, takes the next
+  index, runs ``lm.decode_step`` at the device position (the cache's
+  sequence slot and recurrent states updated in place), takes the next
   token and advances position and index on the device.
 
 Both are captured at the first ``generate`` on the card, from one memory
@@ -25,9 +28,11 @@ On the CPU (``device="cpu"``) the same two functions run eagerly over the
 same state.  Every duration is read through the injected ``Clock`` and
 each timed region ends at ``torch.cuda.synchronize()`` on the card.
 
-Dense and MoE decoders serve alike: the MoE layers' routing (top-k, the
-slot dispatch's sort and gathers) reads nothing back to the host, so the
-graphs capture it with the rest.
+Dense, MLA, MoE, hybrid and SSM decoders serve alike: the MoE layers'
+routing (top-k, the slot dispatch's sort and gathers) and the recurrences
+(a loop over the static prompt length) read nothing back to the host, so
+the graphs capture them with the rest; what differs by family is decided
+in Python before the capture.
 
 Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 raises if CUDA is missing.  ``mode`` goes to the attention's kernel

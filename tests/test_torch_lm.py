@@ -2,22 +2,30 @@
 ``repro_torch.serve.engine``) against the JAX package's, on the CPU.
 
 For the reduced ChatGLM3, Gemma-3 (window 8 across its 5:1 local:global
-group), StarCoder2, Qwen3-MoE (8 experts, top-2 renormalized, QK-norm) and
-Mixtral (4 experts, top-2, window 8) configs in float32, JAX's
-``init_params(PRNGKey(0))`` is converted with ``convert.from_jax_lm_params``
-and both packages run the same numpy tokens:
+group), StarCoder2, Qwen3-MoE (8 experts, top-2 renormalized, QK-norm),
+Mixtral (4 experts, top-2, window 8), MiniCPM3 (MLA: expanded prefill,
+absorbed decode), Jamba (7 Mamba + 1 attention layer, MoE on every other
+layer) and RWKV-6 (time mix and channel mix, no attention) configs in
+float32, JAX's ``init_params(PRNGKey(0))`` is converted with
+``convert.from_jax_lm_params`` and both packages run the same numpy tokens:
 
-  * ``forward_hidden`` (its MoE load-balance loss at rtol 1e-5), ``prefill`` (cache contents and ``last_logits``) and
-    four teacher-forced ``decode_step`` logits at rtol = atol = 1e-4 (fp32
-    matmuls summed in another order; the port's prefill attention is the
-    quadratic plain version on the CPU, JAX's the blocked online softmax);
+  * ``forward_hidden`` (its MoE load-balance loss at rtol 1e-5), ``prefill``
+    (cache contents: sequence entries and recurrent states, and
+    ``last_logits``) and four teacher-forced ``decode_step`` logits at rtol
+    = atol = 1e-4 (fp32 matmuls summed in another order; the port's prefill
+    attention is the quadratic plain version on the CPU, JAX's the blocked
+    online softmax; the port's recurrences run in order, JAX's Mamba scan
+    associatively);
   * ``LMServer.generate`` tokens against JAX's ``LMServer``, row by row up to
     the first step whose JAX top-2 logit gap is 1e-3 or less (past a near
     tie the two may rightly pick different tokens); two successive
     ``generate`` calls on one server (its static cache and state reused)
     against two fresh servers (bit for bit) and against JAX's;
   * ``prefill`` into a cache the caller owns (a server's static cache)
-    against a fresh one, bit for bit: the prompt's K/V, zeros past it.
+    against a fresh one, bit for bit: the prompt's sequence entries, zeros
+    past it, and the recurrent states;
+  * decode after prefill(S-1) against forward(S)'s last logits at capacity
+    factor 8 (JAX's ``tests/test_arch_smoke.py`` check, its 2e-2 bound).
 
 ChatGLM3 in bfloat16 is held to JAX's own bound for bf16 paths
 (``tests/test_arch_smoke.py``): max|delta| <= 2e-2 max|ref|.
@@ -41,6 +49,7 @@ from repro_torch.convert import from_jax_lm_params
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as TLM
+from repro_torch.models import transformer as TT
 from repro_torch.serve.engine import LMServer, ServeConfig
 
 torch.set_num_threads(2)
@@ -159,9 +168,10 @@ def test_prefill_and_decode_match_jax(arch_case):
     _close(last, c["last"])
     assert len(cache) == len(c["cache"])
     for got, want in zip(cache, c["cache"]):
-        assert sorted(got) == sorted(want) == ["k", "v"]
-        for key in ("k", "v"):
+        assert sorted(got) == sorted(want)
+        for key in want:
             assert tuple(got[key].shape) == want[key].shape
+            assert str(got[key].dtype).removeprefix("torch.") == str(want[key].dtype)
             _close(got[key], want[key])
     t = t0
     for tok, want in zip(c["steps"], c["decode"]):
@@ -209,18 +219,41 @@ def test_prefill_into_an_owned_cache_matches_a_fresh_one(arch_case):
                                  cache=owned)
     assert got is owned and t2 == t0 == S and torch.equal(last2, last)
     for a, b in zip(got, fresh):
-        for key in ("k", "v"):
+        assert sorted(a) == sorted(b)
+        for key in a:
             assert torch.equal(a[key], b[key])
-            assert not a[key][:, :, S:].any()
+            if key in TT.SEQ_CACHE_KEYS:
+                assert not a[key][:, :, S:].any()
 
 
 def test_kernel_mode_raises_on_cpu_and_launches_nothing(arch_case):
+    """An arch with attention reaches the flash kernel, which raises on CPU
+    tensors; an attention-free one (RWKV-6) reaches no kernel and runs."""
     c = arch_case
     before = FA.launches
-    with pytest.raises(RuntimeError, match="CUDA"):
-        TLM.prefill(c["params"], {"tokens": torch.from_numpy(c["tokens"])}, c["cfg"],
-                    S + 8, kernel_mode="kernel")
+    batch = {"tokens": torch.from_numpy(c["tokens"])}
+    if any(c["cfg"].mixer_kind(i) == "attn" for i in range(c["cfg"].group_size)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TLM.prefill(c["params"], batch, c["cfg"], S + 8, kernel_mode="kernel")
+    else:
+        _, last, _ = TLM.prefill(c["params"], batch, c["cfg"], S + 8, kernel_mode="kernel")
+        _close(last, c["last"])
     assert FA.launches == before
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_after_prefill_matches_forward(arch):
+    """JAX's ``tests/test_arch_smoke.py`` check on the port: at capacity
+    factor 8 (no MoE drops), decode after prefill(S-1) gives forward(S)'s
+    last logits within 2e-2 max|ref|."""
+    cfg = get_reduced(arch, dtype="float32", capacity_factor=8.0)
+    params = TLM.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S)))
+    cache, _, t0 = TLM.prefill(params, {"tokens": tokens[:, :-1]}, cfg, S + 8)
+    logits, _ = TLM.decode_step(params, cache, tokens[:, -1:], t0, cfg)
+    hidden, _ = TLM.forward_hidden(params, {"tokens": tokens}, cfg)
+    ref = TLM.logits_fn(params, hidden[:, -1], cfg)
+    assert float((logits - ref).abs().max() / ref.abs().max()) < 2e-2
 
 
 def test_bf16_chatglm3_within_jax_bf16_bound():
@@ -297,9 +330,12 @@ def test_init_params_shapes_and_dtypes_match_jax(arch):
     for (path, a), (_, b) in zip(jl, tl):
         assert a.shape == tuple(b.shape), jax.tree_util.keystr(path)
         assert str(a.dtype) == str(b.dtype).removeprefix("torch."), jax.tree_util.keystr(path)
-    # JAX's scale rule: std (1 / shape[0]) ** 0.5 of the per-layer shape
-    wq = tp["blocks"][0]["mixer"]["wq"].float()
-    assert abs(float(wq.std()) - (1 / cfg_j.d_model) ** 0.5) < 0.1 * (1 / cfg_j.d_model) ** 0.5
+    # JAX's scale rule: std (1 / shape[0]) ** 0.5 of the per-layer shape (the
+    # first block's first projection from d_model: GQA's wq, MLA's w_dq,
+    # Mamba's in_proj, RWKV's wr)
+    mixer = tp["blocks"][0]["mixer"]
+    w = mixer[next(n for n in ("wq", "w_dq", "in_proj", "wr") if n in mixer)].float()
+    assert abs(float(w.std()) - (1 / cfg_j.d_model) ** 0.5) < 0.1 * (1 / cfg_j.d_model) ** 0.5
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -318,9 +354,9 @@ def test_unported_families_raise():
     from repro_torch.models.config import ModelConfig
 
     gen = torch.Generator().manual_seed(0)
-    for kw, what in ((dict(attention="mla"), "MLA"),
-                     (dict(attention="none", ssm_type="mamba"), "mamba"),
-                     (dict(family="audio"), "audio")):
+    for kw, what in ((dict(family="vlm"), "VLM"),
+                     (dict(family="audio"), "audio"),
+                     (dict(causal=False), "bidirectional")):
         with pytest.raises(NotImplementedError, match=what):
             TLM.init_params(gen, ModelConfig(**kw))
 
@@ -352,7 +388,8 @@ def test_layer_helpers_match_jax():
 def test_launcher_serves_reduced_lm_on_cpu(capsys):
     from repro_torch.launch.serve import main
 
-    for arch in ("chatglm3-6b", "qwen3-moe-30b-a3b"):
+    for arch in ("chatglm3-6b", "qwen3-moe-30b-a3b", "minicpm3-4b", "jamba-v0.1-52b",
+                 "rwkv6-1.6b"):
         main(["--arch", arch, "--reduced", "--device", "cpu", "--max-new", "3"])
         out = capsys.readouterr().out
         assert "generated:" in out and "ms/token" in out

@@ -10,9 +10,12 @@ the JAX package's, on the CPU, at the reduced sizes.
 * ``gqa_apply``: the port projects k and v with the stored Hkv heads and
   repeats the projections to ``kv_heads_effective``; JAX repeats ``wk`` /
   ``wv`` first.  Each repeated head is the same dot products: prefill and
-  decode outputs and the K/V within 1e-5 (fp32 matmuls of another width).
+  decode outputs and the K/V within 1e-5 (fp32 matmuls of another width),
+  at every arch's reduced widths (MiniCPM3's and RWKV-6's with two KV
+  heads: their own layers are MLA and attention-free).
 * ``decode_step`` at a tensor position gives the int position's logits and
-  cache bit for bit (both models' dtypes).
+  cache (sequence entries and recurrent states) bit for bit (both models'
+  dtypes).
 """
 import jax
 import jax.numpy as jnp
@@ -35,10 +38,14 @@ GQA_TOL = dict(rtol=1e-5, atol=1e-5)
 B, S_CACHE, D = 2, 24, 16
 # (kind, window, softcap) of each decode_attention case
 ATTN_KINDS = (("plain", 0, 0.0), ("window", 5, 0.0), ("softcap", 0, 3.0))
-# arch -> kv_pad_to giving tied KV copies at the reduced size (heads 4 / 4 / 8
-# / 4 / 4)
-PADS = {"chatglm3-6b": 4, "gemma3-12b": 4, "starcoder2-15b": 8,
-        "qwen3-moe-30b-a3b": 4, "mixtral-8x7b": 4}
+# arch -> overrides giving tied KV copies at the reduced size (heads 4 / 4 / 8
+# / 4 / 4 / 4 / 4 / 4; MiniCPM3 and RWKV-6 have 4 KV heads, cut to 2)
+PADS = {"chatglm3-6b": dict(kv_pad_to=4), "gemma3-12b": dict(kv_pad_to=4),
+        "starcoder2-15b": dict(kv_pad_to=8), "qwen3-moe-30b-a3b": dict(kv_pad_to=4),
+        "mixtral-8x7b": dict(kv_pad_to=4),
+        "minicpm3-4b": dict(num_kv_heads=2, kv_pad_to=4),
+        "jamba-v0.1-52b": dict(kv_pad_to=4),
+        "rwkv6-1.6b": dict(num_kv_heads=2, kv_pad_to=4)}
 
 
 def _np(t):
@@ -65,8 +72,8 @@ def test_grouped_decode_attention_matches_jax(g, t, kind, window, softcap):
 def _gqa_case(arch):
     """(JAX cfg, port cfg, JAX params, port params) of one attention layer
     with tied KV copies (kv_pad_to > num_kv_heads)."""
-    cfg_j = jget_reduced(arch, dtype="float32", kv_pad_to=PADS[arch])
-    cfg = get_reduced(arch, dtype="float32", kv_pad_to=PADS[arch])
+    cfg_j = jget_reduced(arch, dtype="float32", **PADS[arch])
+    cfg = get_reduced(arch, dtype="float32", **PADS[arch])
     assert cfg.kv_heads_effective > cfg.num_kv_heads
     jp = jax.tree_util.tree_map(np.asarray,
                                 JP.values(JL.gqa_init(jax.random.PRNGKey(2), cfg_j)))
@@ -120,4 +127,4 @@ def test_decode_step_at_a_tensor_position_equals_the_int_position(arch, dtype):
         by_tensor, _ = TLM.decode_step(params, twin, step, torch.tensor(t + i), cfg)
         assert torch.equal(by_int, by_tensor)
     for a, b in zip(cache, twin):
-        assert all(torch.equal(a[k], b[k]) for k in ("k", "v"))
+        assert sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)

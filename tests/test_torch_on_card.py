@@ -898,6 +898,73 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
     assert FA.launches == before
 
 
+# MLA's (D, Dv) = (96, 64) (MiniCPM3's prefill: nope 64 + rope 32, v 64):
+# ragged S (1, 63, 65, 1025), H 40 as served, GQA, a window, a softcap
+MLA_CASES = [  # (hq, hkv, s, window, softcap, bshd)
+    (40, 40, 1, 0, 0.0, True),
+    (40, 40, 63, 0, 0.0, True),
+    (40, 40, 65, 0, 0.0, False),
+    (40, 40, 1025, 0, 0.0, True),
+    (8, 2, 200, 48, 0.0, False),
+    (4, 4, 130, 0, 30.0, True),
+]
+
+
+def _mla_inputs(device, b, hq, hkv, s, dtype, bshd, seed):
+    """q (B, Hq, S, 96), k (B, Hkv, S, 96), v (B, Hkv, S, 64)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def one(h, d):
+        if bshd:
+            return torch.randn((b, s, h, d), generator=gen).to(device, dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen).to(device, dtype)
+
+    return one(hq, 96), one(hkv, 96), one(hkv, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,s,window,softcap,bshd", MLA_CASES)
+def test_flash_attention_mla_instance_matches_plain(cuda, dtype, hq, hkv, s, window,
+                                                    softcap, bshd):
+    """The (96, 64) instance on its route (bf16: mma; fp32: simt) and, for
+    bf16, the simt route forced on the same inputs: the output is (B, Hq,
+    S, 64) in q's layout, within FLASH_TOL of the plain version (scale
+    1 / sqrt(96))."""
+    q, k, v = _mla_inputs(cuda, 2, hq, hkv, s, dtype, bshd, seed=s + hq)
+    chosen = FA.route(dtype, 96, 64)
+    assert chosen == ("mma" if dtype == torch.bfloat16 else "simt")
+    before = dict(FA.launches_by_route)
+    kw = dict(window=window, softcap=softcap)
+    got = kops.flash_attention(q, k, v, mode="kernel", **kw)
+    want = kops.flash_attention(q, k, v, mode="reference", **kw)
+    torch.cuda.synchronize()
+    assert FA.launches_by_route == dict(before, **{chosen: before[chosen] + 1})
+    assert got.dtype == dtype and got.shape == (2, hq, s, 64)
+    if s > 1:
+        assert got.transpose(1, 2).is_contiguous() == bshd
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        simt = FA.flash_attention(q, k, v, force_route="simt", **kw)
+        torch.testing.assert_close(simt.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("d, dv", [(96, 32), (64, 96), (24, 16), (128, 64)])
+def test_flash_attention_refuses_uninstantiated_head_dims(cuda, d, dv):
+    """A (D, Dv) pair without an instance raises on both routes and
+    launches nothing: no padding to a wider head, no fallback."""
+    gen = torch.Generator().manual_seed(d + dv)
+    q, k = (torch.randn((1, 4, 16, d), generator=gen).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((1, 4, 16, dv), generator=gen).to(cuda, torch.bfloat16)
+    before = (FA.launches, dict(FA.launches_by_route))
+    for force in (None, "simt", "mma"):
+        with pytest.raises(ValueError, match="no instance"):
+            FA.flash_attention(q, k, v, force_route=force)
+    with pytest.raises(ValueError, match="no instance"):
+        kops.flash_attention(q, k, v, mode="kernel")
+    assert (FA.launches, FA.launches_by_route) == before
+
+
 def test_lm_server_on_card_matches_reference(cuda):
     """Reduced ChatGLM3 in fp32: the server's flash-kernel prefill against
     its reference mode (plain attention on the card), then the decode
@@ -1027,19 +1094,32 @@ def test_moe_decode_replay_equals_the_eager_step(cuda):
     assert not all(torch.equal(a, b) for a, b in zip(replayed, start))  # a step ran
 
 
+# reduced configs the card serves: MiniCPM3 at its served MLA head dims (the
+# flash kernel's (96, 64) instance; the reduced (24, 16) has none)
+CARD_REDUCED = {"minicpm3-4b": dict(qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64,
+                                    head_dim=96)}
+
+
+def _attention_layers(cfg) -> int:
+    return sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.num_layers))
+
+
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 @pytest.mark.parametrize("arch", ("chatglm3-6b", "gemma3-12b", "starcoder2-15b",
-                                  "qwen3-moe-30b-a3b", "mixtral-8x7b"))
+                                  "qwen3-moe-30b-a3b", "mixtral-8x7b", "minicpm3-4b",
+                                  "jamba-v0.1-52b", "rwkv6-1.6b"))
 def test_lm_graphs_give_the_eager_loops_tokens(cuda, arch, dtype):
     """The captured prefill and decode step give the eager loop's tokens,
     token for token; a second ``generate`` captures nothing; a prefill
-    replay runs num_layers flash kernels and a decode replay none (by the
+    replay runs one flash kernel an attention layer (MiniCPM3 all of its,
+    Jamba one in eight, RWKV-6 none) and a decode replay none (by the
     profiler: a replay runs no wrapper)."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import lm
     from repro_torch.serve.engine import LMServer, ServeConfig
 
-    cfg = get_reduced(arch, dtype=dtype)
+    cfg = get_reduced(arch, dtype=dtype, **CARD_REDUCED.get(arch, {}))
+    n_attn = _attention_layers(cfg)
     params = lm.init_params(torch.Generator(device=cuda).manual_seed(1), cfg)
     scfg = ServeConfig(max_batch=3, prompt_len=24, cache_len=40, max_new_tokens=8)
     rng = np.random.default_rng(2)
@@ -1053,11 +1133,57 @@ def test_lm_graphs_give_the_eager_loops_tokens(cuda, arch, dtype):
         np.testing.assert_array_equal(gen, _eager_greedy(params, cfg, scfg, prompts, cuda))
         assert srv.captures == 2 and stats["decode_s_per_token"] > 0
     # warm + capture of prefill, then a generate that only replays
-    assert launches == [2 * cfg.num_layers, 0]
+    assert launches == [2 * n_attn, 0]
     prefill = _device_names(srv.prefill_graph.replay)  # rewinds position and step
     decode = _device_names(srv.decode_graph.replay)  # <= 4 replays of 8 steps
-    assert sum("flash_fwd" in n for n in prefill) == cfg.num_layers
+    assert sum("flash_fwd" in n for n in prefill) == n_attn
     assert not any("flash_fwd" in n for n in decode)
+
+
+@pytest.mark.parametrize("arch", ("minicpm3-4b", "jamba-v0.1-52b", "rwkv6-1.6b"))
+def test_reduced_server_on_card_matches_its_cpu_run(cuda, arch):
+    """A reduced server of each MLA / hybrid / SSM arch in fp32 on the card
+    against the same weights on the CPU: prefill and teacher-forced decode
+    logits within 1e-4 (fp32 summed in another order; the card's prefill
+    attention is the flash kernel, the CPU's the plain version), the
+    recurrent states after the run within 1e-4, and the card's tokens the
+    CPU's argmax wherever the CPU's top-2 gap is over 1e-3."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import LMServer, ServeConfig
+
+    cfg = get_reduced(arch, dtype="float32", capacity_factor=8.0,
+                      **CARD_REDUCED.get(arch, {}))
+    params = lm.init_params(torch.Generator().manual_seed(3), cfg)
+    scfg = ServeConfig(max_batch=2, prompt_len=24, cache_len=40, max_new_tokens=6)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (13, 24)]
+    srv = LMServer(params, cfg, scfg, device=cuda)
+    gen, _ = srv.generate(prompts)
+    toks = np.zeros((2, 24), np.int64)
+    for i, pr in enumerate(prompts):
+        toks[i, -len(pr):] = pr
+    forced = torch.from_numpy(gen)
+    runs = []
+    for device, p in ((cuda, srv.params), ("cpu", params)):
+        cache, last, t = lm.prefill(p, {"tokens": torch.from_numpy(toks).to(device)}, cfg,
+                                    40)
+        steps = [last]
+        for i in range(gen.shape[1] - 1):
+            logits, cache = lm.decode_step(p, cache, forced[:, i:i + 1].to(device), t + i,
+                                           cfg)
+            steps.append(logits)
+        states = [w for c in cache for k, w in c.items() if k not in T.SEQ_CACHE_KEYS]
+        runs.append((torch.stack(steps).cpu(), [w.cpu() for w in states]))
+    (card, card_states), (cpu, cpu_states) = runs
+    torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-4)
+    for a, b in zip(card_states, cpu_states):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    top2 = torch.topk(cpu, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1] > 1e-3).T  # (B, steps)
+    want = torch.argmax(cpu, dim=-1).T.numpy()
+    assert (gen[sure.numpy()] == want[sure.numpy()]).all() and sure.float().mean() > 0.5
 
 
 # ------------------------------------------------------------ CUDA graphs

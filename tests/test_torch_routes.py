@@ -60,6 +60,28 @@ def test_flash_mma_shared_memory_fits(d, capped, want):
     assert 2 * (got + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
 
 
+@pytest.mark.parametrize("capped", (False, True))
+def test_flash_mma_shared_memory_fits_the_mla_pair(capped):
+    """(D, Dv) = (96, 64): Q and K rows padded to 104 elements (96 is no
+    multiple of the 64-column swizzle), V's 64 swizzled; three stages of
+    64 keys: (64 x 104 + 3 x 64 x (104 + 64)) x 2 bytes, two CTAs an SM."""
+    got = FA.mma_smem_bytes(96, capped, dv=64)
+    assert FA.mma_pitch(96) == 104 and FA.mma_pitch(64) == 64
+    assert got == (64 * 104 + 3 * 64 * (104 + 64)) * 2 == 77_824
+    assert 2 * (got + BLOCK_RESERVED_BYTES) <= SM_SMEM_BYTES
+
+
+@pytest.mark.parametrize("dtype, want", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
+def test_flash_route_of_the_mla_pair(dtype, want):
+    assert FA.route(dtype, 96, 64) == want
+    FA.check_route("simt", dtype, 96, 64)
+    if want == "mma":
+        FA.check_route("mma", dtype, 96, 64)
+    else:
+        with pytest.raises(ValueError, match="no instance"):
+            FA.check_route("mma", dtype, 96, 64)
+
+
 def _bf16(*shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
 
