@@ -195,8 +195,11 @@ fails the run), then runs these phases, one line each:
               (B 8, Hq 32, Hkv 16 and 2, D 128, S 512, 1, 37, 1000, in the
               serving path's (B, S, H, D) layout) and Gemma-3-12B's layers
               (B 2, Hq 16, Hkv 16 and 8, D 256, S 2048, window 0 and 1024),
-              one softcap case, and MiniCPM3-4B's MLA prefill, the (D, Dv) =
+              one softcap case, MiniCPM3-4B's MLA prefill, the (D, Dv) =
               (96, 64) instance (H 40, B 2 at S 1, 63, 65 and B 8 at S 1025),
+              Whisper-base's decoder prefill (B 8, H 8, D 64 at S 64, 1, 37,
+              65: the D 64 instance) and InternVL2-26B's (B 4, Hq 48, Hkv 16
+              and 8, D 128, S 1536 and 1100: patches + prompt), in
               fp32 and bf16 (fp32 |kernel - plain| <= 1e-5 + 1e-5 |plain|,
               fp32 products summed in another order; bf16 1.6e-2 + 1.6e-2
               |plain|, two bf16 ulps at 1); each case runs on the route
@@ -285,6 +288,29 @@ fails the run), then runs these phases, one line each:
               cache_len 576, 32 new tokens; the checks of 9-9c, no flash
               launch (its prefill graph holds the per-token scan: 3
               kernels a token a layer)
+  9i. LM      InternVL2-26B at full width and depth (48 layers, 48 / 8 ->
+              16 heads, D 128, SwiGLU d_ff 16384, 19.86 B parameters, ~40
+              GB in bf16): B 4, 1024 patch embeddings (float32 normal
+              draws of the path's generator, the stubbed vision
+              frontend's output, JAX's ``extras``) before prompts of
+              256-512 tokens, prompt_len 512, cache_len 1600, 32 new
+              tokens; the checks of 9-9c with the patches in every call
+              (decode starts at 1024 + 512), 48 mma flash launches a
+              prefill replay over 1536 positions; decode after
+              prefill(S-1) in bf16 on the served weights (an fp32 copy of
+              48 layers does not fit); the init's peak memory (each leaf
+              cast to bf16 as drawn) and the run's
+  9j. LM      Whisper-base at its full config (6 encoder + 6 decoder
+              layers, d 512, 8 heads, D 64, vocab 51865, 1500 frames): B 8,
+              1500 frame embeddings (float32 normal draws, the stubbed conv
+              frontend's output) through the bidirectional encoder inside
+              the prefill graph, prompts of 16-64 tokens, prompt_len 64,
+              cache_len 448 (Whisper's text context), 32 new tokens; the
+              checks of 9-9c, 6 mma flash launches a prefill replay on the
+              D 64 instance, the decode graph reading the cross K/V from
+              the cache; its weight-read floor counts what a step reads:
+              the decoder's weights, the tied head and the cross K/V, not
+              the encoder
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after; a wrapper counts where it
               runs: the eager warm forward and the launches recorded into
@@ -306,7 +332,8 @@ fails the run), then runs these phases, one line each:
               probe on its 128 blocks (fused_mp fp32 at GIN's, PNA's and GCN's shapes, int8
               at GIN's and PNA's, each with its destinations per block and
               its live tiles); flash_attention at ChatGLM3's prefill shape,
-              Gemma-3's global layer and MiniCPM3's MLA prefill (bf16,
+              Gemma-3's global layer, MiniCPM3's MLA prefill, InternVL2's
+              prefill and Whisper's decoder prefill (bf16,
               causal; the (96, 64) instance its own kernels row) against
               ``scaled_dot_product_attention``, and there the CUDA-core
               (simt) route forced on the same bf16 tensors, the design the
@@ -380,7 +407,16 @@ LM_PATHS = (("chatglm3-6b", {}, dict(max_batch=8, prompt_len=512, cache_len=1024
             # attention-free: no kernel on the path
             ("rwkv6-1.6b", {},
              dict(max_batch=8, prompt_len=512, cache_len=576, max_new_tokens=32),
-             (256, 512)))
+             (256, 512)),
+            # VLM: 1024 patches before the prompt, 48 layers, ~40 GB of bf16
+            ("internvl2-26b", {},
+             dict(max_batch=4, prompt_len=512, cache_len=1600, max_new_tokens=32),
+             (256, 512)),
+            # audio: the encoder over 1500 frames in the prefill graph; the
+            # decoder on the flash kernel's D 64 instance
+            ("whisper-base", {},
+             dict(max_batch=8, prompt_len=64, cache_len=448, max_new_tokens=32),
+             (16, 64)))
 LM_RUNS = 3  # generate (graphs) and the eager loop, each, per LM path
 # the decode-after-prefill check of an MoE path runs as JAX's
 # tests/test_arch_smoke.py:47-57 does, in fp32 (on a copy of the weights)
@@ -1251,6 +1287,12 @@ def check_flash_attention(device) -> None:
     # MiniCPM3's MLA prefill, (D, Dv) = (96, 64), H 40: ragged S
     cases += [(2, 40, 40, s, 96, 0, 0.0, "bshd") for s in (1, 63, 65)]
     cases.append((8, 40, 40, 1025, 96, 0, 0.0, "bshd"))
+    # Whisper-base's decoder prefill (the D 64 instance): S 64, ragged
+    cases += [(8, 8, 8, s, 64, 0, 0.0, "bshd") for s in (64, 1, 37, 65)]
+    # InternVL2-26B's prefill, 1024 patches + 512 tokens (with and without
+    # kv_pad_to's 16 heads), and a ragged length
+    cases += [(4, 48, hkv, s, 128, 0, 0.0, "bshd") for hkv in (16, 8)
+              for s in (1536, 1100)]
     worst, mla_worst = {}, {}
     ran = dict.fromkeys(FA.ROUTE_CODES, 0)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1285,7 +1327,9 @@ def check_flash_attention(device) -> None:
     print(f"[flash_attention] {len(cases)} shapes x fp32/bf16 (ChatGLM3 B=8 Hq=32 "
           f"Hkv 16/2 D=128 S 512/1/37/1000; Gemma-3 B=2 Hq=16 Hkv 16/8 D=256 "
           f"S=2048 window 0/1024; softcap 30; MiniCPM3 (D, Dv) = (96, 64) H=40 B=2 "
-          f"S 1/63/65, B=8 S 1025) match the plain version, each on its route {ran}: "
+          f"S 1/63/65, B=8 S 1025; Whisper B=8 H=8 D=64 S 64/1/37/65; InternVL2 B=4 "
+          f"Hq=48 Hkv 16/8 D=128 S 1536/1100) match the plain version, each on its "
+          f"route {ran}: "
           f"max abs err " + " ".join(f"{k} {v:.3g}" for k, v in worst.items())
           + "; the (96, 64) instance by route "
           + " ".join(f"{k} {v:.3g}" for k, v in mla_worst.items()))
@@ -2624,20 +2668,22 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def eager_generate(params, cfg, scfg, tokens):
+def eager_generate(params, cfg, scfg, batch):
     """The eager loop of ``lm.prefill`` / ``lm.decode_step`` at int
-    positions, greedy, as JAX's ``LMServer.generate`` runs its programs:
-    (tokens (B, max_new) numpy, prefill s with the first argmax, decode s a
-    token), each region ending at a synchronise."""
+    positions, greedy, as JAX's ``LMServer.generate`` runs its programs, on
+    ``batch`` (the padded tokens and a VLM's patches or an audio model's
+    frames): (tokens (B, max_new) numpy, prefill s with the first argmax,
+    decode s a token), each region ending at a synchronise."""
     import torch
     from repro_torch.models import lm
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cache, last, t = lm.prefill(params, {"tokens": tokens}, cfg, scfg.cache_len)
+    cache, last, t = lm.prefill(params, batch, cfg, scfg.cache_len)
     tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    tokens = batch["tokens"]
     out = torch.empty((tokens.shape[0], scfg.max_new_tokens), dtype=torch.int32,
                       device=tokens.device)
     for i in range(scfg.max_new_tokens):
@@ -2707,7 +2753,7 @@ def time_mla_decode(arch: str, cfg, srv, pos: int) -> dict:
     gen = torch.Generator(device=ckv.device).manual_seed(23)
     q_nope, q_rope = (torch.randn((b, 1, h, n), generator=gen, device=ckv.device)
                       .to(ckv.dtype) for n in (dn, dr))
-    t = torch.full((), srv.scfg.prompt_len + srv.scfg.max_new_tokens - 1,
+    t = torch.full((), srv.t0 + srv.scfg.max_new_tokens - 1,
                    dtype=torch.long, device=ckv.device)
     args = (q_nope, q_rope, ckv, kr, w_uk, w_uv, t)
     got = L.mla_decode_attention(*args)
@@ -2755,8 +2801,8 @@ def time_decode_attention(arch: str, cfg, srv):
     b, s, hkv, d = kc.shape
     gen = torch.Generator(device=kc.device).manual_seed(22)
     q = torch.randn((b, 1, cfg.num_heads, d), generator=gen, device=kc.device).to(kc.dtype)
-    # the last slot a served decode writes
-    t = torch.full((), srv.scfg.prompt_len + srv.scfg.max_new_tokens - 1,
+    # the last slot a served decode writes (a VLM's past its patches)
+    t = torch.full((), srv.t0 + srv.scfg.max_new_tokens - 1,
                    dtype=torch.long, device=kc.device)
     args = (q, kc, vc, t, 0, cfg.logit_softcap)
     got = L.decode_attention(*args)
@@ -2776,12 +2822,12 @@ def time_decode_attention(arch: str, cfg, srv):
 
 def decode_replays(srv, n: int):
     """A call that rewinds ``srv``'s device position and step index to the
-    end of the prompt (two fills) and replays its decode graph ``n`` <=
-    max_new_tokens times: within the cache and the output however often
-    it is called (the cache past the prompt is rewritten before it is
-    read)."""
+    end of the prompt (t0, a VLM's past its patches; two fills) and replays
+    its decode graph ``n`` <= max_new_tokens times: within the cache and
+    the output however often it is called (the cache past the prompt is
+    rewritten before it is read)."""
     def run():
-        srv._pos.fill_(srv.scfg.prompt_len)
+        srv._pos.fill_(srv.t0)
         srv._step.zero_()
         for _ in range(n):
             srv.decode_graph.replay()
@@ -2949,7 +2995,10 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     its CUDA graphs and check it; returns (the path's launch counts, the
     flash launches of one prefill replay and of one decode replay by the
     profiler).  The flash kernel runs once an attention layer a prefill
-    (MLA's at (96, 64)) and never in a decode step."""
+    (MLA's at (96, 64)) and never in a decode step.  A VLM's patch or an
+    audio model's frame embeddings (``lm.extra_input``) are float32 normal
+    draws of the path's generator after the prompts', as JAX's launcher
+    makes them, and go with the tokens into every call."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -2959,11 +3008,17 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
 
     cfg = get_config(arch, **overrides)
     scfg = ServeConfig(**serve_kw)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device=device).manual_seed(0), cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    # each leaf is cast to the model dtype as it is drawn: one fp32 leaf at
+    # a time beside the cast ones; its blocks go back to the card
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     n_params = sum(math.prod(shape) for shape, _ in params_signature(params))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
@@ -2971,13 +3026,19 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     toks = np.zeros((scfg.max_batch, scfg.prompt_len), np.int32)
     for i, pr in enumerate(prompts):
         toks[i, -len(pr):] = pr  # LMServer's left padding
+    extra = lm.extra_input(cfg, scfg.max_batch)
+    extras = {} if extra is None else {
+        extra[0]: rng.normal(size=extra[1]).astype(np.float32)}
     tokens = torch.from_numpy(toks).to(device)
+    batch = {"tokens": tokens, **{k: torch.from_numpy(v).to(device)
+                                  for k, v in extras.items()}}
+    with_tokens = lambda t: {**batch, "tokens": t}
     srv = LMServer(params, cfg, scfg, device=device)
     ref_srv = LMServer(params, cfg, scfg, device=device, mode="reference")
     # the main path: the first generate warms prefill and the step eagerly,
     # captures both and replays them; the counters move at warm and capture
     reset_launches()
-    gen, _ = srv.generate(prompts)
+    gen, _ = srv.generate(prompts, extras=extras or None)
     launches = read_launches()
     n_layers = cfg.num_layers
     n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(n_layers))
@@ -3007,11 +3068,11 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     graph_runs, eager_runs = [], []
     for _ in range(LM_RUNS):
         reset_launches()
-        got, stats = srv.generate(prompts)
+        got, stats = srv.generate(prompts, extras=extras or None)
         if any(read_launches().values()) or srv.captures != 2:
             raise AssertionError(f"{arch}: a later generate captured or launched "
                                  f"{read_launches()}; captures {srv.captures}")
-        eager, prefill_s, decode_s = eager_generate(params, cfg, scfg, tokens)
+        eager, prefill_s, decode_s = eager_generate(params, cfg, scfg, batch)
         for name, toks_ in (("graph", got), ("eager loop", eager)):
             if not np.array_equal(toks_, gen):
                 raise AssertionError(f"{arch}: the {name} tokens differ from the first "
@@ -3024,8 +3085,8 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
         launches of the prefill) in ``server``'s mode; raises if a decode
         step launches the flash kernel."""
         reset_launches()
-        cache, last, t = lm.prefill(server.params, {"tokens": tokens}, cfg,
-                                    scfg.cache_len, kernel_mode=server.mode)
+        cache, last, t = lm.prefill(server.params, batch, cfg, scfg.cache_len,
+                                    kernel_mode=server.mode)
         torch.cuda.synchronize()
         counts = read_launches()
         n_prefill = counts["flash_attention"]
@@ -3098,7 +3159,7 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
         cfg_c = dataclasses.replace(cfg, capacity_factor=cf)
         bf16_step = decode_after_prefill(params, cfg_c, tokens, scfg.cache_len)
     else:
-        cache, _, t = lm.prefill(params, {"tokens": tokens[:, :-1]}, cfg, scfg.cache_len)
+        cache, _, t = lm.prefill(params, with_tokens(tokens[:, :-1]), cfg, scfg.cache_len)
         step, _ = lm.decode_step(params, cache, tokens[:, -1:], t, cfg)
         del cache
         if recurrent:
@@ -3108,25 +3169,32 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     # the reference server's capture holds its plain attention's (B, H, S, S)
     # buffers in its pool: give it the memory the eager checks left cached
     torch.cuda.empty_cache()
-    ref_gen, _ = ref_srv.generate(prompts)
+    ref_gen, _ = ref_srv.generate(prompts, extras=extras or None)
     agree_tokens = float((ref_gen == gen).mean())
 
     busy_graph = busy_share(decode_replays(srv, scfg.max_new_tokens))
-    cache, _, t = lm.prefill(params, {"tokens": tokens}, cfg, scfg.cache_len)
+    cache, _, t = lm.prefill(params, batch, cfg, scfg.cache_len)
     first = forced[:, :1]
     busy_eager = busy_share(lambda: [lm.decode_step(params, cache, first, t + i, cfg)
                                      for i in range(8)])
     del cache
     attn = time_decode_attention(arch, cfg, srv)
     captures, capture_s, pool_gb = srv.captures, srv.capture_seconds, srv.pool_bytes / 1e9
-    # a decode step reads every weight but the embedding's rows (a dispatch
-    # MoE step runs every expert's GEMMs over its slots); a tied embedding
-    # is the head and read whole
-    read = tree_bytes(params) - (0 if cfg.tie_embeddings else tree_bytes(params["embed"]))
+    # a decode step reads every decoder weight but the embedding's rows (a
+    # dispatch MoE step runs every expert's GEMMs over its slots; a tied
+    # embedding is the head and read whole), not an audio model's encoder
+    # (``enc_*``), and an audio decoder's cross K/V from the cache
+    decoder = {k: w for k, w in params.items() if not k.startswith("enc_")}
+    cross = sum(w.numel() * w.element_size() for c in srv._cache for k, w in c.items()
+                if k.startswith("cross_"))
+    read = (tree_bytes(decoder) + cross
+            - (0 if cfg.tie_embeddings else tree_bytes(params["embed"])))
     floor = read / PEAK_HBM_BYTES_S * 1e3
     med = statistics.median(r[1] for r in graph_runs) * 1e3
-    floor_note = (f"; decode weight-read floor {read / 1e9:.3f} GB = {floor:.3f} ms/token "
-                  f"at {PEAK_HBM_BYTES_S / 1e12:.2f} TB/s (graph decode {med / floor:.2f}x)")
+    floor_note = (f"; decode weight-read floor {read / 1e9:.3f} GB"
+                  + (f" (the cross K/V {cross / 1e9:.3f} of it)" if cross else "")
+                  + f" = {floor:.3f} ms/token at {PEAK_HBM_BYTES_S / 1e12:.2f} TB/s "
+                  f"(graph decode {med / floor:.2f}x)")
     del srv, ref_srv
     if moe:
         moe_note += f"; decode after prefill(S-1), bf16 {bf16_step['note']}"
@@ -3141,8 +3209,8 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
         float_in_place(params)
         torch.cuda.empty_cache()
         cfg32 = dataclasses.replace(cfg, dtype="float32")
-        _, last32, _ = lm.prefill(params, {"tokens": tokens}, cfg32, scfg.cache_len)
-        cache, _, t = lm.prefill(params, {"tokens": tokens[:, :-1]}, cfg32, scfg.cache_len)
+        _, last32, _ = lm.prefill(params, batch, cfg32, scfg.cache_len)
+        cache, _, t = lm.prefill(params, with_tokens(tokens[:, :-1]), cfg32, scfg.cache_len)
         step, _ = lm.decode_step(params, cache, tokens[:, -1:], t, cfg32)
         del cache
         errs["decode_vs_prefill"] = held("decode after prefill(S-1), fp32", step, last32)
@@ -3152,10 +3220,12 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     torch.cuda.empty_cache()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     col = lambda runs, i: spread([r[i] for r in runs])
+    extra_note = "".join(f" with {v.shape[1]} {k}" for k, v in extras.items())
     print(f"[lm {arch}] {n_layers} layers, d {cfg.d_model}, {n_params / 1e9:.3f} B "
           f"params (init {init_s:.3f}s); B={scfg.max_batch} prompts "
           f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens padded to "
-          f"{scfg.prompt_len}, cache {scfg.cache_len}, {scfg.max_new_tokens} new; "
+          f"{scfg.prompt_len}{extra_note}, cache {scfg.cache_len}, "
+          f"{scfg.max_new_tokens} new; "
           f"median (min-max) of {LM_RUNS} runs: graph prefill {col(graph_runs, 0)} ms, "
           f"decode {col(graph_runs, 1)} ms/token; eager loop prefill "
           f"{col(eager_runs, 0)} ms, decode {col(eager_runs, 1)} ms/token; graph tokens "
@@ -3170,7 +3240,8 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
           f"the reference server's {agree_tokens:.3f}; flash_attention by the profiler "
           f"{replays['prefill']} a prefill replay (mma; {n_attn} attention layers), "
           f"{replays['decode']} a decode replay; launches {launches} (warm + capture); "
-          f"{attn_note(attn)}; peak memory {peak_gb:.1f} GB{floor_note}{moe_note}")
+          f"{attn_note(attn)}; peak memory: init {init_peak_gb:.1f} GB, then serving "
+          f"{peak_gb:.1f} GB{floor_note}{moe_note}")
     if failures:
         raise AssertionError("; ".join(failures))
     return launches, replays
@@ -3567,8 +3638,10 @@ def time_flash_attention(device, launches: int, by_route: dict, mla_launches: in
                          mla_by_route: dict) -> list:
     """``flash_attention`` (bf16, causal, the path's (B, S, H, D) layout) at
     ChatGLM3's prefill shape (B 8, Hq 32, Hkv 16 after kv_pad_to, S 512, D
-    128), Gemma-3's global layer (B 2, Hq 16, Hkv 16, S 2048, D 256) and
-    MiniCPM3's MLA prefill (B 8, H 40, S 1024, D 96, Dv 64): the kernel on
+    128), Gemma-3's global layer (B 2, Hq 16, Hkv 16, S 2048, D 256),
+    MiniCPM3's MLA prefill (B 8, H 40, S 1024, D 96, Dv 64), InternVL2's
+    prefill (B 4, Hq 48, Hkv 16, S 1536 = 1024 patches + 512 tokens, D 128)
+    and Whisper's decoder prefill (B 8, H 8, S 64, D 64): the kernel on
     the route the path takes (mma), the CUDA-core route it replaces there
     (simt, forced on the same bf16 tensors), the plain version and
     ``scaled_dot_product_attention`` on the same tensors (``is_causal``,
@@ -3585,7 +3658,9 @@ def time_flash_attention(device, launches: int, by_route: dict, mla_launches: in
     for name, (b, hq, hkv, s, d, dv) in (
             ("chatglm3-6b prefill", (8, 32, 16, 512, 128, 128)),
             ("gemma3-12b global layer", (2, 16, 16, 2048, 256, 256)),
-            ("minicpm3-4b prefill", (8, 40, 40, 1024, 96, 64))):
+            ("minicpm3-4b prefill", (8, 40, 40, 1024, 96, 64)),
+            ("internvl2-26b prefill", (4, 48, 16, 1536, 128, 128)),
+            ("whisper-base decoder prefill", (8, 8, 8, 64, 64, 64))):
         q, k, v = attention_inputs(gen, b, hq, hkv, s, d, torch.bfloat16, device, "bshd",
                                    dv)
         kern = lambda: kops.flash_attention(q, k, v, mode="kernel")

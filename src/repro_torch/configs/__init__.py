@@ -1,13 +1,13 @@
 """Model configurations of the port.
 
 ``gengnn_models`` holds the paper's six GNNs.  The LM registry lists the
-decoders the port serves (copies of ``repro.configs``' modules of the same
-names): the dense GQA family, MLA (MiniCPM3), the MoE family, the
-attention / Mamba hybrid (Jamba) and the attention-free RWKV-6.
-``get_config(arch)`` gives the published configuration,
-``get_reduced(arch)`` the same-family smoke-test reduction.  The JAX
-package's other two architectures (VLM, audio) need modules the port does
-not have yet.
+language models the port serves (copies of ``repro.configs``' modules of the same
+names), all ten of its architectures: the dense GQA family, MLA
+(MiniCPM3), the MoE family, the attention / Mamba hybrid (Jamba), the
+attention-free RWKV-6, the VLM backbone (InternVL2) and the audio
+encoder-decoder (Whisper).  ``get_config(arch)`` gives the published
+configuration, ``get_reduced(arch)`` the same-family smoke-test
+reduction.
 """
 from importlib import import_module
 
@@ -20,6 +20,8 @@ REGISTRY = {
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "whisper-base": "repro_torch.configs.whisper_base",
 }
 
 ARCHS = tuple(REGISTRY)

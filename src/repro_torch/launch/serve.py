@@ -34,10 +34,16 @@ disjoint from the served one (seed 97); every precision but fp32 prints a
 format; its "compile ... excluded" figure is the untimed warm-up (the
 eager first run with the kernels' build, the CUDA-graph capture and the
 first replay).  ``--arch`` serves one of the registry's LMs (dense, MLA,
-MoE, hybrid or SSM; full or ``--reduced``) with random weights from seed 0
-and prints the generated tokens and the prefill / per-token decode times,
-as the JAX launcher does; its first prefill also builds the
-flash-attention kernel (RWKV-6 has no attention and builds none).
+MoE, hybrid, SSM, VLM or audio; full or ``--reduced``) with random
+weights from seed 0 and prints the generated tokens and the prefill /
+per-token decode times, as the JAX launcher does; a VLM's patch and an
+audio model's frame embeddings are normal draws from the prompts' numpy
+generator, as JAX's launcher makes them.  On the card it first prints the
+init's peak memory.  Its first prefill also builds the flash-attention
+kernel (RWKV-6 has no attention and builds none).  A full VLM needs
+``--cache-len`` past its 1024 patches + ``--prompt-len`` + ``--max-new``,
+for example ``--arch internvl2-26b --batch 4 --prompt-len 512
+--cache-len 1600 --max-new 32``.
 
 ``--stream`` serves the graphs through ``serve.scheduler.StreamScheduler``
 (arrivals at ``--qps`` on its virtual clock, flushes packed up to
@@ -287,14 +293,25 @@ def serve_lm(args):
 
     cfg = (get_reduced if args.reduced else get_config)(args.arch)
     device = resolve_device(args.device)
-    params = lm.init_params(torch.Generator(device=device).manual_seed(0), cfg)
     scfg = ServeConfig(max_batch=args.batch, prompt_len=args.prompt_len,
                        cache_len=args.cache_len, max_new_tokens=args.max_new)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    if cuda:
+        print(f"init peak memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+        torch.cuda.empty_cache()  # the fp32 draws' blocks
     srv = LMServer(params, cfg, scfg, device=device)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, rng.integers(4, args.prompt_len))
                for _ in range(args.batch)]
-    out, stats = srv.generate(prompts)
+    # JAX's launcher's draw: the VLM's patch or the audio model's frame
+    # embeddings (the stubbed frontends' outputs)
+    extra = lm.extra_input(cfg, args.batch)
+    extras = None if extra is None else {
+        extra[0]: rng.normal(size=extra[1]).astype(np.float32)}
+    out, stats = srv.generate(prompts, extras=extras)
     print("generated:", out[:2])
     print(f"prefill {stats['prefill_s']*1e3:.1f} ms, "
           f"decode {stats['decode_s_per_token']*1e3:.2f} ms/token")
@@ -313,8 +330,8 @@ def main(argv=None):
                            "model[:precision] specs (e.g. gcn:int8,gat:fp32) "
                            "registered on one shared executor + scheduler")
     what.add_argument("--arch", choices=ARCHS,
-                      help="serve an LM (dense, MLA, MoE, hybrid or SSM): batched "
-                           "prefill + greedy decode")
+                      help="serve an LM (dense, MLA, MoE, hybrid, SSM, VLM or "
+                           "audio): batched prefill + greedy decode")
     ap.add_argument("--reduced", action="store_true",
                     help="LM: the same-family smoke-test reduction")
     ap.add_argument("--prompt-len", type=int, default=16)

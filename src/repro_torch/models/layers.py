@@ -15,10 +15,13 @@ MLA (MiniCPM3) prefills in the expanded form, per-head keys and values
 from the latent through the same flash kernel at (D, Dv) = (96, 64), and
 decodes in the absorbed form over its latent cache, in plain torch.
 
+Whisper's encoder self-attention and its decoder's cross-attention are
+full bidirectional attention in plain fp32 torch, as JAX computes them
+outside Pallas.
+
 Linears are ``torch.matmul`` on reshaped weights (XLA's einsums); RNG is
 an explicit ``torch.Generator``; ``stack`` prepends the group axis of
-``models.transformer`` to every parameter.  Cross-attention and the
-bidirectional encoder are not ported yet.
+``models.transformer`` to every parameter.
 """
 from __future__ import annotations
 
@@ -245,8 +248,10 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
               t=None, mode: str = "auto"):
     """Returns (out, new_kv).
 
-    Prefill: x (B, S, D), kv_cache None -> flash attention over the prompt;
-    new_kv is the (k, v) of every position, (B, S, Hkv_eff, hd).
+    Prefill: x (B, S, D), kv_cache None -> flash attention over the prompt
+    (``cfg.causal``), or the plain bidirectional attention of an encoder
+    (RoPE applied all the same, as JAX does); new_kv is the (k, v) of
+    every position, (B, S, Hkv_eff, hd).
     Decode: x (B, 1, D), kv_cache (k, v) of shape (B, S_cache, Hkv_eff, hd),
     t = position (an int, or a device tensor as JAX's traced ``t``); slot t
     of both caches is written in place and the caches are returned.
@@ -273,11 +278,11 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     rep = cfg.kv_heads_effective // k.shape[2]
     k, v = repeat_kv(k, rep), repeat_kv(v, rep)
     if kv_cache is None:
-        if not cfg.causal:
-            raise NotImplementedError("bidirectional attention (the Whisper encoder) "
-                                      "is not ported yet (ROADMAP queue 1, item 12.5)")
-        o = blocked_attention(q, k, v, window=window, softcap=cfg.logit_softcap,
-                              mode=mode)
+        if cfg.causal:
+            o = blocked_attention(q, k, v, window=window, softcap=cfg.logit_softcap,
+                                  mode=mode)
+        else:  # the encoder's self-attention (Whisper): full, bidirectional
+            o = _bidirectional_attention(q, k, v)
         new_kv = (k, v)
     else:
         kc, vc = kv_cache
@@ -286,6 +291,33 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
         o = decode_attention(q, kc, vc, t, window=window, softcap=cfg.logit_softcap)
         new_kv = (kc, vc)
     return _linear(o, p["wo"], k_dims=2), new_kv
+
+
+def _bidirectional_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """Full bidirectional GQA attention (the Whisper encoder, the decoder's
+    cross-attention) in plain torch, JAX's form: q (B, Sq, H, D), k / v (B,
+    Sk, Hkv, D) repeated to H heads, logits, softmax and P.V in fp32 (P is
+    not rounded), the output cast back to q's dtype."""
+    d = q.shape[-1]
+    g = q.shape[2] // k.shape[2]
+    kr, vr = repeat_kv(k, g), repeat_kv(v, g)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) / math.sqrt(d)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr.float()).to(q.dtype)
+
+
+def cross_attention_apply(p: dict, x: torch.Tensor, enc_k: torch.Tensor,
+                          enc_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The decoder's cross-attention (Whisper) over the encoder's K/V, (B,
+    S_enc, Hkv, D): no RoPE, no mask."""
+    o = _bidirectional_attention(_linear(x, p["wq"]), enc_k, enc_v)
+    return _linear(o, p["wo"], k_dims=2)
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor) -> tuple:
+    """One layer's cross-attention K/V of the encoder output (B, S_enc, d)."""
+    return _linear(enc_out, p["wk"]), _linear(enc_out, p["wv"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,26 @@
-"""Top-level decoder-only language model of the dense, MLA, MoE, hybrid
-and SSM families: embeddings, stack, head, prefill and decode (port of
-``repro.models.lm``).
+"""Top-level language model of every family: embeddings, stack, head,
+prefill and decode (port of ``repro.models.lm``).
+
+Families:
+  dense / mla / moe / hybrid / ssm: a decoder over tokens.
+  vlm:   a decoder over [patch embeddings ; token embeddings]; the vision
+         frontend is JAX's stub: the batch carries precomputed patch
+         embeddings, ``"patches"`` (B, P, d_model).
+  audio: an encoder-decoder (Whisper): a bidirectional encoder over
+         precomputed frame embeddings, ``"frames"`` (B, encoder_seq,
+         d_model) (the conv frontend is JAX's stub), and a decoder with
+         cross-attention to it.
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
-``blocks`` (``transformer.stack_init``'s list) and, untied, ``lm_head``
-(d, V).  ``kernel_mode`` ("auto" | "kernel" | "reference") reaches the
-prefill attention's dispatch.  The VLM and audio families and the losses
-(training) are not ported yet.
+``blocks`` (``transformer.stack_init``'s list), untied ``lm_head`` (d, V)
+and, for audio, ``enc_blocks``, ``enc_norm`` (d,) and ``enc_pos``
+(encoder_seq, d).  ``kernel_mode`` ("auto" | "kernel" | "reference")
+reaches the prefill attention's dispatch.  The losses (training) are not
+ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -31,19 +42,30 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``gen``'s device.  As in JAX, every leaf of two
-    or more dimensions (the stacked block norms included) is cast to the
-    model dtype and the rest stay fp32.  Each block position is cast as
-    soon as it is drawn, so at most one position's stacked leaves exist in
-    fp32 at a time (ChatGLM3-6B: 16.4 GB; Mixtral-8x7B at 4 layers: 23 GB,
-    its experts' ``wi`` 15 GB of it)."""
-    dt = _dt(cfg)
-    cast = lambda t: t.to(dt) if t.dim() >= 2 else t
-    p: dict = {"embed": cast(P.init_normal(gen, (cfg.vocab_size, cfg.d_model))),
-               "final_norm": L.rms_norm_init(cfg.d_model, device=gen.device)}
-    p["blocks"] = T.stack_init(gen, cfg, cast=cast)
-    if not cfg.tie_embeddings:
-        p["lm_head"] = cast(P.init_normal(gen, (cfg.d_model, cfg.vocab_size)))
+    or more dimensions (the stacked block norms and ``enc_pos`` included)
+    is cast to the model dtype and the rest stay fp32.  Each leaf is cast
+    as soon as it is drawn (``params.casting``), so at most one exists in
+    fp32 at a time: InternVL2-26B's largest, the stacked SwiGLU ``wi``, is
+    38.7 GB in fp32 beside ~40 GB of bf16 weights."""
+    with P.casting(_dt(cfg)):
+        p: dict = {"embed": P.init_normal(gen, (cfg.vocab_size, cfg.d_model)),
+                   "final_norm": L.rms_norm_init(cfg.d_model, device=gen.device),
+                   "blocks": T.stack_init(gen, cfg,
+                                          cross_attention=cfg.family == "audio")}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = P.init_normal(gen, (cfg.d_model, cfg.vocab_size))
+        if cfg.family == "audio":
+            p["enc_blocks"] = T.stack_init(gen, encoder_config(cfg))
+            p["enc_norm"] = L.rms_norm_init(cfg.d_model, device=gen.device)
+            p["enc_pos"] = P.init_normal(gen, (cfg.encoder_seq, cfg.d_model), scale=0.02)
     return p
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """Whisper's encoder: bidirectional dense attention, the same width."""
+    return dataclasses.replace(cfg, num_layers=cfg.encoder_layers, attn_every=0,
+                               num_experts=0, global_every=0, sliding_window=0,
+                               family="dense", causal=False, mlp_type="gelu")
 
 
 # ---------------------------------------------------------------------------
@@ -65,17 +87,75 @@ def logits_fn(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
+# encoder (audio): bidirectional over precomputed frame embeddings
+# ---------------------------------------------------------------------------
+
+
+def encode_audio(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """frames (B, encoder_seq, d_model) stub embeddings -> the encoder's
+    output, in the model dtype."""
+    dt = _dt(cfg)
+    x = frames.to(dt) + params["enc_pos"][None].to(dt)
+    x, _, _ = T.stack_apply(params["enc_blocks"], x, encoder_config(cfg))
+    return L.rms_norm(x, params["enc_norm"])
+
+
+def cross_kv_all(params: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> list:
+    """Every decoder layer's cross-attention K/V: list[pos] of (k, v), each
+    (G, B, S_enc, Hkv, D)."""
+    out = []
+    for pos in range(cfg.group_size):
+        cross = params["blocks"][pos]["cross"]
+        out.append(tuple(torch.einsum("bsd,ldhk->lbshk", enc_out, cross[w])
+                         for w in ("wk", "wv")))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
+
+def extra_input(cfg: ModelConfig, batch: int):
+    """The family's input beside the tokens, (name, shape) for ``batch``
+    rows, float32: a VLM's "patches" (B, num_patches, d_model) or an audio
+    model's "frames" (B, encoder_seq, d_model); None for the others."""
+    if cfg.family == "vlm":
+        return "patches", (batch, cfg.num_patches, cfg.d_model)
+    if cfg.family == "audio":
+        return "frames", (batch, cfg.encoder_seq, cfg.d_model)
+    return None
+
+
+def _extra(batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    name = extra_input(cfg, 0)[0]
+    if batch.get(name) is None:
+        raise ValueError(f"a {cfg.family} batch needs {name!r} beside its tokens")
+    return batch[name]
+
+
+def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> tuple:
+    """(the decoder's input sequence, the cross K/V or None): a VLM's
+    patches go before the token embeddings, an audio batch's frames
+    through the encoder."""
+    x = embed_tokens(params, batch["tokens"], cfg)
+    enc_kv = None
+    if cfg.family == "vlm":
+        x = torch.cat([_extra(batch, cfg).to(x.dtype), x], dim=1)
+    elif cfg.family == "audio":
+        enc_kv = cross_kv_all(params, encode_audio(params, _extra(batch, cfg), cfg), cfg)
+    return x, enc_kv
 
 
 def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
                    kernel_mode: str = "auto"):
-    """Forward to the final hidden states.  batch: {"tokens": (B, S)}.
-    Returns (hidden (B, S, D), aux_loss): aux the fp32 MoE load-balance
-    loss summed over layers (0 for a dense model), as JAX's."""
-    x = embed_tokens(params, batch["tokens"], cfg)
-    x, _, aux = T.stack_apply(params["blocks"], x, cfg, kernel_mode=kernel_mode)
+    """Forward to the final hidden states.  batch: {"tokens": (B, S)}, with
+    "patches" (VLM) or "frames" (audio).  Returns (hidden (B, S, D), with a
+    VLM's P patch positions first: (B, P + S, D); aux_loss): aux the fp32
+    MoE load-balance loss summed over layers (0 for a dense model), as
+    JAX's."""
+    x, enc_kv = _embed_inputs(params, batch, cfg)
+    x, _, aux = T.stack_apply(params["blocks"], x, cfg, kernel_mode=kernel_mode,
+                              enc_kv=enc_kv)
     return L.rms_norm(x, params["final_norm"]), aux
 
 
@@ -100,20 +180,21 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int,
     are copied whole.  That cache is a new one, or ``cache``
     (``init_cache``'s layout), which the caller owns and which is
     overwritten in place: a server's static cache outlives the CUDA graph
-    that fills it.  Returns (cache, last_logits (B, V), t0 = S).
+    that fills it.  An audio decoder's cross K/V are copied whole.
+    Returns (cache, last_logits (B, V), t0): t0 the length of the decoder's
+    input, S, or a VLM's P + S (its patches first), as JAX's.
     """
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    x, enc_kv = _embed_inputs(params, batch, cfg)
+    b, s = x.shape[:2]
     if s > cache_len:
-        raise ValueError(f"prompt of {s} tokens does not fit a cache of {cache_len}")
-    x = embed_tokens(params, tokens, cfg)
+        raise ValueError(f"prompt of {s} positions does not fit a cache of {cache_len}")
     x, captured, _ = T.stack_apply(params["blocks"], x, cfg, mode="prefill",
-                                      kernel_mode=kernel_mode)
+                                   kernel_mode=kernel_mode, enc_kv=enc_kv)
     hidden = L.rms_norm(x, params["final_norm"])
     last_logits = logits_fn(params, hidden[:, -1:], cfg)[:, 0]
     owned = cache is not None
     if not owned:
-        cache = init_cache(cfg, b, cache_len, device=tokens.device)
+        cache = init_cache(cfg, b, cache_len, device=x.device)
     for pos in range(cfg.group_size):
         for key, vals in captured[pos].items():
             # (G, B, cache_len, ...) for a sequence entry, (G, B, ...) a state
@@ -137,7 +218,8 @@ def decode_step(params: dict, cache: list, tokens: torch.Tensor, t,
     """One token step.  tokens: (B, 1); t: the position written, an int or
     a device tensor (JAX's traced ``t``: the step then reads nothing back
     to the host and can be captured).  The cache is updated in place (slot
-    t of every layer) and returned.
+    t of every layer) and returned; an audio decoder reads its cross K/V
+    from it, as prefill left them.
 
     Returns (logits (B, V), cache).
     """

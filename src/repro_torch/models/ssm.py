@@ -48,7 +48,7 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
             "x_proj": P.init_normal(gen, (di, dtr + 2 * ds), stack=stack),
             "dt_proj": P.init_normal(gen, (dtr, di), stack=stack),
             "dt_bias": P.init_zeros((di,), stack, device=dev),
-            "a_log": torch.log(a),
+            "a_log": P.cast_leaf(torch.log(a)),
             "d_skip": P.init_ones((di,), stack, device=dev),
             "out_proj": P.init_normal(gen, (di, d), stack=stack)}
 
@@ -150,7 +150,7 @@ def rwkv6_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
         "wg": P.init_normal(gen, (d, d), stack=stack),
         "wo": P.init_normal(gen, (d, d), stack=stack),
         # data-dependent decay
-        "w0": decay.expand(tuple(stack) + (d,)).clone(),
+        "w0": P.cast_leaf(decay.expand(tuple(stack) + (d,)).clone()),
         "wd_a": P.init_normal(gen, (d, 2 * r), scale=0.01, stack=stack),
         "wd_b": P.init_normal(gen, (2 * r, d), scale=0.01, stack=stack),
         "u": P.init_normal(gen, (d,), scale=0.5, stack=stack),

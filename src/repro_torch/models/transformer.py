@@ -1,5 +1,4 @@
-"""Decoder stack of the dense, MLA, MoE, hybrid and SSM families (port of
-``repro.models.transformer``).
+"""Decoder stack of every LM family (port of ``repro.models.transformer``).
 
 Layers are grouped into super-blocks of ``cfg.group_size`` (the pattern
 period: Jamba's 1:7 attention:Mamba = 8, Gemma-3's 5:1 local:global = 6,
@@ -9,15 +8,19 @@ JAX, so a converted JAX tree maps leaf for leaf; the stack runs the groups
 as a Python loop (JAX's ``stack_mode="unroll"``).
 
 Every mixer is ported (GQA and MLA attention, Mamba, RWKV-6 time mix) with
-every FFN (the dense MLP, the MoE of ``models.moe``, RWKV's channel mix);
-the VLM and audio families and bidirectional attention raise
-``NotImplementedError`` naming their ROADMAP item.  A block's cache holds
-sequence entries (GQA's k / v, MLA's ckv / krope: ``SEQ_CACHE_KEYS``) and
-recurrent states (Mamba's conv / ssm, RWKV's shift / wkv and the channel
-mix's cm_shift); a decode step writes both into the cache in place.
+every FFN (the dense MLP, the MoE of ``models.moe``, RWKV's channel mix).
+An audio decoder's block (``cross_attention=True``) adds ``ln_cross`` and
+a cross-attention over the encoder's K/V after its mixer: at prefill from
+``enc_kv``, in decode from the cache's ``cross_k`` / ``cross_v``.  A
+block's cache holds sequence entries (GQA's k / v, MLA's ckv / krope:
+``SEQ_CACHE_KEYS``), recurrent states (Mamba's conv / ssm, RWKV's shift /
+wkv and the channel mix's cm_shift) and an audio decoder's cross K/V
+(written whole at prefill, read as they are by every decode step); a
+decode step writes the first two into the cache in place.
 ``stack_apply`` returns JAX's third element, the MoE load-balance loss
-summed over layers, in train mode (``forward_hidden``); JAX's compiled
-prefill and decode discard it, and the port's do not compute it (None).
+summed over layers, in train mode (``forward_hidden``, the Whisper
+encoder); JAX's compiled prefill and decode discard it, and the port's do
+not compute it (None).
 """
 from __future__ import annotations
 
@@ -30,19 +33,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
-_LATER = "is not ported yet (ROADMAP queue 1, item {})"
 SEQ_CACHE_KEYS = ("k", "v", "ckv", "krope")  # cache entries indexed by position
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError("the audio encoder-decoder "
-                                  + _LATER.format("12.5: Whisper"))
-    if cfg.family == "vlm":
-        raise NotImplementedError("the VLM family " + _LATER.format("12.4: InternVL2"))
-    if not cfg.causal:
-        raise NotImplementedError("bidirectional attention (the Whisper encoder) "
-                                  + _LATER.format("12.5"))
 
 
 # ---------------------------------------------------------------------------
@@ -50,8 +41,10 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, pos: int, stack=()) -> dict:
-    _check_supported(cfg)
+def block_init(gen: torch.Generator, cfg: ModelConfig, pos: int, stack=(),
+               cross_attention: bool = False) -> dict:
+    """One block position's parameters, drawn in JAX's order: the mixer,
+    the cross-attention (an audio decoder's), the FFN."""
     kind = cfg.mixer_kind(pos)
     if kind == "attn":
         mixer = (L.mla_init(gen, cfg, stack) if cfg.attention == "mla"
@@ -60,11 +53,15 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, pos: int, stack=()) -> di
         mixer = SSM.mamba_init(gen, cfg, stack)
     else:
         mixer = SSM.rwkv6_init(gen, cfg, stack)
-    return {"ln1": L.rms_norm_init(cfg.d_model, stack, gen.device),
-            "ln2": L.rms_norm_init(cfg.d_model, stack, gen.device),
-            "mixer": mixer,
-            "ffn": (MOE.moe_init(gen, cfg, stack) if cfg.ffn_kind(pos) == "moe"
-                    else L.mlp_init(gen, cfg, stack))}
+    p = {"ln1": L.rms_norm_init(cfg.d_model, stack, gen.device),
+         "ln2": L.rms_norm_init(cfg.d_model, stack, gen.device),
+         "mixer": mixer}
+    if cross_attention:
+        p["ln_cross"] = L.rms_norm_init(cfg.d_model, stack, gen.device)
+        p["cross"] = L.gqa_init(gen, cfg, stack)
+    p["ffn"] = (MOE.moe_init(gen, cfg, stack) if cfg.ffn_kind(pos) == "moe"
+                else L.mlp_init(gen, cfg, stack))
+    return p
 
 
 def block_cache_init(cfg: ModelConfig, pos: int, batch: int, seq: int, dtype,
@@ -74,11 +71,15 @@ def block_cache_init(cfg: ModelConfig, pos: int, batch: int, seq: int, dtype,
     S, kvr) and krope (B, S, dr) in ``dtype``; Mamba's conv (B, dc-1, di)
     in ``dtype`` and ssm (B, di, ds) in fp32; RWKV's shift (B, 1, D) in
     ``dtype`` and wkv (B, H, hd, hd) in fp32; the channel mix's cm_shift
-    (B, 1, D) in ``dtype``."""
+    (B, 1, D) in ``dtype``; an audio decoder's cross_k, cross_v (B,
+    encoder_seq, Hkv, hd) in ``dtype``."""
     st = tuple(stack)
     zeros = lambda *shape, dt=dtype: torch.zeros(st + shape, dtype=dt, device=device)
     kind = cfg.mixer_kind(pos)
     c: dict = {}
+    if cfg.family == "audio":  # filled at prefill
+        c["cross_k"] = zeros(batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim_)
+        c["cross_v"] = zeros(batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim_)
     if kind == "attn" and cfg.attention == "mla":
         c["ckv"] = zeros(batch, seq, cfg.kv_lora_rank)
         c["krope"] = zeros(batch, seq, cfg.qk_rope_dim)
@@ -100,21 +101,22 @@ def block_cache_init(cfg: ModelConfig, pos: int, batch: int, seq: int, dtype,
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
                 mode: str = "train", cache: Optional[dict] = None,
                 t=None, positions: Optional[torch.Tensor] = None,
-                kernel_mode: str = "auto"):
+                kernel_mode: str = "auto", enc_kv: Optional[tuple] = None):
     """Returns (x, cache_out, aux): aux the MoE layer's load-balance loss in
     train mode, else None.
 
     mode="train":   cache_out = {}.
     mode="prefill": cache_out holds the prompt's sequence entries (B, S,
-                    ...) and the final recurrent states.
+                    ...), the final recurrent states and an audio
+                    decoder's cross K/V (``enc_kv``, this layer's (k, v)).
     mode="decode":  cache is this block's cache: sequence entries written
                     at the position ``t`` (an int or a device tensor) and
                     the new recurrent states copied in, both in place (the
                     cache's tensors are views a CUDA graph replays into);
-                    it is returned as cache_out.
+                    the cross K/V are read from it as they are; it is
+                    returned as cache_out.
     ``kernel_mode`` goes to the attention's kernel dispatch.
     """
-    _check_supported(cfg)
     kind = cfg.mixer_kind(pos)
     decode, prefill = mode == "decode", mode == "prefill"
     cache_out: dict = {}
@@ -141,6 +143,12 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
         if decode or prefill:
             cache_out.update(_states_into(cache if decode else None, st))
     x = x + out
+    if "cross" in p:
+        enc_k, enc_v = (cache["cross_k"], cache["cross_v"]) if decode else enc_kv
+        x = x + L.cross_attention_apply(p["cross"], L.rms_norm(x, p["ln_cross"]),
+                                        enc_k, enc_v, cfg)
+        if prefill:
+            cache_out["cross_k"], cache_out["cross_v"] = enc_k, enc_v
     h2 = L.rms_norm(x, p["ln2"])
     aux = None
     if cfg.ffn_kind(pos) == "moe":
@@ -173,13 +181,11 @@ def _states_into(cache: Optional[dict], states: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def stack_init(gen: torch.Generator, cfg: ModelConfig, cast=None) -> list:
-    """list[pos] of parameter dicts with leaves stacked over num_groups;
-    ``cast`` (leaf -> leaf) is applied to each position's leaves as soon as
-    they are drawn."""
-    cast = cast or (lambda t: t)
-    return [{k: ({n: cast(w) for n, w in v.items()} if isinstance(v, dict) else cast(v))
-             for k, v in block_init(gen, cfg, pos, stack=(cfg.num_groups,)).items()}
+def stack_init(gen: torch.Generator, cfg: ModelConfig,
+               cross_attention: bool = False) -> list:
+    """list[pos] of parameter dicts with leaves stacked over num_groups."""
+    return [block_init(gen, cfg, pos, stack=(cfg.num_groups,),
+                       cross_attention=cross_attention)
             for pos in range(cfg.group_size)]
 
 
@@ -193,8 +199,10 @@ def stack_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype,
 
 def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
                 cache: Optional[list] = None, t=None,
-                positions: Optional[torch.Tensor] = None, kernel_mode: str = "auto"):
-    """Run all layers.  Returns (x, cache_out, aux).
+                positions: Optional[torch.Tensor] = None, kernel_mode: str = "auto",
+                enc_kv: Optional[list] = None):
+    """Run all layers.  Returns (x, cache_out, aux).  ``enc_kv`` (an audio
+    decoder's prefill): list[pos] of (k, v), each (G, B, S_enc, Hkv, D).
 
     mode="prefill": cache_out is list[pos] of dicts of per-group lists of
     the sequence entries and final states each layer produced
@@ -216,8 +224,10 @@ def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "tr
                   for name, leaf in groups[pos].items()}
             c = ({k: w[g] for k, w in cache[pos].items()} if cache is not None
                  else None)
+            ekv = (enc_kv[pos][0][g], enc_kv[pos][1][g]) if enc_kv is not None else None
             x, nc, a = block_apply(gp, x, cfg, pos, mode=mode, cache=c, t=t,
-                                   positions=positions, kernel_mode=kernel_mode)
+                                   positions=positions, kernel_mode=kernel_mode,
+                                   enc_kv=ekv)
             if a is not None:
                 aux = aux + a
             if captured is not None:

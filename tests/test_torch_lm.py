@@ -5,13 +5,17 @@ For the reduced ChatGLM3, Gemma-3 (window 8 across its 5:1 local:global
 group), StarCoder2, Qwen3-MoE (8 experts, top-2 renormalized, QK-norm),
 Mixtral (4 experts, top-2, window 8), MiniCPM3 (MLA: expanded prefill,
 absorbed decode), Jamba (7 Mamba + 1 attention layer, MoE on every other
-layer) and RWKV-6 (time mix and channel mix, no attention) configs in
-float32, JAX's ``init_params(PRNGKey(0))`` is converted with
-``convert.from_jax_lm_params`` and both packages run the same numpy tokens:
+layer), RWKV-6 (time mix and channel mix, no attention), InternVL2 (VLM:
+4 patch embeddings before the tokens) and Whisper (audio: a 2-layer
+bidirectional encoder over 12 frame embeddings, cross-attention in every
+decoder layer) configs in float32, JAX's ``init_params(PRNGKey(0))`` is
+converted with ``convert.from_jax_lm_params`` and both packages run the
+same numpy tokens, and the same numpy patches or frames (``extras``):
 
-  * ``forward_hidden`` (its MoE load-balance loss at rtol 1e-5), ``prefill``
-    (cache contents: sequence entries and recurrent states, and
-    ``last_logits``) and four teacher-forced ``decode_step`` logits at rtol
+  * ``forward_hidden`` (its MoE load-balance loss at rtol 1e-5; a VLM's
+    hidden states with the patch positions first), ``prefill`` (cache
+    contents: sequence entries, recurrent states and cross K/V;
+    ``last_logits``; t0, P + S for a VLM) and four teacher-forced ``decode_step`` logits at rtol
     = atol = 1e-4 (fp32 matmuls summed in another order; the port's prefill
     attention is the quadratic plain version on the CPU, JAX's the blocked
     online softmax; the port's recurrences run in order, JAX's Mamba scan
@@ -80,7 +84,33 @@ def _prompts(cfg, rng):
     return [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (11, 16)]
 
 
-def _jax_greedy(srv, jp, prompts):
+def _extras(cfg, rng, b=B):
+    """The VLM's patch or the audio model's frame embeddings (float32 normal
+    draws, as JAX's launcher makes them); {} for the other families."""
+    if cfg.family == "vlm":
+        return {"patches": rng.normal(size=(b, cfg.num_patches, cfg.d_model))
+                .astype(np.float32)}
+    if cfg.family == "audio":
+        return {"frames": rng.normal(size=(b, cfg.encoder_seq, cfg.d_model))
+                .astype(np.float32)}
+    return {}
+
+
+def _t0(cfg, s=S):
+    """prefill's t0: the prompt's length, after a VLM's patches."""
+    return s + (cfg.num_patches if cfg.family == "vlm" else 0)
+
+
+def _torch_batch(tokens, extras):
+    return {"tokens": torch.from_numpy(tokens),
+            **{k: torch.from_numpy(v) for k, v in extras.items()}}
+
+
+def _jax_batch(tokens, extras):
+    return {"tokens": jnp.asarray(tokens), **{k: jnp.asarray(v) for k, v in extras.items()}}
+
+
+def _jax_greedy(srv, jp, prompts, extras):
     """JAX's greedy generation as ``LMServer.generate`` runs it (through the
     server's own compiled prefill and decode), with the top-2 logit gap of
     every step: (tokens (B, N), gaps (B, N))."""
@@ -88,7 +118,7 @@ def _jax_greedy(srv, jp, prompts):
     toks = np.zeros((scfg.max_batch, scfg.prompt_len), np.int32)
     for i, pr in enumerate(prompts):
         toks[i, -len(pr):] = pr
-    cache, logits, t = srv._prefill(jp, {"tokens": jnp.asarray(toks)})
+    cache, logits, t = srv._prefill(jp, _jax_batch(toks, extras))
     out, gaps = [], []
     for _ in range(scfg.max_new_tokens):
         lg = np.asarray(logits, np.float32)
@@ -112,9 +142,10 @@ def arch_case(request):
     srv = JLMServer(jp, cfg, JServeConfig(**SERVE))
     rng = np.random.default_rng(7)
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    extras = _extras(cfg, rng)
     fwd = jax.jit(lambda p, b: JLM.forward_hidden(p, b, cfg))
-    hidden, aux = (np.array(a) for a in fwd(jp, {"tokens": jnp.asarray(tokens)}))
-    cache, last, t = srv._prefill(jp, {"tokens": jnp.asarray(tokens)})
+    hidden, aux = (np.array(a) for a in fwd(jp, _jax_batch(tokens, extras)))
+    cache, last, t = srv._prefill(jp, _jax_batch(tokens, extras))
     # copies: the compiled decode donates the cache it is given
     cache_np, last, t0 = jax.tree_util.tree_map(np.array, cache), np.array(last), int(t)
     steps = rng.integers(0, cfg.vocab_size, (N_DECODE, B, 1)).astype(np.int32)
@@ -125,13 +156,13 @@ def arch_case(request):
         t = t + 1
     served = []
     for prompts in (_prompts(cfg, rng), _prompts(cfg, rng)):
-        gen, _ = srv.generate(prompts)
-        greedy, gaps = _jax_greedy(srv, jp, prompts)
+        gen, _ = srv.generate(prompts, extras=extras or None)
+        greedy, gaps = _jax_greedy(srv, jp, prompts, extras)
         np.testing.assert_array_equal(gen, greedy)
         served.append((prompts, gen, gaps))
     (prompts, gen, gaps), second = served
     return dict(arch=arch, cfg=get_reduced(arch, dtype="float32"),
-                params=from_jax_lm_params(jp_np), tokens=tokens, steps=steps,
+                params=from_jax_lm_params(jp_np), tokens=tokens, extras=extras, steps=steps,
                 hidden=hidden, aux=aux, last=last, t0=t0, cache=cache_np, decode=dec,
                 prompts=prompts, generated=gen, gaps=gaps, second=second)
 
@@ -152,8 +183,9 @@ def _assert_tokens_match(got, want, gaps):
 
 def test_forward_hidden_matches_jax(arch_case):
     c = arch_case
-    hidden, aux = TLM.forward_hidden(c["params"], {"tokens": torch.from_numpy(c["tokens"])},
+    hidden, aux = TLM.forward_hidden(c["params"], _torch_batch(c["tokens"], c["extras"]),
                                      c["cfg"])
+    assert tuple(hidden.shape) == (B, _t0(c["cfg"]), c["cfg"].d_model)
     _close(hidden, c["hidden"])
     assert aux.dtype == torch.float32 and aux.shape == ()
     _close(aux, c["aux"], dict(rtol=1e-5, atol=0))
@@ -162,9 +194,9 @@ def test_forward_hidden_matches_jax(arch_case):
 
 def test_prefill_and_decode_match_jax(arch_case):
     c = arch_case
-    cache, last, t0 = TLM.prefill(c["params"], {"tokens": torch.from_numpy(c["tokens"])},
+    cache, last, t0 = TLM.prefill(c["params"], _torch_batch(c["tokens"], c["extras"]),
                                   c["cfg"], SERVE["cache_len"])
-    assert t0 == c["t0"] == S
+    assert t0 == c["t0"] == _t0(c["cfg"])
     _close(last, c["last"])
     assert len(cache) == len(c["cache"])
     for got, want in zip(cache, c["cache"]):
@@ -184,7 +216,7 @@ def test_prefill_and_decode_match_jax(arch_case):
 def test_generate_matches_jax_server(arch_case):
     c = arch_case
     srv = LMServer(c["params"], c["cfg"], ServeConfig(**SERVE), device="cpu")
-    got, stats = srv.generate(c["prompts"])
+    got, stats = srv.generate(c["prompts"], extras=c["extras"] or None)
     assert stats["prefill_s"] > 0 and stats["decode_s_per_token"] > 0
     _assert_tokens_match(got, c["generated"], c["gaps"])
 
@@ -195,12 +227,13 @@ def test_successive_generates_match_fresh_servers_and_jax(arch_case):
     calls give JAX's."""
     c = arch_case
     srv = LMServer(c["params"], c["cfg"], ServeConfig(**SERVE), device="cpu")
-    first, _ = srv.generate(c["prompts"])
+    extras = c["extras"] or None
+    first, _ = srv.generate(c["prompts"], extras=extras)
     prompts2, gen2, gaps2 = c["second"]
-    second, _ = srv.generate(prompts2)
+    second, _ = srv.generate(prompts2, extras=extras)
     for prompts, got in ((c["prompts"], first), (prompts2, second)):
         fresh = LMServer(c["params"], c["cfg"], ServeConfig(**SERVE), device="cpu")
-        np.testing.assert_array_equal(got, fresh.generate(prompts)[0])
+        np.testing.assert_array_equal(got, fresh.generate(prompts, extras=extras)[0])
     _assert_tokens_match(first, c["generated"], c["gaps"])
     _assert_tokens_match(second, gen2, gaps2)
     assert srv.captures == 0  # no graphs on the CPU
@@ -208,7 +241,7 @@ def test_successive_generates_match_fresh_servers_and_jax(arch_case):
 
 def test_prefill_into_an_owned_cache_matches_a_fresh_one(arch_case):
     c = arch_case
-    batch = {"tokens": torch.from_numpy(c["tokens"])}
+    batch = _torch_batch(c["tokens"], c["extras"])
     fresh, last, t0 = TLM.prefill(c["params"], batch, c["cfg"], SERVE["cache_len"])
     owned = TLM.init_cache(c["cfg"], B, SERVE["cache_len"])
     gen = torch.Generator().manual_seed(1)
@@ -217,13 +250,13 @@ def test_prefill_into_an_owned_cache_matches_a_fresh_one(arch_case):
             w.copy_(torch.randn(w.shape, generator=gen))
     got, last2, t2 = TLM.prefill(c["params"], batch, c["cfg"], SERVE["cache_len"],
                                  cache=owned)
-    assert got is owned and t2 == t0 == S and torch.equal(last2, last)
+    assert got is owned and t2 == t0 == _t0(c["cfg"]) and torch.equal(last2, last)
     for a, b in zip(got, fresh):
         assert sorted(a) == sorted(b)
         for key in a:
             assert torch.equal(a[key], b[key])
             if key in TT.SEQ_CACHE_KEYS:
-                assert not a[key][:, :, S:].any()
+                assert not a[key][:, :, t0:].any()
 
 
 def test_kernel_mode_raises_on_cpu_and_launches_nothing(arch_case):
@@ -231,7 +264,7 @@ def test_kernel_mode_raises_on_cpu_and_launches_nothing(arch_case):
     tensors; an attention-free one (RWKV-6) reaches no kernel and runs."""
     c = arch_case
     before = FA.launches
-    batch = {"tokens": torch.from_numpy(c["tokens"])}
+    batch = _torch_batch(c["tokens"], c["extras"])
     if any(c["cfg"].mixer_kind(i) == "attn" for i in range(c["cfg"].group_size)):
         with pytest.raises(RuntimeError, match="CUDA"):
             TLM.prefill(c["params"], batch, c["cfg"], S + 8, kernel_mode="kernel")
@@ -245,13 +278,19 @@ def test_kernel_mode_raises_on_cpu_and_launches_nothing(arch_case):
 def test_decode_after_prefill_matches_forward(arch):
     """JAX's ``tests/test_arch_smoke.py`` check on the port: at capacity
     factor 8 (no MoE drops), decode after prefill(S-1) gives forward(S)'s
-    last logits within 2e-2 max|ref|."""
+    last logits within 2e-2 max|ref| (a VLM's patches and an audio model's
+    frames in both)."""
     cfg = get_reduced(arch, dtype="float32", capacity_factor=8.0)
     params = TLM.init_params(torch.Generator().manual_seed(0), cfg)
-    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (B, S)))
-    cache, _, t0 = TLM.prefill(params, {"tokens": tokens[:, :-1]}, cfg, S + 8)
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    extras = {k: torch.from_numpy(v) for k, v in _extras(cfg, rng).items()}
+    tokens = torch.from_numpy(tokens)
+    cache, _, t0 = TLM.prefill(params, {"tokens": tokens[:, :-1], **extras}, cfg,
+                               _t0(cfg) + 8)
+    assert t0 == _t0(cfg, S - 1)
     logits, _ = TLM.decode_step(params, cache, tokens[:, -1:], t0, cfg)
-    hidden, _ = TLM.forward_hidden(params, {"tokens": tokens}, cfg)
+    hidden, _ = TLM.forward_hidden(params, {"tokens": tokens, **extras}, cfg)
     ref = TLM.logits_fn(params, hidden[:, -1], cfg)
     assert float((logits - ref).abs().max() / ref.abs().max()) < 2e-2
 
@@ -350,15 +389,30 @@ def test_configs_and_derived_properties_match_jax(arch):
                 cfg_j.window_for_layer(i), cfg_j.mixer_kind(i), cfg_j.ffn_kind(i))
 
 
-def test_unported_families_raise():
-    from repro_torch.models.config import ModelConfig
-
-    gen = torch.Generator().manual_seed(0)
-    for kw, what in ((dict(family="vlm"), "VLM"),
-                     (dict(family="audio"), "audio"),
-                     (dict(causal=False), "bidirectional")):
-        with pytest.raises(NotImplementedError, match=what):
-            TLM.init_params(gen, ModelConfig(**kw))
+@pytest.mark.parametrize("arch", ("internvl2-26b", "whisper-base"))
+def test_vlm_and_audio_refuse_a_call_without_their_extras(arch):
+    """A VLM without its patches or an audio model without its frames is
+    refused with a ValueError naming the extra (not a KeyError), by
+    forward_hidden, prefill and LMServer.generate; so is an extra of
+    another shape."""
+    cfg = get_reduced(arch, dtype="float32")
+    name = TLM.extra_input(cfg, B)[0]
+    params = TLM.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {"tokens": torch.zeros((B, S), dtype=torch.int32)}
+    with pytest.raises(ValueError, match=name):
+        TLM.forward_hidden(params, batch, cfg)
+    with pytest.raises(ValueError, match=name):
+        TLM.prefill(params, batch, cfg, 64)
+    srv = LMServer(params, cfg, ServeConfig(**SERVE), device="cpu")
+    prompts = [np.arange(1, 9, dtype=np.int32)] * B
+    for extras in (None, {}, {"other": np.zeros(3)}):
+        with pytest.raises(ValueError, match=name):
+            srv.generate(prompts, extras=extras)
+    good = _extras(cfg, np.random.default_rng(0))[name]
+    for bad in (good[:1], good[:, :-1], good[..., :-1]):
+        with pytest.raises(ValueError, match="of shape"):
+            srv.generate(prompts, extras={name: bad})
+    srv.generate(prompts, extras={name: good})
 
 
 def test_layer_helpers_match_jax():
@@ -395,3 +449,13 @@ def test_launcher_serves_reduced_lm_on_cpu(capsys):
         assert "generated:" in out and "ms/token" in out
     with pytest.raises(SystemExit):
         main(["--arch", "chatglm3-6b", "--gnn", "gin", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ("internvl2-26b", "whisper-base"))
+def test_launcher_serves_reduced_vlm_and_audio_on_cpu(arch, capsys):
+    """The launcher draws the patches or frames as JAX's does and serves."""
+    from repro_torch.launch.serve import main
+
+    main(["--arch", arch, "--reduced", "--device", "cpu", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "generated:" in out and "ms/token" in out

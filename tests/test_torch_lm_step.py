@@ -12,10 +12,11 @@ the JAX package's, on the CPU, at the reduced sizes.
   ``wv`` first.  Each repeated head is the same dot products: prefill and
   decode outputs and the K/V within 1e-5 (fp32 matmuls of another width),
   at every arch's reduced widths (MiniCPM3's and RWKV-6's with two KV
-  heads: their own layers are MLA and attention-free).
+  heads: their own layers are MLA and attention-free; Whisper's cut from
+  four to two).
 * ``decode_step`` at a tensor position gives the int position's logits and
-  cache (sequence entries and recurrent states) bit for bit (both models'
-  dtypes).
+  cache (sequence entries, recurrent states, cross K/V) bit for bit (both
+  models' dtypes).
 """
 import jax
 import jax.numpy as jnp
@@ -39,13 +40,16 @@ B, S_CACHE, D = 2, 24, 16
 # (kind, window, softcap) of each decode_attention case
 ATTN_KINDS = (("plain", 0, 0.0), ("window", 5, 0.0), ("softcap", 0, 3.0))
 # arch -> overrides giving tied KV copies at the reduced size (heads 4 / 4 / 8
-# / 4 / 4 / 4 / 4 / 4; MiniCPM3 and RWKV-6 have 4 KV heads, cut to 2)
+# / 4 / 4 / 4 / 4 / 4 / 4 / 4; MiniCPM3, RWKV-6 and Whisper have 4 KV heads,
+# cut to 2)
 PADS = {"chatglm3-6b": dict(kv_pad_to=4), "gemma3-12b": dict(kv_pad_to=4),
         "starcoder2-15b": dict(kv_pad_to=8), "qwen3-moe-30b-a3b": dict(kv_pad_to=4),
         "mixtral-8x7b": dict(kv_pad_to=4),
         "minicpm3-4b": dict(num_kv_heads=2, kv_pad_to=4),
         "jamba-v0.1-52b": dict(kv_pad_to=4),
-        "rwkv6-1.6b": dict(num_kv_heads=2, kv_pad_to=4)}
+        "rwkv6-1.6b": dict(num_kv_heads=2, kv_pad_to=4),
+        "internvl2-26b": dict(kv_pad_to=4),
+        "whisper-base": dict(num_kv_heads=2, kv_pad_to=4)}
 
 
 def _np(t):
@@ -118,8 +122,12 @@ def test_decode_step_at_a_tensor_position_equals_the_int_position(arch, dtype):
     cfg = get_reduced(arch, dtype=dtype)
     params = TLM.init_params(torch.Generator().manual_seed(0), cfg)
     rng = np.random.default_rng(5)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 10)))
-    cache, _, t = TLM.prefill(params, {"tokens": tokens}, cfg, 16)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 10)))}
+    extra = TLM.extra_input(cfg, B)  # a VLM's patches, an audio model's frames
+    if extra is not None:
+        batch[extra[0]] = torch.from_numpy(rng.normal(size=extra[1]).astype(np.float32))
+    cache, _, t = TLM.prefill(params, batch, cfg,
+                              16 + (cfg.num_patches if cfg.family == "vlm" else 0))
     twin = [{k: w.clone() for k, w in c.items()} for c in cache]
     for i in range(3):
         step = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)))

@@ -1004,16 +1004,18 @@ def test_lm_server_on_card_matches_reference(cuda):
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
 
 
-def _eager_greedy(params, cfg, scfg, prompts, device):
+def _eager_greedy(params, cfg, scfg, prompts, device, extras=None):
     """The eager loop of ``lm.prefill`` / ``lm.decode_step`` at int
-    positions, greedy, as JAX's ``LMServer.generate`` runs it."""
+    positions, greedy, as JAX's ``LMServer.generate`` runs it (``extras``:
+    a VLM's patches or an audio model's frames, max_batch rows)."""
     from repro_torch.models import lm
 
     toks = np.zeros((scfg.max_batch, scfg.prompt_len), np.int32)
     for i, pr in enumerate(prompts):
         toks[i, -len(pr):] = pr
-    cache, last, t = lm.prefill(params, {"tokens": torch.from_numpy(toks).to(device)},
-                                cfg, scfg.cache_len)
+    batch = {"tokens": torch.from_numpy(toks).to(device),
+             **{k: torch.from_numpy(v).to(device) for k, v in (extras or {}).items()}}
+    cache, last, t = lm.prefill(params, batch, cfg, scfg.cache_len)
     tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
     out = []
     for i in range(scfg.max_new_tokens):
@@ -1107,13 +1109,15 @@ def _attention_layers(cfg) -> int:
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 @pytest.mark.parametrize("arch", ("chatglm3-6b", "gemma3-12b", "starcoder2-15b",
                                   "qwen3-moe-30b-a3b", "mixtral-8x7b", "minicpm3-4b",
-                                  "jamba-v0.1-52b", "rwkv6-1.6b"))
+                                  "jamba-v0.1-52b", "rwkv6-1.6b", "internvl2-26b",
+                                  "whisper-base"))
 def test_lm_graphs_give_the_eager_loops_tokens(cuda, arch, dtype):
     """The captured prefill and decode step give the eager loop's tokens,
     token for token; a second ``generate`` captures nothing; a prefill
     replay runs one flash kernel an attention layer (MiniCPM3 all of its,
-    Jamba one in eight, RWKV-6 none) and a decode replay none (by the
-    profiler: a replay runs no wrapper)."""
+    Jamba one in eight, RWKV-6 none; the VLM's over patches + prompt, the
+    audio decoder's beside the encoder's plain attention) and a decode
+    replay none (by the profiler: a replay runs no wrapper)."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import lm
     from repro_torch.serve.engine import LMServer, ServeConfig
@@ -1127,10 +1131,14 @@ def test_lm_graphs_give_the_eager_loops_tokens(cuda, arch, dtype):
     launches = []
     for n in (2, 3):  # the second call: other prompts on the same graphs
         prompts = [rng.integers(1, cfg.vocab_size, k) for k in rng.integers(5, 25, n)]
+        extra = lm.extra_input(cfg, scfg.max_batch)  # patches, frames or none
+        extras = {} if extra is None else {
+            extra[0]: rng.normal(size=extra[1]).astype(np.float32)}
         before = FA.launches
-        gen, stats = srv.generate(prompts)
+        gen, stats = srv.generate(prompts, extras=extras or None)
         launches.append(FA.launches - before)
-        np.testing.assert_array_equal(gen, _eager_greedy(params, cfg, scfg, prompts, cuda))
+        np.testing.assert_array_equal(
+            gen, _eager_greedy(params, cfg, scfg, prompts, cuda, extras))
         assert srv.captures == 2 and stats["decode_s_per_token"] > 0
     # warm + capture of prefill, then a generate that only replays
     assert launches == [2 * n_attn, 0]
