@@ -311,6 +311,32 @@ fails the run), then runs these phases, one line each:
               the cache; its weight-read floor counts what a step reads:
               the decoder's weights, the tied head and the cross K/V, not
               the encoder
+  11. flash_attention bwd  gradients through the kernel
+              (``kernels.ops.FlashAttention``: the kernel's forward, the
+              plain ``flash_attention_bwd_ref`` backward) against autograd
+              of the plain forward on fp32 copies of the same inputs, dq /
+              dk / dv at FLASH_TOL, at ChatGLM3's
+              train shape (B 8, Hq 32, Hkv 2, S 1024, D 128, bf16, causal),
+              MiniCPM3's (96, 64), Gemma-3's window + softcap layer and one
+              fp32 (simt) case; the Function's forward and backward times at
+              the train step's shape (Hkv 16 after kv_pad_to) beside SDPA's
+              forward + backward
+  11b. train  ChatGLM3-6B at full width, 8 of its 28 layers (2.17 B
+              parameters, bf16, remat on), 6 steps of
+              ``train.loop.make_train_step`` (AdamW, fp32 moments) on
+              SyntheticTokens at B 8 x S 1024: per step loss, grad_norm,
+              lr, ms, tokens/s, the share of the card's bf16 peak, peak
+              memory and flash launches (16: 8 layers x forward + remat
+              recompute); the first step's loss and grad_norm against
+              reference mode on a copy of the weights (TRAIN_LOSS_TOL,
+              TRAIN_GNORM_RTOL), and a finite, non-zero gradient on every
+              leaf
+  11c. train loop  ``train.loop.train`` on a reduced ChatGLM3 (D 64, bf16)
+              for 40 steps, a checkpoint every 10 and a failure injected at
+              step 25: it recovers from step 20 and its loss falls; a restore
+              onto the card equals the live tree bit for bit; the launcher
+              (``python -m repro_torch.launch.train --arch rwkv6-1.6b
+              --reduced --steps 3``) as a child process prints ``done``
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after; a wrapper counts where it
               runs: the eager warm forward and the launches recorded into
@@ -434,6 +460,20 @@ MOE_SLOT_CASES = ((1024, 32768, 40, None), (1024, 64, 8, None),
                   (16, 20480, 1600, None), (16, 4, 8, None), (1, 5000, 64, None),
                   (64, 20000, 300, 0.6))
 MOE_DENSE_BOUND = 1e-4  # dispatch vs dense, fp32 (tests/test_train_serve.py:94)
+# phase 11: (name, B, Hq, Hkv, S, D, Dv, window, softcap, dtype)
+FLASH_BWD_CASES = (("chatglm3-6b train", 8, 32, 2, 1024, 128, 128, 0, 0.0, "bfloat16"),
+                   ("minicpm3-4b mla", 2, 40, 40, 1024, 96, 64, 0, 0.0, "bfloat16"),
+                   ("gemma3-12b local + softcap", 2, 16, 8, 2048, 256, 256, 1024, 30.0,
+                    "bfloat16"),
+                   ("fp32 simt", 2, 8, 2, 512, 64, 64, 0, 0.0, "float32"))
+FLASH_BWD_TIME_SHAPE = (8, 32, 16, 1024, 128)  # the train step's (kv_pad_to 16)
+FLASH_BWD_REPS = 5
+# phase 11b: ChatGLM3-6B at full width, 8 of 28 layers, B 8 x S 1024
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "chatglm3-6b", 8, 8, 1024, 6
+TRAIN_LOSS_TOL = 1e-2  # |loss kernel - reference| on the first batch, bf16
+TRAIN_GNORM_RTOL = 2e-2  # |grad_norm kernel - reference| / reference
+# phase 11c: the loop on a reduced ChatGLM3 (D 64: the mma instance)
+LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAIL_AT = 40, 10, 25
 # (K, N) of every linear the six int8 paths quantize: the encoders (9 ->
 # 100, 64, 80), GIN's edge embedding and MLP (also GIN+VN's virtual-node
 # MLPs), GCN's lin, GAT's proj, PNA's pre / post, DGN's post
@@ -3247,6 +3287,283 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
     return launches, replays
 
 
+# ------------------------------------------------------------ phases 11-11c: training
+
+
+def check_flash_bwd(device) -> dict:
+    """Phase 11: gradients through the kernel (``ops.FlashAttention``)
+    against autograd of the plain forward at ``FLASH_BWD_CASES``, then the
+    Function's forward and backward device times at the train step's shape
+    beside SDPA's.  Returns the times for the flash row."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    gen = torch.Generator().manual_seed(19)
+    worst = {}
+    for name, b, hq, hkv, s, d, dv, window, softcap, dt in FLASH_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (t.detach().requires_grad_(True) for t in
+                   attention_inputs(gen, b, hq, hkv, s, d, dtype, device, "bshd", dv))
+        do = torch.randn((b, s, hq, dv), generator=gen).to(device, dtype).transpose(1, 2)
+        kw = dict(window=window, softcap=softcap)
+        before = dict(FA.launches_by_route)
+        out = kops.flash_attention(q, k, v, mode="kernel", **kw)
+        if type(out.grad_fn).__name__ != "FlashAttentionBackward":
+            raise AssertionError(f"flash_attention bwd {name}: the kernel's output has "
+                                 f"grad_fn {out.grad_fn}")
+        chosen = FA.route(dtype, d, dv)
+        if FA.launches_by_route != dict(before, **{chosen: before[chosen] + 1}):
+            raise AssertionError(f"flash_attention bwd {name}: launches "
+                                 f"{FA.launches_by_route}, expected one on {chosen}")
+        got = torch.autograd.grad(out, (q, k, v), do)
+        # autograd of the plain forward on fp32 copies of the same values: in
+        # bf16 it casts each query head's dk / dv to bf16 and sums a KV
+        # head's group there, less exact than the gradient it would check
+        q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+        want = torch.autograd.grad(
+            kops.flash_attention(q32, k32, v32, mode="reference", **kw), (q32, k32, v32),
+            do.float())
+        errs = [checked_err(f"flash_attention bwd {name} d{n}", g.float(), w.float(),
+                            FLASH_TOL[dt]) for n, g, w in zip("qkv", got, want)]
+        worst[name] = max(errs)
+        print(f"[flash_attention bwd] {name} B={b} Hq={hq} Hkv={hkv} S={s} D={d} Dv={dv} "
+              f"window={window} softcap={softcap} {dt} ({chosen} forward): max abs err "
+              f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} (tolerance "
+              f"{FLASH_TOL[dt]['atol']:g} + {FLASH_TOL[dt]['rtol']:g} |plain|)")
+        del q, k, v, do, out, got, want, q32, k32, v32
+        torch.cuda.empty_cache()
+    b, hq, hkv, s, d = FLASH_BWD_TIME_SHAPE
+    q, k, v = (t.detach().requires_grad_(True) for t in
+               attention_inputs(gen, b, hq, hkv, s, d, torch.bfloat16, device, "bshd"))
+    do = torch.randn((b, s, hq, d), generator=gen).to(device, torch.bfloat16).transpose(1, 2)
+    grads = lambda out: torch.autograd.grad(out, (q, k, v), do)
+    sdpa = lambda: Fn.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True)
+    # CUDA events over calls queued back to back: the profiler lost or split
+    # SDPA's backward records here (forward + backward read below its forward)
+    times = dict(timer="events-queued")
+    for key, fn, reps in (
+            ("fwd_ms", lambda: kops.flash_attention(q, k, v, mode="kernel"), TIMING_REPS),
+            ("bwd_ms", lambda: kref.flash_attention_bwd_ref(q, k, v, do), FLASH_BWD_REPS),
+            ("fwd_bwd_ms", lambda: grads(kops.flash_attention(q, k, v, mode="kernel")),
+             FLASH_BWD_REPS),
+            ("sdpa_fwd_ms", sdpa, TIMING_REPS),
+            ("sdpa_fwd_bwd_ms", lambda: grads(sdpa()), FLASH_BWD_REPS)):
+        for _ in range(2):
+            fn()
+        times[key] = queued_ms(fn, reps)
+    print(f"[flash_attention bwd] times at the train step's shape B={b} Hq={hq} Hkv={hkv} "
+          f"S={s} D={d} bf16 causal: Function forward (kernel) {times['fwd_ms']:.3f} ms, "
+          f"backward (plain) {times['bwd_ms']:.3f} ms, forward + backward "
+          f"{times['fwd_bwd_ms']:.3f} ms; sdpa forward {times['sdpa_fwd_ms']:.3f} ms, "
+          f"forward + backward {times['sdpa_fwd_bwd_ms']:.3f} ms ({device_line()})")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return dict(times, grad_max_abs_err=worst,
+                time_shape=dict(b=b, hq=hq, hkv=hkv, s=s, d=d, dtype="bfloat16", causal=True))
+
+
+def train_flops(cfg, params, tokens: int) -> tuple:
+    """(model FLOPs, with the remat recompute) of one step: 6 N T for the N
+    weights that multiply (all but the embedding table), attention's 4 B Hq
+    pairs D a layer forward and twice that backward; the recompute adds one
+    forward of the blocks (2 N_blocks T and attention's forward again)."""
+    from repro_torch.optim import adamw
+
+    n = sum(p.numel() for p in adamw.leaves(params)) - params["embed"].numel()
+    n_blocks = sum(p.numel() for p in adamw.leaves(params["blocks"]))
+    s = TRAIN_SEQ
+    attn = 4.0 * (tokens // s) * cfg.num_heads * (s * (s + 1) / 2) * cfg.head_dim_
+    model = 6.0 * n * tokens + 3 * attn * cfg.num_layers
+    return model, model + 2.0 * n_blocks * tokens + attn * cfg.num_layers
+
+
+def step_breakdown(prof, wall_s: float) -> dict:
+    """Device ms of one profiled train step by kernel class: cuBLAS GEMMs,
+    the flash kernel, copies / fills, everything else (elementwise,
+    reductions, the plain attention backward's softmax); "idle" is the wall
+    time the card ran none of them (overlapping records counted once each)."""
+    from torch.autograd import DeviceType
+
+    out = dict.fromkeys(("gemm", "flash_fwd", "memcpy_memset", "other"), 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        key = ("flash_fwd" if "flash_fwd" in name else
+               "gemm" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass")) else
+               "memcpy_memset" if name.startswith(("memcpy", "memset")) else "other")
+        out[key] += e.time_range.elapsed_us() / 1e3
+    out["idle"] = max(0.0, wall_s * 1e3 - sum(out.values()))
+    return out
+
+
+def train_chatglm3(device) -> tuple:
+    """Phase 11b; returns (the train steps' launch counts, the summary for
+    the flash row)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import device_batch, loss_and_grads, make_train_step
+
+    cfg = get_config(TRAIN_ARCH, num_layers=TRAIN_LAYERS, dtype="bfloat16", remat=True)
+    tag = f"[train {TRAIN_ARCH}]"
+    torch.cuda.empty_cache()
+    params = lm.init_params(torch.Generator(device).manual_seed(0), cfg)
+    n_params = sum(p.numel() for p in adamw.leaves(params))
+    data = iter(SyntheticTokens(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)))
+    first = device_batch(next(data), device)
+    # every leaf's gradient on the kernel path, then the reference on a copy
+    loss_k, _, grads = loss_and_grads(params, first, cfg)
+    bad = [i for i, g in enumerate(adamw.leaves(grads))
+           if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    if bad:
+        raise AssertionError(f"{tag}: leaves {bad} of {len(adamw.leaves(grads))} have a "
+                             f"zero or non-finite gradient")
+    gn_k = float(adamw.global_norm(grads))
+    del grads
+    ref_params = adamw.tree_map(torch.clone, params)
+    loss_r, _, grads = loss_and_grads(ref_params, first, cfg, kernel_mode="reference")
+    gn_r = float(adamw.global_norm(grads))
+    del grads, ref_params
+    torch.cuda.empty_cache()
+    d_loss, d_gn = abs(float(loss_k) - float(loss_r)), abs(gn_k - gn_r) / gn_r
+    print(f"{tag} {TRAIN_LAYERS} of 28 layers at full width, {n_params / 1e9:.3f} B "
+          f"parameters, bf16, remat: every one of {len(adamw.leaves(params))} leaves has a "
+          f"finite, non-zero gradient; first batch kernel vs reference mode: loss "
+          f"{float(loss_k):.5f} / {float(loss_r):.5f} (|d| {d_loss:.3g} <= "
+          f"{TRAIN_LOSS_TOL:g}), grad_norm {gn_k:.5f} / {gn_r:.5f} (relative {d_gn:.3g} "
+          f"<= {TRAIN_GNORM_RTOL:g})")
+    if not (d_loss <= TRAIN_LOSS_TOL and d_gn <= TRAIN_GNORM_RTOL):
+        raise AssertionError(f"{tag}: kernel path vs reference mode out of tolerance")
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    opt_state = adamw.init(params)
+    step_fn = make_train_step(cfg, opt_cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops, hw_flops = train_flops(cfg, params, tokens)
+    steps = []
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        batch = first if i == 0 else device_batch(next(data), device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = (FA.launches, FA.launches_by_route["mma"])
+        profiled = i == TRAIN_STEPS - 1  # the last step under the profiler
+        with (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            params, opt_state, _, metrics = step_fn(params, opt_state, None, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launched = FA.launches - before[0]
+        if not math.isfinite(metrics["loss"]) or launched != 2 * TRAIN_LAYERS or (
+                FA.launches_by_route["mma"] - before[1] != launched):
+            raise AssertionError(f"{tag} step {i}: loss {metrics['loss']}, {launched} flash "
+                                 f"launches (expected {2 * TRAIN_LAYERS}, all mma)")
+        row = dict(step=i, loss=metrics["loss"], grad_norm=metrics["grad_norm"],
+                   lr=metrics["lr"], ms=dt * 1e3, tokens_per_s=tokens / dt,
+                   mfu=model_flops / dt / PEAK_BF16_FLOP_S,
+                   hfu=hw_flops / dt / PEAK_BF16_FLOP_S,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, flash_launches=launched)
+        if profiled:
+            row["device_ms_by_class"] = step_breakdown(prof, dt)
+        steps.append(row)
+        print(f"{tag} step {i}: loss {row['loss']:.5f} grad_norm {row['grad_norm']:.4f} "
+              f"lr {row['lr']:.3g}; {row['ms']:.1f} ms{' (profiled)' if profiled else ''}, "
+              f"{row['tokens_per_s']:.0f} tokens/s, {row['mfu']:.3f} of the bf16 peak (6 N T "
+              f"+ attention; {row['hfu']:.3f} with the recompute), peak "
+              f"{row['peak_gb']:.2f} GB, {launched} flash launches")
+    launches = read_launches()
+    print(f"{tag} device time of the profiled step by kernel class (ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in steps[-1]["device_ms_by_class"].items()))
+    zero = adamw.tree_map(torch.zeros_like, params)
+    adamw_ms, adamw_timer = device_ms(lambda: adamw.update(opt_cfg, zero, opt_state, params), 3)
+    del zero
+    print(f"{tag} adamw.update alone: {adamw_ms:.2f} ms ({adamw_timer}; {n_params / 1e9:.3f} B "
+          f"parameters, bf16, fp32 moments)")
+    if steps[0]["loss"] != float(loss_k):
+        print(f"{tag} note: step 0's loss {steps[0]['loss']!r} differs from the checked "
+              f"pass's {float(loss_k)!r}")
+    del params, opt_state, first
+    torch.cuda.empty_cache()
+    later = steps[1:-1]  # past the first, and not the profiled one
+    summary = dict(train_step=dict(
+        arch=TRAIN_ARCH, layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        params=n_params, loss_vs_reference=d_loss, grad_norm_vs_reference=d_gn,
+        median_ms=statistics.median(r["ms"] for r in later),
+        median_tokens_per_s=statistics.median(r["tokens_per_s"] for r in later),
+        median_mfu=statistics.median(r["mfu"] for r in later),
+        peak_gb=max(r["peak_gb"] for r in steps), flash_launches_per_step=2 * TRAIN_LAYERS,
+        adamw_ms=adamw_ms, steps=steps))
+    return launches, summary
+
+
+def train_loop_phase(device) -> dict:
+    """Phase 11c; returns the loop's launch counts."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import LoopConfig, train
+
+    cfg = get_reduced(TRAIN_ARCH, head_dim=64, dtype="bfloat16")
+    ckpt = ROOT / "build" / "train_loop"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    data = SyntheticTokens(TokenPipelineConfig(vocab_size=cfg.vocab_size, batch=4,
+                                               seq_len=64))
+    reset_launches()
+    out = train(cfg, adamw.AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=LOOP_STEPS),
+                LoopConfig(steps=LOOP_STEPS, log_every=1, ckpt_every=LOOP_CKPT_EVERY,
+                           ckpt_dir=str(ckpt), max_retries=2),
+                data, inject_failure_at=LOOP_FAIL_AT, device=device)
+    launches = read_launches()
+    h = out["history"]
+    failures = [e["step"] for e in out["events"] if e["event"] == "failure"]
+    # each batch is new: the loss falls as the mean of the first and last 5 steps
+    first5, last5 = (statistics.mean(r["loss"] for r in rs) for rs in (h[:5], h[-5:]))
+    if (h[-1]["step"] != LOOP_STEPS or failures != [LOOP_FAIL_AT]
+            or [r["step"] for r in h] != list(range(1, LOOP_FAIL_AT + 1)) + list(
+                range(LOOP_FAIL_AT // LOOP_CKPT_EVERY * LOOP_CKPT_EVERY + 1, LOOP_STEPS + 1))
+            or not last5 < first5 or launches["flash_attention"] == 0):
+        raise AssertionError(f"[train loop] history {h}, failures {failures}, launches "
+                             f"{launches['flash_attention']}")
+    live = {"params": out["params"], "opt": out["opt_state"]}
+    step, got = CheckpointManager(str(ckpt)).restore(template=live)
+    same = lambda a, b: (a.device == b.device and a.dtype == b.dtype and torch.equal(
+        *(t.view(torch.int16) if t.dtype == torch.bfloat16 else t for t in (a, b))))
+    leaves = list(zip(adamw.leaves(got), adamw.leaves(live)))
+    if step != LOOP_STEPS or not all(same(a, b) for a, b in leaves):
+        raise AssertionError(f"[train loop] the restore of step {step} differs from the "
+                             f"live tree")
+    child = run_child([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                       "rwkv6-1.6b", "--reduced", "--steps", "3", "--batch", "2", "--seq",
+                       "32", "--ckpt-dir", str(ckpt / "launcher")], "the train launcher")
+    if child.splitlines()[-1] != "done":
+        raise AssertionError(f"[train loop] the launcher printed {child[-500:]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[train loop] reduced {TRAIN_ARCH} (D 64, bf16) on the card: {LOOP_STEPS} steps, "
+          f"checkpoints every {LOOP_CKPT_EVERY}, the failure injected at step "
+          f"{LOOP_FAIL_AT} recovered from step {LOOP_FAIL_AT // LOOP_CKPT_EVERY * LOOP_CKPT_EVERY}; "
+          f"mean loss of the first 5 steps {first5:.4f}, of the last 5 {last5:.4f}; "
+          f"{launches['flash_attention']} flash launches; the restore of step {step} "
+          f"equals the live tree bit for bit on the card ({len(leaves)} leaves); the "
+          f"launcher (rwkv6-1.6b --reduced --steps 3) printed "
+          + " | ".join(child.splitlines()[-2:]))
+    return launches
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -3715,8 +4032,8 @@ def time_flash_attention(device, launches: int, by_route: dict, mla_launches: in
 
 
 def run(device) -> list:
-    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9e and 8 on ``device``; returns
-    the kernels' JSON rows."""
+    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9j, 11-11c and 8 on ``device``;
+    returns the kernels' JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
     check_segment_reduce(device)
@@ -3747,6 +4064,10 @@ def run(device) -> list:
         paths[arch], replays = serve_lm(arch, overrides, serve_kw, lengths, device)
         lm_replays.update({f"{arch} {program}": {"flash_attention": n}
                            for program, n in replays.items()})
+    flash_training = check_flash_bwd(device)
+    paths[f"train {TRAIN_ARCH}"], train_summary = train_chatglm3(device)
+    flash_training.update(train_summary)
+    paths["train loop"] = train_loop_phase(device)
     packed, lay = packed_plan(device)
     rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"],
                           design_split(paths["gin"], "node_mlp")),
@@ -3761,6 +4082,7 @@ def run(device) -> list:
                                  design_split(paths["chatglm3-6b"], "flash_attention"),
                                  paths["minicpm3-4b"]["flash_attention"],
                                  design_split(paths["minicpm3-4b"], "flash_attention"))
+    next(r for r in rows if r["name"] == "flash_attention")["training"] = flash_training
     for row in rows:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {path: counts[counter]

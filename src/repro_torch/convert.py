@@ -12,7 +12,10 @@ int8 weights stay int8 and every other numeric field becomes float32.
 ``from_jax_lm_params`` converts the LM substrate's tree (``repro.models.lm``'s
 ``P.values(init_params(...))``, leaves as numpy), keeping each leaf's type:
 the MoE layers' ``router``, ``wi`` and ``wo`` map leaf for leaf like the
-rest, with or without ``kv_pad_to``.
+rest, with or without ``kv_pad_to``.  ``from_jax_opt_state`` converts
+``repro.optim.adamw``'s state ({"m", "v", "step"}) into the port's and
+``to_numpy`` any tree of tensors back into numpy (bf16 leaves as their
+exact float32 values), so both packages can start from one state.
 """
 from __future__ import annotations
 
@@ -77,3 +80,24 @@ def from_jax_lm_params(tree, device="cpu", dtype=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax_lm_params(v, device, dtype) for v in tree)
     return _lm_tensor(tree, device, dtype)
+
+
+def from_jax_opt_state(state: dict, device="cpu") -> dict:
+    """JAX's AdamW state (numpy leaves: fp32 m and v trees, an int32 step)
+    -> ``optim.adamw``'s, on ``device``."""
+    return {"m": from_jax_lm_params(state["m"], device),
+            "v": from_jax_lm_params(state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=device)}
+
+
+def to_numpy(tree):
+    """A tree of tensors (dicts / lists) -> the same structure of numpy
+    arrays on the host; bf16 leaves become float32, which holds every bf16
+    value exactly."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,16 +1,98 @@
-"""Deterministic synthetic molecular-graph streams (MolHIV / MolPCBA size
-statistics) and DGN's Laplacian eigenvector input — the GNN half of
-``repro.data.pipeline``, copied as numpy.
+"""Deterministic data pipelines (port of ``repro.data.pipeline``, copied as
+numpy): synthetic token streams and the flat-binary corpus reader of the
+LM trainer, synthetic molecular-graph streams (MolHIV / MolPCBA size
+statistics) and DGN's Laplacian eigenvector input.
 
-Graph ``i`` of a stream is a pure function of (seed, i), so the port and
-the JAX package serve identical inputs.
+Batch ``i`` of a token stream is a pure function of (seed, i, shard) and
+graph ``i`` of a molecule stream one of (seed, i), so the port and the
+JAX package train and serve on identical inputs, and a restarted job
+resumes mid-epoch from its step counter alone.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# token streams (LM substrate)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenPipelineConfig:
+    vocab_size: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+    shard_index: int = 0
+    shard_count: int = 1
+    zipf_a: float = 1.2  # synthetic vocabulary skew
+
+
+class SyntheticTokens:
+    """Zipf-distributed tokens with short-range structure (bigram mixing):
+    enough signal for a loss that falls."""
+
+    def __init__(self, cfg: TokenPipelineConfig):
+        self.cfg = cfg
+
+    def batch_at(self, step: int) -> dict:
+        cfg = self.cfg
+        rng = np.random.default_rng(
+            np.random.SeedSequence([cfg.seed, step, cfg.shard_index])
+        )
+        z = rng.zipf(cfg.zipf_a, size=(cfg.batch, cfg.seq_len))
+        tokens = (z - 1) % cfg.vocab_size
+        # short-range structure: with p=0.5, token t+1 = f(token t)
+        repeat = rng.random((cfg.batch, cfg.seq_len)) < 0.5
+        shifted = (tokens * 31 + 7) % cfg.vocab_size
+        tokens[:, 1:] = np.where(repeat[:, 1:], shifted[:, :-1], tokens[:, 1:])
+        return {"tokens": tokens.astype(np.int32)}
+
+    def __iter__(self) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+class BinTokenDataset:
+    """Memory-mapped flat-binary token corpus (uint16 / uint32), sharded by
+    host: shard k reads window k of every batch."""
+
+    def __init__(self, path: str, cfg: TokenPipelineConfig, dtype=np.uint16):
+        self.cfg = cfg
+        self.data = np.memmap(path, dtype=dtype, mode="r")
+
+    def batch_at(self, step: int) -> dict:
+        cfg = self.cfg
+        n = len(self.data) - cfg.seq_len - 1
+        rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, step]))
+        starts = rng.integers(0, n, size=cfg.batch * cfg.shard_count)
+        starts = starts[cfg.shard_index :: cfg.shard_count][: cfg.batch]
+        out = np.stack([self.data[s : s + cfg.seq_len] for s in starts])
+        return {"tokens": out.astype(np.int32) % cfg.vocab_size}
+
+    def __iter__(self) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+def write_synthetic_corpus(path: str, n_tokens: int, vocab: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    arr = ((rng.zipf(1.2, size=n_tokens) - 1) % vocab).astype(np.uint16)
+    arr.tofile(path)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# molecular graph streams (GNN engine)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

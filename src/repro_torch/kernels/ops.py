@@ -234,9 +234,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv, S, Dv) -> (B, Hq, S, Dv), scaled by 1 / sqrt(D).  The CUDA kernel
     takes strided views (unit feature stride) and the head dims it has an
     instance for (``flash_attention.has_instance``); the plain version is
-    the quadratic oracle."""
+    the quadratic oracle.
+
+    Where a gradient is needed (grad enabled and q, k or v requiring it),
+    the kernel runs inside :class:`FlashAttention`, whose backward is the
+    plain ``ref.flash_attention_bwd_ref``; elsewhere (serving, its CUDA
+    graphs) the wrapper is called as it is."""
     if not _resolve("flash_attention", mode, q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
     return _flash_kernel.flash_attention(q, k, v, causal=causal, window=window,
                                          softcap=softcap)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel with a gradient: the forward is the CUDA kernel (its
+    route chosen as for any call), the backward the plain
+    ``ref.flash_attention_bwd_ref`` on the saved q, k and v, as JAX trains
+    through autodiff of its jnp attention and has no Pallas backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.band = (causal, window, softcap)
+        return _flash_kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                             softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, softcap = ctx.band
+        dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                                 window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None

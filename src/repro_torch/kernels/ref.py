@@ -274,14 +274,79 @@ def flash_attention_ref(
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq.float()) * scale
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
-    qi = torch.arange(s, device=q.device)[:, None]
-    ki = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= ki <= qi
-    if window:
-        mask &= ki > qi - window
+    mask = _band(s, causal, window, q.device)
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vq.float())
     return out.to(q.dtype)
+
+
+def _band(s: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    """(S, S) bool: the key positions each query attends to."""
+    qi = torch.arange(s, device=device)[:, None]
+    ki = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= ki <= qi
+    if window:
+        mask &= ki > qi - window
+    return mask
+
+
+FLASH_BWD_BLOCK_BYTES = 1 << 29  # fp32 scores a head block may hold
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    causal: bool = True, window: int | None = None, softcap: float = 0.0,
+    scale: float | None = None,
+) -> tuple:
+    """The backward of :func:`flash_attention_ref`: (dq, dk, dv) in the
+    dtypes of q, k and v, for q (B, Hq, S, D), k (B, Hkv, S, D), v (B, Hkv,
+    S, Dv) and the output's gradient do (B, Hq, S, Dv).
+
+    P is recomputed in fp32 from q and k, as a flash backward does, with
+    the forward's scale, softcap and causal / window band; then dv = P^T do,
+    dP = do v^T, dS = P * (dP - rowsum(P * dP)), taken through the
+    softcap's tanh (times 1 - tanh^2), and dq = scale dS k, dk = scale dS^T
+    q.  A KV head's dk and dv sum its group's Hq / Hkv query heads.  The
+    row sums come from the fp32 P and dP, not from the forward's output
+    (a flash backward's rowsum(do * o)): in bf16, o's rounding moves them by
+    ~2^-9, which dk sums over a group's every query (ChatGLM3's train shape:
+    16 heads x 1024 queries) past ``FLASH_TOL``'s bf16 bound.  The (B,
+    heads, S, S) scores are made one block of KV heads at a time, each
+    block's fp32 scores within ``FLASH_BWD_BLOCK_BYTES`` (one KV head at the
+    least).
+    """
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / (d**0.5)
+    mask = _band(s, causal, window, q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    per = max(1, FLASH_BWD_BLOCK_BYTES // max(b * g * s * s * 4, 1))
+    for h0 in range(0, hkv, per):
+        h1 = min(hkv, h0 + per)
+        grouped = lambda t: t[:, h0 * g:h1 * g].float().unflatten(1, (h1 - h0, g))
+        qh, doh = grouped(q), grouped(do)  # (B, n, g, S, *)
+        kh, vh = k[:, h0:h1].float(), v[:, h0:h1].float()  # (B, n, S, *)
+        logits = torch.einsum("bngqd,bnkd->bngqk", qh, kh) * scale
+        if softcap > 0:
+            tanh = torch.tanh(logits / softcap)
+            logits = tanh * softcap
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        dv[:, h0:h1] = torch.einsum("bngqk,bngqd->bnkd", p, doh).to(dv.dtype)
+        dp = torch.einsum("bngqd,bnkd->bngqk", doh, vh)
+        ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
+        del dp, p
+        if softcap > 0:
+            ds = ds * (1 - tanh * tanh)
+            del tanh
+        dq[:, h0 * g:h1 * g] = (torch.einsum("bngqk,bnkd->bngqd", ds, kh)
+                                * scale).flatten(1, 2).to(dq.dtype)
+        dk[:, h0:h1] = (torch.einsum("bngqk,bngqd->bnkd", ds, qh) * scale).to(dk.dtype)
+    return dq, dk, dv

@@ -50,6 +50,9 @@ def rms_norm_init(dim: int, stack=(), device="cpu") -> torch.Tensor:
     return P.init_ones((dim,), stack, device=device)
 
 
+NORM_AXES = ("embed",)  # JAX's logical axes of a model-width norm scale
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -127,6 +130,16 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
                 "mix_k": P.init_zeros((d,), stack, device=dev),
                 "mix_r": P.init_zeros((d,), stack, device=dev)}
     raise ValueError(f"mlp_type {cfg.mlp_type!r}")
+
+
+def mlp_axes(cfg: ModelConfig) -> dict:
+    """JAX's logical axes of ``mlp_init``'s leaves (per layer)."""
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {"wi": ("embed", None, "mlp"), "wo": ("mlp", "embed")}
+    if cfg.mlp_type == "relu_sq":
+        return {"wk": ("embed", "mlp"), "wv": ("mlp", "embed"),
+                "wr": ("embed", "embed_out"), "mix_k": ("embed",), "mix_r": ("embed",)}
+    return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor, k_dims: int = 1) -> torch.Tensor:
@@ -243,6 +256,15 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
     return p
 
 
+def gqa_axes(cfg: ModelConfig) -> dict:
+    """JAX's logical axes of ``gqa_init``'s leaves (per layer)."""
+    p = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
+    if cfg.qk_norm:
+        p["q_norm"] = p["k_norm"] = ("head_dim",)
+    return p
+
+
 def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
               positions: torch.Tensor | None = None, kv_cache: tuple | None = None,
               t=None, mode: str = "auto"):
@@ -339,6 +361,13 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
             "w_uk": P.init_normal(gen, (kvr, h, dn), stack=stack),
             "w_uv": P.init_normal(gen, (kvr, h, dv), stack=stack),
             "wo": P.init_normal(gen, (h, dv, d), stack=stack)}
+
+
+MLA_AXES = {"w_dq": ("embed", "q_lora"), "q_norm": ("q_lora",),
+            "w_uq": ("q_lora", "heads", "head_dim"), "w_dkv": ("embed", "kv_lora"),
+            "kv_norm": ("kv_lora",), "w_kr": ("embed", "head_dim"),
+            "w_uk": ("kv_lora", "heads", "head_dim"),
+            "w_uv": ("kv_lora", "heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
 
 
 def mla_decode_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,

@@ -15,8 +15,10 @@ Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``blocks`` (``transformer.stack_init``'s list), untied ``lm_head`` (d, V)
 and, for audio, ``enc_blocks``, ``enc_norm`` (d,) and ``enc_pos``
 (encoder_seq, d).  ``kernel_mode`` ("auto" | "kernel" | "reference")
-reaches the prefill attention's dispatch.  The losses (training) are not
-ported yet.
+reaches the prefill attention's dispatch.  ``loss_fn`` is the training
+loss (chunked cross-entropy plus the MoE load-balance term);
+``param_axes`` gives JAX's logical axes of ``init_params``' leaves, which
+the checkpoint manifest stores.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import params as P
 from repro_torch.models import layers as L
@@ -59,6 +62,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
             p["enc_norm"] = L.rms_norm_init(cfg.d_model, device=gen.device)
             p["enc_pos"] = P.init_normal(gen, (cfg.encoder_seq, cfg.d_model), scale=0.02)
     return p
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """``init_params``' tree with JAX's logical axes tuples as leaves
+    (``P.axes(init_params(...))`` of the JAX package); nothing is drawn."""
+    axes: dict = {"embed": ("vocab", "embed"), "final_norm": L.NORM_AXES,
+                  "blocks": T.stack_axes(cfg, cross_attention=cfg.family == "audio")}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if cfg.family == "audio":
+        axes["enc_blocks"] = T.stack_axes(encoder_config(cfg))
+        axes["enc_norm"] = L.NORM_AXES
+        axes["enc_pos"] = ("kv_seq", "embed")
+    return axes
 
 
 def encoder_config(cfg: ModelConfig) -> ModelConfig:
@@ -157,6 +174,49 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
     x, _, aux = T.stack_apply(params["blocks"], x, cfg, kernel_mode=kernel_mode,
                               enc_kv=enc_kv)
     return L.rms_norm(x, params["final_norm"]), aux
+
+
+def chunked_ce_loss(params: dict, hidden: torch.Tensor, labels: torch.Tensor,
+                    weights: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Mean cross-entropy over the weighted positions.  The logits are made
+    ``cfg.loss_chunk`` positions at a time, each chunk under
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``): the backward pass
+    makes a chunk's (B, chunk, V) fp32 logits again instead of keeping them."""
+    s = hidden.shape[1]
+    c = min(cfg.loss_chunk, s)
+    head = _head_matrix(params, cfg)
+
+    def chunk_loss(h, lab, w):
+        logits = torch.matmul(h, head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * w)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, c):
+        sl = slice(c0, min(c0 + c, s))
+        args = (hidden[:, sl], labels[:, sl], weights[:, sl])
+        total = total + (torch.utils.checkpoint.checkpoint(chunk_loss, *args,
+                                                           use_reentrant=False)
+                         if torch.is_grad_enabled() else chunk_loss(*args))
+    return total / torch.clamp(torch.sum(weights), min=1.0)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, kernel_mode: str = "auto"):
+    """The training loss of a batch, as JAX's: tokens (B, S) are the inputs
+    and, shifted left, the labels; the last position is weighted 0, a VLM's
+    patch positions are dropped before the loss, and an MoE model adds
+    ``router_aux_coef`` times its load-balance loss.  Returns (loss, {"ce",
+    "aux"}), fp32 0-d tensors."""
+    hidden, aux = forward_hidden(params, batch, cfg, kernel_mode=kernel_mode)
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    weights = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    weights[:, -1] = 0.0
+    if cfg.family == "vlm":  # hidden holds the patch positions first: no loss there
+        hidden = hidden[:, cfg.num_patches:]
+    loss = chunked_ce_loss(params, hidden, labels, weights, cfg)
+    return loss + cfg.router_aux_coef * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

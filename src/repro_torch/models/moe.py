@@ -49,6 +49,10 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
             "wo": P.init_normal(gen, (e, f, d), stack=stack)}
 
 
+MOE_AXES = {"router": ("embed", "experts"), "wi": ("experts", "embed", None, "mlp"),
+            "wo": ("experts", "mlp", "embed")}  # JAX's logical axes, per layer
+
+
 def _route(p: dict, x2d: torch.Tensor, cfg: ModelConfig, with_aux: bool):
     """Top-k routing in fp32.  x2d: (T, D) -> weights (T, k), experts (T,
     k) and the Switch load-balance loss (None unless ``with_aux``)."""

@@ -53,6 +53,12 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
             "out_proj": P.init_normal(gen, (di, d), stack=stack)}
 
 
+MAMBA_AXES = {"in_proj": ("embed", None, "inner"), "conv_w": (None, "inner"),
+              "conv_b": ("inner",), "x_proj": ("inner", None), "dt_proj": (None, "inner"),
+              "dt_bias": ("inner",), "a_log": ("inner", "state"), "d_skip": ("inner",),
+              "out_proj": ("inner", "embed")}  # JAX's logical axes, per layer
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: torch.Tensor | None = None):
     """Depthwise causal conv.  x: (B, S, di); w: (dc, di); state: (B, dc-1,
@@ -80,11 +86,24 @@ def _ssm_params(p: dict, xi: torch.Tensor, cfg: ModelConfig):
     return da.float(), db.float(), c.float()
 
 
+def _differentiable(*ts: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``ts``: the train step's scans then
+    build their outputs out of place (autograd refuses ``out=`` and in-place
+    writes on tensors that require grad), with the same ops and values."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _chunk_scan(da: torch.Tensor, db: torch.Tensor, h0: torch.Tensor):
     """h_t = da_t * h_{t-1} + db_t over one chunk, in order.  da / db: (B,
     C, di, ds); h0: (B, di, ds).  Returns (h_all (B, C, di, ds), h_last)."""
-    h_all = torch.empty_like(db)
     h = h0
+    if _differentiable(da, db, h0):
+        hs = []
+        for i in range(da.shape[1]):
+            h = torch.addcmul(db[:, i], da[:, i], h)
+            hs.append(h)
+        return torch.stack(hs, 1), h
+    h_all = torch.empty_like(db)
     for i in range(da.shape[1]):
         h = torch.addcmul(db[:, i], da[:, i], h, out=h_all[:, i])
     return h_all, h
@@ -108,12 +127,13 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         new_state = {"conv": new_conv.to(state["conv"].dtype), "ssm": h}
     else:  # train / prefill: the scan chunk by chunk, y reduced per chunk
         ck = min(cfg.ssm_chunk, s)
-        y = torch.empty((b, s, da.shape[2]), dtype=torch.float32, device=x.device)
         h = torch.zeros((b, da.shape[2], da.shape[3]), dtype=torch.float32,
                         device=x.device)
+        ys = []
         for c0 in range(0, s, ck):
             h_all, h = _chunk_scan(da[:, c0:c0 + ck], db[:, c0:c0 + ck], h)
-            y[:, c0:c0 + ck] = torch.matmul(h_all, c[:, c0:c0 + ck, :, None])[..., 0]
+            ys.append(torch.matmul(h_all, c[:, c0:c0 + ck, :, None])[..., 0])
+        y = torch.cat(ys, 1)
         new_state = None
         if return_state or state is not None:  # prefill
             new_state = {"conv": new_conv.to(x.dtype), "ssm": h}
@@ -160,6 +180,14 @@ def rwkv6_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
     }
 
 
+RWKV6_AXES = {"mix_x": ("embed",), "mix_wkvrg": (None, "embed"),
+              "lora_a": ("embed", None, None), "lora_b": (None, None, "embed"),
+              **{w: ("embed", "heads_flat") for w in ("wr", "wk", "wv", "wg")},
+              "wo": ("heads_flat", "embed"), "w0": ("embed",), "wd_a": ("embed", None),
+              "wd_b": (None, "embed"), "u": ("embed",), "gn_scale": ("embed",),
+              "gn_bias": ("embed",)}  # JAX's logical axes, per layer
+
+
 def _token_shift(x: torch.Tensor, last: torch.Tensor | None = None) -> torch.Tensor:
     """x_{t-1} with a zero (or carried) boundary.  x: (B, S, D)."""
     if last is None:
@@ -202,10 +230,18 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
         # time-major copies, so that each step reads contiguous (B, H, hd)
         rs, ks, vs, ws = (t_.transpose(0, 1).contiguous() for t_ in (rf, kf, vf, w))
         st = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-        outs = torch.empty((s, b, h, 1, hd), dtype=torch.float32, device=x.device)
-        for i in range(s):
-            torch.matmul(rs[i][..., None, :], st, out=outs[i])
-            st.mul_(ws[i][..., None]).addcmul_(ks[i][..., None], vs[i][..., None, :])
+        if _differentiable(rs, ks, vs, ws):  # train: the same steps, out of place
+            steps = []
+            for i in range(s):
+                steps.append(torch.matmul(rs[i][..., None, :], st))
+                st = torch.addcmul(st * ws[i][..., None], ks[i][..., None],
+                                   vs[i][..., None, :])
+            outs = torch.stack(steps)
+        else:
+            outs = torch.empty((s, b, h, 1, hd), dtype=torch.float32, device=x.device)
+            for i in range(s):
+                torch.matmul(rs[i][..., None, :], st, out=outs[i])
+                st.mul_(ws[i][..., None]).addcmul_(ks[i][..., None], vs[i][..., None, :])
         y = outs[:, :, :, 0].transpose(0, 1) + bonus  # (B, S, H, hd)
         new_state = None
         if return_state or state is not None:

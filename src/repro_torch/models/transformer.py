@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -61,6 +62,22 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, pos: int, stack=(),
         p["cross"] = L.gqa_init(gen, cfg, stack)
     p["ffn"] = (MOE.moe_init(gen, cfg, stack) if cfg.ffn_kind(pos) == "moe"
                 else L.mlp_init(gen, cfg, stack))
+    return p
+
+
+def block_axes(cfg: ModelConfig, pos: int, cross_attention: bool = False) -> dict:
+    """JAX's logical axes of ``block_init``'s leaves, per layer (the
+    checkpoint manifest's ``axes``; ``stack_axes`` prepends "layers")."""
+    kind = cfg.mixer_kind(pos)
+    if kind == "attn":
+        mixer = L.MLA_AXES if cfg.attention == "mla" else L.gqa_axes(cfg)
+    else:
+        mixer = SSM.MAMBA_AXES if kind == "mamba" else SSM.RWKV6_AXES
+    p = {"ln1": L.NORM_AXES, "ln2": L.NORM_AXES, "mixer": dict(mixer)}
+    if cross_attention:
+        p["ln_cross"] = L.NORM_AXES
+        p["cross"] = L.gqa_axes(cfg)
+    p["ffn"] = dict(MOE.MOE_AXES if cfg.ffn_kind(pos) == "moe" else L.mlp_axes(cfg))
     return p
 
 
@@ -189,6 +206,15 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig,
             for pos in range(cfg.group_size)]
 
 
+def stack_axes(cfg: ModelConfig, cross_attention: bool = False) -> list:
+    """``stack_init``'s tree of JAX's logical axes: "layers" first."""
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: stacked(v) for k, v in tree.items()}
+        return ("layers",) + tree
+    return [stacked(block_axes(cfg, pos, cross_attention)) for pos in range(cfg.group_size)]
+
+
 def stack_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype,
                      device="cpu") -> list:
     """list[pos] of cache dicts stacked over num_groups."""
@@ -210,14 +236,23 @@ def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "tr
     mode="decode": ``cache`` (list[pos] of (G, ...) stacked dicts) is
     updated in place at ``t`` (an int or a device tensor, passed down to
     every layer) and returned.  mode="train": cache_out is None and aux the
-    fp32 sum of the layers' load-balance losses, in JAX's order (0 without
-    an MoE layer); in the other modes aux is None.
+    fp32 sum of the layers' load-balance losses, in JAX's order (each
+    group's sum, then the sum over groups; 0 without an MoE layer); in the
+    other modes aux is None.
+
+    ``cfg.remat`` applies in train mode with grad enabled, as JAX's
+    ``jax.checkpoint`` of each group: a group keeps only
+    its input for the backward pass and runs its forward again there
+    (``torch.utils.checkpoint``, non-reentrant), so a step holds one
+    group's activations at a time.
     """
     gs = cfg.group_size
+    train = mode == "train"
+    remat = cfg.remat and train and torch.is_grad_enabled()
     captured = [dict() for _ in range(gs)] if mode == "prefill" else None
-    aux = (torch.zeros((), dtype=torch.float32, device=x.device) if mode == "train"
-           else None)
-    for g in range(cfg.num_groups):
+
+    def group(x, g):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
         for pos in range(gs):
             gp = {name: (leaf[g] if not isinstance(leaf, dict)
                          else {k: w[g] for k, w in leaf.items()})
@@ -233,4 +268,14 @@ def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "tr
             if captured is not None:
                 for k, val in nc.items():
                     captured[pos].setdefault(k, []).append(val)
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
+    for g in range(cfg.num_groups):
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(group, x, g, use_reentrant=False)
+        else:
+            x, a = group(x, g)
+        if train:
+            aux = aux + a
     return x, (cache if mode == "decode" else captured), aux

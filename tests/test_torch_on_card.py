@@ -1537,3 +1537,100 @@ def test_restarted_process_runs_no_nvcc(cuda, tmp_path):
     assert int(a["miss"]) > 0 and int(a["nvcc_runs"]) == int(a["miss"])
     assert int(b["hit"]) > 0 and b["miss"] == b["stale"] == b["nvcc_runs"] == "0"
     np.testing.assert_array_equal(np.load(tmp_path / "a.npy"), np.load(tmp_path / "b.npy"))
+
+
+# ---------------------------------------------------------------------------
+# training: gradients through the flash kernel, a train step on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("b,hq,hkv,s,d,dv,window,softcap",
+                         [(2, 8, 2, 100, 64, 64, 0, 0.0), (1, 8, 8, 70, 96, 64, 0, 0.0),
+                          (2, 4, 2, 130, 128, 128, 32, 30.0)])
+def test_flash_function_gradients_match_autograd_of_plain(cuda, dtype, b, hq, hkv, s, d,
+                                                          dv, window, softcap):
+    """``ops.FlashAttention`` (the kernel's forward, the plain backward)
+    against autograd of ``flash_attention_ref`` on fp32 copies of the
+    inputs: dq, dk, dv at the flash tolerances; the kernel launches once,
+    on the route ``route`` names."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(31)
+    q, k, v, do = (torch.randn(shape, generator=gen).to(cuda, dt).transpose(1, 2)
+                   for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, dv),
+                                 (b, s, hq, dv)))
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    before = dict(FA.launches_by_route)
+    out = kops.flash_attention(q, k, v, mode="kernel", window=window, softcap=softcap)
+    chosen = FA.route(dt, d, dv)
+    assert FA.launches_by_route == dict(before, **{chosen: before[chosen] + 1})
+    got = torch.autograd.grad(out, (q, k, v), do)
+    # the plain forward's autograd on fp32 copies (in bf16 it would sum a
+    # KV head's group of per-head gradients in bf16)
+    q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    ref = kref.flash_attention_ref(q32, k32, v32, window=window, softcap=softcap)
+    want = torch.autograd.grad(ref, (q32, k32, v32), do.float())
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(rtol=1.6e-2,
+                                                                       atol=1.6e-2)
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+def test_blocked_attention_on_cuda_keeps_a_grad_fn(cuda):
+    """The train step's attention on the card: the kernel's output carries
+    the Function's backward, so the q / k / v projections get gradients
+    (the serving path, with no gradient needed, gets the bare output)."""
+    from repro_torch.models import layers as TL
+
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((2, 64, h, 64), generator=gen).to(cuda, torch.bfloat16)
+               .requires_grad_(True) for h in (8, 2, 2))
+    out = TL.blocked_attention(q, k, v, mode="kernel")
+    assert type(out.grad_fn).__name__ == "TransposeBackward0"
+    assert type(out.grad_fn.next_functions[0][0]).__name__ == "FlashAttentionBackward"
+    out.float().sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+               for t in (q, k, v))
+    with torch.no_grad():
+        assert TL.blocked_attention(q, k, v, mode="kernel").grad_fn is None
+
+
+@pytest.mark.parametrize("arch", ("chatglm3-6b", "gemma3-12b", "minicpm3-4b",
+                                  "rwkv6-1.6b"))
+def test_reduced_train_steps_on_card(cuda, arch):
+    """Two train steps of a reduced model on the card (bf16, remat): finite
+    losses, a finite non-zero gradient on every leaf through the flash
+    kernel (two launches an attention layer a step: forward and the remat
+    recompute), and the first step's loss and grad_norm within 1e-2 / 2 %
+    of reference mode on a copy of the weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import device_batch, loss_and_grads, make_train_step
+
+    kw = CARD_REDUCED.get(arch, {} if arch == "rwkv6-1.6b" else {"head_dim": 64})
+    cfg = dataclasses.replace(get_reduced(arch, dtype="bfloat16", **kw), remat=True)
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(2), cfg)
+    data = iter(SyntheticTokens(TokenPipelineConfig(vocab_size=cfg.vocab_size, batch=2,
+                                                    seq_len=64)))
+    batch = device_batch(next(data), cuda)
+    loss, _, grads = loss_and_grads(params, batch, cfg)
+    assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in adamw.leaves(grads))
+    ref_loss, _, ref_grads = loss_and_grads(adamw.tree_map(torch.clone, params), batch, cfg,
+                                            kernel_mode="reference")
+    assert abs(float(loss) - float(ref_loss)) <= 1e-2
+    gn, ref_gn = float(adamw.global_norm(grads)), float(adamw.global_norm(ref_grads))
+    assert abs(gn - ref_gn) <= 2e-2 * ref_gn
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2))
+    opt = adamw.init(params)
+    n_attn = _attention_layers(cfg)
+    for i in range(2):
+        before = FA.launches
+        params, opt, _, m = step(params, opt, None, batch if i == 0 else
+                                 device_batch(next(data), cuda))
+        assert np.isfinite(float(m["loss"])) and FA.launches - before == 2 * n_attn
+    assert int(opt["step"]) == 2
