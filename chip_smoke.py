@@ -23,8 +23,12 @@ fails the run), then runs these phases, one line each:
               isolated nodes, padding edges and an all-padding edge list,
               then one graph at each N of TILE_CASES: 1, 31, 33 and 4097
               cut a 16- and a 32-row tile, and 1000 real nodes of 4096
-              leave their last tiles all padding (same tolerance; PNA 5e-3,
-              whose std amplifies one rounding of sqsum/c - mean^2)
+              leave their last tiles all padding, then each rank's
+              window of a plan sharded over 2 ranks (its n / 2 rows, a
+              source table of all n rows, rank 1's window past edge 0) at
+              the sharded bucket (128, 384) and the PubMed size (same
+              tolerance; PNA 5e-3, whose std amplifies one rounding of
+              sqsum/c - mean^2)
   3b. segment_reduce  kernel vs plain version, all five ops at F in
               {1, 3, 6, 64, 100, 101} (a thread reads float4 at 64 and
               100, float2 at 6, one float at 1, 3 and 101; F = 64 and 100
@@ -73,8 +77,8 @@ fails the run), then runs these phases, one line each:
               (j + 1/2) 2^-e, at M 37 and 4097
   3e. fused_mp int8   kernel vs plain version for the int8 gammas gin
               (F=100, H=200), pna (F=80, and F=100 on 16 rows a block), dgn
-              (F=100) at N = 4096, E = 12288 (+ all-padding edges) and on
-              phase 3's TILE_CASES, on operands whose aggregates are exact
+              (F=100) at N = 4096, E = 12288 (+ all-padding edges), on
+              phase 3's TILE_CASES and its sharded windows, on operands whose aggregates are exact
               in fp32: PNA and DGN bit for bit, GIN within 2e-5 (at N < 4096
               of the plain version run with padding nodes up to 4096 rows
               and cut back: cuBLAS sums its fp32 second linear in another
@@ -337,6 +341,41 @@ fails the run), then runs these phases, one line each:
               onto the card equals the live tree bit for bit; the launcher
               (``python -m repro_torch.launch.train --arch rwkv6-1.6b
               --reduced --steps 3``) as a child process prints ``done``
+  12. mesh    the multi-rank substrate (``repro_torch.runtime``) and the
+              sharded GNN path, in worlds of this script's own child
+              processes (``--mesh-rank``; rendezvous through a file under
+              build/mesh): (a) 2 gloo ranks, both on the card (NCCL
+              refuses two ranks of one communicator on one GPU), and (b)
+              a 1-rank NCCL world.  Each: ``make_sharded_mp``, both
+              strategies, on tests/test_distributed.py's data (seed 0)
+              and on a PubMed-sized graph (19,717 nodes, 88,648 edges, F
+              100) against the dense sum within 1e-5, and
+              ``compressed_psum`` within JAX's 0.02.  (a) then serves the
+              six models at paper width through ``GNNEngine(mesh=...)``,
+              32 MolHIV-like graphs 4 to a (128, 384) bucket (both ranks
+              hold real rows), against the unsharded engine (rtol 1e-4,
+              atol 1e-5); a node task's outputs of one batch sharded
+              against whole, bit for bit under deterministic algorithms
+              (every reduction per destination in the plan's edge order;
+              GIN+VN's pool within the tolerance); fused_mp (GAT:
+              edge_softmax, segment_reduce) and node_mlp launched on every
+              rank; GIN fp32 and int8 packed through the StreamScheduler;
+              GIN fp32 as a stream with arrivals (500 qps, max-wait 4 ms),
+              each rank measuring its own flush times, one schedule on
+              both ranks (each flush's time the slowest rank's); one GIN
+              forward (500 features, node task) on a synthetic
+              PubMed-sized graph, served through ``Executor.run`` sharded
+              (eager) and whole (captured), timed there, and run directly
+              sharded against whole bit for bit under deterministic
+              algorithms.  It prints sharded p50 beside unsharded, bytes
+              all-gathered a layer, and whether each executor captured (a
+              mesh of several ranks: eager, whatever the backend; the
+              unsharded and the 1-rank NCCL mesh engine: captured).
+              Phase 3 holds fused_mp (fp32 and int8) on each rank's
+              window of a plan sharded over 2, its source table 2x its
+              rows, at the (128, 384) bucket and the PubMed size.  (c)
+              The launcher (``--gnn gin --batched --gnn-mesh 2``) as a
+              child process prints its mesh line with ``backend=gloo``
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after; a wrapper counts where it
               runs: the eager warm forward and the launches recorded into
@@ -811,15 +850,17 @@ def check_node_mlp(device) -> None:
 # ------------------------------------------------------------ phase 3
 
 
-def fused_operands(gen, gamma: str, n: int, e: int, f: int, device):
+def fused_operands(gen, gamma: str, n: int, e: int, f: int, device,
+                   n_src: int | None = None):
     """(MPSpec, operands) for ``gamma`` at width ``f``; weights are glorot
-    scaled like the models' (GIN's hidden width is 2f)."""
+    scaled like the models' (GIN's hidden width is 2f).  The source table
+    has ``n_src`` rows (default ``n``: a shard's reads all ranks' rows)."""
     import torch
     from repro_torch.core import message_passing as mp
 
     rnd = lambda *s: torch.randn(s, generator=gen)
     glorot = lambda a, b: rnd(a, b) * (2.0 / (a + b)) ** 0.5
-    kw = dict(msrc=rnd(n, f), x_res=rnd(n, f))
+    kw = dict(msrc=rnd(n if n_src is None else n_src, f), x_res=rnd(n, f))
     if gamma == "gcn":
         spec = mp.MPSpec("copy", ("sum",), "gcn")
         kw["nop"] = rnd(n, 1).abs() + 0.1
@@ -870,12 +911,51 @@ def tile_graph(rng, n_pad: int, n_real: int, device):
 
 
 def fused_graphs(rng, device):
-    """(name, graph, plan) of every fused_mp check: the padded 4096 x 12288
-    graph, its all-padding edge list, and ``TILE_CASES``."""
-    out = [(f"all_padding={p}", *plan_graph(rng, 4096, 12288, p, device))
-           for p in (False, True)]
-    return out + [(f"N={n_pad}/{n_real} real", *tile_graph(rng, n_pad, n_real, device))
-                  for n_pad, n_real in TILE_CASES]
+    """(name, node mask, plan, source rows) of every fused_mp check: the
+    padded 4096 x 12288 graph, its all-padding edge list, ``TILE_CASES``,
+    and ``window_plans``."""
+    whole = [(f"all_padding={p}", *plan_graph(rng, 4096, 12288, p, device))
+             for p in (False, True)]
+    whole += [(f"N={n_pad}/{n_real} real", *tile_graph(rng, n_pad, n_real, device))
+              for n_pad, n_real in TILE_CASES]
+    return ([(what, g.node_mask, lay, g.num_nodes) for what, g, lay in whole]
+            + window_plans(rng, device))
+
+
+def window_plans(rng, device):
+    """(name, node mask, plan, source rows) of each rank's window of a plan
+    sharded over 2 ranks (``core.message_passing.owned_edges``): the rank's
+    n / 2 destination rows read sources from all n, through ``src_sorted``
+    values up to n, and rank 1's window starts past rank 0's edges.  At
+    the sharded bucket's shapes (MESH_BATCH's (128, 384), 100 real nodes
+    and 300 real edges) and at the PubMed size."""
+    from repro_torch.core import graph as G
+    from repro_torch.core import layout as LY
+    from repro_torch.core import message_passing as MP
+    from repro_torch.runtime import partitioning as PT
+
+    out = []
+    for n_pad, e_pad, n, e in ((MESH_BATCH[1], MESH_BATCH[2], 100, 300),
+                               (PUBMED["n"] + 1, PUBMED["e"], PUBMED["n"], PUBMED["e"])):
+        g = G.from_numpy(rng.integers(0, n, e).astype(np.int32),
+                         rng.integers(0, n, e).astype(np.int32),
+                         rng.normal(size=(n, 9)).astype(np.float32),
+                         rng.normal(size=(e, 3)).astype(np.float32),
+                         n_pad=n_pad, e_pad=e_pad, device=device)
+        lay = LY.build_layout(g)
+        for index in (0, 1):
+            shard = PT.RowShard(group=None, num_shards=2, index=index, n=n_pad)
+            edges = MP.owned_edges(lay, shard)
+            local = MP.shard_layout(lay, edges, shard)
+            start = int(edges.index[0]) if edges.index.numel() else 0
+            if index and not start > 0:
+                raise AssertionError("window: rank 1's window starts at edge 0")
+            if not int(local.src_sorted.max()) >= shard.n_local:
+                raise AssertionError("window: no source outside the rank's rows")
+            out.append((f"rank {index} of 2 at ({n_pad}, {e_pad}), edges "
+                        f"[{start}, {start + edges.index.numel()})",
+                        shard.rows(g.node_mask), local, n_pad))
+    return out
 
 
 def tile_census(node_mask, f, n_ops, k1, h1, int8) -> dict:
@@ -907,18 +987,22 @@ def check_fused_mp(device) -> None:
     gen = torch.Generator().manual_seed(3)
     cases = {}
     check_sixteen_rows()
-    for what, g, lay in fused_graphs(rng, device):
+    windows = []
+    for what, node_mask, lay, n_src in fused_graphs(rng, device):
+        n = node_mask.shape[0]
+        if n_src != n:
+            windows.append(what)
         for gamma, f in FUSED_WIDTHS:
-            spec, kw = fused_operands(gen, gamma, g.num_nodes, g.num_edges,
-                                      f, device)
+            spec, kw = fused_operands(gen, gamma, n, lay.src_sorted.shape[0],
+                                      f, device, n_src=n_src)
             args = (spec, lay.ids_sorted, lay.offsets, lay.src_sorted,
-                    lay.in_degree, g.node_mask)
+                    lay.in_degree, node_mask)
             got = kops.fused_mp(*args, mode="kernel", **kw)
             want = kops.fused_mp(*args, mode="reference", **kw)
             if device.type == "cuda":
                 torch.cuda.synchronize()
             tol = PNA_TOL if gamma == "pna" else TOL
-            padded = ~g.node_mask
+            padded = ~node_mask
             if (not close(got, want, tol) or not torch.isfinite(got).all()
                     or (bool(padded.any()) and bool(got[padded].abs().max() != 0))):
                 raise AssertionError(
@@ -928,7 +1012,8 @@ def check_fused_mp(device) -> None:
     print(f"[fused_mp] gcn/gin(F=100,H=200)/pna(F=80; F=100 on 16 rows a block)/"
           f"dgn(F=100) at N=4096, "
           f"E=12288 (+ all-padding edges), and at N (real) "
-          f"{', '.join(f'{a} ({b})' for a, b in TILE_CASES)}, match the plain "
+          f"{', '.join(f'{a} ({b})' for a, b in TILE_CASES)}, and on sharded "
+          f"windows ({'; '.join(windows)}; msrc 2x the rows), match the plain "
           f"version, max err {' '.join(f'{k}:{v:.2g}' for k, v in cases.items())}")
 
 
@@ -1187,17 +1272,19 @@ def check_quant_node_mlp(device) -> None:
           f"{QM.launches_by_entry}")
 
 
-def exact_int8_operands(gen, gamma: str, n: int, e: int, f: int, device):
+def exact_int8_operands(gen, gamma: str, n: int, e: int, f: int, device,
+                        n_src: int | None = None):
     """(MPSpec, operands) of an int8 fused layer whose aggregates are exact
     in fp32: msrc, x_res, eop multiples of 1/8 in [-4, 4], ew powers of
-    two, nop multiples of 1/8; w1 int8 with per-column scales."""
+    two, nop multiples of 1/8; w1 int8 with per-column scales; ``n_src``
+    as for :func:`fused_operands`."""
     import torch
     from repro_torch.core import message_passing as mp
 
     eighths = lambda *shape: torch.randint(-32, 33, shape, generator=gen) / 8.0
     h1 = 2 * f if gamma == "gin" else f
     k1 = {"gin": f, "pna": 12 * f, "dgn": 3 * f}[gamma]
-    kw = dict(msrc=eighths(n, f), x_res=eighths(n, f),
+    kw = dict(msrc=eighths(n if n_src is None else n_src, f), x_res=eighths(n, f),
               w1=torch.randint(-127, 128, (k1, h1), generator=gen, dtype=torch.int8),
               w1_scale=torch.rand((h1,), generator=gen) * 9e-3 + 1e-3,
               b1=0.1 * torch.randn((h1,), generator=gen))
@@ -1259,12 +1346,13 @@ def check_fused_mp_int8(device) -> None:
     gen = torch.Generator().manual_seed(14)
     cases = {}
     check_sixteen_rows()
-    for graph, g, lay in fused_graphs(rng, device):
+    for graph, node_mask, lay, n_src in fused_graphs(rng, device):
+        n = node_mask.shape[0]
         for gamma, f in INT8_FUSED_WIDTHS:
-            spec, kw = exact_int8_operands(gen, gamma, g.num_nodes, g.num_edges,
-                                           f, device)
+            spec, kw = exact_int8_operands(gen, gamma, n, lay.src_sorted.shape[0],
+                                           f, device, n_src=n_src)
             args = (spec, lay.ids_sorted, lay.offsets, lay.src_sorted,
-                    lay.in_degree, g.node_mask)
+                    lay.in_degree, node_mask)
             variants = [("random", kw)]
             if gamma == "gin":
                 variants.append(("probe", dict(kw, **gin_probe(f, device))))
@@ -1276,19 +1364,20 @@ def check_fused_mp_int8(device) -> None:
                     # GIN's second linear is fp32: within JAX's 2e-5; at the
                     # TILE_CASES' small N against the plain version run at
                     # the packed plan's height (plain_at_height)
-                    if g.num_nodes < PACKED["n_pad"]:
+                    if n < PACKED["n_pad"]:
                         want = plain_at_height(args, operands, PACKED["n_pad"])
                     err = checked_err(name, got, want, INT8_TOL)
                 else:
                     err = checked_err(name, got, want, dict(rtol=0.0, atol=0.0))
-                if (~g.node_mask).any() and bool(got[~g.node_mask].abs().max() != 0):
+                if (~node_mask).any() and bool(got[~node_mask].abs().max() != 0):
                     raise AssertionError(f"{name}: a padded node row is not 0")
                 key = f"{gamma}{f}/{what}"
                 cases[key] = max(cases.get(key, 0.0), err)
     print(f"[fused_mp int8] gin(F=100,H=200)/pna(F=80; F=100 on 16 rows a block)/"
           f"dgn(F=100) at N=4096, "
           f"E=12288 (+ all-padding edges), and at N (real) "
-          f"{', '.join(f'{a} ({b})' for a, b in TILE_CASES)}, exact aggregates: "
+          f"{', '.join(f'{a} ({b})' for a, b in TILE_CASES)} and on the sharded "
+          f"windows of phase 3 (msrc 2x the rows), exact aggregates: "
           f"pna, dgn and the gin probe (q * rs) bit for bit, gin within 2e-5 "
           f"(at N < 4096 of the plain version run at 4096 rows), "
           f"max err {' '.join(f'{k}:{v:.2g}' for k, v in cases.items())}")
@@ -4031,8 +4120,517 @@ def time_flash_attention(device, launches: int, by_route: dict, mla_launches: in
 # ------------------------------------------------------------ entry point
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-rank substrate and the sharded GNN path
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 2  # gloo ranks, all on the one card
+MESH_TIMEOUT_S = 300  # a world, its ranks killed past it
+MESH_MODELS = ("gcn", "gin", "gin_vn", "gat", "pna", "dgn")
+MESH_BATCH = (4, 128, 384)  # JAX's sharded-serving bucket: graphs, n_pad, e_pad
+MESH_GRAPHS = 32
+MESH_REPS = 3
+MESH_TOL = dict(rtol=1e-5, atol=1e-5)  # make_sharded_mp vs the dense sum
+CPSUM_BOUND = 0.02  # JAX's int8 bound (tests/test_distributed.py)
+PUBMED = dict(n=19717, e=88648, f=100)  # the substrate's PubMed-sized graph
+PUBMED_GIN_FEAT = 500  # PubMed's node features, for the GIN forward
+MESH_PATH_KERNELS = {"gat": ("node_mlp", "edge_softmax", "segment_reduce")}
+MESH_STREAM = dict(qps=500.0, max_wait_s=0.004)  # GIN's stream with arrivals
+# node-level outputs sharded = whole bit for bit: every reduction of these
+# models runs per destination in the plan's edge order (GIN+VN's virtual
+# node pools a graph's rows across ranks, two partial sums: tolerance)
+NODE_BITS_MODELS = ("gcn", "gin", "gat", "pna", "dgn")
+
+
+def mesh_graphs(k: int, feat: int = 9, edge: int = 3) -> list:
+    """JAX's sharded-serving graphs (tests/test_gnn_serving.py, seed 0)."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(k):
+        n = int(rng.integers(6, 16))
+        e = int(rng.integers(n, 2 * n))
+        out.append((rng.integers(0, n, e).astype(np.int32),
+                    rng.integers(0, n, e).astype(np.int32),
+                    rng.normal(size=(n, feat)).astype(np.float32),
+                    rng.normal(size=(e, edge)).astype(np.float32)))
+    return out
+
+
+def mesh_sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def mp_case(mesh, n: int, e: int, f: int, device, n_pad: int) -> dict:
+    """make_sharded_mp, both strategies, against the dense sum on one
+    graph drawn as tests/test_distributed.py draws it (seed 0; ``n`` real
+    nodes of ``n_pad`` rows); -> errors, times and bytes received."""
+    import torch
+    from repro_torch import runtime as RT
+    from repro_torch.runtime import partitioning as PT
+
+    p = mesh.size
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    x = np.zeros((n_pad, f), np.float32)
+    x[:n] = rng.normal(size=(n, f)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)
+    ref = torch.zeros((n_pad, f), dtype=torch.float64, device=device)
+    ref.index_add_(0, t(dst).long(), 2.0 * t(x).double()[t(src).long()])
+    ref = ref.float()
+    phi = lambda m: m * 2.0
+    n_local = n_pad // p
+    order = np.argsort(src // n_local, kind="stable")
+    src_s, dst_s = src[order], dst[order]
+    per = int(np.bincount(src_s // n_local, minlength=p).max())
+    src_p = np.zeros((p, per), np.int32)
+    dst_p = np.zeros((p, per), np.int32)
+    msk_p = np.zeros((p, per), bool)
+    pairs = np.zeros((p, p), np.int64)
+    for r in range(p):
+        e_r = np.where(src_s // n_local == r)[0]
+        src_p[r, :len(e_r)] = src_s[e_r] % n_local
+        dst_p[r, :len(e_r)] = dst_s[e_r]
+        msk_p[r, :len(e_r)] = True
+        pairs[r] = np.bincount(dst_s[e_r] // n_local, minlength=p)
+    cases = {
+        "allgather": (RT.make_sharded_mp(mesh, "data", phi, "allgather"),
+                      (t(x), t(src), t(dst), t(np.ones(e, bool)))),
+        # the busiest (source rank -> destination rank) pair bounds the
+        # slots, so nothing drops
+        "alltoall": (RT.make_sharded_mp(mesh, "data", phi, "alltoall",
+                                        capacity=int(pairs.max())),
+                     (t(x), t(src_p.reshape(-1)), t(dst_p.reshape(-1)),
+                      t(msk_p.reshape(-1)))),
+    }
+    res = {}
+    for name, (fn, args) in cases.items():
+        out = fn(*args)
+        mesh_sync(device)
+        err = max_err(out, ref)
+        if not close(out, ref, MESH_TOL) or not torch.isfinite(out).all():
+            raise AssertionError(f"mesh {name} n={n}: max err {err:.3g}")
+        times = []
+        for _ in range(MESH_REPS):
+            PT.reset_collective_bytes()
+            t0 = time.perf_counter()
+            fn(*args)
+            mesh_sync(device)
+            times.append(time.perf_counter() - t0)
+        res[name] = {"max_abs_err": err, "ms": statistics.median(times) * 1e3,
+                     "bytes": dict(PT.collective_bytes)}
+    return res
+
+
+def mesh_substrate(mesh, device) -> dict:
+    """make_sharded_mp on JAX's data (N 32, E 64, F 6) and at the PubMed
+    size; compressed_psum against the exact sum."""
+    import torch
+    from repro_torch.optim.compression import compressed_psum
+
+    p = mesh.size
+    out = {"jax_data": mp_case(mesh, 32, 64, 6, device, 32)}
+    n_pad = -(-PUBMED["n"] // p) * p
+    out["pubmed"] = mp_case(mesh, PUBMED["n"], PUBMED["e"], PUBMED["f"], device, n_pad)
+    g = np.random.default_rng(0).normal(size=(p, 128)).astype(np.float32)
+    got = compressed_psum(torch.from_numpy(g[mesh.coordinate("data")]).to(device))
+    want = g.sum(axis=0)
+    rel = float(np.abs(got.cpu().numpy() - want).max() / (np.abs(want).max() + 1e-9))
+    if not rel < CPSUM_BOUND:
+        raise AssertionError(f"compressed_psum relative error {rel:.3g}")
+    out["compressed_psum_rel"] = rel
+    return out
+
+
+def batch_runs(ex, prepared: list) -> tuple:
+    """(outputs, per-batch seconds over MESH_REPS passes) of prepared
+    batches through ``ex``, warmed first, untimed; the launch counters and
+    the collective bytes count the timed passes only."""
+    from repro_torch.runtime import partitioning as PT
+
+    for p_ in prepared:
+        ex.warm(p_)
+    reset_launches()
+    PT.reset_collective_bytes()
+    outs, secs = None, []
+    for _ in range(MESH_REPS):
+        res = [ex.run(p_) for p_ in prepared]
+        outs = np.concatenate([o[: p_.num_graphs] for (o, _), p_ in zip(res, prepared)])
+        secs += [dt for _, dt in res]
+    return outs, secs
+
+
+def node_outputs(ex, tenant, p, sharded: bool):
+    """A node task's outputs of one prepared batch: every layer's rows
+    through the head, sharded under the executor's mesh or whole."""
+    import torch
+    from repro_torch.core import layout as LY
+    from repro_torch.core import message_passing as MP
+    from repro_torch.gnn import models as M
+    from repro_torch.runtime import partitioning as PT
+
+    cfg = dataclasses.replace(tenant.cfg, task="node")
+    g, eig, _ = p.inputs
+    was = torch.are_deterministic_algorithms_enabled()
+    # the plain segment sums (index_add_) in edge order, not by atomics
+    torch.use_deterministic_algorithms(True)
+    with torch.inference_mode(), ex._mesh_scope():
+        if sharded:
+            shard = PT.row_shard(g.num_nodes)
+            if shard is None:
+                raise AssertionError(f"{cfg.model}: the batch did not shard")
+            g, eig, lay = MP.shard_inputs(g, eig, LY.build_layout(g), shard)
+        else:
+            lay = None
+        out = M.apply(tenant.params, g, cfg, eigvec=eig, num_graphs=p.num_graphs,
+                      layout=lay, fused=tenant.fused)
+    mesh_sync(out.device)
+    torch.use_deterministic_algorithms(was)
+    return out
+
+
+def mesh_serve(mesh, device) -> dict:
+    """The six paper models at paper width through GNNEngine(mesh=...)
+    batched (4 graphs to a (128, 384) bucket) against the unsharded
+    engine; node-level outputs sharded against whole bit for bit; GIN
+    fp32 and int8 packed through the StreamScheduler."""
+    import torch
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.gnn import init
+    from repro_torch.runtime import partitioning as PT
+    from repro_torch.serve.gnn_engine import GNNEngine
+    from repro_torch.serve.scheduler import StreamScheduler
+
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+
+    bsz, n_pad, e_pad = MESH_BATCH
+    # MolHIV-like graphs fill 77-106 of a batch's 128 rows, so both ranks
+    # hold real nodes (JAX's 6-16-node test graphs would leave rank 1 only
+    # padding)
+    graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(MESH_GRAPHS)]
+    res = {}
+    launches_total = None
+    for model in MESH_MODELS:
+        cfg = get_gnn_config(model)
+        params = init(torch.Generator().manual_seed(0), cfg)
+        eig = model == "dgn"
+        plain = GNNEngine(cfg, params, fused=True, device=device)
+        sharded = GNNEngine(cfg, params, fused=True, device=device, mesh=mesh)
+        prep = lambda eng: [eng.executor.prepare_batched(
+            graphs[i:i + bsz], bsz, n_pad, e_pad, with_eigvec=eig)
+            for i in range(0, len(graphs), bsz)]
+        out_s, secs_s = batch_runs(sharded.executor, prep(sharded))
+        launches = read_launches()
+        gathered = dict(PT.collective_bytes)
+        forwards = MESH_REPS * len(graphs) // bsz
+        out_p, secs_p = batch_runs(plain.executor, prep(plain))
+        agree(f"mesh {model} sharded vs unsharded", out_s, out_p, SERVE_TOL)
+        ex = sharded.executor
+        if ex.captured or ex.lowered_count:
+            raise AssertionError(f"mesh {model} over {mesh.backend}: a sharded "
+                                 f"forward captured ({ex.lowered_count} captures)")
+        if device.type == "cuda":
+            for kernel in MESH_PATH_KERNELS.get(model, ("node_mlp", "fused_mp")):
+                if launches[kernel] <= 0:
+                    raise AssertionError(f"mesh {model}: {kernel} never launched")
+        p0 = prep(sharded)[0]
+        a = node_outputs(sharded.executor, sharded._tenant, p0, True)
+        b = node_outputs(sharded.executor, sharded._tenant, p0, False)
+        agree(f"mesh {model} node outputs", a.cpu(), b.cpu(), SERVE_TOL)
+        bits = bool(torch.equal(a, b))
+        if device.type == "cuda" and not bits and model in NODE_BITS_MODELS:
+            raise AssertionError(f"mesh {model}: node outputs differ in bits, "
+                                 f"max err {max_err(a, b):.3g}")
+        res[model] = {
+            "p50_ms": statistics.median(secs_s) * 1e3,
+            "plain_p50_ms": statistics.median(secs_p) * 1e3,
+            "all_gather_bytes_per_layer": gathered["all_gather"] / (forwards * cfg.num_layers),
+            "all_reduce_bytes_per_forward": gathered["all_reduce"] / forwards,
+            "captured": sharded.executor.captured,
+            "plain_captured": plain.executor.captured,
+            "max_abs_err": max_err(torch.as_tensor(out_s), torch.as_tensor(out_p)),
+            "node_bits_equal": bits, "launches": launches,
+        }
+        launches_total = launches if launches_total is None else {
+            k: launches_total[k] + v for k, v in launches.items()}
+        del plain, sharded
+    cfg = get_gnn_config("gin")
+    params = init(torch.Generator().manual_seed(0), cfg)
+    plain_outs = {}
+    for precision in ("fp32", "int8"):
+        reps = [StreamScheduler(GNNEngine(cfg, params, fused=True, device=device,
+                                          precision=precision, mesh=m),
+                                capacity=4).run(graphs, qps=0.0)
+                for m in (None, mesh)]
+        plain_outs[precision] = np.stack(reps[0].outputs)
+        agree(f"mesh gin {precision} packed", np.stack(reps[1].outputs),
+              plain_outs[precision], SERVE_TOL)
+        res[f"gin {precision} packed"] = {
+            "flushes": len(reps[1].batch_sizes),
+            "p50_ms": reps[1].percentile_ms(50), "plain_p50_ms": reps[0].percentile_ms(50)}
+    res["gin stream"] = mesh_stream(mesh, cfg, params, graphs, plain_outs["fp32"], device)
+    res["launches_total"] = launches_total
+    return res
+
+
+def mesh_stream(mesh, cfg, params, graphs, want, device) -> dict:
+    """GIN fp32 as a stream with arrivals (MESH_STREAM) through the
+    StreamScheduler on the mesh: each rank measures its own flush times,
+    and the ranks must keep one schedule (flushes, rungs and their
+    instants equal on every rank) and serve ``want``."""
+    import torch.distributed as dist
+    from repro_torch.serve.gnn_engine import GNNEngine
+    from repro_torch.serve.scheduler import StreamScheduler
+
+    rep = StreamScheduler(GNNEngine(cfg, params, fused=True, device=device, mesh=mesh),
+                          capacity=4, max_wait_s=MESH_STREAM["max_wait_s"]
+                          ).run(graphs, qps=MESH_STREAM["qps"])
+    schedule = [(f.rids, f.rung_multiple, f.at_s, f.done_s) for f in rep.flush_log]
+    every = [None] * mesh.size
+    dist.all_gather_object(every, schedule)
+    if any(other != schedule for other in every):
+        raise AssertionError("mesh gin stream: the ranks took different schedules")
+    agree("mesh gin stream", np.stack(rep.outputs), want, SERVE_TOL)
+    return {"flushes": len(schedule), "rungs": sorted({f[1] for f in schedule}),
+            "p50_ms": rep.percentile_ms(50), "p99_ms": rep.percentile_ms(99)}
+
+
+def mesh_pubmed_gin(mesh, device) -> dict:
+    """One GIN forward (paper width, node task, 3 classes) on a synthetic
+    PubMed-sized graph: 19,717 nodes (19,718 rows), 88,648 edges,
+    PUBMED_GIN_FEAT features.  Served: ``Executor.run`` on the prepared
+    batch, sharded (the executor's own path, eager) against an executor
+    without a mesh (captured on the card), timed over MESH_REPS runs.  Bit
+    for bit: the node outputs of the same forward sharded and whole, run
+    directly under deterministic algorithms (``node_outputs``)."""
+    import torch
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.core import graph as G
+    from repro_torch.gnn import init
+    from repro_torch.serve.executor import Executor, prepared
+
+    cfg = get_gnn_config("gin", feat_dim=PUBMED_GIN_FEAT, task="node", out_dim=3)
+    rng = np.random.default_rng(1)
+    n, e = PUBMED["n"], PUBMED["e"]
+    n_pad = -(-n // mesh.size) * mesh.size
+    raw = (rng.integers(0, n, e).astype(np.int32), rng.integers(0, n, e).astype(np.int32),
+           rng.normal(size=(n, cfg.feat_dim)).astype(np.float32),
+           rng.normal(size=(e, cfg.edge_dim)).astype(np.float32))
+    params = init(torch.Generator().manual_seed(0), cfg)
+    ex = Executor(buckets=((n_pad, e),), device=device, mesh=mesh)
+    whole = Executor(buckets=((n_pad, e),), device=device)
+    tenant = ex.register("pubmed", cfg, params, fused=True)
+    whole.register("pubmed", cfg, params, fused=True)
+    g = G.from_numpy(*raw, n_pad=n_pad, e_pad=e, device=device)
+    p = prepared(g, None, None, ("pubmed", n_pad, e), 1)
+    served = {}
+    for name, x in (("sharded", ex), ("whole", whole)):
+        x.warm(p)
+        reset_launches()
+        runs = [x.run(p) for _ in range(MESH_REPS)]
+        launches = read_launches()
+        if name == "sharded" and device.type == "cuda" and not (
+                launches["fused_mp"] > 0 and launches["node_mlp"] > 0):
+            raise AssertionError(f"pubmed gin: launches {launches}")
+        served[name] = (runs[-1][0], statistics.median(dt for _, dt in runs))
+    if ex.captured or ex.lowered_count:
+        raise AssertionError("pubmed gin: the sharded forward captured")
+    agree("mesh pubmed gin served", served["sharded"][0], served["whole"][0], SERVE_TOL)
+    a = node_outputs(ex, tenant, p, True)
+    b = node_outputs(ex, tenant, p, False)
+    agree("mesh pubmed gin", a.cpu(), b.cpu(), SERVE_TOL)
+    bits = bool(torch.equal(a, b))
+    if device.type == "cuda" and not bits:
+        raise AssertionError(f"pubmed gin: bits differ, max err {max_err(a, b):.3g}")
+    return {"ms": served["sharded"][1] * 1e3, "plain_ms": served["whole"][1] * 1e3,
+            "captured": ex.captured, "plain_captured": whole.captured,
+            "max_abs_err": max_err(torch.as_tensor(served["sharded"][0]),
+                                   torch.as_tensor(served["whole"][0])),
+            "node_bits_equal": bits, "out_shape": list(a.shape)}
+
+
+def mesh_nccl_engine(mesh, device) -> dict:
+    """GIN batched through a 1-rank NCCL mesh: the executor captures, and
+    serves the unsharded engine's bits."""
+    import torch
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.gnn import init
+    from repro_torch.serve.gnn_engine import GNNEngine
+
+    bsz, n_pad, e_pad = MESH_BATCH
+    graphs = mesh_graphs(8)
+    cfg = get_gnn_config("gin")
+    params = init(torch.Generator().manual_seed(0), cfg)
+    a = GNNEngine(cfg, params, fused=True, device=device, mesh=mesh)
+    b = GNNEngine(cfg, params, fused=True, device=device)
+    out_a = a.infer_batched(graphs, bsz, n_pad, e_pad)[0]
+    out_b = b.infer_batched(graphs, bsz, n_pad, e_pad)[0]
+    if device.type == "cuda" and not (a.executor.captured and a.executor.lowered_count):
+        raise AssertionError("nccl mesh: the executor did not capture")
+    agree("nccl mesh engine vs unsharded", out_a, out_b, SERVE_TOL)
+    return {"captured": a.executor.captured, "lowered": a.executor.lowered_count}
+
+
+def mesh_rank_main(argv: list) -> int:
+    """One rank of a phase-12 world (``--mesh-rank R --mesh-world W
+    --mesh-backend B --mesh-init URL --mesh-out DIR [--mesh-device D]``):
+    join the process group, run the world's checks, write
+    ``rank<R>.json``."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import runtime as RT
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--mesh-rank", "--mesh-world"):
+        ap.add_argument(flag, type=int, required=True)
+    for flag in ("--mesh-backend", "--mesh-init", "--mesh-out"):
+        ap.add_argument(flag, required=True)
+    ap.add_argument("--mesh-device", default="cuda")
+    a = ap.parse_args(argv)
+    device = torch.device(a.mesh_device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # NCCL: a card a rank; gloo: every rank on the first card
+        index = a.mesh_rank if a.mesh_backend == "nccl" else 0
+        torch.cuda.set_device(index)
+        device = torch.device("cuda", index)
+    step = lambda what: print(f"[rank {a.mesh_rank}] {what}", flush=True)
+    dist.init_process_group(a.mesh_backend, init_method=a.mesh_init,
+                            world_size=a.mesh_world, rank=a.mesh_rank)
+    try:
+        mesh = RT.make_flat_mesh(a.mesh_world, axis="data", device=device)
+        step(f"joined {mesh}")
+        res = {"backend": mesh.backend, "substrate": mesh_substrate(mesh, device)}
+        step("substrate done")
+        if a.mesh_world > 1:
+            res["serve"] = mesh_serve(mesh, device)
+            step("serving done")
+            res["pubmed_gin"] = mesh_pubmed_gin(mesh, device)
+        else:
+            res["engine"] = mesh_nccl_engine(mesh, device)
+        step("done")
+        Path(a.mesh_out, f"rank{a.mesh_rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_world(backend: str, world: int, out_dir: Path, device: str = "cuda") -> list:
+    """Start a world of ``world`` ranks of this script, wait for all of them
+    (killed at MESH_TIMEOUT_S) and return each rank's results."""
+    import shutil
+
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    init = "file://" + str(out_dir / "rendezvous")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+         "--mesh-world", str(world), "--mesh-backend", backend, "--mesh-init", init,
+         "--mesh-out", str(out_dir), "--mesh-device", device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=child_env(),
+        cwd=str(ROOT)) for r in range(world)]
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    outs, hung = [], False
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0)))
+        except subprocess.TimeoutExpired:
+            hung = True
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate())  # how far it came
+    failed = [f"rank {r} exited {p.returncode}:\n{o[-2000:]}\n{e[-4000:]}"
+              for r, (p, (o, e)) in enumerate(zip(procs, outs)) if p.returncode != 0]
+    if failed:
+        what = f"hung past {MESH_TIMEOUT_S} s" if hung else "failed"
+        raise AssertionError(f"mesh {backend} x{world} {what}: " + "\n".join(failed))
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def mp_line(tag: str, sub: dict) -> str:
+    return " ".join(
+        f"{name} err {c['max_abs_err']:.2e} {c['ms']:.3f} ms "
+        f"{sum(c['bytes'].values()) / 1e6:.3f} MB"
+        for name, c in sub.items()) + f" ({tag})"
+
+
+def mesh_phase(device, card: str) -> dict:
+    """Phase 12: a 2-rank gloo world on the card (substrate, six models
+    sharded, GIN packed, the PubMed-sized GIN forward), a 1-rank NCCL world
+    (substrate, a capturing mesh engine), and the launcher with --gnn-mesh
+    2 as a child process; -> each gloo rank's launch counts on the sharded
+    paths."""
+    t0 = time.perf_counter()
+    out_root = ROOT / "build" / "mesh"
+    dev = "cuda" if device.type == "cuda" else "cpu"
+    gloo = mesh_world("gloo", MESH_WORLD, out_root / "gloo", dev)
+    nccl = (mesh_world("nccl", 1, out_root / "nccl", dev)
+            if device.type == "cuda" else [])
+    for tag, ranks in (("gloo", gloo), ("nccl", nccl)):
+        for r, res in enumerate(ranks):
+            sub = res["substrate"]
+            print(f"[mesh substrate {tag} x{len(ranks)} rank {r}] jax data: "
+                  f"{mp_line('N 32, E 64, F 6', sub['jax_data'])}; pubmed: "
+                  f"{mp_line('N 19717, E 88648, F 100', sub['pubmed'])}; "
+                  f"compressed_psum rel {sub['compressed_psum_rel']:.2e}; {card}")
+    for res in nccl:
+        print(f"[mesh nccl x1 engine] gin batched: captured {res['engine']['captured']}, "
+              f"{res['engine']['lowered']} captures, = the unsharded engine; {card}")
+    r0 = gloo[0]["serve"]
+    for model in MESH_MODELS:
+        rows = [g["serve"][model] for g in gloo]
+        print(f"[mesh gnn {model}] 2 gloo ranks, batched 4 x (128, 384): p50 "
+              f"{rows[0]['p50_ms']:.3f} ms sharded (captured {rows[0]['captured']}) | "
+              f"{rows[0]['plain_p50_ms']:.3f} ms unsharded (captured "
+              f"{rows[0]['plain_captured']}); all-gathered "
+              f"{rows[0]['all_gather_bytes_per_layer']:.0f} B/layer/rank, all-reduced "
+              f"{rows[0]['all_reduce_bytes_per_forward']:.0f} B/forward; max err "
+              f"{rows[0]['max_abs_err']:.2e}; node outputs bit for bit "
+              f"{rows[0]['node_bits_equal']}; launches fused_mp / node_mlp rank 0 "
+              f"{rows[0]['launches']['fused_mp']}/{rows[0]['launches']['node_mlp']}, "
+              f"rank 1 {rows[1]['launches']['fused_mp']}/{rows[1]['launches']['node_mlp']}; "
+              f"{card}")
+    for precision in ("fp32", "int8"):
+        row = r0[f"gin {precision} packed"]
+        print(f"[mesh gnn gin {precision} packed] StreamScheduler capacity 4, "
+              f"{MESH_GRAPHS} graphs, {row['flushes']} flushes: p50 {row['p50_ms']:.3f} ms "
+              f"sharded | {row['plain_p50_ms']:.3f} ms unsharded; {card}")
+    st = r0["gin stream"]
+    print(f"[mesh gnn gin stream] StreamScheduler capacity 4, {MESH_GRAPHS} graphs at "
+          f"{MESH_STREAM['qps']:g} qps, max-wait {MESH_STREAM['max_wait_s'] * 1e3:g} ms: "
+          f"{st['flushes']} flushes at rungs {st['rungs']}, one schedule on both ranks; "
+          f"p50 {st['p50_ms']:.3f} ms p99 {st['p99_ms']:.3f} ms; {card}")
+    pm = gloo[0]["pubmed_gin"]
+    print(f"[mesh pubmed gin] 19717 nodes, 88648 edges, {PUBMED_GIN_FEAT} features, "
+          f"node task, Executor.run median of {MESH_REPS}: {pm['ms']:.2f} ms sharded "
+          f"over 2 (captured {pm['captured']}) | {pm['plain_ms']:.2f} ms whole (captured "
+          f"{pm['plain_captured']}); max err {pm['max_abs_err']:.2e}; out "
+          f"{pm['out_shape']}, bit for bit under deterministic algorithms "
+          f"{pm['node_bits_equal']}; {card}")
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--gnn", "gin",
+            "--batched", "--gnn-mesh", "2", "--n-graphs", "12", "--batch", "4"]
+    if device.type != "cuda":
+        argv += ["--device", "cpu"]
+    out = run_child(argv, "launcher --gnn-mesh 2")
+    line = next((ln for ln in out.splitlines() if "mesh=2" in ln), "")
+    if "backend=gloo" not in line:
+        raise AssertionError(f"launcher --gnn-mesh 2 printed no mesh line:\n{out}")
+    print(f"[mesh launcher] {line.strip()}")
+    print(f"[mesh] phase 12 took {time.perf_counter() - t0:.1f}s")
+    return {f"mesh gloo rank{r}": g["serve"]["launches_total"]
+            for r, g in enumerate(gloo)}
+
+
 def run(device) -> list:
-    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9j, 11-11c and 8 on ``device``;
+    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9j, 11-11c, 12 and 8 on ``device``;
     returns the kernels' JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
@@ -4068,6 +4666,7 @@ def run(device) -> list:
     paths[f"train {TRAIN_ARCH}"], train_summary = train_chatglm3(device)
     flash_training.update(train_summary)
     paths["train loop"] = train_loop_phase(device)
+    paths.update(mesh_phase(device, device_line()))
     packed, lay = packed_plan(device)
     rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"],
                           design_split(paths["gin"], "node_mlp")),
@@ -4099,6 +4698,8 @@ def run(device) -> list:
 
 
 def main() -> int:
+    if "--mesh-rank" in sys.argv:
+        return mesh_rank_main(sys.argv[1:])
     import torch
 
     if not torch.cuda.is_available():

@@ -18,9 +18,15 @@ the keys and the parameters' logical axes (``axes_tree``).  JAX's manifest
 holds its tree structure as a serialized proto (``treedef``); the port
 writes null there, and both packages restore by a template tree, which
 JAX's ``restore`` needs as well.  ``restore`` puts each leaf on its
-template leaf's device (or ``device``); restoring onto a mesh with
-resharding by the logical axes (JAX's elastic restore) waits for the
-port's multi-device work (ROADMAP queue 1, item 11).
+template leaf's device (or ``device``).
+
+Elastic restore (JAX's): with ``mesh=`` (a ``runtime.Mesh``, any shape)
+and the logical axes in the manifest, each leaf with axes is placed by
+``runtime.partitioning.resolve_spec`` under ``rules`` as a DTensor on the
+new mesh: every rank reads the file and keeps its own block
+(``DTensor.from_local``, no exchange); a leaf without axes stays a plain
+tensor.  On several ranks ``save`` takes DTensor leaves too (each is
+all-gathered whole: every rank must call ``save``) and only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -64,10 +70,26 @@ def _unflatten_like(template, flat: dict, prefix: str = ""):
     return flat[prefix]
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _writer() -> bool:
+    """Whether this process writes the files: rank 0 of a process group,
+    or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """A copy of a tensor as numpy (the caller may write the tensor on while
     the files are written), bf16 as its uint16 bit pattern (numpy has no
-    bf16)."""
+    bf16); a DTensor is all-gathered whole first."""
+    if _is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -92,10 +114,13 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, axes_tree: Any = None, blocking: bool = False):
         """Save a tree of tensors.  ``axes_tree`` (the same structure, leaves
         logical-axes tuples, a None subtree for leaves without) goes into
-        the manifest."""
+        the manifest.  On several ranks every rank calls it (DTensor leaves
+        are gathered) and rank 0 writes."""
         self.wait()
         host = {key: (_to_host(leaf), leaf.dtype == torch.bfloat16)
                 for key, leaf in _flatten_with_paths(tree).items()}
+        if not _writer():
+            return
 
         def work():
             tmp = os.path.join(self.dir, f"tmp.step_{step:08d}")
@@ -154,11 +179,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None, template: Any = None,
-                device=None) -> tuple:
+                device=None, mesh=None, rules=None) -> tuple:
         """Returns (step, tree): the tree has ``template``'s structure (a
         tree of tensors, or of anything with their paths), each leaf in its
         stored dtype on ``device`` or, with ``device`` None, on its template
-        leaf's device (the CPU for a leaf that is not a tensor)."""
+        leaf's device (the CPU for a leaf that is not a tensor).  With
+        ``mesh`` and logical axes in the manifest, a leaf with axes comes
+        back as a DTensor placed by them (elastic restore)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -177,7 +204,28 @@ class CheckpointManager:
             arr = np.load(os.path.join(d, key.replace("/", "__") + ".npy"))
             dev = device if device is not None else getattr(like, "device", "cpu")
             flat[key] = _from_host(arr, dtypes.get(key)).to(dev)
+        if mesh is not None and manifest.get("axes"):
+            flat = {key: _place(t, manifest["axes"].get(key), mesh, rules)
+                    for key, t in flat.items()}
         return step, _unflatten_like(template, flat)
+
+
+def _place(t: torch.Tensor, axes, mesh, rules):
+    """``t`` as a DTensor on ``mesh`` under the spec its logical ``axes``
+    resolve to (this rank's block of the whole tensor every rank read);
+    ``t`` itself without axes or on a mesh without a process group."""
+    if axes is None or mesh.device_mesh is None:
+        return t
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.runtime import compat, partitioning as PT
+
+    spec = PT.resolve_spec(tuple(axes), tuple(t.shape), mesh, rules)
+    local = compat.local_block(t, spec, mesh).contiguous()
+    if mesh.device_type == "cuda":
+        local = local.to(torch.device("cuda", torch.cuda.current_device()))
+    return DTensor.from_local(local, mesh.device_mesh, PT.to_placements(spec, mesh),
+                              run_check=False, shape=t.shape, stride=t.stride())
 
 
 def _axes_manifest(axes_tree) -> dict:

@@ -29,6 +29,11 @@ class Graph:
       edge_mask:  (E_pad,) bool, True for real edges.
       graph_id:   (N_pad,) int32 graph membership for batched pooling.
       n_graph:    () int32 number of real graphs in the batch.
+      shard:      None for a whole graph; on one rank of a mesh, the
+                  ``runtime.partitioning.RowShard`` whose node rows this
+                  graph holds (``core.message_passing.shard_inputs``): its
+                  edges are those rows' in-edges, their sources global
+                  node ids.
     """
 
     node_feat: torch.Tensor
@@ -38,6 +43,7 @@ class Graph:
     edge_mask: torch.Tensor
     graph_id: torch.Tensor
     n_graph: torch.Tensor
+    shard: Optional[object] = dataclasses.field(default=None, compare=False)
 
     @property
     def num_nodes(self) -> int:

@@ -7,6 +7,22 @@ Masking contract (as in the JAX package): padding edges are masked by the
 plan — they carry the out-of-range destination id ``N_pad``, which the
 segment reductions drop — so per-edge messages are never masked by value.
 Padded node rows are zeroed on the way out of every layer.
+
+**Sharded over a mesh** (the paper's large-graph extension, §4.6, on
+several ranks).  :func:`shard_inputs` gives a rank its part of a padded
+batch: an even block of the node rows, ``[r N/P, (r+1) N/P)``, and the
+edges whose destination it owns, which are one contiguous range of the
+plan (``layout.offsets`` at the block's ends), in plan order.  The
+rank's ``Graph`` carries a ``runtime.partitioning.RowShard``; its edges'
+sources stay global node ids.  Every layer form then reads its source
+rows through :func:`source_rows`, one all-gather of the rows it reads as
+sources, and aggregates only its own destination rows, in the plan's edge
+order, so a node's reduction runs in the same order as on one rank:
+``mp_layer`` (fused and closure), GAT's ``gat_attention`` (its softmax is
+per destination), PNA's scalers and GCN's norms (per destination, from
+the rank's in-degrees), DGN's weights (the source's eigenvector entry,
+all-gathered once a forward).  ``global_pool`` sums a rank's rows, then
+all-reduces.
 """
 from __future__ import annotations
 
@@ -70,6 +86,12 @@ class MPSpec:
             )
 
 
+def source_rows(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    """The table a layer's sources index: ``x`` itself, or on a shard every
+    rank's rows of it (one all-gather)."""
+    return x if graph.shard is None else graph.shard.gather(x)
+
+
 def gather_scatter(
     graph: Graph,
     messages: torch.Tensor,
@@ -110,19 +132,22 @@ def mp_layer(
     over the layout plan, which it requires).  In the closure form
     ``aggregate(graph, messages, layout)`` replaces ``gather_scatter`` where
     a model's A(.) is more than a concatenation of reductions (PNA's scaled
-    tower, DGN's directional derivative)."""
+    tower, DGN's directional derivative).  On a shard the sources come from
+    every rank's rows (``operands["msrc"]`` / ``x`` all-gathered once)."""
     if spec is not None:
         if layout is None:
             raise ValueError(
                 "fused mp_layer (spec=...) requires a GraphLayout plan; "
                 "pass layout= or use the closure form"
             )
+        if graph.shard is not None:
+            operands = dict(operands, msrc=source_rows(graph, operands["msrc"]))
         return kops.fused_mp(
             spec, layout.ids_sorted, layout.offsets, layout.src_sorted,
             layout.in_degree, graph.node_mask, mode=mode, **operands,
         )
     e = graph.edge_feat if edge_feat is None else edge_feat
-    x_src = x[graph.src.long()]
+    x_src = source_rows(graph, x)[graph.src.long()]
     x_dst = x[graph.dst.long()]
     messages = phi(x_src, x_dst, e)
     if aggregate is not None:
@@ -178,7 +203,9 @@ def gat_attention(
     """GAT's A(.): per-destination softmax, then the attention-weighted sum.
 
     ``logits`` (E_pad, H) in COO order; ``xp`` (N_pad, H, F) per-head
-    features; returns (N_pad, H * F).  The softmax normaliser couples all of
+    features of the sources (on a shard every rank's rows,
+    :func:`source_rows`); returns (N_pad, H * F) for the graph's rows.
+    The softmax normaliser couples all of
     a destination's edges before any message folds in, so GAT does not
     lower to ``fused_mp``: its two segment kernels run over the plan here,
     or, without one, over a plan sorted once in this call.  Padding edges
@@ -201,9 +228,10 @@ def dgn_directional_weights(graph: Graph, eigvec: torch.Tensor,
     w_ij = (phi_j - phi_i) / sum_k |phi_k - phi_i| per in-edge (COO order),
     their per-destination |dphi| normaliser and sum of weights.  The plan
     caches them (``core.layout.with_dgn_weights``); without one both sums
-    sort privately, bit for bit the cached values."""
+    sort privately, bit for bit the cached values.  On a shard ``eigvec``
+    holds the rank's rows and the sources' entries are all-gathered."""
     src, dst = graph.src.long(), graph.dst.long()
-    dphi = eigvec[src] - eigvec[dst]
+    dphi = source_rows(graph, eigvec)[src] - eigvec[dst]
     dphi = torch.where(graph.edge_mask, dphi, torch.zeros_like(dphi))
     denom = gather_scatter(graph, torch.abs(dphi)[:, None], layout=layout)[:, 0]
     w_e = dphi / torch.clamp(denom[dst], min=1e-6)
@@ -228,9 +256,86 @@ def global_pool(
     num_graphs: int | None = None,
 ) -> torch.Tensor:
     """Pool node embeddings per graph id -> (num_graphs, F).  Padded nodes
-    get id ``num_graphs`` and land in the dropped sink row."""
+    get id ``num_graphs`` and land in the dropped sink row.  On a shard
+    ("sum" and "mean") each rank reduces its rows and one all-reduce of
+    the sums (and counts) completes the pool on every rank."""
     m = graph.num_nodes if num_graphs is None else num_graphs
     gid = torch.where(graph.node_mask, graph.graph_id,
                       torch.full_like(graph.graph_id, m))
     xm = torch.where(graph.node_mask[:, None], x, torch.zeros_like(x))
-    return sg.segment_reduce(xm, gid, m, op)
+    if graph.shard is None:
+        return sg.segment_reduce(xm, gid, m, op)
+    if op == "sum":
+        return graph.shard.sum(sg.segment_sum(xm, gid, m))
+    if op != "mean":
+        raise ValueError(f"sharded global_pool takes sum and mean, not {op!r}")
+    ones = torch.ones_like(xm[:, :1])
+    both = graph.shard.sum(sg.segment_sum(torch.cat([xm, ones], dim=-1), gid, m))
+    return both[:, :-1] / torch.clamp(both[:, -1:], min=1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class OwnedEdges:
+    """A rank's window of the plan: ``index`` (W,) int64 plan positions,
+    all of them edges of the rank's destinations (the plan sorts masked
+    edges past every node), ``offsets`` (n_local + 1,) int32 CSR ranges
+    relative to the window."""
+
+    index: torch.Tensor
+    offsets: torch.Tensor
+
+
+def owned_edges(layout: LY.GraphLayout, shard) -> OwnedEdges:
+    """The plan range of ``shard``'s destinations, ``offsets[row0]`` to
+    ``offsets[row0 + n_local]``, read back to the host (one sync), so the
+    window holds exactly those edges.  A sync cannot be captured: a
+    sharded forward runs eagerly (``serve.executor.Executor.captured``)."""
+    n0, nl = shard.row0, shard.n_local
+    bounds = layout.offsets[n0:n0 + nl + 1]
+    e0, e1 = (int(v) for v in bounds[[0, -1]].tolist())
+    return OwnedEdges(index=torch.arange(e0, e1, device=bounds.device),
+                      offsets=(bounds - e0).to(torch.int32))
+
+
+def shard_graph(graph: Graph, layout: LY.GraphLayout, edges: OwnedEdges,
+                shard) -> Graph:
+    """The rank's graph: its node rows, and its destinations' in-edges in
+    plan order (sources global, destinations rank-local)."""
+    dst = layout.ids_sorted[edges.index] - shard.row0
+    src = layout.src_sorted[edges.index]
+    perm = layout.perm[edges.index].long()
+    return dataclasses.replace(
+        graph,
+        node_feat=shard.rows(graph.node_feat),
+        edge_index=torch.stack([src, dst]),
+        edge_feat=graph.edge_feat[perm],
+        node_mask=shard.rows(graph.node_mask),
+        edge_mask=torch.ones_like(edges.index, dtype=torch.bool),
+        graph_id=shard.rows(graph.graph_id),
+        shard=shard,
+    )
+
+
+def shard_layout(layout: LY.GraphLayout, edges: OwnedEdges, shard) -> LY.GraphLayout:
+    """The rank's plan over :func:`shard_graph`'s edges, which are already
+    in plan order (``perm`` the identity)."""
+    return LY.GraphLayout(
+        perm=torch.arange(edges.index.shape[0], dtype=torch.int32,
+                          device=edges.index.device),
+        ids_sorted=layout.ids_sorted[edges.index] - shard.row0,
+        offsets=edges.offsets,
+        src_sorted=layout.src_sorted[edges.index],
+        in_degree=shard.rows(layout.in_degree),
+    )
+
+
+def shard_inputs(graph: Graph, eigvec: Optional[torch.Tensor],
+                 layout: Optional[LY.GraphLayout], shard):
+    """-> (graph, eigvec, layout) of ``shard``'s rank; without a plan
+    (the per-call-sort path) one is built for the ownership and None is
+    returned in its place."""
+    plan = LY.build_layout(graph) if layout is None else layout
+    edges = owned_edges(plan, shard)
+    local = shard_graph(graph, plan, edges, shard)
+    eig = None if eigvec is None else shard.rows(eigvec)
+    return local, eig, (None if layout is None else shard_layout(plan, edges, shard))

@@ -207,8 +207,12 @@ def _gat_layer(g: G.Graph, x, lp, cfg, extras):
     xp = L.linear_apply(lp["proj"], x, mode=cfg.kernel_mode).reshape(n, h, f)
     a_src = (xp * lp["att_src"]).sum(-1)  # (N, H)
     a_dst = (xp * lp["att_dst"]).sum(-1)
+    xp_src = xp
+    if g.shard is not None:  # the sources' features and scores: one all-gather
+        table = mp.source_rows(g, torch.cat([xp.reshape(n, h * f), a_src], dim=-1))
+        xp_src, a_src = table[:, :h * f].reshape(-1, h, f), table[:, h * f:]
     logits = Fn.leaky_relu(a_src[g.src.long()] + a_dst[g.dst.long()], 0.2)
-    agg = mp.gat_attention(g, logits, xp, layout=extras["layout"],
+    agg = mp.gat_attention(g, logits, xp_src, layout=extras["layout"],
                            mode=cfg.kernel_mode)
     out = Fn.elu(agg)
     return torch.where(g.node_mask[:, None], out, torch.zeros_like(out))
@@ -315,8 +319,15 @@ def apply(
     as in JAX.  ``fused`` runs each layer as one ``fused_mp`` pass over the
     plan (GAT, layers whose quantized linears cannot lower, and every layer
     without a plan keep the unfused path).
+
+    A rank's part of a sharded batch (``g.shard`` set, with ``eigvec`` and
+    ``layout`` from ``core.message_passing.shard_inputs``) runs the same
+    bodies on its rows: the layers all-gather their source rows, the
+    pools all-reduce, and a node task's output is all-gathered, so every
+    rank returns the whole batch's output.
     """
-    m = g.num_nodes if num_graphs is None else num_graphs
+    rows = g.num_nodes if g.shard is None else g.shard.n
+    m = rows if num_graphs is None else num_graphs
     layer_fn = _LAYERS[cfg.model]
     if share_layout:
         layout = LY.for_model(layout, g, cfg.model, avg_degree=cfg.avg_degree,
@@ -347,7 +358,8 @@ def apply(
     if cfg.task == "graph":
         pooled = mp.global_pool(g, x, op="mean", num_graphs=m)
         return L.mlp_apply(params["head"], pooled, mode=cfg.kernel_mode)
-    return L.mlp_apply(params["head"], x, mode=cfg.kernel_mode)
+    out = L.mlp_apply(params["head"], x, mode=cfg.kernel_mode)
+    return out if g.shard is None else g.shard.gather(out)
 
 
 def forward_program(

@@ -88,7 +88,7 @@ enum { GAMMA_GCN = 0, GAMMA_GIN = 1, GAMMA_PNA = 2, GAMMA_DGN = 3 };
 struct Args {
   const int* offsets;          // (N + 1,) CSR offsets of the plan
   const int* src;              // (E,) source ids in plan order
-  const float* msrc;           // (N, F) message operand
+  const float* msrc;           // (N_src, F) message operand (source table)
   const float* x_res;          // (N, Fr) residual / self operand
   const float* nop;            // (N, P) per-node operand or null
   const float* eop;            // (E, F) phi edge operand or null

@@ -8,7 +8,12 @@ int8 ``w1`` with per-column f32 ``w1_scale`` and quantizes its input per
 row inside the pass (gcn's gamma has no linear, so precision changes
 nothing there).  The operand contract is ``kernels.ref.fused_mp_ref``'s,
 except that the kernel walks the plan's CSR ``offsets`` where the plain
-version reads ``ids_sorted``.  The wrapper takes CUDA tensors only, checks
+version reads ``ids_sorted``.  The source table ``msrc`` has its own row
+count N_src: the graph's N on one rank, every rank's rows on a shard of a
+mesh (``core.message_passing.source_rows``), with ``src_sorted`` values
+below N_src (a contract the wrapper cannot check without reading the plan
+back); ``x_res``, ``nop`` and the output are the destination rows.  The
+wrapper takes CUDA tensors only, checks
 device, dtype, shape and contiguity, sizes the kernel's dynamic shared
 memory per spec, launches on the current stream and raises if the launch
 fails.  ``launches`` counts the launches it made, ``int8_launches`` those
@@ -125,7 +130,7 @@ def launch_args(
     n = in_degree.shape[0]
     e = src_sorted.shape[0]
     f32, i32 = torch.float32, torch.int32
-    _check("msrc", msrc, dev, f32, (n, None))
+    _check("msrc", msrc, dev, f32, (None, None))  # (N_src, F)
     f = msrc.shape[1]
     if not 0 < f <= MAX_FEATURES:
         raise ValueError(f"fused_mp: F={f} outside (0, {MAX_FEATURES}]")

@@ -210,7 +210,9 @@ def fused_mp(
 
     Operands follow ``kernels.ref.fused_mp_ref``, plus the plan's CSR
     ``offsets`` (``core.layout.GraphLayout.offsets``): the CUDA kernel
-    walks those ranges, the plain version reads ``ids_sorted``.
+    walks those ranges, the plain version reads ``ids_sorted``.  ``msrc``
+    may have more rows than the destinations (a shard's all-gathered
+    source table); ``src_sorted`` indexes it.
     """
     if not _resolve("fused_mp", mode, msrc):
         return ref.fused_mp_ref(

@@ -190,7 +190,9 @@ def fused_mp_ref(
     """Fused (phi, A, gamma) message-passing pass (the operand contract of
     ``repro.kernels.ref.fused_mp_ref``).
 
-      msrc  (N, F)  per-source message operand, gathered via src_sorted
+      msrc  (N_src, F)  per-source message operand, gathered via
+                    src_sorted (N_src rows: N, or every rank's rows on a
+                    shard of a mesh)
       x_res (N, Fr) gamma's residual/self operand
       nop           per-node operand: gcn (N,1) 1/sqrt(d+1); pna (N,3)
                     degree scalers; dgn (N,1) sum of w_e

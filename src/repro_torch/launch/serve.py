@@ -19,6 +19,8 @@ GNN, ``--stream``, ``--models`` and ``--arch`` paths of
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn gat --stream \
       --no-share-layout --n-graphs 32
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn gcn --batched --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --gnn gin --batched --gnn-mesh 2 \
+      --n-graphs 12 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn dgn --fused --n-graphs 32
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn gin --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --gnn gin --fused --precision int8
@@ -67,15 +69,89 @@ and ``aot_stale`` are lookups that ran ``nvcc``, ``nvcc_runs`` the
 compiler processes this process started, and ``lowered`` the CUDA-graph
 captures, which a restart repeats (graphs are not serialized).
 
-Not taken: ``--gnn-mesh`` (the sharded GNN mesh is ROADMAP queue 1, item
-11) and ``--xla-flags-file`` (XLA's compiler options have no CUDA
+Mesh: ``--gnn-mesh P`` (``--gnn`` and ``--models``) serves every
+forward sharded over P ranks (``serve/executor.py``'s mesh).  The
+launcher starts the P ranks itself (``torch.multiprocessing``, spawned,
+rendezvous through a file in a fresh temporary directory): NCCL, one card
+a rank, where the machine has P cards and ``--device`` is a card (its
+bootstrap over the loopback unless ``NCCL_SOCKET_IFNAME`` says
+otherwise); gloo otherwise, every rank on the one card (gloo collectives
+run on CUDA tensors) or on the CPU.  Either way the executor runs the
+sharded forwards eagerly, not as CUDA graphs.  Every rank serves the same
+graphs and, with ``--stream`` or ``--models``, takes the same flushes:
+each flush's time is the slowest rank's, so the ranks' schedulers keep
+one timeline.  ``--pipeline`` is refused with a mesh (its admission reads
+each rank's own host time).  Rank 0 prints the lines, its latency line
+ending in ``mesh=P backend=...``.  A rank that fails fails the launcher.
+
+Not taken: ``--xla-flags-file`` (XLA's compiler options have no CUDA
 meaning).
 """
 import argparse
+import os
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+
+
+def _mesh(args):
+    """The flat ``data`` mesh of ``--gnn-mesh`` (None for 1 rank)."""
+    if args.gnn_mesh <= 1:
+        return None
+    from repro_torch import runtime as RT
+
+    return RT.make_flat_mesh(args.gnn_mesh, axis="data", device=args.device)
+
+
+def _mesh_note(mesh) -> str:
+    return "" if mesh is None else f" mesh={mesh.size} backend={mesh.backend}"
+
+
+def _mesh_backend(args) -> str:
+    """NCCL where every rank has a card of its own, gloo otherwise."""
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda and torch.cuda.device_count() >= args.gnn_mesh:
+        return "nccl"
+    return "gloo"
+
+
+def _rank_main(rank: int, world: int, backend: str, init_method: str,
+               argv: list) -> None:
+    """One rank of ``--gnn-mesh``: join the process group, serve, leave.
+    Ranks past 0 print nothing."""
+    import torch.distributed as dist
+
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank)
+    try:
+        main(argv)
+    finally:
+        dist.destroy_process_group()
+        if rank != 0:
+            sys.stdout.close()
+            sys.stdout = sys.__stdout__
+
+
+def _spawn_mesh(args, argv) -> None:
+    """Start ``--gnn-mesh`` ranks and wait for them (raises if one fails)."""
+    import torch.multiprocessing as tmp
+
+    backend = _mesh_backend(args)
+    if backend == "nccl":
+        # every rank on this host: NCCL bootstraps over the loopback (on a
+        # machine whose other interfaces lead nowhere it hangs otherwise)
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as d:
+        init = "file://" + os.path.join(d, "rendezvous")
+        tmp.start_processes(_rank_main, args=(args.gnn_mesh, backend, init, argv),
+                            nprocs=args.gnn_mesh, join=True, start_method="spawn")
 
 
 def _slo_kwargs(args):
@@ -190,7 +266,8 @@ def serve_gnn_multitenant(args):
     from repro_torch.serve.executor import Executor
     from repro_torch.serve.scheduler import StreamScheduler
 
-    ex = Executor(device=args.device, aot_cache=_aot_setup(args))
+    mesh = _mesh(args)
+    ex = Executor(device=args.device, aot_cache=_aot_setup(args), mesh=mesh)
     specs = []
     for i, spec in enumerate(args.models.split(",")):
         model, _, precision = spec.partition(":")
@@ -216,7 +293,7 @@ def serve_gnn_multitenant(args):
     counts = {s: models.count(s) for s in specs}
     _report_stream(rep, registry,
                    f"multi-tenant stream(qps={args.qps:g}, pack x{args.pack}, "
-                   f"tenants {counts})",
+                   f"tenants {counts}){_mesh_note(mesh)}",
                    f"{len(ex._compiled)} program records, "
                    f"{ex.lowered_count} captures, ")
     _emit_telemetry(args, tracer, registry)
@@ -234,9 +311,10 @@ def serve_gnn(args):
     if args.precision == "int8-static":
         # calibration stream disjoint from the served one (seed split)
         calib = [g[:4] for g in MoleculeStream(MOLHIV, seed=97).take(16)]
+    mesh = _mesh(args)
     eng = GNNEngine(cfg, params, precision=args.precision, calib_graphs=calib,
                     share_layout=not args.no_share_layout, fused=args.fused,
-                    device=args.device, aot_cache=_aot_setup(args))
+                    device=args.device, aot_cache=_aot_setup(args), mesh=mesh)
     if eng.quant_report is not None:
         r = eng.quant_report
         print(f"[quant] {args.precision}: {r.quantized} linears quantized, "
@@ -261,7 +339,8 @@ def serve_gnn(args):
         _report_stream(rep, registry,
                        f"{args.gnn} stream(qps={args.qps:g}, max-wait "
                        f"{args.max_wait_ms}ms, pack x{args.pack}"
-                       f"{', pipeline x' + str(args.inflight) if args.pipeline else ''})",
+                       f"{', pipeline x' + str(args.inflight) if args.pipeline else ''})"
+                       f"{_mesh_note(mesh)}",
                        "")
         _emit_telemetry(args, tracer, registry)
         return
@@ -272,13 +351,14 @@ def serve_gnn(args):
         )
         print(f"{args.gnn} batched(bs={args.batch}): "
               f"{len(outs)} graphs, {per_graph_s*1e6:.0f} us/graph "
-              f"(compile {eng.compile_seconds + eng.warm_seconds:.1f}s excluded)")
+              f"(compile {eng.compile_seconds + eng.warm_seconds:.1f}s excluded)"
+              f"{_mesh_note(mesh)}")
         return
     outs, lats, warm_s = eng.infer_stream([g[:4] for g in graphs],
                                           with_eigvec=with_eigvec)
     print(f"{args.gnn}: {len(outs)} graphs, mean {np.mean(lats)*1e6:.0f} us/graph "
           f"(p50 {np.percentile(lats,50)*1e6:.0f}, p99 {np.percentile(lats,99)*1e6:.0f}; "
-          f"compile {warm_s:.1f}s excluded)")
+          f"compile {warm_s:.1f}s excluded){_mesh_note(mesh)}")
     if args.aot_cache:
         stats = eng.executor.aot_stats()
         print(f"  aot: hit {stats['hit']} miss {stats['miss']} "
@@ -406,10 +486,24 @@ def main(argv=None):
                     help="GNN stream: warm every (tenant, signature) "
                          "bucket ladder before serving, populating "
                          "--aot-cache so the next restart builds nothing")
+    ap.add_argument("--gnn-mesh", type=int, default=1,
+                    help="GNN: shard every forward's node rows over this "
+                         "many ranks, which the launcher starts (NCCL with "
+                         "a card each, else gloo)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
     args._t0 = t0
+    if args.gnn_mesh > 1:
+        import torch.distributed as dist
+
+        if args.arch:
+            ap.error("--gnn-mesh serves --gnn or --models, not --arch")
+        if args.pipeline:
+            ap.error("--gnn-mesh takes no --pipeline")
+        if not dist.is_initialized():
+            _spawn_mesh(args, sys.argv[1:] if argv is None else list(argv))
+            return
     if args.arch:
         serve_lm(args)
     elif args.models:

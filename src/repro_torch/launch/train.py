@@ -12,9 +12,10 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
       --reduced --steps 20 --batch 4 --seq 64 --device cpu
 
-Runs on the card unless ``--device cpu`` is given.  Not taken:
-``--debug-mesh`` and ``--rules`` (a device mesh and its sharding rules are
-ROADMAP queue 1, item 11).
+Runs on the card unless ``--device cpu`` is given.  Not taken yet:
+``--debug-mesh`` and ``--rules``.  The mesh substrate exists
+(``repro_torch.runtime``, which the GNN serving path takes); the train
+loop's mesh branch is ROADMAP queue 1, item 11, part 2.
 """
 import argparse
 import os
@@ -53,8 +54,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     for flag in _MESH_FLAGS:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not taken: a device mesh and its sharding rules "
-                     f"are multi-device work (ROADMAP queue 1, item 11)")
+            ap.error(f"{flag} is not taken: the train loop's mesh branch is "
+                     f"multi-device work (ROADMAP queue 1, item 11, part 2)")
 
     device = resolve_device(args.device)
     cfg = (get_reduced if args.reduced else get_config)(args.arch)

@@ -25,10 +25,12 @@ B * C, D), the layout of the expert GEMMs (``torch.bmm`` with E as the
 batch axis, as JAX computes them outside any Pallas kernel).
 
 JAX's ``logical_constraint`` calls pin rows and experts to mesh axes and
-are no-ops without a mesh; the port has no mesh yet (ROADMAP queue 1,
-item 11) and leaves them out.  Nothing here reads a value back to the
-host (no ``.item()``, ``nonzero``, boolean-mask indexing or ``one_hot``,
-whose range check synchronises on CUDA), so a CUDA graph captures it.
+are no-ops without a mesh.  The port's ``runtime.logical_constraint``
+exists, but the LM takes no mesh yet: its mesh branch and these call
+sites are ROADMAP queue 1, item 11, part 2, so they stay out.  Nothing
+here reads a value back to the host (no ``.item()``, ``nonzero``,
+boolean-mask indexing or ``one_hot``, whose range check synchronises on
+CUDA), so a CUDA graph captures it.
 """
 from __future__ import annotations
 

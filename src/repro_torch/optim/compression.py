@@ -6,12 +6,12 @@
     even, as ``jnp.round`` does; the divisions are IEEE ones on the card
     too, ``core.ieee.div_rn``);
   * ``ef_compress``: the error-feedback wrapper, which carries each
-    tensor's quantization residual to the next step.
-
-JAX's ``compressed_psum``, the int8 all-reduce over a data-parallel mesh,
-waits for the port's multi-device work (ROADMAP queue 1, item 11): on one
-card there is no exchange to compress, and ``ef_compress`` gives what a
-receiver would see.
+    tensor's quantization residual to the next step;
+  * ``compressed_psum``: the int8 all-reduce over the ranks of a process
+    group (JAX's, over a mesh axis inside ``shard_map``): one MAX
+    all-reduce of the scale, the int8 payload requantized against it,
+    one int32 SUM all-reduce, one dequantize.  The training loop does not
+    call it yet: its mesh branch is ROADMAP queue 1, item 11, part 2.
 """
 from __future__ import annotations
 
@@ -55,3 +55,20 @@ def ef_compress(grads, error_buf):
 def init_error_buf(grads):
     return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
                     grads)
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """int8-compressed sum of ``x`` over the ranks of ``group`` (the
+    default group when None).  Every rank quantizes against the largest
+    rank's scale, so the int32 sum (no overflow below 2^23 ranks) is
+    coherent and dequantizes once."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import partitioning as PT
+
+    p = PT._resolve_num_shards(None, group)
+    _, scale = quantize(x)
+    scale_max = PT.all_reduce(scale, group, p, op=dist.ReduceOp.MAX)
+    q = torch.clamp(torch.round(x.float() / scale_max), -127, 127).to(torch.int8)
+    total = PT.all_reduce(q.to(torch.int32), group, p)
+    return total.float() * scale_max

@@ -1,7 +1,11 @@
 """Parameter initialisers of the LM substrate (port of ``repro.params``).
 
-Plain tensors: the JAX package's logical-axes ``Param`` wrapper serves the
-mesh's sharding rules, which the port does not have yet.  Random values
+Plain tensors: the JAX package's logical-axes ``Param`` wrapper carries
+its axes on each leaf; the port keeps them in a tree beside the
+parameters (``models.lm.param_axes``), which ``runtime.partitioning``'s
+``tree_specs`` / ``tree_shardings`` and the checkpoint manager's elastic
+restore resolve on a mesh.  The LM's mesh branch (training and serving
+sharded) is ROADMAP queue 1, item 11, part 2.  Random values
 come from an explicit ``torch.Generator`` and land on its device.
 ``init_normal`` keeps JAX's scale rule, ``(1 / shape[0]) ** 0.5`` of the
 per-layer shape; ``stack`` prepends a group axis (``(G, *shape)``, the

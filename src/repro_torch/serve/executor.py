@@ -83,7 +83,29 @@ libraries are per process: the cache set by the last executor built with
 one serves every later first load.
 
 The executor runs on ``device="cuda"`` unless the caller asks for the CPU,
-and raises if CUDA is missing.  The mesh arrives with a later slice.
+and raises if CUDA is missing.
+
+**Mesh.**  With ``mesh=`` (a ``runtime.Mesh`` over the ranks of a process
+group; every rank builds its own executor and serves the same batches)
+and ``rules=`` (default ``runtime.gnn_rules(mesh)``), every forward runs
+under :meth:`Executor._mesh_scope`, and :meth:`Executor._constrain_graph`
+gives the rank its part of the batch (``core.message_passing.
+shard_inputs``: its block of the padded node rows, its destinations'
+in-edges from the plan, its rows of the eigenvector and the plan).  A
+tenant that shares layouts gets the plan built once there when the batch
+has none.  A bucket whose padded node rows do not divide the axis runs
+whole on every rank (JAX's replicated fallback).  Every rank returns the
+whole batch's output.  Under a mesh of several ranks the executor runs
+every forward eagerly on the card, whatever the backend: a gloo
+collective cannot be captured into a CUDA graph, and a rank's window of
+the plan is read back to the host (``core.message_passing.owned_edges``),
+which a capture refuses; a 1-rank mesh captures as without a mesh.
+:attr:`Executor.captured` says which.  Each timed run's seconds are the
+slowest rank's (an all-reduce of the measured time), so every rank's
+stream scheduler sees one timeline and takes the same flushes, sheds and
+rungs, and so issues the same collectives.  Only this path
+takes a mesh on the serving side; the LM serving and training paths take
+none yet (ROADMAP queue 1, item 11, part 2).
 """
 from __future__ import annotations
 
@@ -98,12 +120,15 @@ import torch
 from repro_torch.core import batching as B
 from repro_torch.core import graph as G
 from repro_torch.core import layout as LY
+from repro_torch.core import message_passing as MP
 from repro_torch.data.pipeline import laplacian_eigvec
 from repro_torch.device import resolve_device
 from repro_torch.gnn import models as M
 from repro_torch.kernels import _build, ops
 from repro_torch.obs.metrics import MetricsRegistry, ServingInstruments
 from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.runtime import compat as RC
+from repro_torch.runtime import partitioning as PT
 from repro_torch.serve.aot import AOTCache, environment_fingerprint
 from repro_torch.serve.clock import Clock, RealClock
 
@@ -269,8 +294,13 @@ class Executor:
                  clock: Optional[Clock] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 device="cuda", aot_cache: Optional[AOTCache] = None):
+                 device="cuda", aot_cache: Optional[AOTCache] = None,
+                 mesh=None, rules: Optional[dict] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if rules is None and mesh is not None:
+            rules = PT.gnn_rules(mesh)
+        self.rules = rules
         self.aot = aot_cache
         self._env_fp: Optional[dict] = None  # lazy: reads the device
         self._aot_seen = 0  # lookups of ``aot.log`` already reported
@@ -376,6 +406,64 @@ class Executor:
         every process captures its own."""
         return sum(cb.lowered_count for cb in self._compiled.values())
 
+    @property
+    def ranks(self) -> int:
+        """The ranks each forward is spread over (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.size
+
+    @property
+    def captured(self) -> bool:
+        """Whether forwards run as CUDA graphs: on the card, unless a mesh
+        of several ranks makes every forward eager."""
+        return self.device.type == "cuda" and self.ranks == 1
+
+    def _slowest(self, seconds: float) -> float:
+        """The largest of every rank's ``seconds`` (itself on one rank)."""
+        if self.ranks == 1:
+            return seconds
+        import torch.distributed as dist
+
+        t = torch.tensor([seconds], dtype=torch.float64,
+                         device=self.device if self.mesh.backend == "nccl" else "cpu")
+        for axis in self.mesh.axis_names:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.group(axis))
+        return float(t.item())
+
+    # ------------------------------------------------------------- mesh
+
+    def _mesh_scope(self):
+        """Context under which forwards run: the executor's mesh and rules
+        installed (``runtime.use_mesh`` / ``active_rules``); a null context
+        without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(RC.use_mesh(self.mesh))
+        stack.enter_context(PT.active_rules(self.rules))
+        return stack
+
+    def _constrain_graph(self, g: G.Graph, eigvec, layout, share_layout: bool):
+        """-> this rank's (graph, eigvec, layout) under the active mesh, or
+        the inputs as they are when the bucket's node rows stay whole.
+        JAX constrains the graph's rows and the plan's in two methods; here
+        the plan's window of owned edges decides both, so one method gives
+        the three (``core.message_passing.shard_inputs``)."""
+        shard = PT.row_shard(g.num_nodes)
+        if shard is None:
+            return g, eigvec, layout
+        if layout is None and share_layout:
+            layout = LY.build_layout(g)
+        return MP.shard_inputs(g, eigvec, layout, shard)
+
+    def _sharded(self, fn: Callable, share_layout: bool) -> Callable:
+        """``fn`` run on this rank's part of each batch, under the mesh."""
+        def run(params, g, eigvec, layout):
+            with self._mesh_scope():
+                return fn(params, *self._constrain_graph(g, eigvec, layout,
+                                                         share_layout))
+
+        return run
+
     # ------------------------------------------------------ AOT plumbing
 
     def _fingerprint(self) -> dict:
@@ -422,6 +510,8 @@ class Executor:
             fn = M.forward_program(tenant.cfg, num_graphs=num_graphs,
                                    share_layout=tenant.share_layout,
                                    fused=tenant.fused)
+            if self.mesh is not None:
+                fn = self._sharded(fn, tenant.share_layout)
             cb = self._compiled[key] = _CompiledBucket(fn=fn, num_graphs=num_graphs)
             if self._mi is not None:
                 self._mi.programs_built.inc()
@@ -464,9 +554,9 @@ class Executor:
 
     def _warm(self, cb: _CompiledBucket, sig: tuple, tenant: Tenant,
               p: PreparedBatch) -> float:
-        """Make ``sig`` servable untimed: on the card capture its graph
-        (:meth:`_capture`), on the CPU run it once.  Returns the seconds
-        spent (0.0 when already warm)."""
+        """Make ``sig`` servable untimed: capture its graph
+        (:meth:`_capture`) where the executor captures, else run it once.
+        Returns the seconds spent (0.0 when already warm)."""
         if sig in cb.warm:
             return 0.0
         # the dispatch census counts this warm's forward once per JAX warm
@@ -475,12 +565,12 @@ class Executor:
         census = (ops.census_muted() if jax_sig in cb.counted
                   else contextlib.nullcontext())
         t0 = self.clock.now()
-        if self.device.type == "cuda":
+        if self.captured:
             cap, compile_dt, warm_dt = self._capture(cb, tenant, p, t0, census)
             cb.lowered_count += 1
         else:
             with census:
-                cb.fn(tenant.params, *p.inputs)
+                cb.fn(tenant.params, *self._inputs(p))
             cap, compile_dt, warm_dt = None, 0.0, self.clock.now() - t0
         cb.counted.add(jax_sig)  # only once the counted forward has returned
         self._report_aot(tenant, p.bucket_key)
@@ -497,6 +587,14 @@ class Executor:
                               bucket=str(p.bucket_key), dur_s=warm_dt,
                               compile_s=compile_dt)
         return compile_dt + warm_dt
+
+    def _inputs(self, p: PreparedBatch) -> tuple:
+        """The batch's forward arguments on the executor's device, for an
+        eager forward (a host-built batch, pinned by :func:`staged`, is
+        copied without blocking; a captured forward copies into its
+        static buffers instead)."""
+        return _map_tensors(lambda t: t.to(self.device, non_blocking=True),
+                            p.inputs)
 
     @staticmethod
     def _signature(tenant: Tenant, p: PreparedBatch) -> tuple:
@@ -576,12 +674,12 @@ class Executor:
     def _harvest(self, out: torch.Tensor, done, tenant: Tenant,
                  p: PreparedBatch, t0: float) -> Tuple[np.ndarray, float]:
         """Complete one dispatched execution: wait for its event, close the
-        timed region, then copy the output to the host under the
+        timed region (under a mesh: the slowest rank's), then copy the output to the host under the
         ``unpack_d2h`` accounting.  The extra clock reads happen only with
         a live sink."""
         if done is not None:
             done.synchronize()
-        dt = self.clock.now() - t0
+        dt = self._slowest(self.clock.now() - t0)
         accounted = self._mi is not None or self.tracer.enabled
         if accounted:
             t2 = self.clock.now()
@@ -607,8 +705,9 @@ class Executor:
         graph's static buffers, replay, clone the output, and return a
         :class:`PendingRun` at once; a batch in pinned host memory is
         copied without blocking, and the pending run holds it until the
-        harvest.  On the CPU the forward runs eagerly here, outside the
-        dispatch census (its warm counted it).  The in-flight window is
+        harvest.  Where the executor does not capture (the CPU, a mesh of
+        several ranks) the forward runs eagerly here, outside the dispatch census
+        (its warm counted it).  The in-flight window is
         the caller's to bound."""
         tenant = self.tenant(model)
         cb = self._program(tenant, p.bucket_key, p.num_graphs)
@@ -619,8 +718,12 @@ class Executor:
             t0 = self.clock.now()
             if cap is None:
                 with ops.census_muted():
-                    out = cb.fn(tenant.params, *p.inputs)
-                return PendingRun(self, out, None, tenant, p, t0)
+                    out = cb.fn(tenant.params, *self._inputs(p))
+                done = None
+                if self.device.type == "cuda":  # eager on the card
+                    done = torch.cuda.Event()
+                    done.record()
+                return PendingRun(self, out, done, tenant, p, t0)
             for dst, src in zip(cap.inputs, _tensor_leaves(p.inputs)):
                 dst.copy_(src, non_blocking=True)
             cap.graph.replay()

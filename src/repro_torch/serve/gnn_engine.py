@@ -30,6 +30,8 @@ class GNNEngine:
         cfg: M.GNNConfig,
         params: dict,
         buckets: Sequence[tuple] = DEFAULT_BUCKETS,
+        mesh=None,
+        rules: Optional[dict] = None,
         precision: str = "fp32",
         calib_graphs: Optional[Sequence[tuple]] = None,
         share_layout: bool = True,
@@ -53,21 +55,27 @@ class GNNEngine:
 
         ``executor`` registers this engine as tenant ``name`` on an
         existing :class:`Executor`, sharing its bucket ladder and program
-        cache; ``buckets``, ``device`` and ``aot_cache`` (a
-        ``serve.aot.AOTCache`` of the kernel libraries) belong to the
-        executor, so passing them beside ``executor`` raises rather than
-        being ignored.  Without one the engine builds its own on
-        ``device`` (default "cuda")."""
+        cache; ``buckets``, ``device``, ``aot_cache`` (a
+        ``serve.aot.AOTCache`` of the kernel libraries), ``mesh`` and
+        ``rules`` belong to the executor, so passing them beside
+        ``executor`` raises rather than being ignored.  Without one the
+        engine builds its own on ``device`` (default "cuda").
+
+        ``mesh`` (a ``runtime.Mesh``; each rank builds its engine and
+        serves the same graphs) shards every forward's node rows over the
+        mesh by ``rules`` (default ``runtime.gnn_rules(mesh)``); every
+        rank gets the whole batch's outputs (``serve.executor``)."""
         if executor is not None and (
                 tuple(buckets) != tuple(DEFAULT_BUCKETS) or device is not None
-                or aot_cache is not None):
+                or aot_cache is not None or mesh is not None
+                or rules is not None):
             raise ValueError(
-                "buckets/device/aot_cache belong to the executor: configure "
-                "them on the Executor you pass, not on the facade"
+                "buckets/device/aot_cache/mesh/rules belong to the executor: "
+                "configure them on the Executor you pass, not on the facade"
             )
         self.executor = executor or Executor(
             buckets=buckets, device="cuda" if device is None else device,
-            aot_cache=aot_cache)
+            aot_cache=aot_cache, mesh=mesh, rules=rules)
         self._tenant = self.executor.register(
             name, cfg, params, precision=precision,
             calib_graphs=calib_graphs, share_layout=share_layout, fused=fused,
@@ -109,6 +117,14 @@ class GNNEngine:
     def buckets(self) -> Sequence[tuple]:
         """The executor's bucket ladder."""
         return self.executor.buckets
+
+    @property
+    def mesh(self):
+        return self.executor.mesh
+
+    @property
+    def rules(self):
+        return self.executor.rules
 
     @property
     def quant_report(self):

@@ -507,6 +507,11 @@ class StreamScheduler:
             k: sorted(v) for k, v in (budgets or {}).items()
         }
         self._pipeline = as_pipeline(pipeline)
+        if self._pipeline is not None and self.executor.ranks > 1:
+            # its admission reads each rank's own host pack time, so the
+            # ranks' schedules, and with them their collectives, would part
+            raise ValueError("the pipelined loop takes no mesh of several "
+                             "ranks; serve sharded without pipeline=")
         # per-signature service-time EWMA (measured flush compute) and the
         # observed ideal-rung-multiple window the adaptive refit consumes
         self._svc_s: Dict[tuple, float] = {}

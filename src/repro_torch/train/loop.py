@@ -11,8 +11,10 @@ branch).
 The step runs eagerly on the parameters' device: the loss and its
 gradients by autograd (``lm.loss_fn``, the attention's forward the flash
 kernel on the card), then ``optim.adamw.update`` in place.  JAX's mesh
-branch (``runtime.use_mesh``, sharded parameters, elastic restore) waits
-for the port's multi-device work (ROADMAP queue 1, item 11).
+branch (``runtime.use_mesh``, sharded parameters, elastic restore on
+another mesh) is ROADMAP queue 1, item 11, part 2: the substrate
+(``repro_torch.runtime``) and the checkpoint manager's elastic restore
+exist, the loop does not use them yet.
 """
 from __future__ import annotations
 

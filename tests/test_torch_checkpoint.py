@@ -1,7 +1,8 @@
 """The port's checkpoint manager (``repro_torch.checkpoint``) on the CPU:
 counterparts of ``tests/test_checkpoint.py``'s roundtrip / retention,
-async and no-partial tests (its elastic-restore test needs a device mesh,
-ROADMAP queue 1, item 11), and the on-disk format shared with the JAX
+async, no-partial and elastic-restore tests (a gloo world of 8 CPU ranks
+saves a DTensor sharded on a 4x2 mesh, a world of 4 restores it on 2x2 by
+its logical axes, values exact), and the on-disk format shared with the JAX
 package's manager: a JAX-written checkpoint restores in the port and a
 port-written one in JAX, bf16 leaves included, bit for bit both ways, and
 the two managers write the same keys, dtypes and logical axes for one LM
@@ -163,3 +164,55 @@ def test_manifest_matches_jax_for_an_lm_state():
         assert mt["treedef"] is None and mt["step"] == mj["step"] == 1
         _, got = CheckpointManager(dj).restore(template=tstate)
         _same_bits(got, tstate)
+
+
+_ELASTIC = r"""
+import os
+from repro_torch import runtime as RT
+from repro_torch.checkpoint.manager import CheckpointManager
+from torch.distributed.tensor import DTensor
+
+d = sys.argv[4]
+mgr = CheckpointManager(d)
+full = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+if world == 8:
+    mesh = RT.make_mesh((4, 2), ("data", "model"), device="cpu")
+    spec = RT.PartitionSpec("data", "model")
+    blk = RT.compat.local_block(full, spec, mesh).clone()
+    w = DTensor.from_local(blk, mesh.device_mesh, RT.to_placements(spec, mesh),
+                           run_check=False)
+    mgr.save(5, {"w": w, "b": torch.ones(3)}, axes_tree={"w": ("batch", "mlp")},
+             blocking=True)
+    print("SAVED", tuple(w.to_local().shape), flush=True)
+else:
+    # 'node failure': restart on a smaller (2, 2) mesh
+    mesh = RT.make_mesh((2, 2), ("data", "model"), device="cpu")
+    step, got = mgr.restore(template={"w": torch.zeros(8, 8), "b": torch.zeros(3)},
+                            mesh=mesh)
+    w2 = got["w"]
+    ok = (step == 5 and isinstance(w2, DTensor)
+          and torch.equal(w2.full_tensor(), full)
+          and tuple(w2.to_local().shape) == (4, 4)
+          and torch.equal(w2.to_local(), RT.compat.local_block(
+              full, RT.PartitionSpec("data", "model"), mesh))
+          and not isinstance(got["b"], DTensor) and torch.equal(got["b"], torch.ones(3)))
+    print("RESHARD", "OK" if ok else "BAD", w2.placements, flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def test_elastic_restore_on_different_mesh(tmp_path):
+    """Save on a 4x2 mesh (world 8), restore on 2x2 (world 4) by the
+    manifest's logical axes: each rank's block and the whole value exact
+    (``tests/test_checkpoint.py:55-95``)."""
+    from test_torch_distributed import WORLD_PREAMBLE, run_world
+
+    ckpt = tmp_path / "ckpt"
+    outs = run_world(WORLD_PREAMBLE + _ELASTIC, 8, tmp_path / "save", args=(ckpt,))
+    assert all("SAVED (2, 4)" in o for o in outs), outs
+    assert sorted(os.listdir(ckpt)) == ["step_00000005"]
+    with open(ckpt / "step_00000005" / "manifest.json") as f:
+        assert json.load(f)["axes"] == {"w": ["batch", "mlp"]}
+    outs = run_world(WORLD_PREAMBLE + _ELASTIC, 4, tmp_path / "restore", args=(ckpt,))
+    assert all(o.startswith("RESHARD OK") for o in outs), outs

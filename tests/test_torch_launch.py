@@ -12,7 +12,10 @@
 * ``--models`` takes the same flags.
 * The checker exits 1 with the validator's message on an uncatalogued
   metric name and on a malformed trace, 2 with nothing to check.
-* ``--gnn-mesh`` and ``--xla-flags-file`` are not taken.
+* ``--gnn-mesh 2`` serves on two gloo ranks that the launcher starts,
+  rank 0 printing the latency line with the mesh and its backend, batched
+  and as a stream with arrivals (``--stream`` and ``--models``); it takes
+  no ``--pipeline``; ``--xla-flags-file`` is not taken.
 """
 import json
 import os
@@ -142,12 +145,53 @@ def test_checker_rejects_uncatalogued_metrics_and_bad_traces(tmp_path, capsys):
     assert err.value.code == 2
 
 
-@pytest.mark.parametrize("flag", [["--gnn-mesh", "2"], ["--xla-flags-file", "f.json"]])
-def test_mesh_and_xla_flags_are_not_taken(flag, capsys):
+def test_xla_flags_file_is_not_taken(capsys):
     with pytest.raises(SystemExit) as err:
-        TS.main(["--gnn", "gin", "--device", "cpu"] + flag)
+        TS.main(["--gnn", "gin", "--device", "cpu", "--xla-flags-file", "f.json"])
     assert err.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_gnn_mesh_serves_on_two_cpu_ranks(capfd):
+    """``--gnn-mesh 2`` starts two gloo ranks and serves batched; rank 0
+    alone prints the latency line, with the mesh and its backend."""
+    TS.main(["--gnn", "gin", "--batched", "--gnn-mesh", "2", "--n-graphs", "8",
+             "--batch", "4", "--device", "cpu"])
+    out = capfd.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("gin batched(bs=4)")]
+    assert len(lines) == 1, out
+    assert "8 graphs" in lines[0] and lines[0].endswith("mesh=2 backend=gloo")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--gnn", "gin", "--fused", "--stream", "--max-wait-ms", "0.5", "--slo-ms", "2"],
+    ["--models", "gcn:int8,gat:fp32", "--fused"],
+], ids=["stream", "models"])
+def test_gnn_mesh_serves_a_stream_with_arrivals_on_two_cpu_ranks(capfd, argv):
+    """With arrivals (qps > 0) the two ranks' schedulers take one schedule
+    (each flush's time is the slowest rank's), so the stream ends; rank 0
+    alone prints its line, with the mesh and its backend."""
+    TS.main(argv + ["--qps", "4000", "--n-graphs", "12", "--gnn-mesh", "2",
+                    "--device", "cpu"])
+    out = capfd.readouterr().out
+    lines = [ln for ln in out.splitlines() if "12 graphs in" in ln]
+    assert len(lines) == 1, out
+    assert "mesh=2 backend=gloo" in lines[0]
+
+
+@pytest.mark.parametrize("flag", [
+    (["--gnn", "gin", "--stream", "--pipeline", "--gnn-mesh", "2"], "--pipeline"),
+    (["--arch", "chatglm3-6b", "--reduced", "--xla-flags-file", "f.json"],
+     "unrecognized arguments"),
+])
+def test_mesh_and_xla_flags_are_not_taken(flag, capsys):
+    """``--gnn-mesh`` with the pipelined loop (whose admission reads each
+    rank's own host time), and ``--xla-flags-file`` on the LM path."""
+    argv, said = flag
+    with pytest.raises(SystemExit) as err:
+        TS.main(argv + ["--device", "cpu"])
+    assert err.value.code == 2
+    assert said in capsys.readouterr().err
 
 
 def test_launcher_and_checker_as_processes(tmp_path):
