@@ -376,6 +376,28 @@ fails the run), then runs these phases, one line each:
               rows, at the (128, 384) bucket and the PubMed size.  (c)
               The launcher (``--gnn gin --batched --gnn-mesh 2``) as a
               child process prints its mesh line with ``backend=gloo``
+  13. mesh train  the LM train loop's mesh branch (``train.loop``'s
+              pieces: ``runtime.place_tree`` / ``place_batch``,
+              ``make_train_step`` in ``mesh_scope``), ChatGLM3-6B's widths
+              (d 4096, 32 -> 16 heads by kv_pad_to, d_ff 13696, vocab 65024)
+              cut to 2 of 28 layers in fp32 and 4 in bf16, Qwen3-MoE-30B-A3B's
+              (128 experts top-8) cut to 2 of 48 in fp32 (so that routing
+              does not flip), B 4 x S 1024, remat on, SyntheticTokens.  The
+              unsharded step runs first on this process (each model freed
+              before the next); then 2 gloo ranks sharing the card (this
+              script's children, ``--mesh-job train``) on a 1x2 mesh under
+              ``batch_rules`` (fp32 checks and bf16) and ``fsdp_rules``
+              (bf16), and a 1-rank NCCL world (1x1), on the same weights (a
+              CUDA generator seeded 0) and batches.  fp32: the first step's
+              loss (and the dense model's grad_norm) within 1e-4 relative of
+              the unsharded step's; bf16: each of 3 steps' loss within 5e-3.
+              Each ``[mesh train ...]`` line prints per rank ms a step,
+              tokens/s, peak GB, flash launches a step (8: 4 layers, forward
+              + remat) and the bytes each collective kind moves in a step
+              (``CollectiveBytes``, as ``CommDebugMode`` counts them); every
+              rank must launch the flash kernel.  ``--train-mesh-cards 4``
+              (four cards, not in the default run) runs 8 layers at B 8 on a
+              2x2 NCCL mesh, both presets, and the launcher there
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after; a wrapper counts where it
               runs: the eager warm forward and the launches recorded into
@@ -4491,6 +4513,7 @@ def mesh_rank_main(argv: list) -> int:
     for flag in ("--mesh-backend", "--mesh-init", "--mesh-out"):
         ap.add_argument(flag, required=True)
     ap.add_argument("--mesh-device", default="cuda")
+    ap.add_argument("--mesh-job", default="gnn", choices=("gnn", "train"))
     a = ap.parse_args(argv)
     device = torch.device(a.mesh_device)
     if device.type == "cuda":
@@ -4504,6 +4527,11 @@ def mesh_rank_main(argv: list) -> int:
     dist.init_process_group(a.mesh_backend, init_method=a.mesh_init,
                             world_size=a.mesh_world, rank=a.mesh_rank)
     try:
+        if a.mesh_job == "train":
+            res = train_mesh_rank(a.mesh_out, device, step)
+            Path(a.mesh_out, f"rank{a.mesh_rank}.json").write_text(json.dumps(res))
+            dist.barrier()
+            return 0
         mesh = RT.make_flat_mesh(a.mesh_world, axis="data", device=device)
         step(f"joined {mesh}")
         res = {"backend": mesh.backend, "substrate": mesh_substrate(mesh, device)}
@@ -4522,22 +4550,30 @@ def mesh_rank_main(argv: list) -> int:
     return 0
 
 
-def mesh_world(backend: str, world: int, out_dir: Path, device: str = "cuda") -> list:
-    """Start a world of ``world`` ranks of this script, wait for all of them
-    (killed at MESH_TIMEOUT_S) and return each rank's results."""
+def mesh_world(backend: str, world: int, out_dir: Path, device: str = "cuda",
+               job: str = "gnn", cases=None, timeout_s: float = MESH_TIMEOUT_S) -> list:
+    """Start a world of ``world`` ranks of this script (``job`` "gnn": phase
+    12's checks; "train": phase 13's ``cases``, written to
+    ``out_dir/cases.json``), wait for all of them (killed at
+    ``timeout_s``) and return each rank's results."""
     import shutil
 
     if out_dir.exists():
         shutil.rmtree(out_dir)
     out_dir.mkdir(parents=True)
+    if cases is not None:
+        (out_dir / "cases.json").write_text(json.dumps(cases))
     init = "file://" + str(out_dir / "rendezvous")
+    env = dict(child_env(), PYTHONFAULTHANDLER="1")  # a crashed rank's stack
+    if backend == "nccl":
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # bootstrap over the loopback
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
          "--mesh-world", str(world), "--mesh-backend", backend, "--mesh-init", init,
-         "--mesh-out", str(out_dir), "--mesh-device", device],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=child_env(),
+         "--mesh-out", str(out_dir), "--mesh-device", device, "--mesh-job", job],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=str(ROOT)) for r in range(world)]
-    deadline = time.monotonic() + MESH_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     outs, hung = [], False
     for p in procs:
         try:
@@ -4550,7 +4586,7 @@ def mesh_world(backend: str, world: int, out_dir: Path, device: str = "cuda") ->
     failed = [f"rank {r} exited {p.returncode}:\n{o[-2000:]}\n{e[-4000:]}"
               for r, (p, (o, e)) in enumerate(zip(procs, outs)) if p.returncode != 0]
     if failed:
-        what = f"hung past {MESH_TIMEOUT_S} s" if hung else "failed"
+        what = f"hung past {timeout_s} s" if hung else "failed"
         raise AssertionError(f"mesh {backend} x{world} {what}: " + "\n".join(failed))
     return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
 
@@ -4629,9 +4665,278 @@ def mesh_phase(device, card: str) -> dict:
             for r, g in enumerate(gloo)}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LM train loop's mesh branch
+# ---------------------------------------------------------------------------
+
+# (tag, arch, config overrides, dtype, steps; steps 0: the first step's loss
+# and grad_norm only).  ChatGLM3-6B at full width (d 4096, 32 -> 16 heads by
+# kv_pad_to, d_ff 13696, vocab 65024) cut to 4 of 28 layers (2 in fp32),
+# Qwen3-MoE-30B-A3B at full width (128 experts top-8) cut to 2 of 48, in
+# fp32 so that routing does not flip; B 4 x S 1024, remat on
+TRAIN_MESH_MODELS = (("dense fp32", "chatglm3-6b", dict(num_layers=2), "float32", 0),
+                     ("dense bf16", "chatglm3-6b", dict(num_layers=4), "bfloat16", 3),
+                     ("moe fp32", "qwen3-moe-30b-a3b", dict(num_layers=2), "float32", 0))
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ = 4, 1024
+# the 2 gloo ranks' (mesh, rules) and the 1-rank NCCL world's
+TRAIN_MESH_GLOO = (((1, 2), "default"), ((1, 2), "fsdp"))
+TRAIN_MESH_NCCL = (((1, 1), "default"),)
+TRAIN_MESH_RTOL = {"float32": 1e-4, "bfloat16": 5e-3}  # each step's loss vs unsharded
+TRAIN_MESH_TIMEOUT_S = 600
+# four cards (``--train-mesh-cards 4``, not part of the default run): the
+# launcher's 2x2 NCCL mesh of ChatGLM3-6B at full width, 8 layers
+TRAIN_MESH_CARDS = (("dense bf16", "chatglm3-6b", dict(num_layers=8), "bfloat16", 3),)
+
+
+def train_mesh_cases(models, meshes=(((1, 1), "default"),), **extra) -> list:
+    """The case dicts of ``models`` on each (mesh, rules) of ``meshes``: the
+    fp32 first-step checks under the default rules only; ``extra`` (batch,
+    reduced) goes into each."""
+    return [dict(tag=tag, arch=arch, overrides=ov, dtype=dt, steps=steps, mesh=list(mesh),
+                 rules=rules, **extra)
+            for tag, arch, ov, dt, steps in models for mesh, rules in meshes
+            if rules == "default" or dt == "bfloat16"]
+
+
+def train_mesh_config(case: dict):
+    from repro_torch.configs import get_config, get_reduced
+
+    get = get_reduced if case.get("reduced") else get_config
+    return get(case["arch"], dtype=case["dtype"], remat=True, **case["overrides"])
+
+
+class CollectiveBytes:
+    """Counts the collectives issued on plain tensors while active (DTensor's
+    redistributions, the all-reduces of the norm and the scales), as
+    ``CommDebugMode`` counts them: a ``TorchDispatchMode`` that lets DTensor
+    desugar first; -> {kind: [count, bytes]}, bytes the larger of a call's
+    input and output buffers (an all-gather's whole result, a
+    reduce-scatter's whole input)."""
+
+    KINDS = (("all_reduce", ("all_reduce", "allreduce")),
+             ("all_gather", ("all_gather", "allgather")),
+             ("reduce_scatter", ("reduce_scatter",)),
+             ("all_to_all", ("all_to_all", "alltoall")),
+             ("broadcast", ("broadcast",)))
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                from torch.distributed.tensor import DTensor
+
+                kwargs = kwargs or {}
+                if any(t is DTensor or issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                out = func(*args, **kwargs)
+                outer.record(func, args, out)
+                return out
+
+        self.mode = Mode()
+        self.counts: dict = {}
+
+    def record(self, func, args, out) -> None:
+        import torch
+
+        name = str(getattr(func, "_overloadpacket", func))
+        if "_autograd" in name or not name.startswith(("_c10d_functional", "c10d")):
+            return
+        kind = next((k for k, keys in self.KINDS if any(w in name for w in keys)), None)
+        if kind is None:
+            return
+        size = lambda xs: sum(t.numel() * t.element_size() for t in xs
+                              if isinstance(t, torch.Tensor))
+        flat = lambda x: (x if isinstance(x, (list, tuple)) else [x])
+        ins = [t for a in args for t in flat(a) for t in flat(t)]
+        outs = [t for o in flat(out) for t in flat(o)]
+        c = self.counts.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += max(size(ins), size(outs))
+
+    def __enter__(self):
+        self.counts = {}
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def train_mesh_run(case: dict, device, mesh=None, rules=None) -> dict:
+    """One case of phase 13 on ``device``: the whole model without a mesh
+    (``mesh`` None: the reference) or placed on ``mesh``.  Returns the
+    first step's loss and grad_norm (``steps`` 0), or each step's loss,
+    grad_norm, ms, tokens/s, peak GB, flash launches and collectives."""
+    import torch
+    from repro_torch import runtime as RT
+    from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import device_batch, loss_and_grads, make_train_step, mesh_scope
+
+    cfg = train_mesh_config(case)
+    torch.cuda.empty_cache() if device.type == "cuda" else None
+    params = lm.init_params(torch.Generator(device).manual_seed(0), cfg)
+    params = RT.place_tree(params, lm.param_axes(cfg), mesh, rules)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the whole draws, once placed
+    batch_size = case.get("batch", TRAIN_MESH_BATCH)
+    data = iter(SyntheticTokens(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, batch=batch_size, seq_len=TRAIN_MESH_SEQ)))
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (
+        lambda: None)
+    out = {"tag": case["tag"], "steps": []}
+    if case["steps"] == 0:
+        with mesh_scope(mesh, rules):
+            loss, _, grads = loss_and_grads(params, device_batch(next(data), device, mesh,
+                                                                 rules), cfg)
+            out.update(loss=float(loss), grad_norm=float(adamw.global_norm(grads)))
+        return out
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=case["steps"])
+    opt_state = adamw.init(params)
+    step_fn = make_train_step(cfg, opt_cfg)
+    tokens = batch_size * TRAIN_MESH_SEQ
+    comm = CollectiveBytes()
+    with mesh_scope(mesh, rules):
+        for i in range(case["steps"]):
+            batch = device_batch(next(data), device, mesh, rules)
+            sync()
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            before = FA.launches
+            with comm:
+                t0 = time.perf_counter()
+                params, opt_state, _, metrics = step_fn(params, opt_state, None, batch)
+                metrics = {k: float(v) for k, v in metrics.items()}
+                sync()
+                dt = time.perf_counter() - t0
+            out["steps"].append(dict(
+                loss=metrics["loss"], grad_norm=metrics["grad_norm"], ms=dt * 1e3,
+                tokens_per_s=tokens / dt, flash_launches=FA.launches - before,
+                peak_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                         if device.type == "cuda" else 0.0),
+                collectives=dict(comm.counts)))
+    return out
+
+
+def train_mesh_rank(out_dir: str, device, step) -> dict:
+    """One rank of a phase-13 world: every case of ``cases.json`` on its
+    debug mesh, the launch counters reset before and read after."""
+    import torch
+    from repro_torch import runtime as RT
+
+    cases = json.loads(Path(out_dir, "cases.json").read_text())
+    res = {"cases": []}
+    reset_launches()
+    for case in cases:
+        mesh = RT.make_debug_mesh(*case["mesh"], device=device)
+        rules = (RT.fsdp_rules if case["rules"] == "fsdp" else RT.batch_rules)(
+            mesh, case.get("batch", TRAIN_MESH_BATCH))
+        step(f"{case['tag']} on {mesh} {case['rules']}")
+        res["cases"].append(train_mesh_run(case, device, mesh, rules))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    res["launches"] = read_launches()
+    res["backend"] = str(torch.distributed.get_backend())
+    return res
+
+
+def steps_note(steps: list) -> str:
+    """ms a step (median past the first, each step's), tokens/s, peak GB,
+    flash launches and collectives of the last step."""
+    later = steps[1:] or steps
+    med = lambda k: statistics.median(st[k] for st in later)
+    coll = steps[-1]["collectives"]
+    return (f"{med('ms'):.1f} ms a step (" + ", ".join(f"{st['ms']:.0f}" for st in steps)
+            + f"), {med('tokens_per_s'):.0f} tokens/s, peak "
+            f"{max(st['peak_gb'] for st in steps):.2f} GB, {steps[-1]['flash_launches']} "
+            "flash launches a step, collectives a step "
+            + (", ".join(f"{k} {c}x {b / 1e6:.1f} MB" for k, (c, b) in sorted(coll.items()))
+               or "none"))
+
+
+def train_mesh_line(tag: str, case: dict, rank_runs: list, ref: dict, card: str) -> float:
+    """Print one ``[mesh train ...]`` line for ``case`` over its ranks and
+    check it against the unsharded ``ref``; -> the largest relative loss
+    gap (raises past ``TRAIN_MESH_RTOL``)."""
+    rtol = TRAIN_MESH_RTOL[case["dtype"]]
+    head = (f"[mesh train {case['tag']} {tag} {case['mesh'][0]}x{case['mesh'][1]} "
+            f"{case['rules']}]")
+    if case["steps"] == 0:
+        gaps = []
+        for r, run in enumerate(rank_runs):
+            gl = abs(run["loss"] - ref["loss"]) / abs(ref["loss"])
+            gn = abs(run["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+            gaps.append((gl, gn))
+        gl, gn = max(g[0] for g in gaps), max(g[1] for g in gaps)
+        print(f"{head} first step: loss {rank_runs[0]['loss']:.6f} (unsharded "
+              f"{ref['loss']:.6f}, relative {gl:.2e}), grad_norm "
+              f"{rank_runs[0]['grad_norm']:.6f} ({ref['grad_norm']:.6f}, {gn:.2e}); "
+              f"limit {rtol:g}; {card}")
+        if gl > rtol or (case["arch"] == "chatglm3-6b" and gn > rtol):
+            raise AssertionError(f"{head}: loss / grad_norm {gl:.3g} / {gn:.3g} > {rtol}")
+        return gl
+    gap = 0.0
+    for i, want in enumerate(ref["steps"]):
+        for r, run in enumerate(rank_runs):
+            got = run["steps"][i]
+            gap = max(gap, abs(got["loss"] - want["loss"]) / abs(want["loss"]))
+            if not got["flash_launches"] and card != "cpu":
+                raise AssertionError(f"{head} rank {r} step {i}: no flash launch")
+    per_rank = [f"rank {r}: " + steps_note(run["steps"]) for r, run in enumerate(rank_runs)]
+    print(f"{head} {len(ref['steps'])} steps, losses "
+          + " / ".join(f"{st['loss']:.5f}" for st in rank_runs[0]["steps"])
+          + " (unsharded " + " / ".join(f"{st['loss']:.5f}" for st in ref["steps"])
+          + f"; largest relative gap {gap:.2e}, limit {rtol:g}); unsharded: "
+          + steps_note(ref["steps"]) + "; " + "; ".join(per_rank) + f"; {card}")
+    if gap > rtol:
+        raise AssertionError(f"{head}: a step's loss {gap:.3g} from the unsharded > {rtol}")
+    return gap
+
+
+def train_mesh_phase(device, card: str, models=TRAIN_MESH_MODELS, **extra) -> dict:
+    """Phase 13: the unsharded reference of each model first (on this
+    process, each freed before the next), then a 2-rank gloo world on the
+    card (``TRAIN_MESH_GLOO``) and a 1-rank NCCL world (``TRAIN_MESH_NCCL``)
+    of this script's child processes; -> each rank's launch counts.
+    ``extra`` (``reduced=True``, a batch) goes into every case."""
+    import torch
+
+    t0 = time.perf_counter()
+    dev = "cuda" if device.type == "cuda" else "cpu"
+    refs = {}
+    for case in train_mesh_cases(models, **extra):
+        refs[case["tag"]] = train_mesh_run(case, device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    out_root = ROOT / "build" / "train_mesh"
+    worlds = [("gloo", 2, TRAIN_MESH_GLOO)]
+    if device.type == "cuda":
+        worlds.append(("nccl", 1, TRAIN_MESH_NCCL))
+    launches = {}
+    for backend, world, meshes in worlds:
+        cases = train_mesh_cases(models, meshes, **extra)
+        ranks = mesh_world(backend, world, out_root / backend, dev, job="train",
+                           cases=cases, timeout_s=TRAIN_MESH_TIMEOUT_S)
+        for i, case in enumerate(cases):
+            train_mesh_line(f"{backend} x{world}", case,
+                            [r["cases"][i] for r in ranks], refs[case["tag"]],
+                            card if device.type == "cuda" else "cpu")
+        for r, res in enumerate(ranks):
+            if device.type == "cuda" and res["launches"]["flash_attention"] == 0:
+                raise AssertionError(f"mesh train {backend} rank {r}: no flash launch")
+            launches[f"mesh train {backend} rank{r}"] = res["launches"]
+    print(f"[mesh train] phase 13 took {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def run(device) -> list:
-    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9j, 11-11c, 12 and 8 on ``device``;
-    returns the kernels' JSON rows."""
+    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9j, 11-11c, 12, 13 and 8 on
+    ``device``; returns the kernels' JSON rows."""
     check_node_mlp(device)
     check_fused_mp(device)
     check_segment_reduce(device)
@@ -4667,6 +4972,7 @@ def run(device) -> list:
     flash_training.update(train_summary)
     paths["train loop"] = train_loop_phase(device)
     paths.update(mesh_phase(device, device_line()))
+    paths.update(train_mesh_phase(device, device_line()))
     packed, lay = packed_plan(device)
     rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"],
                           design_split(paths["gin"], "node_mlp")),
@@ -4697,10 +5003,40 @@ def run(device) -> list:
     return rows
 
 
+def train_mesh_cards(cards: int) -> int:
+    """``--train-mesh-cards N`` (development, not the default run): phase
+    13's rank code on a (2, N / 2) NCCL mesh of N cards, a card a rank, for
+    ``TRAIN_MESH_CARDS`` under both presets at B 8 x S 1024, then the
+    launcher (reduced ChatGLM3-6B, ``--debug-mesh 2xM --rules fsdp``, 3
+    steps) as a child, its NCCL ranks started by itself."""
+    card = device_line()
+    build_kernels()
+    cases = train_mesh_cases(TRAIN_MESH_CARDS, (((2, cards // 2), "default"),
+                                                ((2, cards // 2), "fsdp")), batch=8)
+    ranks = mesh_world("nccl", cards, ROOT / "build" / "train_mesh" / "cards", "cuda",
+                       job="train", cases=cases, timeout_s=TRAIN_MESH_TIMEOUT_S)
+    for i, case in enumerate(cases):
+        for r, res in enumerate(ranks):
+            print(f"[mesh train cards {case['tag']} 2x{cards // 2} {case['rules']}] rank {r} "
+                  f"losses " + " / ".join(f"{st['loss']:.5f}" for st in res["cases"][i]["steps"])
+                  + "; " + steps_note(res["cases"][i]["steps"]) + f"; {card}")
+    out = run_child([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                     "chatglm3-6b", "--reduced", "--steps", "3", "--batch", "8", "--seq",
+                     "64", "--debug-mesh", f"2x{cards // 2}", "--rules", "fsdp",
+                     "--ckpt-dir", str(ROOT / "build" / "train_mesh" / "launcher")],
+                    "the train launcher on the cards")
+    print(f"[mesh train cards launcher] reduced chatglm3-6b, --debug-mesh 2x{cards // 2} "
+          "--rules fsdp: " + " | ".join(out.splitlines()))
+    return 0
+
+
 def main() -> int:
     if "--mesh-rank" in sys.argv:
         return mesh_rank_main(sys.argv[1:])
     import torch
+
+    if "--train-mesh-cards" in sys.argv:
+        return train_mesh_cards(int(sys.argv[sys.argv.index("--train-mesh-cards") + 1]))
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",

@@ -212,20 +212,14 @@ class CheckpointManager:
 
 def _place(t: torch.Tensor, axes, mesh, rules):
     """``t`` as a DTensor on ``mesh`` under the spec its logical ``axes``
-    resolve to (this rank's block of the whole tensor every rank read);
-    ``t`` itself without axes or on a mesh without a process group."""
+    resolve to (``partitioning.place``: this rank's block of the whole
+    tensor every rank read); ``t`` itself without axes or on a mesh
+    without a process group."""
     if axes is None or mesh.device_mesh is None:
         return t
-    from torch.distributed.tensor import DTensor
+    from repro_torch.runtime import partitioning as PT
 
-    from repro_torch.runtime import compat, partitioning as PT
-
-    spec = PT.resolve_spec(tuple(axes), tuple(t.shape), mesh, rules)
-    local = compat.local_block(t, spec, mesh).contiguous()
-    if mesh.device_type == "cuda":
-        local = local.to(torch.device("cuda", torch.cuda.current_device()))
-    return DTensor.from_local(local, mesh.device_mesh, PT.to_placements(spec, mesh),
-                              run_check=False, shape=t.shape, stride=t.stride())
+    return PT.place(t, PT.resolve_spec(tuple(axes), tuple(t.shape), mesh, rules), mesh)
 
 
 def _axes_manifest(axes_tree) -> dict:

@@ -241,7 +241,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Where a gradient is needed (grad enabled and q, k or v requiring it),
     the kernel runs inside :class:`FlashAttention`, whose backward is the
     plain ``ref.flash_attention_bwd_ref``; elsewhere (serving, its CUDA
-    graphs) the wrapper is called as it is."""
+    graphs) the wrapper is called as it is.
+
+    DTensor operands (a mesh's train step) run on each rank's own block
+    (:func:`_flash_sharded`): the same kernel, or the same plain version,
+    on the rank's (batch, head) block, and the dispatch is counted once a
+    rank."""
+    if _is_dtensor(q):
+        return _flash_sharded(q, k, v, causal, window, mode, softcap)
     if not _resolve("flash_attention", mode, q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
@@ -272,3 +279,70 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, do, causal=causal,
                                                  window=window, softcap=softcap)
         return dq, dk, dv, None, None, None
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _block(placements, dim: int, mesh) -> tuple:
+    """(this rank's block, the number of blocks) of tensor dim ``dim`` under
+    ``placements`` (mesh dims major to minor)."""
+    from torch.distributed.tensor import Shard
+
+    idx, count = 0, 1
+    for i, pl in enumerate(placements):
+        if pl == Shard(dim):
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+            count *= mesh.size(i)
+    return idx, count
+
+
+def _flash_sharded(q, k, v, causal, window, mode, softcap):
+    """:func:`flash_attention` on DTensors (B, H, S, D) under
+    ``local_map``: each rank attends its own block of q, a block of the
+    batch (dim 0) and of the heads (dim 1), over the kv heads of its q heads'
+    groups, with the kernel (or the plain version) and its backward on
+    local tensors; no library attention takes its place.
+
+    k and v follow q's batch cut.  Where q's heads are cut and the kv
+    heads divide as well, each rank holds the kv heads of its q heads (the
+    GQA groups are contiguous); where the kv heads stay whole on a mesh dim
+    that cuts q's heads, the rank picks its groups' kv heads out of the
+    whole ones, and their gradient is partial there (every rank adds its
+    heads' share)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    hq, hkv = q.shape[1], k.shape[1]
+    # q keeps its cuts of the batch and the heads; any other cut or partial
+    # sum is made whole first
+    qp = tuple(pl if pl in (Shard(0), Shard(1)) else Replicate() for pl in q.placements)
+    q = q.redistribute(placements=qp)
+    kv_cut = hkv % _block(qp, 1, mesh)[1] == 0
+    kvp = tuple(Replicate() if pl == Shard(1) and not kv_cut else pl for pl in qp)
+    k, v = (t.redistribute(placements=kvp) for t in (k, v))
+    grad_kvp = tuple(Partial() if pl != kv else kv for pl, kv in zip(qp, kvp))
+    g = hq // hkv
+
+    def body(ql, kl, vl):
+        hl = ql.shape[1]
+        h0 = _block(qp, 1, mesh)[0] * hl
+        k0 = _block(kvp, 1, mesh)[0] * kl.shape[1]
+        need = torch.arange(h0, h0 + hl) // g - k0  # kv head of each q head
+        first, last = int(need[0]), int(need[-1]) + 1
+        if last - first != kl.shape[1]:
+            if hl % (last - first) == 0 and torch.equal(
+                    need, torch.arange(first, last).repeat_interleave(hl // (last - first))):
+                kl, vl = kl[:, first:last], vl[:, first:last]
+            else:  # groups cut across ranks: one kv head for each q head
+                kl, vl = kl[:, need], vl[:, need]
+        return flash_attention(ql, kl, vl, causal=causal, window=window, mode=mode,
+                               softcap=softcap)
+
+    return local_map(body, out_placements=list(qp), in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, grad_kvp, grad_kvp),
+                     device_mesh=mesh)(q, k, v)

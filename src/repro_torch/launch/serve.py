@@ -71,7 +71,7 @@ captures, which a restart repeats (graphs are not serialized).
 
 Mesh: ``--gnn-mesh P`` (``--gnn`` and ``--models``) serves every
 forward sharded over P ranks (``serve/executor.py``'s mesh).  The
-launcher starts the P ranks itself (``torch.multiprocessing``, spawned,
+launcher starts the P ranks itself (``launch/ranks.py``: spawned,
 rendezvous through a file in a fresh temporary directory): NCCL, one card
 a rank, where the machine has P cards and ``--device`` is a card (its
 bootstrap over the loopback unless ``NCCL_SOCKET_IFNAME`` says
@@ -88,9 +88,7 @@ Not taken: ``--xla-flags-file`` (XLA's compiler options have no CUDA
 meaning).
 """
 import argparse
-import os
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -108,50 +106,6 @@ def _mesh(args):
 
 def _mesh_note(mesh) -> str:
     return "" if mesh is None else f" mesh={mesh.size} backend={mesh.backend}"
-
-
-def _mesh_backend(args) -> str:
-    """NCCL where every rank has a card of its own, gloo otherwise."""
-    cuda = torch.device(args.device).type == "cuda"
-    if cuda and torch.cuda.device_count() >= args.gnn_mesh:
-        return "nccl"
-    return "gloo"
-
-
-def _rank_main(rank: int, world: int, backend: str, init_method: str,
-               argv: list) -> None:
-    """One rank of ``--gnn-mesh``: join the process group, serve, leave.
-    Ranks past 0 print nothing."""
-    import torch.distributed as dist
-
-    if backend == "nccl":
-        torch.cuda.set_device(rank)
-    if rank != 0:
-        sys.stdout = open(os.devnull, "w")
-    dist.init_process_group(backend, init_method=init_method,
-                            world_size=world, rank=rank)
-    try:
-        main(argv)
-    finally:
-        dist.destroy_process_group()
-        if rank != 0:
-            sys.stdout.close()
-            sys.stdout = sys.__stdout__
-
-
-def _spawn_mesh(args, argv) -> None:
-    """Start ``--gnn-mesh`` ranks and wait for them (raises if one fails)."""
-    import torch.multiprocessing as tmp
-
-    backend = _mesh_backend(args)
-    if backend == "nccl":
-        # every rank on this host: NCCL bootstraps over the loopback (on a
-        # machine whose other interfaces lead nowhere it hangs otherwise)
-        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    with tempfile.TemporaryDirectory() as d:
-        init = "file://" + os.path.join(d, "rendezvous")
-        tmp.start_processes(_rank_main, args=(args.gnn_mesh, backend, init, argv),
-                            nprocs=args.gnn_mesh, join=True, start_method="spawn")
 
 
 def _slo_kwargs(args):
@@ -502,7 +456,10 @@ def main(argv=None):
         if args.pipeline:
             ap.error("--gnn-mesh takes no --pipeline")
         if not dist.is_initialized():
-            _spawn_mesh(args, sys.argv[1:] if argv is None else list(argv))
+            from repro_torch.launch import ranks
+
+            ranks.spawn(main, args.gnn_mesh, args.device,
+                        sys.argv[1:] if argv is None else list(argv))
             return
     if args.arch:
         serve_lm(args)

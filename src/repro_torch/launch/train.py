@@ -1,29 +1,45 @@
 """Training launcher of the LM substrate (port of ``repro.launch.train``).
 
-Runs ``train.loop.make_train_step`` for ``--steps`` steps on one device
-over ``SyntheticTokens`` batches, with AdamW (warmup a tenth of the steps,
+Runs ``train.loop.make_train_step`` for ``--steps`` steps over
+``SyntheticTokens`` batches, with AdamW (warmup a tenth of the steps,
 cosine decay to the end), optional int8 error-feedback gradient
 compression, and an async checkpoint every ``--ckpt-every`` steps and at
 the end.  Parameters are random (``lm.init_params`` from a generator
 seeded 0).  Prints JAX's lines, ``step N loss L (T ms)`` ten times over
 the run and at its last step, then ``done``.
 
-Example:
+Mesh, as JAX's launcher: ``--debug-mesh DxM`` trains on a ``("data",
+"model")`` mesh of D x M ranks under ``--rules`` (``default``:
+``batch_rules``, heads / mlp / vocab / experts on "model"; ``fsdp``:
+``fsdp_rules``, the batch on both axes and "embed" on "model").  The
+parameters, moments and batches are DTensors placed by those rules and
+each step runs in ``train.loop.mesh_scope`` (the flash kernel on each
+rank's heads).  The launcher starts the D x M ranks itself
+(``launch/ranks.py``: NCCL where every rank has a card of its own, gloo
+otherwise, two gloo ranks sharing one card); ``--debug-mesh 1x1`` runs one
+rank with no process group.  Rank 0 prints the lines; a rank that fails
+fails the launcher; every rank joins a checkpoint and rank 0 writes it.
+
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
       --reduced --steps 20 --batch 4 --seq 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
+      --reduced --steps 3 --batch 4 --seq 32 --debug-mesh 2x2 --rules fsdp \\
+      --device cpu
 
-Runs on the card unless ``--device cpu`` is given.  Not taken yet:
-``--debug-mesh`` and ``--rules``.  The mesh substrate exists
-(``repro_torch.runtime``, which the GNN serving path takes); the train
-loop's mesh branch is ROADMAP queue 1, item 11, part 2.
+Runs on the card unless ``--device cpu`` is given (then the ranks are
+gloo ranks on the CPU).
 """
 import argparse
 import os
+import sys
 import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import runtime as RT
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
@@ -31,9 +47,17 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.optim import compression as comp
-from repro_torch.train.loop import device_batch, make_train_step
+from repro_torch.train.loop import device_batch, make_train_step, mesh_scope
 
-_MESH_FLAGS = ("--debug-mesh", "--rules")
+
+def _mesh_shape(text: str) -> tuple:
+    try:
+        d, m = (int(x) for x in text.split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"--debug-mesh takes DxM, not {text!r}") from None
+    if d < 1 or m < 1:
+        raise argparse.ArgumentTypeError(f"--debug-mesh {text}: sizes must be >= 1")
+    return d, m
 
 
 def main(argv=None):
@@ -47,18 +71,28 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_train"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--debug-mesh", type=_mesh_shape, default=None,
+                    help="e.g. 2x2 (data x model): the launcher starts D*M ranks")
+    ap.add_argument("--rules", default="default", choices=("default", "fsdp"),
+                    help="sharding preset of --debug-mesh")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain PyTorch path)")
-    for flag in _MESH_FLAGS:
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for flag in _MESH_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not taken: the train loop's mesh branch is "
-                     f"multi-device work (ROADMAP queue 1, item 11, part 2)")
+
+    cfg = (get_reduced if args.reduced else get_config)(args.arch)
+    mesh = rules = None
+    if args.debug_mesh is not None:
+        world = args.debug_mesh[0] * args.debug_mesh[1]
+        if world > 1 and not dist.is_initialized():
+            from repro_torch.launch import ranks
+
+            ranks.spawn(main, world, args.device,
+                        sys.argv[1:] if argv is None else list(argv))
+            return
+        mesh = RT.make_debug_mesh(*args.debug_mesh, device=args.device)
+        rules = (RT.fsdp_rules if args.rules == "fsdp" else RT.batch_rules)(mesh, args.batch)
 
     device = resolve_device(args.device)
-    cfg = (get_reduced if args.reduced else get_config)(args.arch)
     data = SyntheticTokens(
         TokenPipelineConfig(vocab_size=cfg.vocab_size, batch=args.batch, seq_len=args.seq)
     )
@@ -66,23 +100,25 @@ def main(argv=None):
                                 total_steps=args.steps)
     params = lm.init_params(torch.Generator(device=device).manual_seed(0), cfg)
     paxes = lm.param_axes(cfg)
+    params = RT.place_tree(params, paxes, mesh, rules)
     opt_state = adamw.init(params)
     ef = comp.init_error_buf(params) if args.grad_compression else None
     mgr = CheckpointManager(args.ckpt_dir, keep=3)
     step_fn = make_train_step(cfg, opt_cfg, args.grad_compression)
 
     it = iter(data)
-    for step in range(args.steps):
-        batch = device_batch(next(it), device)
-        t0 = time.perf_counter()
-        params, opt_state, ef, metrics = step_fn(params, opt_state, ef, batch)
-        loss = float(metrics["loss"])
-        dt = time.perf_counter() - t0
-        if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)", flush=True)
-        if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
-            mgr.save(step + 1, {"params": params, "opt": opt_state},
-                     axes_tree={"params": paxes, "opt": None})
+    with mesh_scope(mesh, rules):
+        for step in range(args.steps):
+            batch = device_batch(next(it), device, mesh, rules)
+            t0 = time.perf_counter()
+            params, opt_state, ef, metrics = step_fn(params, opt_state, ef, batch)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
+                print(f"step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)", flush=True)
+            if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
+                mgr.save(step + 1, {"params": params, "opt": opt_state},
+                         axes_tree={"params": paxes, "opt": None})
     mgr.wait()
     print("done")
 

@@ -30,10 +30,12 @@ import math
 
 import torch
 import torch.nn.functional as Fn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import params as P
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.partitioning import logical_constraint as _lc
 
 # ---------------------------------------------------------------------------
 # norms
@@ -144,11 +146,79 @@ def mlp_axes(cfg: ModelConfig) -> dict:
 
 def _linear(x: torch.Tensor, w: torch.Tensor, k_dims: int = 1) -> torch.Tensor:
     """Contract the last ``k_dims`` axes of ``x`` with the leading ``k_dims``
-    of ``w`` (an einsum such as ``...d,dgf->...gf``)."""
+    of ``w`` (an einsum such as ``...d,dgf->...gf``).
+
+    A DTensor ``w`` cut on an output dim past the first (SwiGLU's ``wi``
+    (d, 2, f) on "mlp", Mamba's ``in_proj`` on "inner") has that dim moved
+    first before the output dims are flattened, so the flat weight stays
+    cut on its columns (a flattened cut past the first dim is no placement
+    a GEMM takes: DTensor would gather the whole weight), and moved back
+    after."""
     k = math.prod(w.shape[:k_dims])
     lead = x.shape[: x.dim() - k_dims]
+    cut = _late_cut(w, k_dims)
+    if cut is not None:
+        w = w.movedim(cut, k_dims)
     y = torch.matmul(x.reshape(-1, k), w.reshape(k, -1))
-    return y.reshape(*lead, *w.shape[k_dims:])
+    y = y.reshape(*lead, *w.shape[k_dims:])
+    if isinstance(y, DTensor):
+        y = _GradLikeOutput.apply(y)
+    return y if cut is None else y.movedim(len(lead), len(lead) + cut - k_dims)
+
+
+def gather_where_batch_cut(tree, x: torch.Tensor):
+    """Every DTensor leaf of ``tree`` (a layer's parameters) made whole on
+    the mesh dims that cut the batch of DTensor ``x`` (its dim 0) and cut
+    the leaf too: FSDP's rules put the batch and "embed" on one axis, and a
+    layer's weights are gathered when it runs (again in remat's recompute),
+    their gradients reduce-scattered back.  Left to DTensor, a step would
+    move activations between batch and feature cuts instead (a norm's scale
+    cut on "embed" against a batch-cut x: the activations gathered).
+    ``tree`` itself without a mesh or under rules that keep the batch off
+    the weights' axes."""
+    if not isinstance(x, DTensor):
+        return tree
+    batch = [p == Shard(0) for p in x.placements]
+    if not any(batch):
+        return tree
+
+    def one(w):
+        if isinstance(w, dict):
+            return {k: one(v) for k, v in w.items()}
+        if not isinstance(w, DTensor):
+            return w
+        out = [Replicate() if b and p.is_shard() else p for b, p in zip(batch, w.placements)]
+        return w if out == list(w.placements) else w.redistribute(placements=out)
+
+    return one(tree)
+
+
+def _late_cut(w: torch.Tensor, k_dims: int):
+    """The output dim past the first that DTensor ``w`` is cut on, or None
+    (a plain tensor, or no such cut)."""
+    if not isinstance(w, DTensor):
+        return None
+    return next((pl.dim for pl in w.placements if pl.is_shard() and pl.dim > k_dims), None)
+
+
+class _GradLikeOutput(torch.autograd.Function):
+    """Identity on a DTensor whose gradient is redistributed to the
+    tensor's own placements.  The backward of ``_linear``'s output reshape
+    flattens the gradient as the forward unflattened the product; DTensor
+    may hand it a gradient cut on a dim that cannot be flattened without a
+    redistribution, which a view does not make (FSDP's rules: ``wo`` cut on
+    "mlp" gives the SwiGLU gradient cut on f).  Where the output is a
+    partial sum, its gradient is whole."""
+
+    @staticmethod
+    def forward(ctx, y):
+        # the gradient of a partial sum is whole on every rank
+        ctx.placements = [Replicate() if p.is_partial() else p for p in y.placements]
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(placements=ctx.placements)
 
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -284,9 +354,9 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     decode step reads Hkv / Hkv_eff of wk and wv.
     """
     b, s, _ = x.shape
-    q = _linear(x, p["wq"])
-    k = _linear(x, p["wk"])
-    v = _linear(x, p["wv"])
+    q = _lc(_linear(x, p["wq"]), ("batch", "seq", "heads", None))
+    k = _lc(_linear(x, p["wk"]), ("batch", "seq", "kv_heads", None))
+    v = _lc(_linear(x, p["wv"]), ("batch", "seq", "kv_heads", None))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -298,7 +368,9 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
         cos, sin = _rope_angles(positions, rot, cfg.rope_theta, q.dim(), q.dtype)
         q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
     rep = cfg.kv_heads_effective // k.shape[2]
-    k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+    if rep > 1:  # JAX constrains the Hkv_eff heads of its repeated weights
+        k, v = (_lc(repeat_kv(t, rep), ("batch", "seq", "kv_heads", None))
+                for t in (k, v))
     if kv_cache is None:
         if cfg.causal:
             o = blocked_attention(q, k, v, window=window, softcap=cfg.logit_softcap,

@@ -26,7 +26,9 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as Fn
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import params as P
 from repro_torch.models import layers as L
@@ -91,7 +93,17 @@ def encoder_config(cfg: ModelConfig) -> ModelConfig:
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    e = params["embed"][tokens.long()]
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        # the vocab-sharded table: each rank picks its rows, masked, and
+        # the partial embeddings are summed here (indexing would gather the
+        # table whole; a masked partial sum left pending cannot be summed
+        # twice, as remat's recompute would)
+        e = Fn.embedding(tokens.long(), table)
+        e = e.redistribute(placements=[Replicate() if p.is_partial() else p
+                                       for p in e.placements])
+    else:
+        e = table[tokens.long()]
     return (e * math.sqrt(cfg.d_model)).to(_dt(cfg))
 
 
@@ -173,7 +185,7 @@ def forward_hidden(params: dict, batch: dict, cfg: ModelConfig,
     x, enc_kv = _embed_inputs(params, batch, cfg)
     x, _, aux = T.stack_apply(params["blocks"], x, cfg, kernel_mode=kernel_mode,
                               enc_kv=enc_kv)
-    return L.rms_norm(x, params["final_norm"]), aux
+    return L.rms_norm(x, L.gather_where_batch_cut(params["final_norm"], x)), aux
 
 
 def chunked_ce_loss(params: dict, hidden: torch.Tensor, labels: torch.Tensor,
@@ -184,12 +196,15 @@ def chunked_ce_loss(params: dict, hidden: torch.Tensor, labels: torch.Tensor,
     makes a chunk's (B, chunk, V) fp32 logits again instead of keeping them."""
     s = hidden.shape[1]
     c = min(cfg.loss_chunk, s)
-    head = _head_matrix(params, cfg)
+    head = L.gather_where_batch_cut(_head_matrix(params, cfg), hidden)
 
     def chunk_loss(h, lab, w):
         logits = torch.matmul(h, head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+        lse = _logsumexp(logits)
+        gold = torch.gather(logits, -1, lab.long()[..., None])
+        if isinstance(gold, DTensor):  # vocab-sharded: sum the masked picks first
+            gold = gold.redistribute(placements=lse.placements)
+        gold = gold[..., 0]
         return torch.sum((lse - gold) * w)
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -200,6 +215,18 @@ def chunked_ce_loss(params: dict, hidden: torch.Tensor, labels: torch.Tensor,
                                                            use_reentrant=False)
                          if torch.is_grad_enabled() else chunk_loss(*args))
     return total / torch.clamp(torch.sum(weights), min=1.0)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last (vocab) dim.  On vocab-sharded DTensor logits
+    it is made of two reductions, a max and a sum, each a partial result
+    over the vocab shards that an all-reduce of (B, chunk) values
+    completes (``torch.logsumexp`` would gather the (B, chunk, V)
+    logits)."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    return (torch.log(torch.sum(torch.exp(logits - m), dim=-1, keepdim=True)) + m)[..., 0]
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, kernel_mode: str = "auto"):

@@ -24,13 +24,22 @@ so ranks and drops are JAX's, and the slots come out expert-major, (E,
 B * C, D), the layout of the expert GEMMs (``torch.bmm`` with E as the
 batch axis, as JAX computes them outside any Pallas kernel).
 
-JAX's ``logical_constraint`` calls pin rows and experts to mesh axes and
-are no-ops without a mesh.  The port's ``runtime.logical_constraint``
-exists, but the LM takes no mesh yet: its mesh branch and these call
-sites are ROADMAP queue 1, item 11, part 2, so they stay out.  Nothing
-here reads a value back to the host (no ``.item()``, ``nonzero``,
-boolean-mask indexing or ``one_hot``, whose range check synchronises on
-CUDA), so a CUDA graph captures it.
+JAX's three ``logical_constraint`` calls pin rows and experts to mesh
+axes (no-ops without a mesh).  JAX's slots are (B, E, C, D) under
+("moe_batch", "experts", None, None); the port's are expert-major (E,
+B * C, D), so ``_lc_slots`` resolves JAX's axes on JAX's shape, in JAX's
+order, and places "experts" on dim 0 and "moe_batch" on dim 1 (rows
+major within it: a rank's block of rows is a contiguous block of B * C).
+The combined token copies take ("batch", None, None) as (B, S * k, D).
+On a mesh (DTensor activations) the per-row sort, the slot gathers and
+the combine have no DTensor strategy and run under ``local_map`` on each
+rank's rows (``partitioning.local_blocks``: the dispatch's segment is
+expert * B_rank + row, so each rank's slots are its block of the global
+ones); the routing and the expert GEMMs are DTensor ops, the GEMMs
+sharded over experts.
+Nothing here reads a value back to the host (no ``.item()``,
+``nonzero``, boolean-mask indexing or ``one_hot``, whose range check
+synchronises on CUDA), so a CUDA graph captures it.
 """
 from __future__ import annotations
 
@@ -40,6 +49,9 @@ import torch.nn.functional as Fn
 from repro_torch import params as P
 from repro_torch.core import scatter_gather as sg
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import compat
+from repro_torch.runtime import partitioning as PT
+from repro_torch.runtime.partitioning import logical_constraint as _lc
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
@@ -110,13 +122,59 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, with_aux: bool = True)
 
     # --- grouped dispatch (the paper's merged scatter-gather, per row) ---
     c = capacity(cfg, s)
-    rows = torch.arange(b, device=x.device)[:, None]
-    seg = (top_e.reshape(b, s * k) * b + rows).reshape(-1)  # expert * B + row
-    xk = x[:, :, None, :].expand(b, s, k, d).reshape(t * k, d)  # (B*S*k, D)
-    slots, slot_idx, kept = sg.dispatch_to_slots(xk, seg, e * b, c)
-    y = _expert_ffn(slots.reshape(e, b * c, d), p, cfg)  # (E, B*C, D)
-    back = sg.combine_from_slots(y.reshape(e * b, c, d), slot_idx, kept)  # (B*S*k, D)
+    if _is_dtensor(x):  # a mesh's step: the sort and the gathers on each rank's rows
+        slots, slot_idx, kept = PT.local_blocks(
+            _dispatch, x, (0,), (x, top_e, e, k, c), ((0,), (0,), None, None, None),
+            ((1,), (0,), (0,)))
+    else:
+        slots, slot_idx, kept = _dispatch(x, top_e, e, k, c)
+    slots = _lc_slots(slots, b, c)  # (rows -> data, experts -> model), JAX's
+    y = _lc_slots(_expert_ffn(slots, p, cfg), b, c)  # (E, B*C, D)
+    if _is_dtensor(y):
+        back = PT.local_blocks(_combine, x, (0,), (y, slot_idx, kept, c),
+                               ((1,), (0,), (0,), None), ((0,),))
+    else:
+        back = _combine(y, slot_idx, kept, c)
+    back = _lc(back.reshape(b, s * k, d), ("batch", None, None))
     out = torch.sum(back.reshape(b, s, k, d) * top_p.reshape(b, s, k, 1).to(back.dtype),
                     dim=2)
     return out.to(x.dtype), aux
 
+
+def _dispatch(x: torch.Tensor, top_e: torch.Tensor, e: int, k: int, c: int):
+    """Rows (B, S, D) and their experts (B*S, k) -> expert-major slots (E,
+    B*C, D), each token copy's slot index and whether it was kept: one
+    stable sort over every row on the segment expert * B + row."""
+    b, s, d = x.shape
+    rows = torch.arange(b, device=x.device)[:, None]
+    seg = (top_e.reshape(b, s * k) * b + rows).reshape(-1)  # expert * B + row
+    xk = x[:, :, None, :].expand(b, s, k, d).reshape(b * s * k, d)
+    slots, slot_idx, kept = sg.dispatch_to_slots(xk, seg, e * b, c)
+    return slots.reshape(e, b * c, d), slot_idx, kept
+
+
+def _combine(y: torch.Tensor, slot_idx: torch.Tensor, kept: torch.Tensor, c: int):
+    """Each token copy's expert output (B*S*k, D) from the slots (E, B*C, D)."""
+    e, bc, d = y.shape
+    return sg.combine_from_slots(y.reshape(e * (bc // c), c, d), slot_idx, kept)
+
+
+def _lc_slots(t: torch.Tensor, b: int, c: int) -> torch.Tensor:
+    """JAX's constraint of its (B, E, C, D) slots, ("moe_batch", "experts",
+    None, None), resolved on JAX's shape and in JAX's order, applied to
+    the port's expert-major (E, B*C, D) slots: "experts" cuts dim 0 and
+    "moe_batch" dim 1 (rows major within it)."""
+    mesh = compat.get_active_mesh()
+    if mesh is None or mesh.size == 1:
+        return t
+    e, _, d = t.shape
+    mb, ex, _, _ = PT.resolve_spec(("moe_batch", "experts", None, None), (b, e, c, d),
+                                   mesh, PT.current_rules())
+    return PT.constrain(t.reshape(e, b, c, d), PT.PartitionSpec(ex, mb, None, None),
+                        mesh).reshape(e, b * c, d)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)

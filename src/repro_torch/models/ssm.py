@@ -30,6 +30,9 @@ import torch.nn.functional as Fn
 from repro_torch import params as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _linear
+from repro_torch.runtime.partitioning import local_blocks
+from repro_torch.runtime.partitioning import logical_constraint as _lc
+from torch.distributed.tensor import DTensor
 
 # ---------------------------------------------------------------------------
 # Mamba
@@ -109,6 +112,19 @@ def _chunk_scan(da: torch.Tensor, db: torch.Tensor, h0: torch.Tensor):
     return h_all, h
 
 
+def _mamba_scan(da: torch.Tensor, db: torch.Tensor, c: torch.Tensor, ck: int):
+    """The scan over a whole sequence in chunks of ``ck`` tokens: da / db
+    (B, S, di, ds), c (B, S, ds) -> (y (B, S, di), the final state (B, di,
+    ds))."""
+    b, s = da.shape[:2]
+    h = torch.zeros((b, da.shape[2], da.shape[3]), dtype=torch.float32, device=da.device)
+    ys = []
+    for c0 in range(0, s, ck):
+        h_all, h = _chunk_scan(da[:, c0:c0 + ck], db[:, c0:c0 + ck], h)
+        ys.append(torch.matmul(h_all, c[:, c0:c0 + ck, :, None])[..., 0])
+    return torch.cat(ys, 1), h
+
+
 def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 state: dict | None = None, return_state: bool = False):
     """x: (B, S, D).  state (decode): {"conv": (B, dc-1, di), "ssm": (B, di,
@@ -116,6 +132,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (B, S, D), new_state or None)."""
     b, s, _ = x.shape
     xz = _linear(x, p["in_proj"])  # (B, S, 2, di)
+    xz = _lc(xz, ("batch", "seq", None, "inner"))  # d_inner stays on model
     xi, z = xz[..., 0, :], xz[..., 1, :]
     xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"],
                                 state["conv"] if state is not None else None)
@@ -127,13 +144,11 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         new_state = {"conv": new_conv.to(state["conv"].dtype), "ssm": h}
     else:  # train / prefill: the scan chunk by chunk, y reduced per chunk
         ck = min(cfg.ssm_chunk, s)
-        h = torch.zeros((b, da.shape[2], da.shape[3]), dtype=torch.float32,
-                        device=x.device)
-        ys = []
-        for c0 in range(0, s, ck):
-            h_all, h = _chunk_scan(da[:, c0:c0 + ck], db[:, c0:c0 + ck], h)
-            ys.append(torch.matmul(h_all, c[:, c0:c0 + ck, :, None])[..., 0])
-        y = torch.cat(ys, 1)
+        if isinstance(da, DTensor):  # each rank its (batch, inner) block
+            y, h = local_blocks(_mamba_scan, da, (0, 2), (da, db, c, ck),
+                                ((0, 2), (0, 2), (0,), None), ((0, 2), (0, 1)))
+        else:
+            y, h = _mamba_scan(da, db, c, ck)
         new_state = None
         if return_state or state is not None:  # prefill
             new_state = {"conv": new_conv.to(x.dtype), "ssm": h}
@@ -195,6 +210,29 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor | None = None) -> torch.Ten
     return torch.cat([last.to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _wkv_scan(rf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, w: torch.Tensor):
+    """RWKV-6's recurrence over a whole sequence, the u-bonus left out: r /
+    k / v / decay (B, S, H, hd) fp32 -> (y (B, S, H, hd), the final state
+    (B, H, hd, hd))."""
+    b, s, h, hd = rf.shape
+    # time-major copies, so that each step reads contiguous (B, H, hd)
+    rs, ks, vs, ws = (t_.transpose(0, 1).contiguous() for t_ in (rf, kf, vf, w))
+    st = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=rf.device)
+    if _differentiable(rs, ks, vs, ws):  # train: the same steps, out of place
+        steps = []
+        for i in range(s):
+            steps.append(torch.matmul(rs[i][..., None, :], st))
+            st = torch.addcmul(st * ws[i][..., None], ks[i][..., None],
+                               vs[i][..., None, :])
+        outs = torch.stack(steps)
+    else:
+        outs = torch.empty((s, b, h, 1, hd), dtype=torch.float32, device=rf.device)
+        for i in range(s):
+            torch.matmul(rs[i][..., None, :], st, out=outs[i])
+            st.mul_(ws[i][..., None]).addcmul_(ks[i][..., None], vs[i][..., None, :])
+    return outs[:, :, :, 0].transpose(0, 1), st
+
+
 def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                    state: dict | None = None, return_state: bool = False):
     """RWKV-6 time mixing.  x: (B, S, D); state (decode): {"shift": (B, 1,
@@ -227,22 +265,12 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                w[:, 0, :, :, None], st)
         new_state = {"shift": x[:, -1:].to(state["shift"].dtype), "wkv": new_st}
     else:
-        # time-major copies, so that each step reads contiguous (B, H, hd)
-        rs, ks, vs, ws = (t_.transpose(0, 1).contiguous() for t_ in (rf, kf, vf, w))
-        st = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-        if _differentiable(rs, ks, vs, ws):  # train: the same steps, out of place
-            steps = []
-            for i in range(s):
-                steps.append(torch.matmul(rs[i][..., None, :], st))
-                st = torch.addcmul(st * ws[i][..., None], ks[i][..., None],
-                                   vs[i][..., None, :])
-            outs = torch.stack(steps)
+        if isinstance(rf, DTensor):  # each rank its (batch, heads) block
+            y, st = local_blocks(_wkv_scan, rf, (0, 2), (rf, kf, vf, w),
+                                 ((0, 2),) * 4, ((0, 2), (0, 1)))
         else:
-            outs = torch.empty((s, b, h, 1, hd), dtype=torch.float32, device=x.device)
-            for i in range(s):
-                torch.matmul(rs[i][..., None, :], st, out=outs[i])
-                st.mul_(ws[i][..., None]).addcmul_(ks[i][..., None], vs[i][..., None, :])
-        y = outs[:, :, :, 0].transpose(0, 1) + bonus  # (B, S, H, hd)
+            y, st = _wkv_scan(rf, kf, vf, w)
+        y = y + bonus  # (B, S, H, hd)
         new_state = None
         if return_state or state is not None:
             new_state = {"shift": x[:, -1:].to(x.dtype), "wkv": st}

@@ -33,6 +33,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.partitioning import in_this_scope
+from repro_torch.runtime.partitioning import logical_constraint as _lc
 
 SEQ_CACHE_KEYS = ("k", "v", "ckv", "krope")  # cache entries indexed by position
 
@@ -137,6 +139,7 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
     kind = cfg.mixer_kind(pos)
     decode, prefill = mode == "decode", mode == "prefill"
     cache_out: dict = {}
+    x = _lc(x, ("batch", "seq", None))  # the residual stream: batch over data
     h = L.rms_norm(x, p["ln1"])
     if kind == "attn" and cfg.attention == "mla":
         out, kvc = L.mla_apply(p["mixer"], h, cfg, positions=positions,
@@ -244,7 +247,8 @@ def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "tr
     ``jax.checkpoint`` of each group: a group keeps only
     its input for the backward pass and runs its forward again there
     (``torch.utils.checkpoint``, non-reentrant), so a step holds one
-    group's activations at a time.
+    group's activations at a time; on a mesh the recompute runs under the
+    forward's mesh and rules (``partitioning.in_this_scope``).
     """
     gs = cfg.group_size
     train = mode == "train"
@@ -257,6 +261,7 @@ def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "tr
             gp = {name: (leaf[g] if not isinstance(leaf, dict)
                          else {k: w[g] for k, w in leaf.items()})
                   for name, leaf in groups[pos].items()}
+            gp = L.gather_where_batch_cut(gp, x)
             c = ({k: w[g] for k, w in cache[pos].items()} if cache is not None
                  else None)
             ekv = (enc_kv[pos][0][g], enc_kv[pos][1][g]) if enc_kv is not None else None
@@ -273,7 +278,8 @@ def stack_apply(groups: list, x: torch.Tensor, cfg: ModelConfig, mode: str = "tr
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     for g in range(cfg.num_groups):
         if remat:
-            x, a = torch.utils.checkpoint.checkpoint(group, x, g, use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(in_this_scope(group), x, g,
+                                                     use_reentrant=False)
         else:
             x, a = group(x, g)
         if train:

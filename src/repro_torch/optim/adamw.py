@@ -75,27 +75,77 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params) -> dict:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero fp32 moments of the parameters' shapes; a DTensor parameter's
+    moments are DTensors with its placements (JAX's ``init`` on sharded
+    values)."""
+    zeros = lambda p: (torch.zeros_like(p, dtype=torch.float32) if is_dtensor(p) else
+                       torch.zeros(p.shape, dtype=torch.float32, device=p.device))
     first = leaves(params)
     device = first[0].device if first else "cpu"
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares, the
-    leaves added in JAX's order."""
+    leaves added in JAX's order.  DTensor leaves (Shard / Replicate) give
+    the norm over every shard: each block's sum of squares is counted once
+    (by the ranks at coordinate 0 of the mesh dims that replicate it), the
+    blocks summed by one all-reduce for the whole tree; the result is a
+    plain 0-d tensor."""
+    xs = leaves(tree)
+    if not any(is_dtensor(x) for x in xs):
+        total = 0
+        for x in xs:
+            total = total + torch.sum(torch.square(x.float()))
+        return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    from repro_torch.runtime.partitioning import reduce_over_world
+
+    parts = []
+    for x in xs:
+        local = x.to_local() if is_dtensor(x) else x
+        sq = torch.sum(torch.square(local.float()))
+        if is_dtensor(x) and not _first_replica(x):
+            sq = torch.zeros_like(sq)
+        parts.append(sq)
+    parts = reduce_over_world(torch.stack(parts)).unbind(0)
     total = 0
-    for x in leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    for sq in parts:
+        total = total + sq
+    return torch.sqrt(total)
+
+
+def _first_replica(x) -> bool:
+    """Whether this rank holds the first copy of its block of DTensor ``x``:
+    coordinate 0 on every mesh dim that does not cut it."""
+    mesh = x.device_mesh
+    return all(pl.is_shard() or mesh.get_local_rank(i) == 0
+               for i, pl in enumerate(x.placements))
+
+
+def like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` (a gradient) with the placements of the DTensor ``ref`` (its
+    parameter): a partial sum is reduced, a whole value cut; ``t`` itself
+    when ``ref`` is a plain tensor."""
+    if not is_dtensor(ref) or tuple(t.placements) == tuple(ref.placements):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: dict, params):
     """Returns (new_params, new_state, {"grad_norm", "lr"}).  The new
     parameters and moments are ``params``' and ``state``'s own tensors,
-    written in place; ``step`` is a new tensor."""
+    written in place; ``step`` is a new tensor.  DTensor parameters take
+    each gradient at their own placements (:func:`like`) and are updated
+    on each rank's own block, with the global norm over every shard."""
+    grads = tree_map(like, grads, params)
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.full((), cfg.grad_clip, dtype=torch.float32, device=gnorm.device)
@@ -108,6 +158,8 @@ def update(cfg: AdamWConfig, grads, state: dict, params):
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
                           leaves(state["v"])):
         decay = p.dim() >= 2
+        if is_dtensor(p):  # the same placements: each rank its own block
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         pf, mf, vf = (t.view(-1) for t in (p, m, v))
         gf = g.reshape(-1)
         for a in range(0, pf.numel(), CHUNK):

@@ -4,8 +4,9 @@ Plain tensors: the JAX package's logical-axes ``Param`` wrapper carries
 its axes on each leaf; the port keeps them in a tree beside the
 parameters (``models.lm.param_axes``), which ``runtime.partitioning``'s
 ``tree_specs`` / ``tree_shardings`` and the checkpoint manager's elastic
-restore resolve on a mesh.  The LM's mesh branch (training and serving
-sharded) is ROADMAP queue 1, item 11, part 2.  Random values
+restore resolve on a mesh; ``runtime.place_tree`` places a tree by them
+for the train loop's mesh branch (JAX serves no LM on a mesh, and neither
+does the port).  Random values
 come from an explicit ``torch.Generator`` and land on its device.
 ``init_normal`` keeps JAX's scale rule, ``(1 / shape[0]) ** 0.5`` of the
 per-layer shape; ``stack`` prepends a group axis (``(G, *shape)``, the

@@ -5,7 +5,12 @@
                      get_active_mesh) over ``DeviceMesh``
   * ``mesh``         production / debug / flat mesh builders
   * ``partitioning`` logical-axis rules, PartitionSpec resolution,
-                     logical_constraint, sharded message passing
+                     logical_constraint, sharded message passing; and
+                     the DTensor placing of a parameter tree and a
+                     batch (``place_tree`` / ``place_batch``: JAX's
+                     ``device_put`` by ``tree_shardings`` and its
+                     global batch arrays, which need no name of their
+                     own there)
 
 JAX's facade also exports ``HAS_SERIALIZE_EXECUTABLE``,
 ``serialize_compiled``, ``deserialize_compiled`` and
@@ -38,6 +43,8 @@ from repro_torch.runtime.partitioning import (
     gnn_rules,
     logical_constraint,
     make_sharded_mp,
+    place_batch,
+    place_tree,
     resolve_spec,
     to_placements,
     tree_shardings,
@@ -70,6 +77,8 @@ __all__ = [
     "gnn_rules",
     "logical_constraint",
     "make_sharded_mp",
+    "place_batch",
+    "place_tree",
     "resolve_spec",
     "to_placements",
     "tree_shardings",

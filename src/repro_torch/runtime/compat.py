@@ -115,6 +115,7 @@ def make_mesh(axis_shapes, axis_names, *, device="cuda") -> Mesh:
     world = dist.get_world_size()
     if size != world:
         raise ValueError(f"mesh {shape} has {size} ranks, the world {world}")
+    _gloo_cuda_all_gather(dtype)
     from torch.distributed.device_mesh import init_device_mesh
 
     dm = init_device_mesh(dtype, tuple(shape.values()),
@@ -135,7 +136,38 @@ def mesh_from_devices(ranks, axis_names, *, device="cuda") -> Mesh:
         raise RuntimeError("a mesh of several ranks needs a process group")
     from torch.distributed.device_mesh import DeviceMesh
 
+    _gloo_cuda_all_gather(dtype)
     return Mesh(shape, dtype, DeviceMesh(dtype, ranks, mesh_dim_names=names))
+
+
+_GLOO_CUDA_LIB = []  # the library that holds the override, once made
+
+
+def _gloo_cuda_all_gather(device_type: str) -> None:
+    """DTensor's collectives are PyTorch's native functional ones.  On a
+    gloo group with CUDA tensors the functional all-gather
+    (``_c10d_functional::all_gather_into_tensor``) crashes the process in
+    its ``wait_tensor`` (torch 2.11 with CUDA 12.8: a segfault; the
+    functional all-reduce, reduce-scatter and all-to-all, and gloo's own
+    ``all_gather_into_tensor``, run).  Under a gloo default group on CUDA
+    its CUDA kernel is replaced, once a process, by gloo's all-gather,
+    which returns when the gathered tensor is whole (the op's ``wait_tensor``
+    then finds no work to wait for)."""
+    if (device_type != "cuda" or _GLOO_CUDA_LIB
+            or dist.get_backend() != "gloo"):
+        return
+    from torch.distributed import distributed_c10d as c10d
+
+    def all_gather_into_tensor(inp, group_size, group_name):
+        group = (c10d._resolve_process_group(group_name)
+                 if isinstance(group_name, str) else group_name)
+        out = inp.new_empty((inp.shape[0] * group_size,) + tuple(inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(), group=group)
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
+    _GLOO_CUDA_LIB.append(lib)
 
 
 # ------------------------------------------------------------ active mesh

@@ -14,11 +14,15 @@ A ``PartitionSpec`` here is a tuple of ``None`` / axis name / tuple of
 axis names, equal to JAX's entry for entry.  ``to_placements`` turns one
 into DTensor ``Shard`` / ``Replicate`` placements.
 
-``logical_constraint`` is the per-rank counterpart of JAX's sharding
-constraint: without a mesh, or on a 1-rank mesh, it returns its input;
-under a mesh it returns this rank's block of a global tensor under the
-resolved spec (a dim whose size does not divide stays whole: the tensor
-stays replicated, JAX's divisibility fallback).
+``logical_constraint`` is JAX's sharding constraint: without a mesh, or
+on a 1-rank mesh, it returns its input; under a mesh it redistributes a
+DTensor to the resolved spec's placements (the LM's train step) and
+cuts a plain global tensor to this rank's block (the sharded GNN path);
+a dim whose size does not divide stays whole (JAX's divisibility
+fallback).  ``place_tree`` / ``place_batch`` put global parameters and
+batches on a mesh as DTensors, ``mesh_scope`` is a step's context on a
+mesh, and ``local_blocks`` runs what DTensor has no strategy for on each
+rank's blocks.
 
 The sharded message passing of the paper's large-graph extension (§4.6)
 runs over a ``ProcessGroup``: ``allgather_mp_local`` (all-gather the
@@ -268,14 +272,151 @@ def current_rules() -> dict:
     return _ACTIVE_RULES.get() or DEFAULT_RULES
 
 
+@contextlib.contextmanager
+def mesh_scope(mesh, rules: dict | None = None):
+    """A step on a mesh of DTensors: JAX's ``use_mesh`` + ``active_rules``
+    (``rules`` or ``DEFAULT_RULES``), with plain tensors (constants, RoPE
+    angles, masks) taken as replicated DTensors (DTensor's implicit
+    replication, its previous setting restored on exit, so scopes nest);
+    nothing without a mesh."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    implicit = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        with compat.use_mesh(mesh), active_rules(rules if rules is not None
+                                                 else DEFAULT_RULES):
+            yield
+    finally:
+        dispatcher._allow_implicit_replication = implicit
+
+
+def in_this_scope(fn: Callable) -> Callable:
+    """``fn`` made to run in the :func:`mesh_scope` active now, from any
+    thread: remat's recompute runs inside the backward pass, which on the
+    card runs in autograd's device thread, where the mesh and rules
+    contextvars are unset.  ``fn`` itself outside a mesh."""
+    mesh, rules = compat.get_active_mesh(), _ACTIVE_RULES.get()
+    if mesh is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with mesh_scope(mesh, rules):
+            return fn(*args, **kwargs)
+
+    return run
+
+
 def logical_constraint(x: torch.Tensor, axes: Tuple[Optional[str], ...]) -> torch.Tensor:
-    """This rank's block of the global tensor ``x`` under the active mesh
-    and rules; ``x`` itself without a mesh or on a 1-rank mesh."""
+    """JAX's sharding constraint by logical axes under the active mesh and
+    rules: a DTensor is redistributed to the placements the axes resolve
+    to (JAX's ``with_sharding_constraint``); a plain tensor, taken as the
+    global value every rank holds, gives this rank's block of it.  ``x``
+    itself without a mesh or on a 1-rank mesh."""
     mesh = compat.get_active_mesh()
     if mesh is None or mesh.empty or mesh.size == 1:
         return x
-    spec = resolve_spec(axes, tuple(x.shape), mesh, current_rules())
+    return constrain(x, resolve_spec(axes, tuple(x.shape), mesh, current_rules()), mesh)
+
+
+def constrain(x: torch.Tensor, spec, mesh: compat.Mesh) -> torch.Tensor:
+    """``x`` under an already resolved ``spec``: a DTensor redistributed to
+    its placements, a plain (global) tensor cut to this rank's block."""
+    if _is_dtensor(x):
+        return x.redistribute(mesh.device_mesh, to_placements(spec, mesh))
     return compat.local_block(x, spec, mesh)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def place(x: torch.Tensor, spec, mesh: compat.Mesh) -> torch.Tensor:
+    """The global tensor ``x`` (every rank holds the same) as a DTensor on
+    ``mesh`` under ``spec``: each rank keeps its own block, nothing is
+    exchanged.  ``x`` itself on a mesh without a process group (1 rank).
+    On a CUDA mesh the block goes to this rank's card."""
+    if mesh.device_mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    local = compat.local_block(x, spec, mesh).contiguous()
+    if mesh.device_type == "cuda":
+        local = local.to(torch.device("cuda", torch.cuda.current_device()))
+    return DTensor.from_local(local, mesh.device_mesh, to_placements(spec, mesh),
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
+def place_tree(tree, axes_tree, mesh: compat.Mesh, rules=None):
+    """A tree of global tensors (parameters, moments) as DTensors placed by
+    ``tree_specs`` (JAX's ``device_put(values, tree_shardings(...))``); a
+    leaf without axes is replicated.  The tree itself without a mesh or on
+    a mesh without a process group."""
+    if mesh is None or mesh.device_mesh is None:
+        return tree
+    return _map_with_axes(lambda leaf, axes: place(leaf, _leaf_spec(leaf, axes, mesh, rules),
+                                                   mesh), tree, axes_tree)
+
+
+def reduce_over_world(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """The reduction (``op`` "sum" or "max") of each rank's plain tensor
+    ``x`` over every rank of the world (a train step's mesh spans it:
+    ``make_mesh``), as a new plain tensor: the norm and the scales of a
+    sharded train step, each batched into one vector, one all-reduce."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+    return out
+
+
+def local_blocks(fn: Callable, like, dims: tuple, args: tuple, in_dims: tuple,
+                 out_dims: tuple):
+    """``fn(*args)`` under ``local_map`` on each rank's block of the tensor
+    dims ``fn`` is independent in (``dims`` of DTensor ``like``: the rows
+    of an MoE dispatch, the batch and channels of a recurrence), as they
+    are cut in ``like``; whole on every other mesh dim.  ``in_dims`` /
+    ``out_dims`` give each argument's / output's dims in the order of
+    ``dims`` (None: a non-tensor argument).  An input cut on fewer of them
+    than ``like`` (Mamba's c, shared by the channels) gets a partial
+    gradient on the mesh dims it misses."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    cut = [next((i for i, d in enumerate(dims) if pl == Shard(d)), None)
+           for pl in like.placements]
+
+    def at(tdims, grad=False):
+        if tdims is None:
+            return None
+        return [Shard(tdims[c]) if c is not None and c < len(tdims)
+                else Partial() if grad and c is not None else Replicate() for c in cut]
+
+    return local_map(fn, out_placements=tuple(at(d) for d in out_dims),
+                     in_placements=tuple(at(d) for d in in_dims),
+                     in_grad_placements=tuple(at(d, grad=True) for d in in_dims),
+                     device_mesh=like.device_mesh, redistribute_inputs=True)(*args)
+
+
+# logical axes of a training batch's entries (JAX's ``_device_batch`` makes
+# each a global array; under the mesh its constraints shard it so)
+BATCH_AXES = {"tokens": ("batch", "seq"), "patches": ("batch", None, None),
+              "frames": ("batch", None, None)}
+
+
+def place_batch(batch: dict, mesh: compat.Mesh, rules=None) -> dict:
+    """A numpy (or tensor) batch, the same global batch on every rank, as
+    DTensors placed by ``BATCH_AXES`` on ``mesh`` (a mesh of several ranks;
+    JAX's ``_device_batch`` makes global arrays too)."""
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+        out[k] = place(t, resolve_spec(BATCH_AXES[k], tuple(t.shape), mesh, rules), mesh)
+    return out
 
 
 # ---------------------------------------------------------------------------

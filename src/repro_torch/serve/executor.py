@@ -104,8 +104,8 @@ which a capture refuses; a 1-rank mesh captures as without a mesh.
 slowest rank's (an all-reduce of the measured time), so every rank's
 stream scheduler sees one timeline and takes the same flushes, sheds and
 rungs, and so issues the same collectives.  Only this path
-takes a mesh on the serving side; the LM serving and training paths take
-none yet (ROADMAP queue 1, item 11, part 2).
+takes a mesh on the serving side (JAX serves no LM on a mesh either);
+LM training takes one in ``train.loop.train``.
 """
 from __future__ import annotations
 

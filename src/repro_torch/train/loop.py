@@ -1,5 +1,5 @@
-"""Fault-tolerant training loop (port of ``repro.train.loop``, its mesh-less
-branch).
+"""Fault-tolerant training loop (port of ``repro.train.loop``), with and
+without a mesh.
 
   * restore-latest-and-retry on a step's exception (bounded retries; with
     no checkpoint yet, the optimizer starts again and the parameters stay);
@@ -10,11 +10,25 @@ branch).
 
 The step runs eagerly on the parameters' device: the loss and its
 gradients by autograd (``lm.loss_fn``, the attention's forward the flash
-kernel on the card), then ``optim.adamw.update`` in place.  JAX's mesh
-branch (``runtime.use_mesh``, sharded parameters, elastic restore on
-another mesh) is ROADMAP queue 1, item 11, part 2: the substrate
-(``repro_torch.runtime``) and the checkpoint manager's elastic restore
-exist, the loop does not use them yet.
+kernel on the card), then ``optim.adamw.update`` in place.
+
+The mesh branch (``train(..., mesh=, rules=)``, JAX's ``use_mesh`` +
+``active_rules`` around its jitted step) runs the same step on DTensors,
+which stand for GSPMD: the parameters are placed by their logical axes
+(``runtime.place_tree``), the moments and the error buffer take their
+placements, each global batch is placed by ``partitioning.BATCH_AXES``,
+and inside :func:`mesh_scope` the models' ``logical_constraint`` calls
+redistribute the activations as JAX's sharding constraints do.  DTensor
+propagates every other op; the flash kernel runs on each rank's (batch,
+head) block under ``local_map`` (``kernels.ops``), as do the MoE dispatch
+and combine (rows) and the Mamba / RWKV-6 recurrences (batch, channels).
+Gradients come back at their parameters' placements, AdamW updates each
+rank's blocks with the global norm over every shard, and compression
+quantizes each block against its tensor's global amax (one all-reduce
+each for the norm and the scales); the step calls no ``compressed_psum``,
+as JAX's does not.  Checkpoints gather DTensor leaves whole and rank 0
+writes them; a restore places what it reads on the mesh, which may have
+another shape than the one that saved (elastic).
 """
 from __future__ import annotations
 
@@ -33,6 +47,8 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.optim import compression as comp
+from repro_torch.runtime import partitioning as PT
+from repro_torch.runtime.partitioning import mesh_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +67,9 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, kernel_mode: str = "au
     """(loss, {"ce", "aux"}, grads): ``lm.loss_fn`` and the gradient of its
     loss for every leaf of ``params`` (a zero tensor for a leaf the loss
     does not reach, as JAX's ``value_and_grad``).  The leaves require grad
-    only within the call."""
+    only within the call.  DTensor parameters (a mesh's step, within
+    :func:`mesh_scope`) get their gradients at their own placements (the
+    partial sums reduced) and plain 0-d metrics."""
     flat = adamw.leaves(params)
     for p in flat:
         p.requires_grad_(True)
@@ -63,8 +81,14 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, kernel_mode: str = "au
         for p in flat:
             p.requires_grad_(False)
     it = iter(grads)
-    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
-            adamw.tree_map(lambda _: next(it), params))
+    grads = adamw.tree_map(lambda p: adamw.like(next(it), p), params)
+    return (_whole(loss.detach()), {k: _whole(v.detach()) for k, v in aux.items()}, grads)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A plain tensor of a (replicated) DTensor metric; ``t`` itself when
+    plain."""
+    return t.full_tensor() if adamw.is_dtensor(t) else t
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -91,19 +115,29 @@ def train(
     data: Iterable[dict],
     gen: Optional[torch.Generator] = None,
     params: Any = None,
+    mesh: Any = None,
+    rules: Optional[dict] = None,
     inject_failure_at: Optional[int] = None,  # test hook
     device="cuda",
 ) -> dict:
-    """The training run on one device.  ``params`` (a tree of tensors,
-    used in place) or ``lm.init_params(gen)`` (default: a generator seeded
-    0 on ``device``) are the starting weights; ``data`` yields numpy
-    batches.
+    """The training run.  ``params`` (a tree of tensors, used in place) or
+    ``lm.init_params(gen)`` (default: a generator seeded 0 on ``device``)
+    are the starting weights, the same on every rank; ``data`` yields
+    numpy batches, the same global batch on every rank.
+
+    With ``mesh`` (a ``runtime.Mesh`` over the ranks) the parameters are
+    placed as DTensors by their logical axes under ``rules`` (default
+    ``DEFAULT_RULES``), the moments and the error buffer follow them, each
+    batch is placed by ``partitioning.BATCH_AXES``, a restore places what
+    it reads on the mesh, and every step runs in :func:`mesh_scope`.  A
+    1-rank mesh without a process group runs as no mesh.
     Returns {"params", "opt_state", "history", "events", "axes"}."""
     device = resolve_device(device)
     if params is None:
         gen = gen if gen is not None else torch.Generator(device).manual_seed(0)
         params = lm.init_params(gen, cfg)
     paxes = lm.param_axes(cfg)
+    params = PT.place_tree(params, paxes, mesh, rules)
     opt_state = adamw.init(params)
     ef = comp.init_error_buf(params) if loop_cfg.grad_compression else None
     mgr = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep)
@@ -111,25 +145,37 @@ def train(
 
     start = 0
     if mgr.latest_step() is not None:
-        start, state = mgr.restore(template={"params": params, "opt": opt_state})
-        params, opt_state = state["params"], state["opt"]
+        start, params, opt_state = _restore(mgr, params, opt_state, paxes, mesh, rules)
 
-    params, opt_state, ef, history, events = _run_loop(
-        loop_cfg, step_fn, mgr, iter(data), params, opt_state, ef, start, paxes,
-        inject_failure_at, device)
+    with mesh_scope(mesh, rules):
+        params, opt_state, ef, history, events = _run_loop(
+            loop_cfg, step_fn, mgr, iter(data), params, opt_state, ef, start, paxes,
+            inject_failure_at, device, mesh, rules)
     mgr.wait()
     return {"params": params, "opt_state": opt_state, "history": history,
             "events": events, "axes": paxes}
 
 
+def _restore(mgr, params, opt_state, paxes, mesh, rules) -> tuple:
+    """(step, params, opt_state) of the newest checkpoint: through the
+    manager's elastic path on a mesh (the parameters by the manifest's
+    axes), the moments then placed as their parameters."""
+    step, state = mgr.restore(template={"params": params, "opt": opt_state},
+                              mesh=mesh, rules=rules)
+    opt = state["opt"]
+    moments = PT.place_tree({"m": opt["m"], "v": opt["v"]},
+                            {"m": paxes, "v": paxes}, mesh, rules)
+    return step, state["params"], {**moments, "step": opt["step"]}
+
+
 def _run_loop(loop_cfg, step_fn, mgr, it, params, opt_state, ef, step, paxes,
-              inject_failure_at, device):
+              inject_failure_at, device, mesh=None, rules=None):
     history, events = [], []
     durations: list = []
     retries = 0
     injected = False
     while step < loop_cfg.steps:
-        batch = device_batch(next(it), device)
+        batch = device_batch(next(it), device, mesh, rules)
         t0 = time.perf_counter()
         try:
             if inject_failure_at is not None and step == inject_failure_at and not injected:
@@ -144,8 +190,8 @@ def _run_loop(loop_cfg, step_fn, mgr, it, params, opt_state, ef, step, paxes,
                 raise
             mgr.wait()  # a save in flight lands first: restore the newest
             if mgr.latest_step() is not None:
-                step, state = mgr.restore(template={"params": params, "opt": opt_state})
-                params, opt_state = state["params"], state["opt"]
+                step, params, opt_state = _restore(mgr, params, opt_state, paxes,
+                                                   mesh, rules)
             else:  # no checkpoint yet: re-init optimizer, keep params
                 opt_state = adamw.init(params)
                 step = 0
@@ -165,6 +211,10 @@ def _run_loop(loop_cfg, step_fn, mgr, it, params, opt_state, ef, step, paxes,
     return params, opt_state, ef, history, events
 
 
-def device_batch(batch: dict, device) -> dict:
-    """A numpy batch as tensors on ``device``."""
+def device_batch(batch: dict, device, mesh=None, rules=None) -> dict:
+    """A numpy batch as tensors on ``device``; on a mesh of several ranks,
+    the global batch as DTensors placed by ``partitioning.BATCH_AXES``
+    (JAX's ``_device_batch`` makes global arrays too)."""
+    if mesh is not None and mesh.device_mesh is not None:
+        return PT.place_batch(batch, mesh, rules)
     return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}

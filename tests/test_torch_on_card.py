@@ -1634,3 +1634,94 @@ def test_reduced_train_steps_on_card(cuda, arch):
                                  device_batch(next(data), cuda))
         assert np.isfinite(float(m["loss"])) and FA.launches - before == 2 * n_attn
     assert int(opt["step"]) == 2
+
+
+# flash_attention on DTensors (the train loop's mesh branch): 2 gloo ranks
+# sharing the card, each rank's block of q (batch, heads) through the
+# kernel under local_map; argv rank, world, init, out file
+_FLASH_WORLD = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+
+rank, world, init, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch import runtime as RT
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops as kops
+
+res = []
+# (mesh, B, Hq, Hkv, S, D, dtype): heads cut and kv heads cut with them;
+# kv heads whole (one KV head); the batch cut; fp32 on the simt route
+for (d, m), b, hq, hkv, s, dd, dt in (((1, 2), 2, 8, 2, 128, 128, torch.bfloat16),
+                                      ((1, 2), 2, 8, 1, 128, 128, torch.bfloat16),
+                                      ((2, 1), 4, 4, 2, 96, 64, torch.bfloat16),
+                                      ((1, 2), 2, 4, 2, 64, 64, torch.float32)):
+    mesh = RT.make_debug_mesh(d, m, device="cuda")
+    g = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, h, s, dd), generator=g, device="cuda").to(dt)
+               for h in (hq, hkv, hkv))
+    do = torch.randn((b, hq, s, dd), generator=g, device="cuda").to(dt)
+    with RT.use_mesh(mesh), RT.active_rules(RT.batch_rules(mesh, b)):
+        qd, kd, vd = (RT.logical_constraint(
+            DTensor.from_local(t, mesh.device_mesh, [Replicate(), Replicate()]),
+            ("batch", ax, None, None)) for t, ax in ((q, "heads"), (k, "kv_heads"),
+                                                      (v, "kv_heads")))
+        qd, kd, vd = (t.detach().requires_grad_(True) for t in (qd, kd, vd))
+        before = FA.launches
+        o = kops.flash_attention(qd, kd, vd, causal=True)
+        launched = FA.launches - before
+        o.backward(DTensor.from_local(do, mesh.device_mesh, [Replicate(), Replicate()])
+                   .redistribute(placements=o.placements))
+    # the same kernel (and the plain backward) on the whole tensors
+    qw, kw, vw = (t.detach().requires_grad_(True) for t in (q, k, v))
+    want = kops.flash_attention(qw, kw, vw, causal=True)
+    want.backward(do)
+    same = lambda a, w: bool(torch.equal(a.full_tensor(), w))
+    rel = lambda a, w: float((a.full_tensor().float() - w.float()).abs().max()
+                             / w.float().abs().max())
+    res.append(dict(launched=launched, kv_whole=hkv % m != 0,
+                    out=same(o, want.detach()), dq=same(qd.grad, qw.grad),
+                    dk=rel(kd.grad, kw.grad), dv=rel(vd.grad, vw.grad),
+                    dkv_same=same(kd.grad, kw.grad) and same(vd.grad, vw.grad)))
+with open(out + f".{rank}", "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def test_flash_on_each_ranks_block_matches_plain(cuda, tmp_path):
+    """The train loop's mesh branch runs the flash kernel on each rank's
+    (batch, head) block under ``local_map`` (``kernels.ops._flash_sharded``):
+    with two gloo ranks sharing the card, every rank launches it once a
+    call, and the gathered output and dq equal the same kernel's (and plain
+    backward's) on the whole tensors bit for bit (every (batch, head) is
+    computed alone); so do dk and dv where the kv heads are cut with the q
+    heads.  A kv head whole on every rank gets each rank's share of its
+    gradient, summed in the tensors' dtype: within 1.6e-2 of its largest
+    magnitude (the bf16 bound of ``chip_smoke.FLASH_TOL``)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    script = tmp_path / "flash_world.py"
+    script.write_text(_FLASH_WORLD)
+    init = "file://" + str(tmp_path / "rendezvous")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), "2", init,
+                               str(tmp_path / "out")], env=env, cwd=str(root),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [o[1][-3000:] for o in outs]
+    import json
+
+    for r in range(2):
+        for case in json.loads((tmp_path / f"out.{r}").read_text()):
+            assert case["launched"] == 1 and case["out"] and case["dq"], case
+            assert case["dkv_same"] or (case["kv_whole"]
+                                        and max(case["dk"], case["dv"]) <= 1.6e-2), case

@@ -17,7 +17,8 @@ package where both have the piece.
     leaf for all ten configs;
   * remat on and off give the same loss and gradients bit for bit, for all
     ten reduced configs;
-  * the launcher as a process on the CPU, and its refusal of the mesh flags.
+  * the launcher as a process on the CPU (its mesh flags:
+    ``test_torch_train_mesh_launch.py``).
 """
 import dataclasses
 import os
@@ -44,7 +45,6 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, get_reduced
 from repro_torch.convert import from_jax_lm_params, to_numpy
 from repro_torch.data import pipeline as TD
-from repro_torch.launch import train as TLT
 from repro_torch.models import lm as TLM
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -243,10 +243,3 @@ def test_launcher_on_the_cpu_as_a_process(tmp_path):
     assert lines[-1] == "done"
     assert CheckpointManager(str(tmp_path / "ck")).all_steps() == [2, 3]
 
-
-@pytest.mark.parametrize("flag", [["--debug-mesh", "1x1"], ["--rules", "fsdp"]])
-def test_launcher_refuses_the_mesh_flags(flag, capsys):
-    with pytest.raises(SystemExit) as err:
-        TLT.main(["--arch", "rwkv6-1.6b", "--reduced", "--device", "cpu"] + flag)
-    assert err.value.code == 2
-    assert "item 11" in capsys.readouterr().err
