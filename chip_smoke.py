@@ -394,7 +394,7 @@ fails the run), then runs these phases, one line each:
               Each ``[mesh train ...]`` line prints per rank ms a step,
               tokens/s, peak GB, flash launches a step (8: 4 layers, forward
               + remat) and the bytes each collective kind moves in a step
-              (``CollectiveBytes``, as ``CommDebugMode`` counts them); every
+              (``roofline.CollectiveRecorder``, as ``CommDebugMode`` counts them); every
               rank must launch the flash kernel.  ``--train-mesh-cards 4``
               (four cards, not in the default run) runs 8 layers at B 8 on a
               2x2 NCCL mesh, both presets, and the launcher there
@@ -453,12 +453,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # workspace set before the first GEMM of the process: 8 buffers of 4 MiB
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): fp32 on CUDA cores, int8 on the
-# tensor cores, HBM3
-PEAK_FP32_FLOP_S = 67e12
-PEAK_BF16_FLOP_S = 989e12
-PEAK_INT8_OPS = 1979e12
-PEAK_HBM_BYTES_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense): fp32 on CUDA cores, int8 and
+# bf16 on the tensor cores, HBM3; the port's model of costs holds them
+from repro_torch.roofline import (  # noqa: E402
+    PEAK_BF16_FLOP_S,
+    PEAK_FP32_FLOP_S,
+    PEAK_HBM_BYTES_S,
+    PEAK_INT8_OPS,
+)
 TOL = dict(rtol=1e-5, atol=1e-5)
 PNA_TOL = dict(rtol=5e-3, atol=5e-3)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -505,6 +507,7 @@ LM_PATHS = (("chatglm3-6b", {}, dict(max_batch=8, prompt_len=512, cache_len=1024
              dict(max_batch=8, prompt_len=64, cache_len=448, max_new_tokens=32),
              (16, 64)))
 LM_RUNS = 3  # generate (graphs) and the eager loop, each, per LM path
+LM_DECODE: dict = {}  # arch -> phase 9's decode floor and graph decode ms (phase 14)
 # the decode-after-prefill check of an MoE path runs as JAX's
 # tests/test_arch_smoke.py:47-57 does, in fp32 (on a copy of the weights)
 # and where neither run drops a token: at capacity factor 8, or E / k where
@@ -3342,6 +3345,8 @@ def serve_lm(arch: str, overrides: dict, serve_kw: dict, lengths, device) -> tup
             - (0 if cfg.tie_embeddings else tree_bytes(params["embed"])))
     floor = read / PEAK_HBM_BYTES_S * 1e3
     med = statistics.median(r[1] for r in graph_runs) * 1e3
+    LM_DECODE[arch] = dict(floor_ms=floor, graph_decode_ms=[r[1] * 1e3 for r in graph_runs],
+                           batch=scfg.max_batch, cache_len=scfg.cache_len, layers=n_layers)
     floor_note = (f"; decode weight-read floor {read / 1e9:.3f} GB"
                   + (f" (the cross K/V {cross / 1e9:.3f} of it)" if cross else "")
                   + f" = {floor:.3f} ms/token at {PEAK_HBM_BYTES_S / 1e12:.2f} TB/s "
@@ -3559,6 +3564,9 @@ def train_chatglm3(device) -> tuple:
     step_fn = make_train_step(cfg, opt_cfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     model_flops, hw_flops = train_flops(cfg, params, tokens)
+    # JAX's 6 N T counts the weights off the vocab: the blocks and the final norm
+    nonvocab = sum(p.numel() for p in adamw.leaves(params["blocks"])) + params[
+        "final_norm"].numel()
     steps = []
     reset_launches()
     for i in range(TRAIN_STEPS):
@@ -3609,7 +3617,8 @@ def train_chatglm3(device) -> tuple:
     later = steps[1:-1]  # past the first, and not the profiled one
     summary = dict(train_step=dict(
         arch=TRAIN_ARCH, layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        params=n_params, loss_vs_reference=d_loss, grad_norm_vs_reference=d_gn,
+        params=n_params, nonvocab_params=nonvocab, tokens=tokens, model_flops=model_flops,
+        loss_vs_reference=d_loss, grad_norm_vs_reference=d_gn,
         median_ms=statistics.median(r["ms"] for r in later),
         median_tokens_per_s=statistics.median(r["tokens_per_s"] for r in later),
         median_mfu=statistics.median(r["mfu"] for r in later),
@@ -4682,6 +4691,9 @@ TRAIN_MESH_BATCH, TRAIN_MESH_SEQ = 4, 1024
 TRAIN_MESH_GLOO = (((1, 2), "default"), ((1, 2), "fsdp"))
 TRAIN_MESH_NCCL = (((1, 1), "default"),)
 TRAIN_MESH_RTOL = {"float32": 1e-4, "bfloat16": 5e-3}  # each step's loss vs unsharded
+# the flash kernel on a gloo rank's own block of the 1x2 bf16 step: ChatGLM3's
+# 32 q heads and 16 kv heads (kv_pad_to) cut over "model" -> (B, Hq, Hkv, S, D)
+TRAIN_MESH_BLOCK = (4, 16, 8, 1024, 128)
 TRAIN_MESH_TIMEOUT_S = 600
 # four cards (``--train-mesh-cards 4``, not part of the default run): the
 # launcher's 2x2 NCCL mesh of ChatGLM3-6B at full width, 8 layers
@@ -4703,66 +4715,6 @@ def train_mesh_config(case: dict):
 
     get = get_reduced if case.get("reduced") else get_config
     return get(case["arch"], dtype=case["dtype"], remat=True, **case["overrides"])
-
-
-class CollectiveBytes:
-    """Counts the collectives issued on plain tensors while active (DTensor's
-    redistributions, the all-reduces of the norm and the scales), as
-    ``CommDebugMode`` counts them: a ``TorchDispatchMode`` that lets DTensor
-    desugar first; -> {kind: [count, bytes]}, bytes the larger of a call's
-    input and output buffers (an all-gather's whole result, a
-    reduce-scatter's whole input)."""
-
-    KINDS = (("all_reduce", ("all_reduce", "allreduce")),
-             ("all_gather", ("all_gather", "allgather")),
-             ("reduce_scatter", ("reduce_scatter",)),
-             ("all_to_all", ("all_to_all", "alltoall")),
-             ("broadcast", ("broadcast",)))
-
-    def __init__(self):
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        outer = self
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                from torch.distributed.tensor import DTensor
-
-                kwargs = kwargs or {}
-                if any(t is DTensor or issubclass(t, DTensor) for t in types):
-                    return NotImplemented
-                out = func(*args, **kwargs)
-                outer.record(func, args, out)
-                return out
-
-        self.mode = Mode()
-        self.counts: dict = {}
-
-    def record(self, func, args, out) -> None:
-        import torch
-
-        name = str(getattr(func, "_overloadpacket", func))
-        if "_autograd" in name or not name.startswith(("_c10d_functional", "c10d")):
-            return
-        kind = next((k for k, keys in self.KINDS if any(w in name for w in keys)), None)
-        if kind is None:
-            return
-        size = lambda xs: sum(t.numel() * t.element_size() for t in xs
-                              if isinstance(t, torch.Tensor))
-        flat = lambda x: (x if isinstance(x, (list, tuple)) else [x])
-        ins = [t for a in args for t in flat(a) for t in flat(t)]
-        outs = [t for o in flat(out) for t in flat(o)]
-        c = self.counts.setdefault(kind, [0, 0])
-        c[0] += 1
-        c[1] += max(size(ins), size(outs))
-
-    def __enter__(self):
-        self.counts = {}
-        self.mode.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        return self.mode.__exit__(*exc)
 
 
 def train_mesh_run(case: dict, device, mesh=None, rules=None) -> dict:
@@ -4800,7 +4752,9 @@ def train_mesh_run(case: dict, device, mesh=None, rules=None) -> dict:
     opt_state = adamw.init(params)
     step_fn = make_train_step(cfg, opt_cfg)
     tokens = batch_size * TRAIN_MESH_SEQ
-    comm = CollectiveBytes()
+    from repro_torch.roofline import CollectiveRecorder
+
+    comm = CollectiveRecorder()
     with mesh_scope(mesh, rules):
         for i in range(case["steps"]):
             batch = device_batch(next(data), device, mesh, rules)
@@ -4842,7 +4796,40 @@ def train_mesh_rank(out_dir: str, device, step) -> dict:
             torch.cuda.empty_cache()
     res["launches"] = read_launches()
     res["backend"] = str(torch.distributed.get_backend())
+    if (device.type == "cuda" and res["backend"] == "gloo"
+            and torch.distributed.get_rank() == 0):
+        # after the counts (these launches are no path's), on one rank while
+        # the other waits in the closing barrier, so the card is its own
+        res["flash_block"] = flash_block_times(device)
     return res
+
+
+def flash_block_times(device) -> dict:
+    """The flash kernel at a rank's own (batch, head) block of the mesh
+    train step (``TRAIN_MESH_BLOCK``, bf16, causal, the path's (B, S, H, D)
+    views) beside the plain version, ``scaled_dot_product_attention`` on
+    the same tensors and the card's bound; the kernel held to the plain
+    version at ``FLASH_TOL``."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import ops as kops
+
+    b, hq, hkv, s, d = TRAIN_MESH_BLOCK
+    gen = torch.Generator().manual_seed(29)
+    q, k, v = attention_inputs(gen, b, hq, hkv, s, d, torch.bfloat16, device, "bshd")
+    kern = lambda: kops.flash_attention(q, k, v, mode="kernel")
+    plain = lambda: kops.flash_attention(q, k, v, mode="reference")
+    lib = lambda: Fn.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    err = checked_err("flash_attention (a mesh rank's block)", kern().float(),
+                      plain().float(), FLASH_TOL["bfloat16"])
+    ms, timer = device_ms(kern)
+    plain_ms, _ = device_ms(plain, 10)
+    library_ms, _ = device_ms(lib)
+    nbytes = 2.0 * (b * hq * s * 2 * d + b * hkv * s * 2 * d)
+    bound_ms, bound_by = bound(nbytes, 0.0, bf16_ops=4.0 * d * b * hq * s * (s + 1) / 2)
+    return dict(shape=list(TRAIN_MESH_BLOCK), max_abs_err=err, ms=ms, timer=timer,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def steps_note(steps: list) -> str:
@@ -4930,13 +4917,194 @@ def train_mesh_phase(device, card: str, models=TRAIN_MESH_MODELS, **extra) -> di
             if device.type == "cuda" and res["launches"]["flash_attention"] == 0:
                 raise AssertionError(f"mesh train {backend} rank {r}: no flash launch")
             launches[f"mesh train {backend} rank{r}"] = res["launches"]
+            fb = res.get("flash_block")
+            if fb is not None:
+                b, hq, hkv, s, d = fb["shape"]
+                print(f"[mesh train flash block {backend} rank {r}] B={b} Hq={hq} Hkv={hkv} "
+                      f"S={s} D={d} bf16 causal (the rank's block of the 1x2 step): err "
+                      f"{fb['max_abs_err']:.3g}; mma {fb['ms']:.4f} ms ({fb['timer']}), plain "
+                      f"{fb['plain_ms']:.4f}, sdpa {fb['library_ms']:.4f}, bound "
+                      f"{fb['bound_ms']:.5f} ({fb['bound_by']}); {card}")
     print(f"[mesh train] phase 13 took {time.perf_counter() - t0:.1f}s")
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dry-run and the roofline (fake tensors in child processes)
+# ---------------------------------------------------------------------------
+
+SHARE_MAX = 1.05  # no card reads more: a share past it is a miscount
+# the decode cell's memory_s over phase 9's weight-read floor: the dry-run
+# also counts the embedding table (its B rows read), the whole cache read
+# and written back as the step's output, and the logits
+DECODE_FLOOR_BAND = (1.0, 1.5)
+MFU_RTOL = 1e-6  # phase 14's mfu / phase 11b's against the ratio of their counts
+DRYRUN_CELL = ("chatglm3-6b", "train_4k")  # the fake 256-rank cell
+DRYRUN_TIMEOUT_S = 600
+_ONE_RANK_CELLS = r"""
+import json, sys
+from repro_torch.launch import dryrun as D
+from repro_torch.models.config import ShapeConfig
+
+out = {}
+for tag, arch, (name, seq, batch, kind), ov in json.loads(sys.argv[1]):
+    out[tag] = D.run_cell(arch, ShapeConfig(name, seq, batch, kind), False, mesh=(1, 1),
+                          overrides=ov)
+print(json.dumps(out))
+"""
+
+
+def dryrun_children() -> dict:
+    """Start phase 14's dry-runs as child processes (they run while the card
+    works: a fake world cannot share a process with phases 12-13's process
+    groups, and none of them touches the card): phase 11b's and phase 9's
+    ChatGLM3-6B cells on one rank, ``DRYRUN_CELL`` on a fake world of 256
+    and the GNN large-graph layer; -> {name: Popen}."""
+    arch = TRAIN_ARCH
+    cells = [("train", arch, ("train_b8_s1024", TRAIN_SEQ, TRAIN_BATCH, "train"),
+              dict(num_layers=TRAIN_LAYERS, dtype="bfloat16", remat=True)),
+             ("decode", arch, ("decode_b8_c1024", LM_PATHS[0][2]["cache_len"],
+                               LM_PATHS[0][2]["max_batch"], "decode"),
+              dict(LM_PATHS[0][1], dtype="bfloat16"))]
+    env = dict(child_env(), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    start = lambda argv: subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True, env=env,
+                                          cwd=str(ROOT), preexec_fn=lambda: os.nice(10))
+    return {"one rank": start([sys.executable, "-c", _ONE_RANK_CELLS, json.dumps(cells)]),
+            "dryrun": start([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                             DRYRUN_CELL[0], "--shape", DRYRUN_CELL[1], "--mesh", "single",
+                             "--force"]),
+            "gnn_dryrun": start([sys.executable, "-m", "repro_torch.launch.gnn_dryrun"])}
+
+
+def child_output(children: dict, name: str) -> str:
+    p = children[name]
+    try:
+        out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        raise AssertionError(f"phase 14: {name} ran past {DRYRUN_TIMEOUT_S} s")
+    if p.returncode != 0:
+        raise AssertionError(f"phase 14: {name} exited {p.returncode}:\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    return out
+
+
+def share_ok(tag: str, **shares) -> None:
+    bad = {k: v for k, v in shares.items() if not 0.0 < v <= SHARE_MAX}
+    if bad:
+        raise AssertionError(f"{tag}: shares {bad} out of (0, {SHARE_MAX}]")
+
+
+def roofline_phase(children: dict, train_summary: dict, card: str) -> None:
+    """Phase 14: the records of ``dryrun_children``, beside what the card
+    measured: phase 11b's step (its roofline terms, ``roofline_fraction`` =
+    the lower bound over the measured median, ``mfu`` from
+    ``roofline.model_flops``), phase 9's decode (its ``memory_s`` beside the
+    weight-read floor and the graph decode), the 256-rank train cell and the
+    GNN large-graph layer.  Launches no kernel."""
+    from repro_torch import roofline as R
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import gnn_dryrun as G
+
+    t0 = time.perf_counter()
+    one = json.loads(child_output(children, "one rank").strip().splitlines()[-1])
+    ts = train_summary["train_step"]
+    later = ts["steps"][1:-1]  # phase 11b's median: past the first, not the profiled
+    measured_s = ts["median_ms"] / 1e3
+    tr = one["train"]
+    rf = tr["roofline"]
+    mf = tr["model_flops_per_device"]
+    mfu = statistics.median(mf / (r["ms"] / 1e3) / R.PEAK_FLOPS for r in later)
+    want_ratio = 6.0 * ts["nonvocab_params"] * ts["tokens"] / ts["model_flops"]
+    got_ratio = mfu / ts["median_mfu"]
+    fraction = rf["step_lower_bound_s"] / measured_s
+    tag = f"[roofline train {TRAIN_ARCH}]"
+    print(f"{tag} {TRAIN_LAYERS} layers, B {TRAIN_BATCH} x S {TRAIN_SEQ}, bf16, remat, one "
+          f"rank, reference attention (the dry-run's): compute_s {rf['compute_s']:.6f}, "
+          f"memory_s {rf['memory_s']:.6f} (memory_s_hlo {rf['memory_s_hlo']:.6f}), "
+          f"collective_s {rf['collective_s']:.6f}, step_lower_bound_s "
+          f"{rf['step_lower_bound_s']:.6f} ({rf['bound']}) beside phase 11b's measured "
+          f"median {measured_s:.6f} s: roofline_fraction {fraction:.4f}; mfu "
+          f"{mfu:.4f} (roofline.model_flops: 6 N T, N the {ts['nonvocab_params'] / 1e9:.4f} "
+          f"B weights off the vocab) beside phase 11b's {ts['median_mfu']:.4f} (its 6 N T "
+          f"adds the head, and attention 3x): ratio {got_ratio:.6f}, the counts' "
+          f"{want_ratio:.6f}; useful_flops_ratio {rf['useful_flops_ratio']:.4f}; "
+          f"temp {tr['memory']['temp_bytes'] / 1e9:.2f} GB; trace_s {tr['trace_s']}; {card}")
+    if tr["model_flops_per_device"] != 6.0 * ts["nonvocab_params"] * ts["tokens"]:
+        raise AssertionError(f"{tag}: the fake init's 6 N T {mf:.6e} is not the card's "
+                             f"{6.0 * ts['nonvocab_params'] * ts['tokens']:.6e}")
+    if abs(got_ratio - want_ratio) > MFU_RTOL * want_ratio:
+        raise AssertionError(f"{tag}: mfu {mfu:.6f} disagrees with phase 11b's "
+                             f"{ts['median_mfu']:.6f} (ratio {got_ratio} != {want_ratio})")
+    share_ok(tag, roofline_fraction=fraction, mfu=mfu)
+
+    dec, lmd = one["decode"], LM_DECODE[TRAIN_ARCH]
+    rd, mem = dec["roofline"], dec["memory"]
+    graph_ms = statistics.median(lmd["graph_decode_ms"])
+    over = rd["memory_s"] * 1e3 / lmd["floor_ms"]
+    tag = f"[roofline decode {TRAIN_ARCH}]"
+    print(f"{tag} {lmd['layers']} layers, B {lmd['batch']}, cache {lmd['cache_len']}, bf16, "
+          f"one rank: memory_s {rd['memory_s'] * 1e3:.4f} ms (arguments "
+          f"{mem['argument_bytes'] / 1e9:.3f} GB + outputs {mem['output_bytes'] / 1e9:.3f} + "
+          f"2 x temps {mem['temp_bytes'] / 1e9:.3f} at {R.HBM_BW / 1e12:.2f} TB/s) beside "
+          f"phase 9's weight-read floor {lmd['floor_ms']:.4f} ms ({over:.3f}x; band "
+          f"{DECODE_FLOOR_BAND[0]:g}-{DECODE_FLOOR_BAND[1]:g}x: the dry-run also reads the "
+          f"embedding table and the whole cache, and writes the cache back) and the "
+          f"measured graph decode {graph_ms:.4f} ms/token ({spread(lmd['graph_decode_ms'])}): "
+          f"share {rd['memory_s'] * 1e3 / graph_ms:.4f}; compute_s {rd['compute_s']:.6f}; "
+          f"trace_s {dec['trace_s']}; {card}")
+    if not DECODE_FLOOR_BAND[0] <= over <= DECODE_FLOOR_BAND[1]:
+        raise AssertionError(f"{tag}: memory_s / floor {over:.3f} out of {DECODE_FLOOR_BAND}")
+    share_ok(tag, memory_share=rd["memory_s"] * 1e3 / graph_ms)
+
+    said = child_output(children, "dryrun").strip().splitlines()
+    rec = json.loads(Path(D.cell_path(DRYRUN_CELL[0], DRYRUN_CELL[1], False)).read_text())
+    gsaid = child_output(children, "gnn_dryrun").strip().splitlines()
+    grec = json.loads(Path(G.record_path(dict(multi_pod=False, shape="n2^27_e2^31_f256")))
+                      .read_text())
+    for r, line in ((rec, said[-2] if len(said) > 1 else said[-1]), (grec, gsaid[-1])):
+        rf, m, cs = r["roofline"], r["memory"], r["collective_summary"]
+        hbm = r.get("hbm_estimate", {})
+        print(f"[dryrun {r['arch']} {r['shape']} {r['mesh']}] a fake world of "
+              f"{512 if r['multi_pod'] else 256} ranks, rank 0's step on fake tensors: "
+              f"flops/dev {r['flops_per_device']:.4e}, bytes/dev {r['bytes_per_device']:.4e}; "
+              f"arguments {m['argument_bytes'] / 1e9:.3f} GB, temps "
+              f"{m['temp_bytes'] / 1e9:.3f} GB"
+              + (f", HBM estimate {hbm['total'] / 1e9:.2f} GB (fits 80 GB: "
+                 f"{hbm[D.CAPACITY_KEY]})" if hbm else "")
+              + f"; terms (c/m/n) {rf['compute_s']:.6f} / {rf['memory_s']:.6f} / "
+              f"{rf['collective_s']:.6f} s"
+              + (f", bound {rf['bound']}, useful_flops_ratio "
+                 f"{rf.get('useful_flops_ratio', 0):.4f}" if "bound" in rf else "")
+              + "; collectives " + ", ".join(f"{op} {v['count']}x {v['wire_bytes'] / 1e9:.3f} GB"
+                                             for op, v in sorted(cs.items()))
+              + f"; trace_s {r['trace_s']} (the child said: {line.strip()[:120]})")
+        if not (m["argument_bytes"] > 0 and cs and r["bytes_per_device"] > 0):
+            raise AssertionError(f"[dryrun {r['arch']}]: an empty record")
+    if not rec["flops_per_device"] > 0:
+        raise AssertionError(f"[dryrun {rec['arch']}]: no FLOPs counted")
+    print(f"[roofline] phase 14 took {time.perf_counter() - t0:.1f}s past phase 13 "
+          "(its children ran beside the earlier phases)")
+
+
 def run(device) -> list:
-    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9j, 11-11c, 12, 13 and 8 on
-    ``device``; returns the kernels' JSON rows."""
+    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9j, 11-11c, 12, 13, 14 and 8 on
+    ``device``; returns the kernels' JSON rows.  Phase 14's dry-runs start
+    first, as child processes on the host's other cores, and are stopped
+    whatever happens."""
+    children = dryrun_children()
+    try:
+        return run_phases(device, children)
+    finally:
+        for p in children.values():
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+
+
+def run_phases(device, children: dict) -> list:
     check_node_mlp(device)
     check_fused_mp(device)
     check_segment_reduce(device)
@@ -4973,6 +5141,7 @@ def run(device) -> list:
     paths["train loop"] = train_loop_phase(device)
     paths.update(mesh_phase(device, device_line()))
     paths.update(train_mesh_phase(device, device_line()))
+    roofline_phase(children, train_summary, device_line())
     packed, lay = packed_plan(device)
     rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"],
                           design_split(paths["gin"], "node_mlp")),

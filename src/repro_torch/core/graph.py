@@ -66,10 +66,56 @@ class Graph:
         return self.node_feat.device
 
 
+@dataclasses.dataclass(frozen=True)
+class CSRGraph:
+    """Adjacency in compressed form, produced on the device from COO.
+
+    ``order="csr"``: edges sorted by src (out-edges contiguous per node),
+    the layout of the paper's merged scatter-gather (§3.4).
+    ``order="csc"``: edges sorted by dst (in-edges contiguous), the layout
+    of the gather-only variant.  ``perm`` maps a sorted edge's position to
+    its COO position, so edge features can be gathered lazily.
+    """
+
+    offsets: torch.Tensor  # (N_pad + 1,) int32 row offsets
+    perm: torch.Tensor  # (E_pad,) int32 permutation into the COO arrays
+    src_sorted: torch.Tensor  # (E_pad,) int32
+    dst_sorted: torch.Tensor  # (E_pad,) int32
+    degree: torch.Tensor  # (N_pad,) int32 out-degree (csr) / in-degree (csc)
+
+
+def coo_to_compressed(graph: Graph, order: str = "csr") -> CSRGraph:
+    """COO -> CSR / CSC on the graph's device (the paper's on-chip
+    converter), once a streamed graph; every layer reuses the result.
+
+    A stable sort keeps the edge order deterministic; padding edges carry
+    key ``N_pad`` and so sort to the end."""
+    if order not in ("csr", "csc"):
+        raise ValueError(f"order must be 'csr' or 'csc', got {order!r}")
+    n_pad = graph.num_nodes
+    key_row = 0 if order == "csr" else 1
+    perm, _, offsets = sg.sort_by_segment(graph.edge_index[key_row], n_pad,
+                                          valid=graph.edge_mask)
+    idx = perm.long()
+    return CSRGraph(
+        offsets=offsets,
+        perm=perm,
+        src_sorted=graph.edge_index[0][idx],
+        dst_sorted=graph.edge_index[1][idx],
+        degree=(offsets[1:] - offsets[:-1]).to(torch.int32),
+    )
+
+
 def in_degree(graph: Graph) -> torch.Tensor:
     """(N_pad,) int32 in-degree over real edges."""
     ones = graph.edge_mask.to(torch.int32)
     return sg.segment_sum(ones, graph.dst, graph.num_nodes)
+
+
+def out_degree(graph: Graph) -> torch.Tensor:
+    """(N_pad,) int32 out-degree over real edges."""
+    ones = graph.edge_mask.to(torch.int32)
+    return sg.segment_sum(ones, graph.src, graph.num_nodes)
 
 
 def _to_graph(nf, ei, ef, node_mask, edge_mask, gid, n_graph, device) -> Graph:

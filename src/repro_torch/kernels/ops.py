@@ -332,11 +332,13 @@ def _flash_sharded(q, k, v, causal, window, mode, softcap):
         hl = ql.shape[1]
         h0 = _block(qp, 1, mesh)[0] * hl
         k0 = _block(kvp, 1, mesh)[0] * kl.shape[1]
-        need = torch.arange(h0, h0 + hl) // g - k0  # kv head of each q head
-        first, last = int(need[0]), int(need[-1]) + 1
+        # the kv head of each q head, in Python integers: nothing is read
+        # back from a tensor (a fake tensor has no values)
+        need = [h // g - k0 for h in range(h0, h0 + hl)]
+        first, last = need[0], need[-1] + 1
         if last - first != kl.shape[1]:
-            if hl % (last - first) == 0 and torch.equal(
-                    need, torch.arange(first, last).repeat_interleave(hl // (last - first))):
+            rep = hl // (last - first)
+            if hl % (last - first) == 0 and need == [first + i // rep for i in range(hl)]:
                 kl, vl = kl[:, first:last], vl[:, first:last]
             else:  # groups cut across ranks: one kv head for each q head
                 kl, vl = kl[:, need], vl[:, need]

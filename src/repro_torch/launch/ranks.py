@@ -36,6 +36,9 @@ def _rank_main(rank: int, main, world: int, backend_name: str, init_method: str,
                             world_size=world, rank=rank)
     try:
         main(argv)
+        # leave together: a rank that tore down its connections while
+        # another still read the last collective's bytes aborted that rank
+        dist.barrier()
     finally:
         dist.destroy_process_group()
         if rank != 0:

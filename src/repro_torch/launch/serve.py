@@ -80,8 +80,8 @@ run on CUDA tensors) or on the CPU.  Either way the executor runs the
 sharded forwards eagerly, not as CUDA graphs.  Every rank serves the same
 graphs and, with ``--stream`` or ``--models``, takes the same flushes:
 each flush's time is the slowest rank's, so the ranks' schedulers keep
-one timeline.  ``--pipeline`` is refused with a mesh (its admission reads
-each rank's own host time).  Rank 0 prints the lines, its latency line
+one timeline; under ``--pipeline`` each flush's host pack time is the
+slowest rank's as well.  Rank 0 prints the lines, its latency line
 ending in ``mesh=P backend=...``.  A rank that fails fails the launcher.
 
 Not taken: ``--xla-flags-file`` (XLA's compiler options have no CUDA
@@ -453,8 +453,6 @@ def main(argv=None):
 
         if args.arch:
             ap.error("--gnn-mesh serves --gnn or --models, not --arch")
-        if args.pipeline:
-            ap.error("--gnn-mesh takes no --pipeline")
         if not dist.is_initialized():
             from repro_torch.launch import ranks
 

@@ -255,6 +255,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device="cpu") -> list:
     return T.stack_cache_init(cfg, batch, seq, _dt(cfg), device=device)
 
 
+def cache_axes(cfg: ModelConfig) -> list:
+    """:func:`init_cache`'s tree with JAX's logical axes tuples as leaves
+    (``P.axes(init_cache(...))`` of the JAX package)."""
+    return T.stack_cache_axes(cfg)
+
+
 def prefill(params: dict, batch: dict, cfg: ModelConfig, cache_len: int,
             kernel_mode: str = "auto", cache: list | None = None):
     """Run the prompt through the stack, building the decode cache.

@@ -169,6 +169,11 @@ def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
                                         enc_k, enc_v, cfg)
         if prefill:
             cache_out["cross_k"], cache_out["cross_v"] = enc_k, enc_v
+    # the mixer's partial sums reduced here, as XLA's partitioner ends a
+    # contraction: a DTensor residual left Partial makes the next GEMM
+    # gather its weight whole on every rank instead (the dry-run counted the
+    # MLP's work 16 times over on a 16x16 mesh)
+    x = _lc(x, ("batch", "seq", None))
     h2 = L.rms_norm(x, p["ln2"])
     aux = None
     if cfg.ffn_kind(pos) == "moe":
@@ -216,6 +221,36 @@ def stack_axes(cfg: ModelConfig, cross_attention: bool = False) -> list:
             return {k: stacked(v) for k, v in tree.items()}
         return ("layers",) + tree
     return [stacked(block_axes(cfg, pos, cross_attention)) for pos in range(cfg.group_size)]
+
+
+def block_cache_axes(cfg: ModelConfig, pos: int) -> dict:
+    """JAX's logical axes of :func:`block_cache_init`'s entries (its cache
+    ``Param`` leaves), unstacked."""
+    kind = cfg.mixer_kind(pos)
+    a: dict = {}
+    if cfg.family == "audio":
+        a["cross_k"] = a["cross_v"] = ("batch", None, "kv_heads", "head_dim")
+    if kind == "attn" and cfg.attention == "mla":
+        a["ckv"] = ("batch", "kv_seq", "kv_lora")
+        a["krope"] = ("batch", "kv_seq", "head_dim")
+    elif kind == "attn":
+        a["k"] = a["v"] = ("batch", "kv_seq", "kv_heads", "head_dim")
+    elif kind == "mamba":
+        a["conv"] = ("batch", None, "inner")
+        a["ssm"] = ("batch", "inner", "state")
+    else:
+        a["shift"] = ("batch", None, "embed")
+        a["wkv"] = ("batch", "heads", None, None)
+    if cfg.mlp_type == "relu_sq":
+        a["cm_shift"] = ("batch", None, "embed")
+    return a
+
+
+def stack_cache_axes(cfg: ModelConfig) -> list:
+    """list[pos] of :func:`block_cache_axes` behind the stacked "layers"
+    axis (JAX's ``stack_cache_init`` axes)."""
+    return [{k: ("layers",) + v for k, v in block_cache_axes(cfg, pos).items()}
+            for pos in range(cfg.group_size)]
 
 
 def stack_cache_init(cfg: ModelConfig, batch: int, seq: int, dtype,

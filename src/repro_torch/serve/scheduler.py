@@ -507,11 +507,6 @@ class StreamScheduler:
             k: sorted(v) for k, v in (budgets or {}).items()
         }
         self._pipeline = as_pipeline(pipeline)
-        if self._pipeline is not None and self.executor.ranks > 1:
-            # its admission reads each rank's own host pack time, so the
-            # ranks' schedules, and with them their collectives, would part
-            raise ValueError("the pipelined loop takes no mesh of several "
-                             "ranks; serve sharded without pipeline=")
         # per-signature service-time EWMA (measured flush compute) and the
         # observed ideal-rung-multiple window the adaptive refit consumes
         self._svc_s: Dict[tuple, float] = {}
@@ -1114,7 +1109,11 @@ class StreamScheduler:
             rung = bucket.rung()
             outs, dt, pack_wall = self._execute_pipelined(
                 bucket, rung, measure_host=cost_fn is None)
-            pack_s = pack_wall if cost_fn is None else cost_fn(flush_idx)
+            # on a mesh every rank folds the slowest rank's pack seconds (one
+            # all-reduce a flush), as it does a run's: the ranks' admission,
+            # flushes and with them their collectives stay in step
+            pack_s = self.executor._slowest(
+                pack_wall if cost_fn is None else cost_fn(flush_idx))
             flush_idx += 1
             # one prepare worker: packs serialize behind host_free_s;
             # without overlap the pack also waits for the device to go

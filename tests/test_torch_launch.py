@@ -14,8 +14,9 @@
   metric name and on a malformed trace, 2 with nothing to check.
 * ``--gnn-mesh 2`` serves on two gloo ranks that the launcher starts,
   rank 0 printing the latency line with the mesh and its backend, batched
-  and as a stream with arrivals (``--stream`` and ``--models``); it takes
-  no ``--pipeline``; ``--xla-flags-file`` is not taken.
+  and as a stream with arrivals (``--stream``, ``--stream --pipeline`` and
+  ``--models``); it takes no ``--arch``; ``--xla-flags-file`` is not
+  taken.
 """
 import json
 import os
@@ -166,11 +167,14 @@ def test_gnn_mesh_serves_on_two_cpu_ranks(capfd):
 @pytest.mark.parametrize("argv", [
     ["--gnn", "gin", "--fused", "--stream", "--max-wait-ms", "0.5", "--slo-ms", "2"],
     ["--models", "gcn:int8,gat:fp32", "--fused"],
-], ids=["stream", "models"])
+    ["--gnn", "gin", "--fused", "--stream", "--pipeline", "--max-wait-ms", "0.5",
+     "--slo-ms", "2"],
+], ids=["stream", "models", "pipeline"])
 def test_gnn_mesh_serves_a_stream_with_arrivals_on_two_cpu_ranks(capfd, argv):
     """With arrivals (qps > 0) the two ranks' schedulers take one schedule
-    (each flush's time is the slowest rank's), so the stream ends; rank 0
-    alone prints its line, with the mesh and its backend."""
+    (each flush's time, and under ``--pipeline`` each flush's host pack
+    time, is the slowest rank's), so the stream ends; rank 0 alone prints
+    its line, with the mesh and its backend."""
     TS.main(argv + ["--qps", "4000", "--n-graphs", "12", "--gnn-mesh", "2",
                     "--device", "cpu"])
     out = capfd.readouterr().out
@@ -180,13 +184,13 @@ def test_gnn_mesh_serves_a_stream_with_arrivals_on_two_cpu_ranks(capfd, argv):
 
 
 @pytest.mark.parametrize("flag", [
-    (["--gnn", "gin", "--stream", "--pipeline", "--gnn-mesh", "2"], "--pipeline"),
+    (["--arch", "chatglm3-6b", "--reduced", "--gnn-mesh", "2"], "not --arch"),
     (["--arch", "chatglm3-6b", "--reduced", "--xla-flags-file", "f.json"],
      "unrecognized arguments"),
 ])
 def test_mesh_and_xla_flags_are_not_taken(flag, capsys):
-    """``--gnn-mesh`` with the pipelined loop (whose admission reads each
-    rank's own host time), and ``--xla-flags-file`` on the LM path."""
+    """``--gnn-mesh`` on the LM path (it shards GNN forwards), and
+    ``--xla-flags-file`` on the LM path."""
     argv, said = flag
     with pytest.raises(SystemExit) as err:
         TS.main(argv + ["--device", "cpu"])
