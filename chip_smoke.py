@@ -275,10 +275,10 @@ fails the run), then runs these phases, one line each:
               expert) assignments kept at capacity.  Every LM path prints
               its decode step's weight-read floor (every weight but the
               embedding's rows; an MoE step reads every expert's)
-  9f. LM      MiniCPM3-4B at full width and depth (62 layers, MLA: q_lora
+  9f. LM      MiniCPM3-4B at full width, 16 of its 62 layers (MLA: q_lora
               768, kv_lora 256, nope 64 + rope 32, v 64, 40 heads): B 8,
               prompts of 512-1024 tokens, prompt_len 1024, cache_len 1280,
-              32 new tokens; the checks of 9-9c, 62 mma flash launches a
+              32 new tokens; the checks of 9-9c, 16 mma flash launches a
               prefill replay, all at (96, 64); the absorbed decode
               (``layers.mla_decode_attention``) a layer beside the JAX form
               (fp32 cache copies) and its bytes bound
@@ -292,17 +292,17 @@ fails the run), then runs these phases, one line each:
               cache_len 576, 32 new tokens; the checks of 9-9c, no flash
               launch (its prefill graph holds the per-token scan: 3
               kernels a token a layer)
-  9i. LM      InternVL2-26B at full width and depth (48 layers, 48 / 8 ->
-              16 heads, D 128, SwiGLU d_ff 16384, 19.86 B parameters, ~40
-              GB in bf16): B 4, 1024 patch embeddings (float32 normal
+  9i. LM      InternVL2-26B at full width, 12 of its 48 layers (48 / 8 ->
+              16 heads, D 128, SwiGLU d_ff 16384; all 48: 19.86 B
+              parameters, ~40 GB in bf16): B 4, 1024 patch embeddings (float32 normal
               draws of the path's generator, the stubbed vision
               frontend's output, JAX's ``extras``) before prompts of
               256-512 tokens, prompt_len 512, cache_len 1600, 32 new
               tokens; the checks of 9-9c with the patches in every call
-              (decode starts at 1024 + 512), 48 mma flash launches a
+              (decode starts at 1024 + 512), 12 mma flash launches a
               prefill replay over 1536 positions; decode after
-              prefill(S-1) in bf16 on the served weights (an fp32 copy of
-              48 layers does not fit); the init's peak memory (each leaf
+              prefill(S-1) in bf16 on the served weights, as at full
+              depth, where an fp32 copy does not fit; the init's peak memory (each leaf
               cast to bf16 as drawn) and the run's
   9j. LM      Whisper-base at its full config (6 encoder + 6 decoder
               layers, d 512, 8 heads, D 64, vocab 51865, 1500 frames): B 8,
@@ -398,6 +398,28 @@ fails the run), then runs these phases, one line each:
               rank must launch the flash kernel.  ``--train-mesh-cards 4``
               (four cards, not in the default run) runs 8 layers at B 8 on a
               2x2 NCCL mesh, both presets, and the launcher there
+  14. dryrun  the dry-run and the roofline on fake tensors in child
+              processes (no card): phase 11b's train cell and phase 9's
+              decode on one rank beside their measurements, ChatGLM3-6B
+              ``train_4k`` and ``decode_32k`` on a fake 16x16 world of 256
+              ranks (the decode cell writes and attends on each rank's
+              block of the cache: it must run and gather no cache), and the
+              GNN large-graph layer
+  15. gnn train  gradients through the GNN kernels
+              (``kernels/ops.py:KernelFunction``): the six models at paper
+              width, fp32, unfused and fused (GAT unfused), and GIN int8
+              (dynamic) fused and unfused, on 16 MolHIV graphs padded to
+              (1024, 3072); every parameter leaf's gradient in mode
+              ``kernel`` against mode ``reference`` (``GNN_GRAD_TOL``),
+              finite, non-zero wherever the reference's is, every kernel
+              output under grad from the Function, and node_mlp, fused_mp
+              (fp32, int8), segment_reduce, edge_softmax and quant_node_mlp
+              launched; ``examples/torch_train_gin_molhiv.py``'s ``main``
+              for ``GNN_TRAIN_STEPS`` steps in this process (its loss
+              falls; ms a step by CUDA events, the median past the first
+              5); then the other three ``examples/torch_*.py`` as child
+              processes on the card, at once (each must exit 0 and print
+              no NaN)
   8. kernels  launch counts of each path (counters reset just before each
               serve phase and read just after; a wrapper counts where it
               runs: the eager warm forward and the launches recorded into
@@ -485,8 +507,9 @@ LM_PATHS = (("chatglm3-6b", {}, dict(max_batch=8, prompt_len=512, cache_len=1024
             ("mixtral-8x7b", dict(num_layers=4),
              dict(max_batch=2, prompt_len=5120, cache_len=5376, max_new_tokens=8),
              (4352, 5120)),
-            # MLA: the flash kernel's (96, 64) instance in all 62 layers
-            ("minicpm3-4b", {},
+            # MLA: the flash kernel's (96, 64) instance in every layer; 16
+            # of the 62 (all 62: ~97 s of the run)
+            ("minicpm3-4b", dict(num_layers=16),
              dict(max_batch=8, prompt_len=1024, cache_len=1280, max_new_tokens=32),
              (512, 1024)),
             # one period of the hybrid: 7 Mamba + 1 attention layer, 4 MoE
@@ -497,8 +520,9 @@ LM_PATHS = (("chatglm3-6b", {}, dict(max_batch=8, prompt_len=512, cache_len=1024
             ("rwkv6-1.6b", {},
              dict(max_batch=8, prompt_len=512, cache_len=576, max_new_tokens=32),
              (256, 512)),
-            # VLM: 1024 patches before the prompt, 48 layers, ~40 GB of bf16
-            ("internvl2-26b", {},
+            # VLM: 1024 patches before the prompt; 12 of the 48 layers (all
+            # 48: ~40 GB of bf16, ~78 s of the run)
+            ("internvl2-26b", dict(num_layers=12),
              dict(max_batch=4, prompt_len=512, cache_len=1600, max_new_tokens=32),
              (256, 512)),
             # audio: the encoder over 1500 frames in the prefill graph; the
@@ -4940,6 +4964,7 @@ SHARE_MAX = 1.05  # no card reads more: a share past it is a miscount
 DECODE_FLOOR_BAND = (1.0, 1.5)
 MFU_RTOL = 1e-6  # phase 14's mfu / phase 11b's against the ratio of their counts
 DRYRUN_CELL = ("chatglm3-6b", "train_4k")  # the fake 256-rank cell
+DRYRUN_DECODE_CELL = ("chatglm3-6b", "decode_32k")  # decode on each rank's block
 DRYRUN_TIMEOUT_S = 600
 _ONE_RANK_CELLS = r"""
 import json, sys
@@ -4974,6 +4999,9 @@ def dryrun_children() -> dict:
             "dryrun": start([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                              DRYRUN_CELL[0], "--shape", DRYRUN_CELL[1], "--mesh", "single",
                              "--force"]),
+            "dryrun decode": start([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                    "--arch", DRYRUN_DECODE_CELL[0], "--shape",
+                                    DRYRUN_DECODE_CELL[1], "--mesh", "single", "--force"]),
             "gnn_dryrun": start([sys.executable, "-m", "repro_torch.launch.gnn_dryrun"])}
 
 
@@ -5061,10 +5089,13 @@ def roofline_phase(children: dict, train_summary: dict, card: str) -> None:
 
     said = child_output(children, "dryrun").strip().splitlines()
     rec = json.loads(Path(D.cell_path(DRYRUN_CELL[0], DRYRUN_CELL[1], False)).read_text())
+    dsaid = child_output(children, "dryrun decode").strip().splitlines()
+    drec = json.loads(Path(D.cell_path(*DRYRUN_DECODE_CELL, False)).read_text())
     gsaid = child_output(children, "gnn_dryrun").strip().splitlines()
     grec = json.loads(Path(G.record_path(dict(multi_pod=False, shape="n2^27_e2^31_f256")))
                       .read_text())
-    for r, line in ((rec, said[-2] if len(said) > 1 else said[-1]), (grec, gsaid[-1])):
+    for r, line in ((rec, said[-2] if len(said) > 1 else said[-1]),
+                    (drec, dsaid[-2] if len(dsaid) > 1 else dsaid[-1]), (grec, gsaid[-1])):
         rf, m, cs = r["roofline"], r["memory"], r["collective_summary"]
         hbm = r.get("hbm_estimate", {})
         print(f"[dryrun {r['arch']} {r['shape']} {r['mesh']}] a fake world of "
@@ -5085,12 +5116,291 @@ def roofline_phase(children: dict, train_summary: dict, card: str) -> None:
             raise AssertionError(f"[dryrun {r['arch']}]: an empty record")
     if not rec["flops_per_device"] > 0:
         raise AssertionError(f"[dryrun {rec['arch']}]: no FLOPs counted")
+    check_decode_cell(drec)
     print(f"[roofline] phase 14 took {time.perf_counter() - t0:.1f}s past phase 13 "
           "(its children ran beside the earlier phases)")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: GNN training through the kernels (kernels/ops.py:KernelFunction)
+# ---------------------------------------------------------------------------
+
+# max|grad kernel - grad reference| over max|grad reference|, per leaf: the
+# kernels' fp32 sums round apart from the plain versions' (and index_add_ on
+# the card adds in no fixed order; reference mode against itself: printed).
+# Each limit is about 3-20 times the worst spread read on an H100 (five
+# runs of this phase): fp32 kernel against reference 2.0e-7-1.3e-5; int8 GIN
+# 1.6e-7-2.8e-5 (the reference against itself the same: an int8 row whose
+# fp32 input moved by an ulp rounds to the next level); PNA 3.0e-4-1.02e-3
+# and the reference against itself up to 9.7e-4, since its std passes
+# 0.5 / std back, and where a node's neighbours send nearly equal messages
+# its variance is rounding noise
+GNN_GRAD_TOL = {"fp32": 1e-4, "pna": 3e-3, "int8": 5e-4}
+GNN_GRAD_BATCH = 16  # graphs, padded to (64, 192) each, as the train example's
+GNN_GRAD_PATHS = tuple((m, "fp32", fused) for m in ("gcn", "gin", "gin_vn", "gat", "pna",
+                                                    "dgn") for fused in (False, True)
+                       if not (fused and m == "gat")) + (("gin", "int8", False),
+                                                         ("gin", "int8", True))
+GNN_TRAIN_STEPS = 50
+GNN_TRAIN_SKIP = 5  # steps left out of the median step time
+GNN_EXAMPLES = (("torch_quickstart.py",), ("torch_serve_realtime_stream.py", "32"),
+                ("torch_large_graph_dgn.py",))
+# the wrappers of kernels/ops.py that take KernelFunction (the paths run all
+# but quant_node_mlp's static entry)
+GNN_GRAD_OPS = ("node_mlp", "segment_reduce", "edge_softmax", "quant_node_mlp",
+                "quant_node_mlp_dynamic", "fused_mp")
+
+
+def grad_leaves(tree) -> list:
+    """The floating tensors of a GNN parameter tree in JAX's order (sorted
+    keys); a quantized linear's are its weight scales and bias (its int8
+    weights take no gradient)."""
+    import torch
+    from repro_torch.quant.qconfig import QuantizedLinear
+
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in grad_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in grad_leaves(v)]
+    if isinstance(tree, QuantizedLinear):
+        return grad_leaves([tree.w_scale, tree.b])
+    return [tree] if isinstance(tree, torch.Tensor) and tree.is_floating_point() else []
+
+
+@contextlib.contextmanager
+def grad_fn_census(names: dict):
+    """Within the block, the ``grad_fn`` class name of each output of the
+    six GNN wrappers of ``kernels/ops.py``, by wrapper, into ``names``."""
+    from repro_torch.kernels import ops as kops
+
+    real = {op: getattr(kops, op) for op in GNN_GRAD_OPS}
+
+    def spy(op):
+        def wrapper(*a, **k):
+            out = real[op](*a, **k)
+            names.setdefault(op, set()).add(type(out.grad_fn).__name__)
+            return out
+        return wrapper
+
+    for op in GNN_GRAD_OPS:
+        setattr(kops, op, spy(op))
+    try:
+        yield names
+    finally:
+        for op, fn in real.items():
+            setattr(kops, op, fn)
+
+
+def gnn_grad_batch(device):
+    """The train example's first batch (16 MolHIV graphs, (1024, 3072)),
+    its labels and DGN's eigenvector (each graph's, packed)."""
+    import torch
+    from repro_torch.core.graph import batch_graphs
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream, laplacian_eigvec
+
+    raw = MoleculeStream(MOLHIV, seed=0).take(GNN_GRAD_BATCH)
+    n_pad, e_pad = GNN_GRAD_BATCH * 64, GNN_GRAD_BATCH * 192
+    g = batch_graphs([r[:4] for r in raw], n_pad, e_pad, device=device)
+    y = torch.tensor([float(r[4]) for r in raw], device=device)
+    eig = np.zeros((n_pad,), np.float32)
+    eig[:sum(r[2].shape[0] for r in raw)] = np.concatenate(
+        [laplacian_eigvec(r[0], r[1], r[2].shape[0]) for r in raw])
+    return g, y, torch.from_numpy(eig).to(device)
+
+
+def gnn_grads(params, g, y, eig, cfg, fused: bool):
+    """(loss, every floating leaf's gradient) of the train example's BCE on
+    ``g``; the leaves require grad only within the call."""
+    import torch
+    from repro_torch.gnn import apply
+
+    flat = grad_leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    try:
+        logits = apply(params, g, cfg, eigvec=eig if cfg.model == "dgn" else None,
+                       num_graphs=GNN_GRAD_BATCH, fused=fused)[:GNN_GRAD_BATCH, 0]
+        loss = torch.mean(torch.clamp(logits, min=0) - logits * y
+                          + torch.log1p(torch.exp(-torch.abs(logits))))
+        grads = torch.autograd.grad(loss, flat, materialize_grads=True)
+    finally:
+        for p in flat:
+            p.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def leaf_errors(got, want) -> list:
+    """max|a - b| / max|b| of each leaf (b the reference)."""
+    return [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            for a, b in zip(got, want)]
+
+
+def check_gnn_grads(device, card: str) -> dict:
+    """Phase 15, step 1: ``GNN_GRAD_PATHS`` in mode ``kernel`` against mode
+    ``reference``; returns the launches under grad."""
+    import torch
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.gnn import init
+    from repro_torch.quant.apply import precision_qconfig, quantize_params
+
+    g, y, eig = gnn_grad_batch(device)
+    launches, names = {}, {}
+    for model, precision, fused in GNN_GRAD_PATHS:
+        cfg = get_gnn_config(model, kernel_mode="kernel")
+        params = init(torch.Generator().manual_seed(0), cfg, device)
+        if precision == "int8":
+            params, _ = quantize_params(params, None, precision_qconfig("int8"))
+        tag = f"[gnn grad {model} {precision}{' fused' if fused else ''}]"
+        reset_launches()
+        with grad_fn_census(names):
+            loss_k, got = gnn_grads(params, g, y, eig, cfg, fused)
+        torch.cuda.synchronize()
+        run = read_launches()
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+        ref_cfg = dataclasses.replace(cfg, kernel_mode="reference")
+        loss_r, want = gnn_grads(params, g, y, eig, ref_cfg, fused)
+        again = max(leaf_errors(gnn_grads(params, g, y, eig, ref_cfg, fused)[1], want))
+        tol = GNN_GRAD_TOL["int8" if precision == "int8" else
+                           "pna" if model == "pna" else "fp32"]
+        missing = []
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{tag}: leaf {i} has a non-finite gradient")
+            if b.abs().max() > 0 and not a.abs().max() > 0:
+                missing.append(i)
+        errs = leaf_errors(got, want)
+        worst = max(errs)
+        norm = max(float((a - b).norm() / b.norm().clamp(min=1e-30))
+                   for a, b in zip(got, want))
+        ran = {k: v for k, v in run.items() if v and "." not in k}
+        print(f"{tag} paper width, {GNN_GRAD_BATCH} graphs ({g.num_nodes}, {g.num_edges}), "
+              f"{len(got)} leaves: loss kernel {loss_k:.6f} / reference {loss_r:.6f}; worst "
+              f"leaf max|dg| / max|g_ref| {worst:.3e} (leaf {errs.index(worst)}; tol "
+              f"{tol:g}; reference against itself {again:.3e}), |dg| / |g_ref| {norm:.3e}; nonzero {sum(int(bool(w.abs().max() > 0)) for w in want)} of "
+              f"{len(want)}; launches under grad {ran}; {card}")
+        if missing:
+            raise AssertionError(f"{tag}: leaves {missing} get no gradient in kernel mode")
+        if worst > tol or abs(loss_k - loss_r) > tol * max(abs(loss_r), 1.0):
+            raise AssertionError(f"{tag}: gradients differ from reference mode ({worst:.3e})")
+        del params, got, want
+    bad = {op: n for op, n in names.items() if n != {"KernelFunctionBackward"}}
+    if bad or not set(GNN_GRAD_OPS) - {"quant_node_mlp"} <= set(names):
+        raise AssertionError(f"[gnn grad] outputs under grad not from KernelFunction: {bad}; "
+                             f"wrappers seen {sorted(names)}")
+    need = ("node_mlp", "fused_mp", "fused_mp_int8", "segment_reduce", "edge_softmax",
+            "quant_node_mlp")
+    if not all(launches.get(k, 0) > 0 for k in need):
+        raise AssertionError(f"[gnn grad] a kernel did not run under grad: {launches}")
+    return launches
+
+
+def example_module(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_gin_example(device, card: str) -> dict:
+    """Phase 15, step 2: ``examples/torch_train_gin_molhiv.py``'s ``main``
+    for ``GNN_TRAIN_STEPS`` steps on the card, in this process."""
+    import shutil
+
+    ex = example_module("torch_train_gin_molhiv")
+    ckpt = ROOT / "build" / "train_gin"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    seconds = []
+    names = {}
+    reset_launches()
+    with grad_fn_census(names):
+        out = ex.main([str(GNN_TRAIN_STEPS), "--device", str(device), "--ckpt-dir",
+                       str(ckpt)], on_step=lambda step, s: seconds.append(s))
+    launches = read_launches()
+    losses = out["losses"]
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    later = seconds[GNN_TRAIN_SKIP:]
+    print(f"[train gin] examples/torch_train_gin_molhiv.py, GIN paper width (5 x 100), "
+          f"{GNN_TRAIN_STEPS} steps of 16 graphs (1024, 3072), AdamW: bce mean of the "
+          f"first 10 steps {first:.4f} -> last 10 {last:.4f} (step 0 {losses[0]:.4f}, "
+          f"last {losses[-1]:.4f}, acc {out['accs'][-1]:.2f}); "
+          f"{statistics.median(later) * 1e3:.3f} ms a step (median (min-max) of steps "
+          f"{GNN_TRAIN_SKIP}-{GNN_TRAIN_STEPS - 1}, CUDA events: {spread(later)}); "
+          f"node_mlp launches {launches['node_mlp']} "
+          f"({launches['node_mlp'] / GNN_TRAIN_STEPS:.0f} a step); {card}")
+    if not (all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"[train gin]: the loss did not fall: {losses}")
+    if names.get("node_mlp") != {"KernelFunctionBackward", "NoneType"}:
+        raise AssertionError(f"[train gin]: node_mlp outputs {names}: every forward under "
+                             "grad through KernelFunction, the accuracy's without")
+    if not launches["node_mlp"] > 0:
+        raise AssertionError("[train gin]: node_mlp never launched")
+    return launches
+
+
+def run_examples(card: str) -> None:
+    """Phase 15, step 3: the other three examples as child processes on the
+    card, all three at once (each is mostly its process's start: CUDA,
+    the kernel libraries, the warm-up)."""
+    import re
+
+    t0 = time.perf_counter()
+    procs = [(argv, subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / argv[0]), *argv[1:]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=child_env(),
+        cwd=str(ROOT))) for argv in GNN_EXAMPLES]
+    try:
+        for argv, p in procs:
+            out, err = p.communicate(timeout=COLD_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"examples/{argv[0]} exited {p.returncode}:\n"
+                                     f"{out[-4000:]}\n{err[-4000:]}")
+            print(f"[example {' '.join(argv)}] a new process on the card, "
+                  f"{time.perf_counter() - t0:.1f}s from the three's start: "
+                  + " | ".join(out.strip().splitlines()) + f"; {card}")
+            if re.search(r"\bnan\b", out, re.I):
+                raise AssertionError(f"examples/{argv[0]} printed a NaN:\n{out}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def gnn_train_phase(device, card: str) -> dict:
+    """Phase 15: gradients through the GNN kernels, the training example and
+    the other examples; returns its paths' launch counts."""
+    t0 = time.perf_counter()
+    paths = {"gnn grads": check_gnn_grads(device, card),
+             "train gin": train_gin_example(device, card)}
+    run_examples(card)
+    print(f"[gnn train] phase 15 took {time.perf_counter() - t0:.1f}s")
+    return paths
+
+
+def check_decode_cell(rec: dict) -> None:
+    """The ``decode_32k`` cell on 16x16: a record with no error and no
+    all-gather of the cache (no gathered shape holds the cache's positions;
+    ``roofline.CollectiveRecorder`` keeps each result's shape)."""
+    from repro_torch.models.config import SHAPES
+
+    tag = f"[dryrun {rec['arch']} {rec['shape']} {rec.get('mesh', '?')}]"
+    if "error" in rec:
+        raise AssertionError(f"{tag}: {rec['error']}")
+    s = SHAPES[rec["shape"]].seq_len
+    gathers = [c["shape"] for c in rec["collectives"] if c["op"] == "all-gather"]
+    cache = [shape for shape in gathers if s in shape]
+    print(f"{tag} decode on each rank's block of the cache: {len(gathers)} all-gathers "
+          f"({', '.join(str(g) for g in gathers) or 'none'}), {len(cache)} of them the "
+          f"cache ({s} positions); flops/dev {rec['flops_per_device']:.4e}")
+    if cache or not rec["flops_per_device"] > 0:
+        raise AssertionError(f"{tag}: the cache was all-gathered {len(cache)} times")
+
+
 def run(device) -> list:
-    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9j, 11-11c, 12, 13, 14 and 8 on
+    """Phases 2-7b, 6, 6c, 6b, 10, 9m, 9-9j, 11-11c, 12, 13, 14, 15 and 8 on
     ``device``; returns the kernels' JSON rows.  Phase 14's dry-runs start
     first, as child processes on the host's other cores, and are stopped
     whatever happens."""
@@ -5142,6 +5452,7 @@ def run_phases(device, children: dict) -> list:
     paths.update(mesh_phase(device, device_line()))
     paths.update(train_mesh_phase(device, device_line()))
     roofline_phase(children, train_summary, device_line())
+    paths.update(gnn_train_phase(device, device_line()))
     packed, lay = packed_plan(device)
     rows = [time_node_mlp(device, packed, paths["gin"]["node_mlp"],
                           design_split(paths["gin"], "node_mlp")),

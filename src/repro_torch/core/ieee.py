@@ -33,5 +33,26 @@ def div_rn(x: torch.Tensor, d: float) -> torch.Tensor:
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded square root of float32 ``x``: the root of the exact
-    double, rounded once to float."""
+    double, rounded once to float.  Where a gradient is needed it is
+    ``g * (0.5 / root)`` (JAX's rule) where the root is positive and 0 at a
+    root of 0 (:class:`_SqrtRN`), where ``jnp.sqrt`` gives an infinite
+    derivative: a standard deviation over equal values (PNA's ``std`` of a
+    node of degree 0 or 1) then passes no NaN back."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SqrtRN.apply(x)
     return torch.sqrt(x.double()).float()
+
+
+class _SqrtRN(torch.autograd.Function):
+    """:func:`sqrt_rn` with a gradient that is 0 at a root of 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        root = torch.sqrt(x.double()).float()
+        ctx.save_for_backward(root)
+        return root
+
+    @staticmethod
+    def backward(ctx, g):
+        (root,) = ctx.saved_tensors
+        return torch.where(root > 0, g * (0.5 / root), torch.zeros_like(g))

@@ -5,6 +5,8 @@ CPU: without a card they raise, unless the caller passed ``device="cpu"``.
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -22,3 +24,15 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_or_exit(device, prog: str) -> torch.device:
+    """:func:`resolve_device` for a script's ``--device`` flag: without a
+    card and without ``--device cpu`` the script exits 1 with a message
+    (no silent fallback to the CPU)."""
+    try:
+        return resolve_device(device)
+    except RuntimeError:
+        print(f"{prog}: CUDA is not available; this needs an NVIDIA GPU, or "
+              "--device cpu for the plain PyTorch path", file=sys.stderr)
+        raise SystemExit(1) from None

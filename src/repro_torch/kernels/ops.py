@@ -25,6 +25,12 @@ on the CPU the warm forward.  So the census counts the programs built, not
 the requests served, as JAX's does.  The wrappers' launch counters are
 not muted: they count every launch.
 
+Where a gradient is needed (grad enabled and an operand requiring it) a
+kernel runs inside an autograd Function whose backward is its plain
+version's: :class:`KernelFunction` for the GNN kernels,
+:class:`FlashAttention` for attention.  Elsewhere (serving, its CUDA
+graphs) the kernel's wrapper is called bare.
+
 The fp32 kernels refuse other dtypes.  Where a plain version reads an
 operand in fp32 (``.float()``), the dispatch hands its kernel that fp32
 tensor, and ``node_mlp`` casts the kernel's output to the input's dtype
@@ -101,6 +107,46 @@ def _resolve(op: str, mode: str, t: torch.Tensor) -> bool:
     return on_cuda
 
 
+def _launch(kernel, plain, *operands):
+    """``kernel(*operands)``, the CUDA kernel's call; where a gradient is
+    needed (grad enabled and a tensor operand requiring it) inside
+    :class:`KernelFunction`, whose backward is ``plain``'s.  Serving (no
+    grad, ``torch.inference_mode``, a capture) calls the kernel bare."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in operands):
+        return KernelFunction.apply(kernel, plain, *operands)
+    return kernel(*operands)
+
+
+class KernelFunction(torch.autograd.Function):
+    """A GNN kernel with a gradient: the forward is the CUDA kernel
+    (``kernel``, a fresh output with no history of its own), the backward
+    the gradient of its plain version (``plain``, ``kernels/ref.py``)
+    recomputed on the saved operands, as JAX trains through autodiff of its
+    jnp reference off the TPU and has no Pallas backward.  ``operands`` are
+    tensors or None; the gradient of each that requires one is the plain
+    version's, in its dtype (a tie of ``max`` / ``min`` shares it as
+    ``scatter_reduce`` does, ``torch.round`` passes none).  The recompute
+    calls ``kernels/ref.py`` directly, so it is no dispatch and no launch."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *operands):
+        ctx.plain = plain
+        ctx.save_for_backward(*operands)
+        return kernel(*operands)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wants = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(w)
+                      for t, w in zip(ctx.saved_tensors, wants)]
+            wrt = [t for t, w in zip(inputs, wants) if w]
+            grads = iter(torch.autograd.grad(ctx.plain(*inputs), wrt, grad,
+                                             allow_unused=True))
+        return (None, None, *(next(grads) if w else None for w in wants))
+
+
 def segment_reduce(
     values: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -119,11 +165,12 @@ def segment_reduce(
     """
     if perm is not None:
         values = values[perm.long()]
+    plain = lambda v, ids: ref.segment_reduce_sorted_ref(v, ids, num_segments, op)
     if not _resolve("segment_reduce", mode, values):
-        return ref.segment_reduce_sorted_ref(values, segment_ids, num_segments, op)
-    return _segment_kernel.segment_reduce(
-        values.float().contiguous(), offsets.contiguous(), num_segments, op
-    )
+        return plain(values, segment_ids)
+    kernel = lambda v, ids: _segment_kernel.segment_reduce(
+        v.float().contiguous(), offsets.contiguous(), num_segments, op)
+    return _launch(kernel, plain, values, segment_ids)
 
 
 def edge_softmax(
@@ -141,22 +188,23 @@ def edge_softmax(
     """
     if perm is not None:
         logits = logits[perm.long()]
+    plain = lambda z, ids: ref.edge_softmax_ref(z, ids, num_segments)
     if not _resolve("edge_softmax", mode, logits):
-        return ref.edge_softmax_ref(logits, segment_ids, num_segments)
-    return _edge_softmax_kernel.edge_softmax(
-        logits.float().contiguous(), offsets.contiguous(), num_segments
-    )
+        return plain(logits, segment_ids)
+    kernel = lambda z, ids: _edge_softmax_kernel.edge_softmax(
+        z.float().contiguous(), offsets.contiguous(), num_segments)
+    return _launch(kernel, plain, logits, segment_ids)
 
 
 def node_mlp(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
              activation: str = "relu", mode: str = "auto") -> torch.Tensor:
     """Fused linear + bias + activation (the NE PE)."""
+    plain = lambda x, w, b: ref.node_mlp_ref(x, w, b, activation)
     if not _resolve("node_mlp", mode, x):
-        return ref.node_mlp_ref(x, w, b, activation)
-    y = _node_mlp_kernel.node_mlp(
-        x.float().contiguous(), w.contiguous(), b.contiguous(), activation
-    )
-    return y.to(x.dtype)
+        return plain(x, w, b)
+    kernel = lambda x, w, b: _node_mlp_kernel.node_mlp(
+        x.float().contiguous(), w.contiguous(), b.contiguous(), activation).to(x.dtype)
+    return _launch(kernel, plain, x, w, b)
 
 
 def quant_node_mlp(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
@@ -165,12 +213,14 @@ def quant_node_mlp(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                    mode: str = "auto") -> torch.Tensor:
     """Quantized NE PE: int8 x int8 -> int32, then
     ``act((acc * scale) * row_scale + b)``; ``scale`` is (N,) or ()."""
+    plain = lambda x_q, w_q, scale, b, rs: ref.quant_node_mlp_ref(
+        x_q, w_q, scale, b, activation, rs)
     if not _resolve("quant_node_mlp", mode, x_q):
-        return ref.quant_node_mlp_ref(x_q, w_q, scale, b, activation, row_scale)
+        return plain(x_q, w_q, scale, b, row_scale)
     c = lambda t: None if t is None else t.contiguous()
-    return _quant_mlp_kernel.quant_node_mlp(
-        c(x_q), c(w_q), c(scale.float()), c(b.float()), activation, c(row_scale)
-    )
+    kernel = lambda x_q, w_q, scale, b, rs: _quant_mlp_kernel.quant_node_mlp(
+        c(x_q), c(w_q), c(scale.float()), c(b.float()), activation, c(rs))
+    return _launch(kernel, plain, x_q, w_q, scale, b, row_scale)
 
 
 def quant_node_mlp_dynamic(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -179,12 +229,14 @@ def quant_node_mlp_dynamic(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Te
     """The int8-dynamic linear in one call: rows of ``x`` quantized to int8
     at their exact-range scales, then the quantized NE PE with those row
     scales; ``w_scale`` is (N,) or ()."""
+    plain = lambda x, w_q, w_scale, b: ref.quant_node_mlp_dynamic_ref(
+        x, w_q, w_scale, b, activation)
     if not _resolve("quant_node_mlp", mode, x):
-        return ref.quant_node_mlp_dynamic_ref(x, w_q, w_scale, b, activation)
-    return _quant_mlp_kernel.quant_node_mlp_dynamic(
+        return plain(x, w_q, w_scale, b)
+    kernel = lambda x, w_q, w_scale, b: _quant_mlp_kernel.quant_node_mlp_dynamic(
         x.float().contiguous(), w_q.contiguous(), w_scale.float().contiguous(),
-        b.float().contiguous(), activation
-    )
+        b.float().contiguous(), activation)
+    return _launch(kernel, plain, x, w_q, w_scale, b)
 
 
 def fused_mp(
@@ -214,19 +266,26 @@ def fused_mp(
     may have more rows than the destinations (a shard's all-gathered
     source table); ``src_sorted`` indexes it.
     """
+    operands = dict(locals())  # the tensor operands, in the signature's order
+    del operands["spec"], operands["mode"]
+    names = tuple(operands)
+
+    def plain(*ts):
+        o = dict(zip(names, ts))
+        del o["offsets"]
+        return ref.fused_mp_ref(spec, **o)
+
     if not _resolve("fused_mp", mode, msrc):
-        return ref.fused_mp_ref(
-            spec, ids_sorted, src_sorted, in_degree, node_mask, msrc, x_res,
-            nop=nop, eop=eop, ew=ew, w1=w1, b1=b1, w1_scale=w1_scale,
-            w2=w2, b2=b2,
-        )
-    c = lambda t: None if t is None else t.contiguous()
-    return _fused_mp_kernel.fused_mp(
-        spec, c(offsets), c(src_sorted), c(in_degree), c(node_mask),
-        c(msrc.float()), c(x_res.float()), nop=c(nop),
-        eop=None if eop is None else c(eop.float()), ew=c(ew), w1=c(w1),
-        b1=c(b1), w1_scale=c(w1_scale), w2=c(w2), b2=c(b2),
-    )
+        return plain(*operands.values())
+
+    def kernel(*ts):
+        o = {k: None if t is None else t.contiguous() for k, t in zip(names, ts)}
+        for k in ("msrc", "x_res", "eop"):
+            o[k] = None if o[k] is None else o[k].float()
+        del o["ids_sorted"]
+        return _fused_mp_kernel.fused_mp(spec, **o)
+
+    return _launch(kernel, plain, *operands.values())
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

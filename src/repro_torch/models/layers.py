@@ -314,6 +314,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return o.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _decode_sharded(q, k, v, k_cache, v_cache, t, window: int, softcap: float):
+    """One decode step's cache write and attention on DTensors, each rank on
+    its own block under ``local_map``: the rank writes slot t of its block
+    of the caches in place and runs :func:`decode_attention` on its block
+    of q against it.  No cache is gathered and no DTensor meets an ``out=``
+    op (DTensor has no strategy for ``index_copy_`` nor for ``bmm.out``).
+
+    The caches' placements (batch, and kv heads over "model") are the
+    step's: q, k and v are redistributed to them.  A q head's kv head is
+    in the rank's block, since the GQA groups are contiguous and q's heads
+    are cut as the kv heads are.  A cache cut on its sequence (a batch too
+    small for the data axis) needs a softmax across ranks and is not taken
+    here (``gqa_apply`` leaves it to DTensor)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    cp = tuple(k_cache.placements)
+
+    def body(ql, kl, vl, kcl, vcl):
+        _cache_update(kcl, kl, t)
+        _cache_update(vcl, vl, t)
+        return decode_attention(ql, kcl, vcl, t, window=window, softcap=softcap)
+
+    q, k, v = (x.redistribute(placements=cp) for x in (q, k, v))
+    return local_map(body, out_placements=list(cp), in_placements=(cp,) * 5,
+                     device_mesh=k_cache.device_mesh)(q, k, v, k_cache, v_cache)
+
+
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     p = {"wq": P.init_normal(gen, (d, h, hd), stack=stack),
@@ -380,9 +407,13 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
         new_kv = (k, v)
     else:
         kc, vc = kv_cache
-        _cache_update(kc, k, t)
-        _cache_update(vc, v, t)
-        o = decode_attention(q, kc, vc, t, window=window, softcap=cfg.logit_softcap)
+        if isinstance(kc, DTensor) and Shard(1) not in kc.placements:
+            # a mesh's decode step (the dry-run), the cache cut on batch / heads
+            o = _decode_sharded(q, k, v, kc, vc, t, window, cfg.logit_softcap)
+        else:
+            _cache_update(kc, k, t)
+            _cache_update(vc, v, t)
+            o = decode_attention(q, kc, vc, t, window=window, softcap=cfg.logit_softcap)
         new_kv = (kc, vc)
     return _linear(o, p["wo"], k_dims=2), new_kv
 

@@ -181,7 +181,8 @@ class CollectiveRecorder(_LocalOps):
     sharded GNN layer's all-gathers): ``records`` in JAX's form, ``counts``
     {kind: [count, bytes]} with bytes the larger of a call's input and
     output buffers (an all-gather's whole result, a reduce-scatter's whole
-    input), as ``CommDebugMode`` counts them."""
+    input), as ``CommDebugMode`` counts them.  A record also keeps its
+    result's ``shape`` (which tensor was moved: JAX's records have none)."""
 
     def reset(self) -> None:
         self.records: List[dict] = []
@@ -206,6 +207,7 @@ class CollectiveRecorder(_LocalOps):
             "op": op, "result_bytes": result, "group_size": g,
             "wire_bytes": wire_bytes(op, result, g),
             "dtype": _HLO_DTYPE.get(outs[0].dtype, "?") if outs else "?",
+            "shape": list(outs[0].shape) if outs else [],
         })
         c = self.counts.setdefault(kind, [0, 0])
         c[0] += 1

@@ -242,3 +242,118 @@ def test_report_fills_both_markers(tmp_path):
     out = REP.fill(md, recs)
     assert "old" not in out and REP.dryrun_table(recs) in out and REP.roofline_table(recs) in out
     assert REP.fill(out, recs) == out  # idempotent
+
+
+# ------------------------------------------------------------ decode on a mesh
+#
+# A decode step on a mesh writes slot t of each rank's block of the cache
+# and attends on that block under ``local_map`` (``models/layers.py:
+# _decode_sharded``).  Without it DTensor has no strategy for the cache's
+# ``index_copy_`` nor for decode attention's ``bmm(out=)`` on torch 2.11,
+# and on torch 2.13 it all-gathers the cache a sequence at a time.
+
+_DECODE = r"""
+import json, logging
+logging.disable(logging.WARNING)
+from torch.distributed.tensor import DTensor
+from torch.overrides import TorchFunctionMode
+from repro_torch.configs import get_reduced
+from repro_torch.launch import dryrun as D
+from repro_torch.models.config import ShapeConfig
+
+
+class OutOnDTensor(TorchFunctionMode):
+    # every torch call given out= where an argument or the out is a DTensor
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = kwargs.get("out")
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        if out is not None and any(isinstance(t, DTensor) for t in [*args, *outs]):
+            self.calls.append(str(func))
+        return func(*args, **kwargs)
+
+
+shape = ShapeConfig("decode_b8_c256", 256, 8, "decode")
+red = lambda a, **kw: get_reduced(a, **kw)
+mode = OutOnDTensor()
+with mode:
+    rec = D.run_cell("chatglm3-6b", shape, False, mesh=(2, 2), config_fn=red)
+one = D.run_cell("chatglm3-6b", shape, False, mesh=(1, 1), config_fn=red)
+print(json.dumps(dict(error=rec.get("error"), colls=rec["collectives"], out_calls=mode.calls,
+                      flops=rec["flops_per_device"], one=one["flops_per_device"])))
+"""
+
+
+def test_decode_cell_on_a_fake_2x2_world_gathers_no_cache():
+    """A reduced ChatGLM3-6B decode cell (B 8, cache 256) on a fake 2x2
+    world: no ``out=`` call meets a DTensor, and no all-gather moves the
+    cache (no gathered shape has the cache's 256 positions; the one
+    all-gather left is the vocab-cut head's (d, V) weight in ``logits_fn``,
+    where the unsharded step gathered 193 times); a rank does a quarter of
+    the one-rank FLOPs (its batch half and its head half) within 5 %."""
+    c = _child(_DECODE)
+    assert c["error"] is None and c["out_calls"] == [], c["out_calls"]
+    gathers = [r["shape"] for r in c["colls"] if r["op"] == "all-gather"]
+    assert not any(256 in shape for shape in gathers), gathers
+    assert len(gathers) <= 1, gathers
+    assert 4 * c["flops"] == pytest.approx(c["one"], rel=5e-2)
+
+
+_DECODE_WORLD = r"""
+import json
+from torch.distributed.tensor import DTensor
+from repro_torch import runtime as RT
+from repro_torch.configs import get_reduced
+from repro_torch.models import lm
+from repro_torch.optim import adamw
+from repro_torch.runtime import partitioning as SH
+from repro_torch.train.loop import mesh_scope
+
+cfg = get_reduced("chatglm3-6b", dtype="float32")
+params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+rng = np.random.default_rng(3)
+prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 8)).astype(np.int32))
+tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1)).astype(np.int32))
+cache, _, t0 = lm.prefill(params, {"tokens": prompt}, cfg, 16)
+want_cache = adamw.tree_map(lambda x: x.clone(), cache)
+want, _ = lm.decode_step(params, want_cache, tok, t0, cfg)
+res = {}
+for shape in ((1, 2), (2, 1)):
+    mesh = RT.make_mesh(shape, ("data", "model"), device="cpu")
+    rules = SH.batch_rules(mesh, 4)
+    put = lambda x, axes: SH.place(x, SH.resolve_spec(axes, tuple(x.shape), mesh, rules), mesh)
+    placed = SH.place_tree(params, lm.param_axes(cfg), mesh, rules)
+    pc = SH._map_with_axes(lambda x, axes: put(x.clone(), axes), cache, lm.cache_axes(cfg))
+    with mesh_scope(mesh, rules):
+        got, got_cache = lm.decode_step(placed, pc, put(tok, ("batch", None)), t0, cfg)
+    got = got.full_tensor() if isinstance(got, DTensor) else got
+    res["x".join(map(str, shape))] = dict(
+        err=float((got - want).abs().max() / want.abs().max()),
+        cache=max(float((a.full_tensor() - b).abs().max() / b.abs().max()) for a, b in
+                  zip(adamw.leaves(got_cache), adamw.leaves(want_cache))),
+        placements=sorted({str(a.placements) for a in adamw.leaves(got_cache)}))
+if rank == 0:
+    print(json.dumps(res))
+"""
+
+
+def test_decode_on_a_gloo_world_matches_one_rank(tmp_path):
+    """The same step on a real 2-rank gloo world of CPU ranks, the cache cut
+    on its batch (2x1) and on its kv heads (1x2), fp32: the logits equal the
+    one-rank step's within 1e-5 of their largest, and every layer's cache
+    after the step the one-rank cache within 1e-6 of its largest (slot t
+    written on each rank's block; a rank projects k and v with its block of
+    the weights, whose products may round apart from the whole matmul's)."""
+    from test_torch_distributed import WORLD_PREAMBLE, run_world
+
+    res = json.loads(run_world(WORLD_PREAMBLE + _DECODE_WORLD, 2, tmp_path)[0]
+                     .strip().splitlines()[-1])
+    assert set(res) == {"1x2", "2x1"}
+    for shape, r in res.items():
+        assert r["err"] <= 1e-5 and r["cache"] <= 1e-6, (shape, r)
+    # the stacked caches (layers, B, S, Hkv, D): batch and kv heads cut
+    assert all(r["placements"] == ["(Shard(dim=1), Shard(dim=3))"] for r in res.values())

@@ -1725,3 +1725,129 @@ def test_flash_on_each_ranks_block_matches_plain(cuda, tmp_path):
             assert case["launched"] == 1 and case["out"] and case["dq"], case
             assert case["dkv_same"] or (case["kv_whole"]
                                         and max(case["dk"], case["dv"]) <= 1.6e-2), case
+
+
+# ---------------------------------------------------------------- GNN training
+#
+# Under grad each GNN wrapper runs its kernel inside ``ops.KernelFunction``
+# (the plain version's gradient).  Tolerance: max|g_kernel - g_reference|
+# <= 1e-4 max|g_reference| per leaf in fp32 (PNA 3e-3: its std passes
+# 0.5 / std back, and where neighbours send nearly equal messages the
+# variance is rounding noise: reference mode against itself differs by up
+# to ~1e-3 there on the card), as
+# ``chip_smoke.py``'s ``GNN_GRAD_TOL``.
+
+GNN_GRAD_TOL = {"fp32": 1e-4, "pna": 3e-3}
+
+
+def _example(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _gnn_batch(device, n=16):
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream, laplacian_eigvec
+
+    raw = MoleculeStream(MOLHIV, seed=0).take(n)
+    g = TG.batch_graphs([r[:4] for r in raw], n * 64, n * 192, device=device)
+    y = torch.tensor([float(r[4]) for r in raw], device=device)
+    eig = np.zeros((n * 64,), np.float32)
+    eig[:sum(r[2].shape[0] for r in raw)] = np.concatenate(
+        [laplacian_eigvec(r[0], r[1], r[2].shape[0]) for r in raw])
+    return g, y, to_t(eig, device)
+
+
+def _gnn_loss_grads(params, g, y, eig, cfg, fused):
+    from repro_torch.gnn import apply
+    from repro_torch.optim import adamw
+
+    flat = adamw.leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    try:
+        out = apply(params, g, cfg, eigvec=eig if cfg.model == "dgn" else None,
+                    num_graphs=y.shape[0], fused=fused)[: y.shape[0], 0]
+        loss = torch.mean(torch.clamp(out, min=0) - out * y
+                          + torch.log1p(torch.exp(-torch.abs(out))))
+        grads = torch.autograd.grad(loss, flat, materialize_grads=True)
+    finally:
+        for p in flat:
+            p.requires_grad_(False)
+    return out, grads
+
+
+@pytest.mark.parametrize("model,fused", [(m, f) for m in ("gcn", "gin", "gin_vn", "gat",
+                                                          "pna", "dgn")
+                                         for f in (False, True) if not (f and m == "gat")])
+def test_gnn_gradients_in_kernel_mode_match_reference_mode(cuda, model, fused):
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.gnn import init
+
+    cfg = get_gnn_config(model, kernel_mode="kernel")
+    params = init(torch.Generator().manual_seed(0), cfg, cuda)
+    g, y, eig = _gnn_batch(cuda)
+    before = NM.launches
+    out, got = _gnn_loss_grads(params, g, y, eig, cfg, fused)
+    assert NM.launches > before
+    _, want = _gnn_loss_grads(params, g, y, eig,
+                              dataclasses.replace(cfg, kernel_mode="reference"), fused)
+    tol = GNN_GRAD_TOL["pna" if model == "pna" else "fp32"]
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all(), i
+        if b.abs().max() > 0:
+            assert a.abs().max() > 0, i
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), (model, i)
+
+
+def test_gnn_wrappers_under_grad_return_the_functions_output(cuda):
+    g, _, _ = _gnn_batch(cuda, n=4)
+    lay = TLY.build_layout(g)
+    x = torch.randn(g.num_nodes, 16, device=cuda, requires_grad=True)
+    w = torch.randn(16, 8, device=cuda, requires_grad=True)
+    b = torch.zeros(8, device=cuda, requires_grad=True)
+    e = lay.perm.shape[0]
+    z = torch.randn(e, 4, device=cuda, requires_grad=True)
+    outs = {
+        "node_mlp": kops.node_mlp(x, w, b, mode="kernel"),
+        "segment_reduce": kops.segment_reduce(z, lay.ids_sorted, lay.offsets, g.num_nodes,
+                                              "max", mode="kernel", perm=lay.perm),
+        "edge_softmax": kops.edge_softmax(z, lay.ids_sorted, lay.offsets, g.num_nodes,
+                                          mode="kernel", perm=lay.perm),
+        "quant_node_mlp_dynamic": kops.quant_node_mlp_dynamic(
+            x, torch.randint(-127, 128, (16, 8), dtype=torch.int8, device=cuda),
+            torch.full((8,), 1e-2, device=cuda, requires_grad=True), b, mode="kernel"),
+    }
+    for name, out in outs.items():
+        assert type(out.grad_fn).__name__ == "KernelFunctionBackward", name
+        assert torch.isfinite(torch.autograd.grad(out.sum(), x if "mlp" in name else z)[0]).all()
+    with torch.no_grad():
+        assert kops.node_mlp(x, w, b, mode="kernel").grad_fn is None
+
+
+def test_train_example_step_runs_the_node_mlp_kernel(cuda):
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import init
+    from repro_torch.optim import adamw
+
+    ex = _example("torch_train_gin_molhiv")
+    cfg = get_gnn_config("gin")
+    params = init(torch.Generator().manual_seed(0), cfg, cuda)
+    opt = adamw.init(params)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=3, weight_decay=0.01)
+    g, y = ex.make_batch(MoleculeStream(MOLHIV, seed=0), None, 0, device=cuda)
+    before = NM.launches
+    losses = []
+    for _ in range(3):
+        params, opt, loss, acc = ex.step_fn(params, opt, opt_cfg, cfg, g, y)
+        losses.append(float(loss))
+    # 17 linears a forward; the step runs it under grad and for the accuracy
+    assert NM.launches - before == 3 * 2 * 17
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert int(opt["step"]) == 3
