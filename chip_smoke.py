@@ -25,7 +25,8 @@ fails the run), then runs these phases, one line each:
               cut a 16- and a 32-row tile, and 1000 real nodes of 4096
               leave their last tiles all padding, then each rank's
               window of a plan sharded over 2 ranks (its n / 2 rows, a
-              source table of all n rows, rank 1's window past edge 0) at
+              source table of all n rows, rank 1's window past edge 0,
+              E_pad slots long with a masked tail past its edges) at
               the sharded bucket (128, 384) and the PubMed size (same
               tolerance; PNA 5e-3, whose std amplifies one rounding of
               sqsum/c - mean^2)
@@ -365,12 +366,26 @@ fails the run), then runs these phases, one line each:
               both ranks (each flush's time the slowest rank's); one GIN
               forward (500 features, node task) on a synthetic
               PubMed-sized graph, served through ``Executor.run`` sharded
-              (eager) and whole (captured), timed there, and run directly
-              sharded against whole bit for bit under deterministic
-              algorithms.  It prints sharded p50 beside unsharded, bytes
+              (eager on gloo) and whole (captured), timed there, and run
+              directly sharded against whole bit for bit under
+              deterministic algorithms.  The sharded forward reads nothing
+              back to the host (each rank's window of the plan E_pad slots
+              long).  It prints sharded p50 beside unsharded, bytes
               all-gathered a layer, and whether each executor captured (a
-              mesh of several ranks: eager, whatever the backend; the
-              unsharded and the 1-rank NCCL mesh engine: captured).
+              gloo mesh of several ranks: eager; the unsharded and the
+              1-rank NCCL mesh engine: captured); the node task served
+              through ``Executor.run`` sharded and whole, bit for bit.
+              ``--gnn-mesh-cards 4`` (four cards, not in the default run)
+              runs (a) on a 4-rank NCCL world, every sharded executor
+              captured (each a replay's kernels and NCCL kernels by the
+              profiler), the PubMed-sized GIN sharded captured, sharded
+              eager and whole, then the hang case in a world of its own
+              (``HANG_REPLAYS`` replays, their harvests with the timing
+              all-reduces, a barrier, no synchronize, ``HANG_ROUNDS``
+              times, killed past ``HANG_TIMEOUT_S``; then the executor
+              freed before ``destroy_process_group``), and the launcher
+              with ``--gnn-mesh 4``
+              (``captured=True``).
               Phase 3 holds fused_mp (fp32 and int8) on each rank's
               window of a plan sharded over 2, its source table 2x its
               rows, at the (128, 384) bucket and the PubMed size.  (c)
@@ -398,13 +413,25 @@ fails the run), then runs these phases, one line each:
               rank must launch the flash kernel.  ``--train-mesh-cards 4``
               (four cards, not in the default run) runs 8 layers at B 8 on a
               2x2 NCCL mesh, both presets, and the launcher there
+  13b. mesh decode  one decode step on 2 gloo ranks sharing the card
+              (real CUDA tensors, fp32) against the one-rank step on the
+              same prefilled cache, at the published widths with the depth
+              cut: MiniCPM3-4B, 2 layers (MLA: its latent caches whole on
+              "model" with q's heads cut there, 1x2, and cut on batch, 2x1)
+              and a batch-1 Mixtral-8x7B, 1 layer, whose caches are cut on
+              their positions (2x1, a cache of 8448: slot t written on the
+              rank that holds it, the 4096 window masking rank 0's block
+              wholly, the softmax combined across the ranks); logits within
+              1e-5 of their largest, every cache within 1e-6, no NaN
   14. dryrun  the dry-run and the roofline on fake tensors in child
               processes (no card): phase 11b's train cell and phase 9's
               decode on one rank beside their measurements, ChatGLM3-6B
-              ``train_4k`` and ``decode_32k`` on a fake 16x16 world of 256
-              ranks (the decode cell writes and attends on each rank's
-              block of the cache: it must run and gather no cache), and the
-              GNN large-graph layer
+              ``train_4k`` and the decode cells of ``DRYRUN_DECODE_CELLS``
+              (ChatGLM3-6B and MiniCPM3-4B ``decode_32k``, Mixtral-8x7B
+              ``long_500k``) on a fake 16x16 world of 256 ranks (each
+              decode cell writes and attends on each rank's block of the
+              cache: it must run and gather no cache), and the GNN
+              large-graph layer
   15. gnn train  gradients through the GNN kernels
               (``kernels/ops.py:KernelFunction``): the six models at paper
               width, fp32, unfused and fused (GAT unfused), and GIN int8
@@ -427,7 +454,9 @@ fails the run), then runs these phases, one line each:
               no wrapper, so phase 6's profiler counts give the launches
               per replay, ``launches_per_replay``), and at the packed batch's
               shapes each kernel's time beside its plain version's, the
-              library call's (node_mlp: ``torch.addmm`` + relu;
+              library call's (node_mlp: ``torch.addmm`` + relu, at the
+              tiled shape (4096, 100 -> 200) in ALT_ROUNDS alternating
+              rounds with the kernel, their medians and ranges printed;
               segment_reduce: ``torch.segment_reduce``; quant_node_mlp:
               ``torch._int_mm`` + the epilogue in torch) and the card's
               bound; segment_reduce and edge_softmax also beside
@@ -448,7 +477,9 @@ fails the run), then runs these phases, one line each:
               (simt) route forced on the same bf16 tensors, the design the
               mma route replaces on this path; its launches per replay
               include the LM programs' (a prefill replay one an attention
-              layer, a decode replay 0)
+              layer, a decode replay 0); and the E_pad window's edge work
+              at the PubMed size (``time_window_edges``: the whole plan's
+              88648 slots against a rank's share on 2 and 4 ranks)
 
 It prints its total seconds, the card line and a JSON object of the
 kernels before the last line, and ends with ``{"ok": true, "device": {...}}``.  Any mismatch or
@@ -458,6 +489,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -975,7 +1007,9 @@ def window_plans(rng, device):
     """(name, node mask, plan, source rows) of each rank's window of a plan
     sharded over 2 ranks (``core.message_passing.owned_edges``): the rank's
     n / 2 destination rows read sources from all n, through ``src_sorted``
-    values up to n, and rank 1's window starts past rank 0's edges.  At
+    values up to n, rank 1's window starts past rank 0's edges, and each
+    window is E_pad slots long, its tail past the rank's last owned edge
+    masked (destination n / 2, past the CSR offsets' end).  At
     the sharded bucket's shapes (MESH_BATCH's (128, 384), 100 real nodes
     and 300 real edges) and at the PubMed size."""
     from repro_torch.core import graph as G
@@ -996,13 +1030,15 @@ def window_plans(rng, device):
             shard = PT.RowShard(group=None, num_shards=2, index=index, n=n_pad)
             edges = MP.owned_edges(lay, shard)
             local = MP.shard_layout(lay, edges, shard)
-            start = int(edges.index[0]) if edges.index.numel() else 0
+            start, owned = int(edges.index[0]), int(edges.owned.sum())
             if index and not start > 0:
                 raise AssertionError("window: rank 1's window starts at edge 0")
-            if not int(local.src_sorted.max()) >= shard.n_local:
+            if not 0 < owned < e_pad or int(local.offsets[-1]) != owned:
+                raise AssertionError(f"window: {owned} owned edges of {e_pad} slots")
+            if not int(local.src_sorted[:owned].max()) >= shard.n_local:
                 raise AssertionError("window: no source outside the rank's rows")
             out.append((f"rank {index} of 2 at ({n_pad}, {e_pad}), edges "
-                        f"[{start}, {start + edges.index.numel()})",
+                        f"[{start}, {start + owned}) then {e_pad - owned} masked slots",
                         shard.rows(g.node_mask), local, n_pad))
     return out
 
@@ -3726,6 +3762,20 @@ def design_split(counts: dict, kernel: str) -> dict:
             if k.startswith(kernel + ".")}
 
 
+ALT_ROUNDS = 6  # rounds of each function in alternating_ms
+
+
+def alternating_ms(fns: dict, rounds: int = ALT_ROUNDS) -> dict:
+    """{name: device ms of each round} of ``fns`` timed by ``device_ms`` in
+    turns, the order reversed every other round (a, b, b, a, ...), so that
+    the card's clock and its neighbours weigh on each alike."""
+    out = {name: [] for name in fns}
+    for i in range(rounds):
+        for name in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            out[name].append(device_ms(fns[name])[0])
+    return out
+
+
 def time_node_mlp(device, packed, launches: int, by_variant: dict) -> dict:
     import torch
     from repro_torch.kernels import node_mlp as NM
@@ -3756,12 +3806,22 @@ def time_node_mlp(device, packed, launches: int, by_variant: dict) -> dict:
                          call_ms=call_ms(lambda: kops.node_mlp(x, w, b, act, mode="kernel")),
                          plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
+        if NM.variant(m, k, n) == "tiled":
+            rounds = alternating_ms({
+                "kernel": lambda: kops.node_mlp(x, w, b, act, mode="kernel"), "addmm": lib})
+            rows[-1].update(ms=statistics.median(rounds["kernel"]),
+                            library_ms=statistics.median(rounds["addmm"]), rounds=rounds)
     for r in rows:
         print(f"[time] node_mlp {r['shape']} ({r['variant']}): err {r['max_abs_err']:.3g}; "
               f"{r['ms']:.4f} ms ({r['timer']}; "
               f"per call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f}, "
               f"addmm {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} "
               f"({r['bound_by']})")
+        if "rounds" in r:
+            print(f"[time] node_mlp {r['shape']} ({r['variant']}) in {ALT_ROUNDS} alternating "
+                  "rounds of " + "; ".join(
+                      f"{name} median {statistics.median(v):.4f} ms, range "
+                      f"{min(v):.4f}-{max(v):.4f}" for name, v in r["rounds"].items()))
     main = rows[1]  # the edge embedding: five of the seven launches per forward
     return dict(name="node_mlp", route="cuda",
                 source="src/repro_torch/kernels/csrc/node_mlp.cu",
@@ -3769,6 +3829,35 @@ def time_node_mlp(device, packed, launches: int, by_variant: dict) -> dict:
                 launches=launches, launches_by_variant=by_variant,
                 **{k: v for k, v in main.items() if k != "variant"},
                 all_shapes=rows)
+
+
+def time_window_edges(device, card: str) -> None:
+    """The E_pad window's cost at the PubMed size (``PUBMED``, GIN: a
+    forward gathers a rank's window of edge features once, then embeds
+    them in each of its 5 layers): that edge work on a window of the whole
+    plan's 88648 slots, which every rank runs, against windows cut to a
+    rank's share on 2 and 4 ranks, in ALT_ROUNDS alternating rounds."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(6)
+    e = PUBMED["e"]
+    feat = torch.randn((e, 3), generator=gen).to(device)
+    w = (torch.randn((3, 100), generator=gen) * (2.0 / 103) ** 0.5).to(device)
+    b = (0.1 * torch.randn((100,), generator=gen)).to(device)
+    perm = torch.randperm(e, generator=gen).to(device)
+
+    def edge_work(rows: int):
+        idx = perm[:rows]
+        return lambda: [kops.node_mlp(feat[idx], w, b, "none", mode="kernel")
+                        for _ in range(5)]
+
+    rounds = alternating_ms({rows: edge_work(rows) for rows in (e, -(-e // 2), -(-e // 4))})
+    print("[time] window edge work (PubMed GIN, a rank's forward: gather + 5 x node_mlp "
+          f"(rows, 3->100)) in {ALT_ROUNDS} alternating rounds: " + "; ".join(
+              f"{rows} rows median {statistics.median(v) * 1e3:.2f} us, range "
+              f"{min(v) * 1e3:.2f}-{max(v) * 1e3:.2f}" for rows, v in rounds.items())
+          + f"; {card}")
 
 
 def time_fused_mp(device, packed, lay, launches: int) -> dict:
@@ -4301,13 +4390,18 @@ def mesh_substrate(mesh, device) -> dict:
 
 
 def batch_runs(ex, prepared: list) -> tuple:
-    """(outputs, per-batch seconds over MESH_REPS passes) of prepared
-    batches through ``ex``, warmed first, untimed; the launch counters and
-    the collective bytes count the timed passes only."""
+    """(outputs, per-batch seconds over MESH_REPS passes, the warm's
+    collective bytes) of prepared batches through ``ex``, warmed first,
+    untimed; the launch counters and ``PT.collective_bytes`` then count the
+    timed passes only (a captured executor's replays run no wrapper and no
+    Python collective: its warm, an eager forward and a capture a
+    signature, counts them)."""
     from repro_torch.runtime import partitioning as PT
 
+    PT.reset_collective_bytes()
     for p_ in prepared:
         ex.warm(p_)
+    warm_bytes = dict(PT.collective_bytes)
     reset_launches()
     PT.reset_collective_bytes()
     outs, secs = None, []
@@ -4315,7 +4409,60 @@ def batch_runs(ex, prepared: list) -> tuple:
         res = [ex.run(p_) for p_ in prepared]
         outs = np.concatenate([o[: p_.num_graphs] for (o, _), p_ in zip(res, prepared)])
         secs += [dt for _, dt in res]
-    return outs, secs
+    return outs, secs, warm_bytes
+
+
+MESH_PROFILE_SESSIONS = 2  # the same on every rank: each runs the forward
+
+
+def mesh_replay_kernels(fn) -> tuple:
+    """({counter: launches}, NCCL kernels, device ops) of one call of
+    ``fn`` (a served replay) by ``torch.profiler``: the larger record of
+    MESH_PROFILE_SESSIONS sessions, so that every rank of a world calls
+    ``fn`` (and its collectives) as often (``device_events`` profiles
+    again where a session lost its record)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    records = []
+    for _ in range(MESH_PROFILE_SESSIONS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        records.append([e.name for e in prof.events() if e.device_type == DeviceType.CUDA])
+    names = max(records, key=len)
+    counts = {name: sum(symbol in n for n in names) for symbol, name in KERNEL_SYMBOLS}
+    return counts, sum("nccl" in n.lower() for n in names), len(names)
+
+
+def served_node_bits(mesh, model: str, graphs: list, device) -> dict:
+    """A node task's outputs served through ``Executor.run`` sharded over
+    ``mesh`` (captured on NCCL) and through an executor without a mesh,
+    both warmed and run under deterministic algorithms: bit for bit?"""
+    import torch
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.gnn import init
+    from repro_torch.serve.executor import Executor
+
+    bsz, n_pad, e_pad = MESH_BATCH
+    cfg = dataclasses.replace(get_gnn_config(model), task="node")
+    params = init(torch.Generator().manual_seed(0), cfg)
+    torch.use_deterministic_algorithms(True)
+    try:
+        outs = []
+        for m in (mesh, None):
+            ex = Executor(buckets=((n_pad, e_pad),), device=device, mesh=m)
+            ex.register("node", cfg, params, fused=True)
+            p = ex.prepare_batched(graphs[:bsz], bsz, n_pad, e_pad,
+                                   with_eigvec=model == "dgn")
+            outs.append((ex.run(p)[0], ex.captured, ex.lowered_count))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, captured, lowered), (b, _, _) = outs
+    return {"bits": bool(np.array_equal(a, b)), "captured": captured, "lowered": lowered,
+            "max_abs_err": float(np.abs(a - b).max())}
 
 
 def node_outputs(ex, tenant, p, sharded: bool):
@@ -4356,6 +4503,7 @@ def mesh_serve(mesh, device) -> dict:
     from repro_torch.configs.gengnn_models import get_gnn_config
     from repro_torch.gnn import init
     from repro_torch.runtime import partitioning as PT
+    from repro_torch.serve.executor import captures
     from repro_torch.serve.gnn_engine import GNNEngine
     from repro_torch.serve.scheduler import StreamScheduler
 
@@ -4377,28 +4525,39 @@ def mesh_serve(mesh, device) -> dict:
         prep = lambda eng: [eng.executor.prepare_batched(
             graphs[i:i + bsz], bsz, n_pad, e_pad, with_eigvec=eig)
             for i in range(0, len(graphs), bsz)]
-        out_s, secs_s = batch_runs(sharded.executor, prep(sharded))
+        out_s, secs_s, warm_bytes = batch_runs(sharded.executor, prep(sharded))
         launches = read_launches()
         gathered = dict(PT.collective_bytes)
         forwards = MESH_REPS * len(graphs) // bsz
-        out_p, secs_p = batch_runs(plain.executor, prep(plain))
+        out_p, secs_p, _ = batch_runs(plain.executor, prep(plain))
         agree(f"mesh {model} sharded vs unsharded", out_s, out_p, SERVE_TOL)
         ex = sharded.executor
-        if ex.captured or ex.lowered_count:
-            raise AssertionError(f"mesh {model} over {mesh.backend}: a sharded "
-                                 f"forward captured ({ex.lowered_count} captures)")
+        captured = captures(device.type, mesh.size, mesh.backend)
+        if ex.captured != captured or bool(ex.lowered_count) != captured:
+            raise AssertionError(f"mesh {model} over {mesh.backend}: captured "
+                                 f"{ex.captured}, {ex.lowered_count} captures")
+        p0 = prep(sharded)[0]
+        nccl = ops = None
+        if captured:
+            # a replay runs no wrapper: its kernels by the profiler; the
+            # warm's bytes are two forwards' (eager + capture), one bucket
+            launches, nccl, ops = mesh_replay_kernels(lambda: ex.run(p0))
+            gathered, forwards = warm_bytes, 2
         if device.type == "cuda":
             for kernel in MESH_PATH_KERNELS.get(model, ("node_mlp", "fused_mp")):
                 if launches[kernel] <= 0:
                     raise AssertionError(f"mesh {model}: {kernel} never launched")
-        p0 = prep(sharded)[0]
         a = node_outputs(sharded.executor, sharded._tenant, p0, True)
         b = node_outputs(sharded.executor, sharded._tenant, p0, False)
         agree(f"mesh {model} node outputs", a.cpu(), b.cpu(), SERVE_TOL)
         bits = bool(torch.equal(a, b))
-        if device.type == "cuda" and not bits and model in NODE_BITS_MODELS:
-            raise AssertionError(f"mesh {model}: node outputs differ in bits, "
-                                 f"max err {max_err(a, b):.3g}")
+        served = served_node_bits(mesh, model, graphs, device)
+        if device.type == "cuda" and model in NODE_BITS_MODELS and not (
+                bits and served["bits"]):
+            raise AssertionError(f"mesh {model}: node outputs differ in bits, max err "
+                                 f"{max_err(a, b):.3g}; served {served}")
+        if served["captured"] != captured:
+            raise AssertionError(f"mesh {model}: the node task's executor {served}")
         res[model] = {
             "p50_ms": statistics.median(secs_s) * 1e3,
             "plain_p50_ms": statistics.median(secs_p) * 1e3,
@@ -4407,7 +4566,8 @@ def mesh_serve(mesh, device) -> dict:
             "captured": sharded.executor.captured,
             "plain_captured": plain.executor.captured,
             "max_abs_err": max_err(torch.as_tensor(out_s), torch.as_tensor(out_p)),
-            "node_bits_equal": bits, "launches": launches,
+            "node_bits_equal": bits, "served_node_bits_equal": served["bits"],
+            "launches": launches, "nccl_kernels": nccl, "device_ops": ops,
         }
         launches_total = launches if launches_total is None else {
             k: launches_total[k] + v for k, v in launches.items()}
@@ -4457,15 +4617,16 @@ def mesh_pubmed_gin(mesh, device) -> dict:
     """One GIN forward (paper width, node task, 3 classes) on a synthetic
     PubMed-sized graph: 19,717 nodes (19,718 rows), 88,648 edges,
     PUBMED_GIN_FEAT features.  Served: ``Executor.run`` on the prepared
-    batch, sharded (the executor's own path, eager) against an executor
-    without a mesh (captured on the card), timed over MESH_REPS runs.  Bit
+    batch, sharded (the executor's own path: captured on NCCL, eager on
+    gloo) against an executor without a mesh (captured on the card), timed
+    over MESH_REPS runs; on NCCL also the sharded program run eagerly.  Bit
     for bit: the node outputs of the same forward sharded and whole, run
     directly under deterministic algorithms (``node_outputs``)."""
     import torch
     from repro_torch.configs.gengnn_models import get_gnn_config
     from repro_torch.core import graph as G
     from repro_torch.gnn import init
-    from repro_torch.serve.executor import Executor, prepared
+    from repro_torch.serve.executor import Executor, captures, prepared
 
     cfg = get_gnn_config("gin", feat_dim=PUBMED_GIN_FEAT, task="node", out_dim=3)
     rng = np.random.default_rng(1)
@@ -4483,16 +4644,30 @@ def mesh_pubmed_gin(mesh, device) -> dict:
     p = prepared(g, None, None, ("pubmed", n_pad, e), 1)
     served = {}
     for name, x in (("sharded", ex), ("whole", whole)):
-        x.warm(p)
         reset_launches()
+        x.warm(p)
         runs = [x.run(p) for _ in range(MESH_REPS)]
-        launches = read_launches()
+        launches = read_launches()  # a captured executor's: its warm's
         if name == "sharded" and device.type == "cuda" and not (
                 launches["fused_mp"] > 0 and launches["node_mlp"] > 0):
             raise AssertionError(f"pubmed gin: launches {launches}")
         served[name] = (runs[-1][0], statistics.median(dt for _, dt in runs))
-    if ex.captured or ex.lowered_count:
-        raise AssertionError("pubmed gin: the sharded forward captured")
+    captured = captures(device.type, mesh.size, mesh.backend)
+    if ex.captured != captured or bool(ex.lowered_count) != captured:
+        raise AssertionError(f"pubmed gin over {mesh.backend}: captured {ex.captured}, "
+                             f"{ex.lowered_count} captures")
+    eager_ms = None
+    if captured:  # the same sharded program run eagerly, timed alike
+        fn = ex._program(tenant, p.bucket_key, p.num_graphs).fn
+        times = []
+        with torch.inference_mode():
+            for _ in range(MESH_REPS + 1):
+                mesh_sync(device)
+                t0 = time.perf_counter()
+                fn(tenant.params, *ex._inputs(p))
+                mesh_sync(device)
+                times.append(time.perf_counter() - t0)
+        eager_ms = statistics.median(times[1:]) * 1e3
     agree("mesh pubmed gin served", served["sharded"][0], served["whole"][0], SERVE_TOL)
     a = node_outputs(ex, tenant, p, True)
     b = node_outputs(ex, tenant, p, False)
@@ -4501,7 +4676,7 @@ def mesh_pubmed_gin(mesh, device) -> dict:
     if device.type == "cuda" and not bits:
         raise AssertionError(f"pubmed gin: bits differ, max err {max_err(a, b):.3g}")
     return {"ms": served["sharded"][1] * 1e3, "plain_ms": served["whole"][1] * 1e3,
-            "captured": ex.captured, "plain_captured": whole.captured,
+            "eager_ms": eager_ms, "captured": ex.captured, "plain_captured": whole.captured,
             "max_abs_err": max_err(torch.as_tensor(served["sharded"][0]),
                                    torch.as_tensor(served["whole"][0])),
             "node_bits_equal": bits, "out_shape": list(a.shape)}
@@ -4546,7 +4721,8 @@ def mesh_rank_main(argv: list) -> int:
     for flag in ("--mesh-backend", "--mesh-init", "--mesh-out"):
         ap.add_argument(flag, required=True)
     ap.add_argument("--mesh-device", default="cuda")
-    ap.add_argument("--mesh-job", default="gnn", choices=("gnn", "train"))
+    ap.add_argument("--mesh-job", default="gnn",
+                    choices=("gnn", "train", "hang", "decode"))
     a = ap.parse_args(argv)
     device = torch.device(a.mesh_device)
     if device.type == "cuda":
@@ -4565,6 +4741,15 @@ def mesh_rank_main(argv: list) -> int:
             Path(a.mesh_out, f"rank{a.mesh_rank}.json").write_text(json.dumps(res))
             dist.barrier()
             return 0
+        if a.mesh_job == "decode":
+            res = mesh_decode_rank(device, step)
+            Path(a.mesh_out, f"rank{a.mesh_rank}.json").write_text(json.dumps(res))
+            dist.barrier()
+            return 0
+        if a.mesh_job == "hang":
+            res = hang_case_rank(device, step)
+            Path(a.mesh_out, f"rank{a.mesh_rank}.json").write_text(json.dumps(res))
+            return 0
         mesh = RT.make_flat_mesh(a.mesh_world, axis="data", device=device)
         step(f"joined {mesh}")
         res = {"backend": mesh.backend, "substrate": mesh_substrate(mesh, device)}
@@ -4577,9 +4762,11 @@ def mesh_rank_main(argv: list) -> int:
             res["engine"] = mesh_nccl_engine(mesh, device)
         step("done")
         Path(a.mesh_out, f"rank{a.mesh_rank}.json").write_text(json.dumps(res))
+        gc.collect()  # graphs that captured NCCL go before their communicators
         dist.barrier()
     finally:
         dist.destroy_process_group()
+        step("left the process group")
     return 0
 
 
@@ -4631,6 +4818,50 @@ def mp_line(tag: str, sub: dict) -> str:
         for name, c in sub.items()) + f" ({tag})"
 
 
+def serve_lines(ranks: list, backend: str, card: str) -> None:
+    """The ``[mesh gnn ...]`` and ``[mesh pubmed gin]`` lines of a world's
+    ranks (``mesh_serve``, ``mesh_pubmed_gin``); a captured executor's
+    launches are a replay's, by the profiler, with its NCCL kernels."""
+    world = len(ranks)
+    r0 = ranks[0]["serve"]
+    for model in MESH_MODELS:
+        rows = [g["serve"][model] for g in ranks]
+        kind = "a replay's (profiler)" if rows[0]["captured"] else "timed passes'"
+        print(f"[mesh gnn {model}] {world} {backend} ranks, batched 4 x (128, 384): p50 "
+              f"{rows[0]['p50_ms']:.3f} ms sharded (captured {rows[0]['captured']}) | "
+              f"{rows[0]['plain_p50_ms']:.3f} ms unsharded (captured "
+              f"{rows[0]['plain_captured']}); all-gathered "
+              f"{rows[0]['all_gather_bytes_per_layer']:.0f} B/layer/rank, all-reduced "
+              f"{rows[0]['all_reduce_bytes_per_forward']:.0f} B/forward; max err "
+              f"{rows[0]['max_abs_err']:.2e}; node outputs bit for bit "
+              f"{rows[0]['node_bits_equal']} (served {rows[0]['served_node_bits_equal']}); "
+              f"launches fused_mp / node_mlp, {kind}: " + ", ".join(
+                  f"rank {r} {row['launches']['fused_mp']}/{row['launches']['node_mlp']}"
+                  + (f" + {row['nccl_kernels']} nccl of {row['device_ops']} ops"
+                     if row["nccl_kernels"] is not None else "")
+                  for r, row in enumerate(rows)) + f"; {card}")
+    for precision in ("fp32", "int8"):
+        row = r0[f"gin {precision} packed"]
+        print(f"[mesh gnn gin {precision} packed] {world} {backend} ranks, StreamScheduler "
+              f"capacity 4, {MESH_GRAPHS} graphs, {row['flushes']} flushes: p50 "
+              f"{row['p50_ms']:.3f} ms sharded | {row['plain_p50_ms']:.3f} ms unsharded; "
+              f"{card}")
+    st = r0["gin stream"]
+    print(f"[mesh gnn gin stream] {world} {backend} ranks, StreamScheduler capacity 4, "
+          f"{MESH_GRAPHS} graphs at {MESH_STREAM['qps']:g} qps, max-wait "
+          f"{MESH_STREAM['max_wait_s'] * 1e3:g} ms: {st['flushes']} flushes at rungs "
+          f"{st['rungs']}, one schedule on every rank; p50 {st['p50_ms']:.3f} ms p99 "
+          f"{st['p99_ms']:.3f} ms; {card}")
+    pm = ranks[0]["pubmed_gin"]
+    eager = "" if pm["eager_ms"] is None else f" | {pm['eager_ms']:.2f} ms sharded eager"
+    print(f"[mesh pubmed gin] 19717 nodes, 88648 edges, {PUBMED_GIN_FEAT} features, "
+          f"node task, Executor.run median of {MESH_REPS}: {pm['ms']:.2f} ms sharded "
+          f"over {world} {backend} (captured {pm['captured']}){eager} | "
+          f"{pm['plain_ms']:.2f} ms whole (captured {pm['plain_captured']}); max err "
+          f"{pm['max_abs_err']:.2e}; out {pm['out_shape']}, bit for bit under "
+          f"deterministic algorithms {pm['node_bits_equal']}; {card}")
+
+
 def mesh_phase(device, card: str) -> dict:
     """Phase 12: a 2-rank gloo world on the card (substrate, six models
     sharded, GIN packed, the PubMed-sized GIN forward), a 1-rank NCCL world
@@ -4653,37 +4884,7 @@ def mesh_phase(device, card: str) -> dict:
     for res in nccl:
         print(f"[mesh nccl x1 engine] gin batched: captured {res['engine']['captured']}, "
               f"{res['engine']['lowered']} captures, = the unsharded engine; {card}")
-    r0 = gloo[0]["serve"]
-    for model in MESH_MODELS:
-        rows = [g["serve"][model] for g in gloo]
-        print(f"[mesh gnn {model}] 2 gloo ranks, batched 4 x (128, 384): p50 "
-              f"{rows[0]['p50_ms']:.3f} ms sharded (captured {rows[0]['captured']}) | "
-              f"{rows[0]['plain_p50_ms']:.3f} ms unsharded (captured "
-              f"{rows[0]['plain_captured']}); all-gathered "
-              f"{rows[0]['all_gather_bytes_per_layer']:.0f} B/layer/rank, all-reduced "
-              f"{rows[0]['all_reduce_bytes_per_forward']:.0f} B/forward; max err "
-              f"{rows[0]['max_abs_err']:.2e}; node outputs bit for bit "
-              f"{rows[0]['node_bits_equal']}; launches fused_mp / node_mlp rank 0 "
-              f"{rows[0]['launches']['fused_mp']}/{rows[0]['launches']['node_mlp']}, "
-              f"rank 1 {rows[1]['launches']['fused_mp']}/{rows[1]['launches']['node_mlp']}; "
-              f"{card}")
-    for precision in ("fp32", "int8"):
-        row = r0[f"gin {precision} packed"]
-        print(f"[mesh gnn gin {precision} packed] StreamScheduler capacity 4, "
-              f"{MESH_GRAPHS} graphs, {row['flushes']} flushes: p50 {row['p50_ms']:.3f} ms "
-              f"sharded | {row['plain_p50_ms']:.3f} ms unsharded; {card}")
-    st = r0["gin stream"]
-    print(f"[mesh gnn gin stream] StreamScheduler capacity 4, {MESH_GRAPHS} graphs at "
-          f"{MESH_STREAM['qps']:g} qps, max-wait {MESH_STREAM['max_wait_s'] * 1e3:g} ms: "
-          f"{st['flushes']} flushes at rungs {st['rungs']}, one schedule on both ranks; "
-          f"p50 {st['p50_ms']:.3f} ms p99 {st['p99_ms']:.3f} ms; {card}")
-    pm = gloo[0]["pubmed_gin"]
-    print(f"[mesh pubmed gin] 19717 nodes, 88648 edges, {PUBMED_GIN_FEAT} features, "
-          f"node task, Executor.run median of {MESH_REPS}: {pm['ms']:.2f} ms sharded "
-          f"over 2 (captured {pm['captured']}) | {pm['plain_ms']:.2f} ms whole (captured "
-          f"{pm['plain_captured']}); max err {pm['max_abs_err']:.2e}; out "
-          f"{pm['out_shape']}, bit for bit under deterministic algorithms "
-          f"{pm['node_bits_equal']}; {card}")
+    serve_lines(gloo, "gloo", card)
     argv = [sys.executable, "-m", "repro_torch.launch.serve", "--gnn", "gin",
             "--batched", "--gnn-mesh", "2", "--n-graphs", "12", "--batch", "4"]
     if device.type != "cuda":
@@ -4696,6 +4897,66 @@ def mesh_phase(device, card: str) -> dict:
     print(f"[mesh] phase 12 took {time.perf_counter() - t0:.1f}s")
     return {f"mesh gloo rank{r}": g["serve"]["launches_total"]
             for r, g in enumerate(gloo)}
+
+
+# ---------------------------------------------------------------------------
+# four cards: NCCL communicators under captured replays (--gnn-mesh-cards)
+# ---------------------------------------------------------------------------
+
+# The hang case: HANG_ROUNDS rounds of HANG_REPLAYS replays of a sharded,
+# captured forward, their harvests and a barrier; a world past
+# HANG_TIMEOUT_S is killed.
+HANG_REPLAYS = 200
+HANG_ROUNDS = 5
+HANG_TIMEOUT_S = 75
+
+
+def hang_case_rank(device, step) -> dict:
+    """One rank of the executor's hang case: GIN (paper width, fp32 fused)
+    sharded and captured on the world's NCCL mesh at the (128, 384) bucket;
+    HANG_ROUNDS rounds of HANG_REPLAYS ``run_async`` replays, then their
+    harvests (each waits for its event, all-reduces its seconds MAX on the
+    mesh's group: ``Executor._slowest``, and copies its output to the
+    host) and a barrier, with no synchronize between; then a profiled
+    replay and a barrier, and the executor dropped and a barrier."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import runtime as RT
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import init
+    from repro_torch.serve.executor import Executor
+
+    bsz, n_pad, e_pad = MESH_BATCH
+    mesh = RT.make_flat_mesh(dist.get_world_size(), axis="data", device=device)
+    cfg = get_gnn_config("gin")
+    ex = Executor(buckets=((n_pad, e_pad),), device=device, mesh=mesh)
+    ex.register("gin", cfg, init(torch.Generator().manual_seed(0), cfg), fused=True)
+    graphs = [g[:4] for g in MoleculeStream(MOLHIV, seed=0).take(bsz)]
+    p = ex.prepare_batched(graphs, bsz, n_pad, e_pad)
+    want = ex.run(p)[0]
+    if not (ex.captured and ex.lowered_count == 1):
+        raise AssertionError(f"hang case: captured {ex.captured}, {ex.lowered_count} captures")
+    step("captured")
+    rounds, err, right = [], 0.0, True
+    for r in range(HANG_ROUNDS):
+        t0 = time.perf_counter()
+        pending = [ex.run_async(p) for _ in range(HANG_REPLAYS)]
+        outs = [q.result()[0] for q in pending]
+        dist.barrier()
+        rounds.append(time.perf_counter() - t0)
+        err = max([err] + [float(np.abs(o - want).max()) for o in outs])
+        right &= all(np.allclose(o, want, **SERVE_TOL) for o in outs)
+        step(f"round {r} {rounds[-1]:.3f}s")
+    mesh_replay_kernels(lambda: ex.run(p))
+    dist.barrier()
+    step("a profiled replay, then a barrier")
+    del ex, pending, outs
+    gc.collect()
+    step("the executor dropped")
+    dist.barrier()
+    step("a barrier after the executor was dropped")
+    return {"rounds_s": rounds, "max_abs_err": err, "right": right}
 
 
 # ---------------------------------------------------------------------------
@@ -4954,6 +5215,109 @@ def train_mesh_phase(device, card: str, models=TRAIN_MESH_MODELS, **extra) -> di
 
 
 # ---------------------------------------------------------------------------
+# phase 13b: decode on a mesh (models/layers.py: _decode_sharded, MLA's
+# _mla_decode_sharded)
+# ---------------------------------------------------------------------------
+
+# (arch, layers, mesh, batch, prompt, cache): the published widths, depth
+# cut, fp32.  MiniCPM3-4B (MLA: kv_lora 256, 40 heads, vocab 73448) with
+# its latent caches whole on "model" and q's heads cut there (1x2) or cut
+# on batch (2x1); a batch-1 Mixtral-8x7B (8 experts of d_ff 14336), every
+# cache cut on its positions in two blocks of 4224: the decode step's slot
+# 8328 is in rank 1's block and its 4096 window (8232..8328] masks rank 0's
+# block [0, 4224) wholly
+MESH_DECODE_CASES = (("minicpm3-4b", 2, (1, 2), 4, 256, 384),
+                     ("minicpm3-4b", 2, (2, 1), 4, 256, 384),
+                     ("mixtral-8x7b", 1, (2, 1), 1, 8328, 8448))
+MESH_DECODE_LOGITS = 1e-5  # max |mesh - one rank| over max |one rank|, fp32
+MESH_DECODE_CACHE = 1e-6
+
+
+def mesh_decode_rank(device, step) -> dict:
+    """One rank of phase 13b's gloo world: each case's decode step on the
+    mesh (DTensors of the rank's blocks, on the card) against the one-rank
+    step on the same prefilled cache, on this rank."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import runtime as RT
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import partitioning as SH
+    from repro_torch.train.loop import mesh_scope
+
+    out = {}
+    for arch, layers, shape, batch, prompt_len, cache_len in MESH_DECODE_CASES:
+        cfg = get_config(arch, num_layers=layers, dtype="float32")
+        params = lm.init_params(torch.Generator(device=device).manual_seed(0), cfg)
+        rng = np.random.default_rng(3)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+                                  .astype(np.int32)).to(device)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, 1))
+                               .astype(np.int32)).to(device)
+        # the prefill on the flash kernel (fp32: its simt route); Mixtral's
+        # 8328 positions in plain torch would hold 8.9 GB of logits a layer
+        cache, _, t0 = lm.prefill(params, {"tokens": prompt}, cfg, cache_len)
+        t = torch.full((), t0, dtype=torch.long, device=device)
+        want_cache = adamw.tree_map(lambda x: x.clone(), cache)
+        want, _ = lm.decode_step(params, want_cache, tok, t, cfg)
+        mesh = RT.make_mesh(shape, ("data", "model"), device=device.type)
+        rules = SH.batch_rules(mesh, batch)
+        put = lambda x, axes: SH.place(x, SH.resolve_spec(axes, tuple(x.shape), mesh, rules),
+                                       mesh)
+        placed = SH.place_tree(params, lm.param_axes(cfg), mesh, rules)
+        pc = SH._map_with_axes(lambda x, axes: put(x.clone(), axes), cache, lm.cache_axes(cfg))
+        del cache
+        mesh_sync(device)
+        t1 = time.perf_counter()
+        with mesh_scope(mesh, rules):
+            got, got_cache = lm.decode_step(placed, pc, put(tok, ("batch", None)), t, cfg)
+        mesh_sync(device)
+        ms = (time.perf_counter() - t1) * 1e3
+        got = got.full_tensor() if isinstance(got, DTensor) else got
+        pairs = [(a.full_tensor() if isinstance(a, DTensor) else a, b)
+                 for a, b in zip(adamw.leaves(got_cache), adamw.leaves(want_cache))]
+        key = f"{arch} {shape[0]}x{shape[1]}"
+        out[key] = dict(
+            logits=float((got - want).abs().max() / want.abs().max()),
+            cache=max(float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+                      for a, b in pairs),
+            finite=bool(torch.isfinite(got).all()), ms=ms, on=str(got.device),
+            placements=sorted({str(a.placements) for a in adamw.leaves(got_cache)
+                               if isinstance(a, DTensor)}))
+        del params, placed, pc, got_cache, want_cache, pairs
+        torch.cuda.empty_cache() if device.type == "cuda" else None
+        step(f"decode {key} done")
+    return out
+
+
+def mesh_decode_phase(device, card: str) -> None:
+    """Phase 13b: ``MESH_DECODE_CASES`` on 2 gloo ranks sharing the card
+    (real CUDA tensors, fp32), each case's logits within 1e-5 of their
+    largest and every cache within 1e-6 of the one-rank step's, no NaN."""
+    t0 = time.perf_counter()
+    dev = "cuda" if device.type == "cuda" else "cpu"
+    ranks = mesh_world("gloo", 2, ROOT / "build" / "mesh" / "decode", dev, job="decode")
+    for arch, layers, shape, batch, prompt_len, cache_len in MESH_DECODE_CASES:
+        key = f"{arch} {shape[0]}x{shape[1]}"
+        rows = [r[key] for r in ranks]
+        print(f"[mesh decode {key}] 2 gloo ranks on {rows[0]['on']}, fp32, {layers} layers, "
+              f"B {batch}, prompt {prompt_len}, cache {cache_len}, caches "
+              f"{rows[0]['placements']}: "
+              f"logits err {max(r['logits'] for r in rows):.3e} (bound "
+              f"{MESH_DECODE_LOGITS:g}), caches {max(r['cache'] for r in rows):.3e} (bound "
+              f"{MESH_DECODE_CACHE:g}), finite {all(r['finite'] for r in rows)}; the step "
+              f"{rows[0]['ms']:.1f} ms on rank 0 (DTensor's first step); {card}")
+        for r in rows:
+            if not (r["finite"] and r["logits"] <= MESH_DECODE_LOGITS
+                    and r["cache"] <= MESH_DECODE_CACHE):
+                raise AssertionError(f"mesh decode {key}: {r}")
+            if dev == "cuda" and not r["on"].startswith("cuda"):
+                raise AssertionError(f"mesh decode {key}: the step ran on {r['on']}")
+    print(f"[mesh decode] phase 13b took {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the dry-run and the roofline (fake tensors in child processes)
 # ---------------------------------------------------------------------------
 
@@ -4964,7 +5328,11 @@ SHARE_MAX = 1.05  # no card reads more: a share past it is a miscount
 DECODE_FLOOR_BAND = (1.0, 1.5)
 MFU_RTOL = 1e-6  # phase 14's mfu / phase 11b's against the ratio of their counts
 DRYRUN_CELL = ("chatglm3-6b", "train_4k")  # the fake 256-rank cell
-DRYRUN_DECODE_CELL = ("chatglm3-6b", "decode_32k")  # decode on each rank's block
+# decode on each rank's block of the cache: cut on batch and kv heads
+# (ChatGLM3-6B), MLA's latent caches cut on batch (MiniCPM3-4B), and, at
+# batch 1, cut on their positions (Mixtral-8x7B's long_500k)
+DRYRUN_DECODE_CELLS = (("chatglm3-6b", "decode_32k"), ("minicpm3-4b", "decode_32k"),
+                       ("mixtral-8x7b", "long_500k"))
 DRYRUN_TIMEOUT_S = 600
 _ONE_RANK_CELLS = r"""
 import json, sys
@@ -4999,9 +5367,10 @@ def dryrun_children() -> dict:
             "dryrun": start([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                              DRYRUN_CELL[0], "--shape", DRYRUN_CELL[1], "--mesh", "single",
                              "--force"]),
-            "dryrun decode": start([sys.executable, "-m", "repro_torch.launch.dryrun",
-                                    "--arch", DRYRUN_DECODE_CELL[0], "--shape",
-                                    DRYRUN_DECODE_CELL[1], "--mesh", "single", "--force"]),
+            **{f"dryrun decode {arch} {shape}": start(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--mesh", "single", "--force"])
+               for arch, shape in DRYRUN_DECODE_CELLS},
             "gnn_dryrun": start([sys.executable, "-m", "repro_torch.launch.gnn_dryrun"])}
 
 
@@ -5089,13 +5458,16 @@ def roofline_phase(children: dict, train_summary: dict, card: str) -> None:
 
     said = child_output(children, "dryrun").strip().splitlines()
     rec = json.loads(Path(D.cell_path(DRYRUN_CELL[0], DRYRUN_CELL[1], False)).read_text())
-    dsaid = child_output(children, "dryrun decode").strip().splitlines()
-    drec = json.loads(Path(D.cell_path(*DRYRUN_DECODE_CELL, False)).read_text())
+    decodes = []
+    for arch, shape in DRYRUN_DECODE_CELLS:
+        dsaid = child_output(children, f"dryrun decode {arch} {shape}").strip().splitlines()
+        decodes.append((json.loads(Path(D.cell_path(arch, shape, False)).read_text()),
+                        dsaid[-2] if len(dsaid) > 1 else dsaid[-1]))
     gsaid = child_output(children, "gnn_dryrun").strip().splitlines()
     grec = json.loads(Path(G.record_path(dict(multi_pod=False, shape="n2^27_e2^31_f256")))
                       .read_text())
-    for r, line in ((rec, said[-2] if len(said) > 1 else said[-1]),
-                    (drec, dsaid[-2] if len(dsaid) > 1 else dsaid[-1]), (grec, gsaid[-1])):
+    for r, line in ((rec, said[-2] if len(said) > 1 else said[-1]), *decodes,
+                    (grec, gsaid[-1])):
         rf, m, cs = r["roofline"], r["memory"], r["collective_summary"]
         hbm = r.get("hbm_estimate", {})
         print(f"[dryrun {r['arch']} {r['shape']} {r['mesh']}] a fake world of "
@@ -5116,7 +5488,8 @@ def roofline_phase(children: dict, train_summary: dict, card: str) -> None:
             raise AssertionError(f"[dryrun {r['arch']}]: an empty record")
     if not rec["flops_per_device"] > 0:
         raise AssertionError(f"[dryrun {rec['arch']}]: no FLOPs counted")
-    check_decode_cell(drec)
+    for drec, _ in decodes:
+        check_decode_cell(drec)
     print(f"[roofline] phase 14 took {time.perf_counter() - t0:.1f}s past phase 13 "
           "(its children ran beside the earlier phases)")
 
@@ -5381,9 +5754,10 @@ def gnn_train_phase(device, card: str) -> dict:
 
 
 def check_decode_cell(rec: dict) -> None:
-    """The ``decode_32k`` cell on 16x16: a record with no error and no
-    all-gather of the cache (no gathered shape holds the cache's positions;
-    ``roofline.CollectiveRecorder`` keeps each result's shape)."""
+    """A decode cell on 16x16 (``DRYRUN_DECODE_CELLS``): a record with no
+    error and no all-gather of the cache (no gathered shape holds the
+    cache's positions; ``roofline.CollectiveRecorder`` keeps each result's
+    shape)."""
     from repro_torch.models.config import SHAPES
 
     tag = f"[dryrun {rec['arch']} {rec['shape']} {rec.get('mesh', '?')}]"
@@ -5451,6 +5825,7 @@ def run_phases(device, children: dict) -> list:
     paths["train loop"] = train_loop_phase(device)
     paths.update(mesh_phase(device, device_line()))
     paths.update(train_mesh_phase(device, device_line()))
+    mesh_decode_phase(device, device_line())
     roofline_phase(children, train_summary, device_line())
     paths.update(gnn_train_phase(device, device_line()))
     packed, lay = packed_plan(device)
@@ -5468,6 +5843,7 @@ def run_phases(device, children: dict) -> list:
                                  paths["minicpm3-4b"]["flash_attention"],
                                  design_split(paths["minicpm3-4b"], "flash_attention"))
     next(r for r in rows if r["name"] == "flash_attention")["training"] = flash_training
+    time_window_edges(device, device_line())
     for row in rows:
         counter = row.get("counter", row["name"])
         row["launches_by_path"] = {path: counts[counter]
@@ -5510,6 +5886,57 @@ def train_mesh_cards(cards: int) -> int:
     return 0
 
 
+def hang_worlds(cards: int, out_root: Path, card: str) -> None:
+    """The hang case (``hang_case_rank``) in a world of its own, killed past
+    HANG_TIMEOUT_S; a world that fails prints how far each rank came."""
+    hang = mesh_world("nccl", cards, out_root / "hang", "cuda", job="hang",
+                      timeout_s=HANG_TIMEOUT_S)
+    worst = max(h["max_abs_err"] for h in hang)
+    print(f"[mesh hang case] ran: {HANG_ROUNDS} rounds of {HANG_REPLAYS} replays, their "
+          f"harvests (timing all-reduce MAX each) and a barrier, no synchronize; rank 0 "
+          f"rounds " + " / ".join(f"{x:.3f}" for x in hang[0]["rounds_s"])
+          + f" s; replays against the first max err {worst:.2e}; {card}")
+    if not all(h["right"] for h in hang):
+        raise AssertionError(f"hang case: a replay's output moved by {worst}")
+
+
+def gnn_mesh_cards(cards: int) -> int:
+    """``--gnn-mesh-cards N`` (development, not the default run): phase
+    12's rank code on an N-rank NCCL world, a card a rank: the substrate,
+    the six models sharded and captured against the unsharded engine (node
+    outputs bit for bit under deterministic algorithms, directly and
+    served), GIN fp32 / int8 packed and GIN's stream with arrivals through
+    the scheduler, the PubMed-sized GIN sharded captured, sharded eager and
+    whole; then the hang case (``hang_worlds``); then the launcher with
+    ``--gnn-mesh N``."""
+    import torch
+
+    if torch.cuda.device_count() < cards:
+        raise SystemExit(f"--gnn-mesh-cards {cards}: {torch.cuda.device_count()} cards")
+    card = device_line()
+    t0 = time.perf_counter()
+    build_kernels()
+    out_root = ROOT / "build" / "mesh" / "cards"
+    ranks = mesh_world("nccl", cards, out_root / "gnn", "cuda")
+    for r, res in enumerate(ranks):
+        sub = res["substrate"]
+        print(f"[mesh substrate nccl x{cards} rank {r}] jax data: "
+              f"{mp_line('N 32, E 64, F 6', sub['jax_data'])}; pubmed: "
+              f"{mp_line('N 19717, E 88648, F 100', sub['pubmed'])}; "
+              f"compressed_psum rel {sub['compressed_psum_rel']:.2e}; {card}")
+    serve_lines(ranks, "nccl", card)
+    hang_worlds(cards, out_root, card)
+    out = run_child([sys.executable, "-m", "repro_torch.launch.serve", "--gnn", "gin",
+                     "--batched", "--gnn-mesh", str(cards), "--n-graphs", "12", "--batch",
+                     "4"], f"launcher --gnn-mesh {cards}")
+    line = next((ln for ln in out.splitlines() if f"mesh={cards}" in ln), "")
+    if "backend=nccl captured=True" not in line:
+        raise AssertionError(f"launcher --gnn-mesh {cards} did not capture on NCCL:\n{out}")
+    print(f"[mesh cards launcher] {line.strip()}")
+    print(f"[mesh cards] took {time.perf_counter() - t0:.1f}s")
+    return 0
+
+
 def main() -> int:
     if "--mesh-rank" in sys.argv:
         return mesh_rank_main(sys.argv[1:])
@@ -5517,6 +5944,8 @@ def main() -> int:
 
     if "--train-mesh-cards" in sys.argv:
         return train_mesh_cards(int(sys.argv[sys.argv.index("--train-mesh-cards") + 1]))
+    if "--gnn-mesh-cards" in sys.argv:
+        return gnn_mesh_cards(int(sys.argv[sys.argv.index("--gnn-mesh-cards") + 1]))
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",

@@ -12,9 +12,12 @@ Padded node rows are zeroed on the way out of every layer.
 several ranks).  :func:`shard_inputs` gives a rank its part of a padded
 batch: an even block of the node rows, ``[r N/P, (r+1) N/P)``, and the
 edges whose destination it owns, which are one contiguous range of the
-plan (``layout.offsets`` at the block's ends), in plan order.  The
-rank's ``Graph`` carries a ``runtime.partitioning.RowShard``; its edges'
-sources stay global node ids.  Every layer form then reads its source
+plan (``layout.offsets`` at the block's ends), in plan order, held in a
+window of the plan's length E_pad that starts there (the start stays on
+the device: nothing is read back, so the forward can be captured), its
+slots past the range masked.  The rank's ``Graph`` carries a
+``runtime.partitioning.RowShard``; its edges' sources stay global node
+ids.  Every layer form then reads its source
 rows through :func:`source_rows`, one all-gather of the rows it reads as
 sources, and aggregates only its own destination rows, in the plan's edge
 order, so a node's reduction runs in the same order as on one rank:
@@ -276,41 +279,50 @@ def global_pool(
 
 @dataclasses.dataclass(frozen=True)
 class OwnedEdges:
-    """A rank's window of the plan: ``index`` (W,) int64 plan positions,
-    all of them edges of the rank's destinations (the plan sorts masked
-    edges past every node), ``offsets`` (n_local + 1,) int32 CSR ranges
-    relative to the window."""
+    """A rank's window of the plan, as long as the plan (E_pad, known when
+    the bucket is prepared): ``index`` (E_pad,) int64 plan positions from
+    the rank's start ``offsets[row0]`` on (a device value, clamped to the
+    plan), ``owned`` (E_pad,) bool, true on the first ``offsets[-1]``
+    slots: the rank's destinations' in-edges, in plan order (the plan
+    sorts masked edges past every node); ``offsets`` (n_local + 1,) int32
+    CSR ranges relative to the window."""
 
     index: torch.Tensor
+    owned: torch.Tensor
     offsets: torch.Tensor
 
 
 def owned_edges(layout: LY.GraphLayout, shard) -> OwnedEdges:
     """The plan range of ``shard``'s destinations, ``offsets[row0]`` to
-    ``offsets[row0 + n_local]``, read back to the host (one sync), so the
-    window holds exactly those edges.  A sync cannot be captured: a
-    sharded forward runs eagerly (``serve.executor.Executor.captured``)."""
+    ``offsets[row0 + n_local]``, as a window of the plan's own length that
+    starts there.  Nothing is read back to the host, so a sharded forward
+    can be captured; the window costs each rank E_pad edge slots where it
+    owns about E / P edges, the slots past its last owned edge masked."""
     n0, nl = shard.row0, shard.n_local
     bounds = layout.offsets[n0:n0 + nl + 1]
-    e0, e1 = (int(v) for v in bounds[[0, -1]].tolist())
-    return OwnedEdges(index=torch.arange(e0, e1, device=bounds.device),
-                      offsets=(bounds - e0).to(torch.int32))
+    w = layout.ids_sorted.shape[0]
+    pos = bounds[0].long() + torch.arange(w, device=bounds.device)
+    return OwnedEdges(index=pos.clamp(max=w - 1), owned=pos < bounds[-1],
+                      offsets=(bounds - bounds[0]).to(torch.int32))
 
 
 def shard_graph(graph: Graph, layout: LY.GraphLayout, edges: OwnedEdges,
                 shard) -> Graph:
     """The rank's graph: its node rows, and its destinations' in-edges in
-    plan order (sources global, destinations rank-local)."""
-    dst = layout.ids_sorted[edges.index] - shard.row0
+    plan order (sources global, destinations rank-local), then the
+    window's masked slots: false ``edge_mask``, pointing at the rank's last
+    row as the padding edges of a graph point at its last padded node."""
+    dst = torch.where(edges.owned, layout.ids_sorted[edges.index] - shard.row0,
+                      shard.n_local - 1)
     src = layout.src_sorted[edges.index]
     perm = layout.perm[edges.index].long()
     return dataclasses.replace(
         graph,
         node_feat=shard.rows(graph.node_feat),
-        edge_index=torch.stack([src, dst]),
+        edge_index=torch.stack([src, dst.to(src.dtype)]),
         edge_feat=graph.edge_feat[perm],
         node_mask=shard.rows(graph.node_mask),
-        edge_mask=torch.ones_like(edges.index, dtype=torch.bool),
+        edge_mask=edges.owned,
         graph_id=shard.rows(graph.graph_id),
         shard=shard,
     )
@@ -318,11 +330,15 @@ def shard_graph(graph: Graph, layout: LY.GraphLayout, edges: OwnedEdges,
 
 def shard_layout(layout: LY.GraphLayout, edges: OwnedEdges, shard) -> LY.GraphLayout:
     """The rank's plan over :func:`shard_graph`'s edges, which are already
-    in plan order (``perm`` the identity)."""
+    in plan order (``perm`` the identity); the masked slots carry the
+    out-of-range destination ``n_local`` (as the plan's masked edges carry
+    ``N_pad``), which the segment reductions drop, and lie past
+    ``offsets[-1]``, which the CSR kernels never walk."""
     return LY.GraphLayout(
         perm=torch.arange(edges.index.shape[0], dtype=torch.int32,
                           device=edges.index.device),
-        ids_sorted=layout.ids_sorted[edges.index] - shard.row0,
+        ids_sorted=torch.where(edges.owned, layout.ids_sorted[edges.index] - shard.row0,
+                               shard.n_local).to(layout.ids_sorted.dtype),
         offsets=edges.offsets,
         src_sorted=layout.src_sorted[edges.index],
         in_degree=shard.rows(layout.in_degree),

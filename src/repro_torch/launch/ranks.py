@@ -8,6 +8,7 @@ group and runs the launcher's ``main`` with the same arguments; ranks past
 """
 from __future__ import annotations
 
+import gc
 import os
 import sys
 import tempfile
@@ -36,6 +37,12 @@ def _rank_main(rank: int, main, world: int, backend_name: str, init_method: str,
                             world_size=world, rank=rank)
     try:
         main(argv)
+        # CUDA graphs that captured NCCL collectives go before their
+        # communicators: destroying the process group while such a graph
+        # lived hung it.  An executor frees its graphs with its last
+        # reference (its forwards hold the mesh, not the executor); this
+        # frees one that a cycle outside it, a caller's, still keeps
+        gc.collect()
         # leave together: a rank that tore down its connections while
         # another still read the last collective's bytes aborted that rank
         dist.barrier()

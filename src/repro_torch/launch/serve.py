@@ -76,13 +76,14 @@ rendezvous through a file in a fresh temporary directory): NCCL, one card
 a rank, where the machine has P cards and ``--device`` is a card (its
 bootstrap over the loopback unless ``NCCL_SOCKET_IFNAME`` says
 otherwise); gloo otherwise, every rank on the one card (gloo collectives
-run on CUDA tensors) or on the CPU.  Either way the executor runs the
-sharded forwards eagerly, not as CUDA graphs.  Every rank serves the same
+run on CUDA tensors) or on the CPU.  On NCCL the executor serves the
+sharded forwards through CUDA graphs; on gloo it runs them eagerly (a gloo
+collective cannot be captured).  Every rank serves the same
 graphs and, with ``--stream`` or ``--models``, takes the same flushes:
 each flush's time is the slowest rank's, so the ranks' schedulers keep
 one timeline; under ``--pipeline`` each flush's host pack time is the
 slowest rank's as well.  Rank 0 prints the lines, its latency line
-ending in ``mesh=P backend=...``.  A rank that fails fails the launcher.
+ending in ``mesh=P backend=... captured=...``.  A rank that fails fails the launcher.
 
 Not taken: ``--xla-flags-file`` (XLA's compiler options have no CUDA
 meaning).
@@ -104,8 +105,12 @@ def _mesh(args):
     return RT.make_flat_mesh(args.gnn_mesh, axis="data", device=args.device)
 
 
-def _mesh_note(mesh) -> str:
-    return "" if mesh is None else f" mesh={mesh.size} backend={mesh.backend}"
+def _mesh_note(ex) -> str:
+    """The latency line's mesh: its ranks, backend, and whether the
+    executor ``ex`` captured its forwards (NCCL) or ran them eagerly."""
+    if ex.mesh is None:
+        return ""
+    return f" mesh={ex.mesh.size} backend={ex.mesh.backend} captured={ex.captured}"
 
 
 def _slo_kwargs(args):
@@ -247,7 +252,7 @@ def serve_gnn_multitenant(args):
     counts = {s: models.count(s) for s in specs}
     _report_stream(rep, registry,
                    f"multi-tenant stream(qps={args.qps:g}, pack x{args.pack}, "
-                   f"tenants {counts}){_mesh_note(mesh)}",
+                   f"tenants {counts}){_mesh_note(ex)}",
                    f"{len(ex._compiled)} program records, "
                    f"{ex.lowered_count} captures, ")
     _emit_telemetry(args, tracer, registry)
@@ -294,7 +299,7 @@ def serve_gnn(args):
                        f"{args.gnn} stream(qps={args.qps:g}, max-wait "
                        f"{args.max_wait_ms}ms, pack x{args.pack}"
                        f"{', pipeline x' + str(args.inflight) if args.pipeline else ''})"
-                       f"{_mesh_note(mesh)}",
+                       f"{_mesh_note(eng.executor)}",
                        "")
         _emit_telemetry(args, tracer, registry)
         return
@@ -306,13 +311,13 @@ def serve_gnn(args):
         print(f"{args.gnn} batched(bs={args.batch}): "
               f"{len(outs)} graphs, {per_graph_s*1e6:.0f} us/graph "
               f"(compile {eng.compile_seconds + eng.warm_seconds:.1f}s excluded)"
-              f"{_mesh_note(mesh)}")
+              f"{_mesh_note(eng.executor)}")
         return
     outs, lats, warm_s = eng.infer_stream([g[:4] for g in graphs],
                                           with_eigvec=with_eigvec)
     print(f"{args.gnn}: {len(outs)} graphs, mean {np.mean(lats)*1e6:.0f} us/graph "
           f"(p50 {np.percentile(lats,50)*1e6:.0f}, p99 {np.percentile(lats,99)*1e6:.0f}; "
-          f"compile {warm_s:.1f}s excluded){_mesh_note(mesh)}")
+          f"compile {warm_s:.1f}s excluded){_mesh_note(eng.executor)}")
     if args.aot_cache:
         stats = eng.executor.aot_stats()
         print(f"  aot: hit {stats['hit']} miss {stats['miss']} "

@@ -29,12 +29,14 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as Fn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import params as P
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import partitioning as PT
 from repro_torch.runtime.partitioning import logical_constraint as _lc
 
 # ---------------------------------------------------------------------------
@@ -279,6 +281,36 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
         torch.bmm(a.float(), b.float(), out=out)
 
 
+def _gqa_logits(q: torch.Tensor, k_cache: torch.Tensor, kpos: torch.Tensor, t,
+                window: int, softcap: float):
+    """Scaled (and soft-capped) fp32 logits (B, Hkv, g, S) of q (B, 1, H, D)
+    against a cache (B, S, Hkv, D) whose slots hold positions ``kpos``
+    (S,), and the mask (S,) of the keys q attends: positions <= t and, with
+    a window, > t - window."""
+    b, _, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    qs = (q / math.sqrt(d)).reshape(b, hkv, h // hkv, d)
+    logits = torch.empty((b, hkv, h // hkv, s), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        _bmm_f32(qs[i], k_cache[i].permute(1, 2, 0), logits[i])
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    mask = kpos <= t
+    if window:
+        mask &= kpos > t - window
+    return logits, mask
+
+
+def _gqa_values(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv, g, S) weights (the cache's dtype) . v_cache (B, S, Hkv, D)
+    -> (B, Hkv, g, D), fp32."""
+    b, hkv, g, _ = p.shape
+    o = torch.empty((b, hkv, g, v_cache.shape[-1]), dtype=torch.float32, device=p.device)
+    for i in range(b):
+        _bmm_f32(p[i], v_cache[i].transpose(0, 1), o[i])
+    return o
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      t, window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """Single-token grouped-query attention over a cache, in plain torch.
@@ -294,51 +326,116 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     dtype for P.V (fp32 accumulation), which JAX keeps in fp32.
     """
     b, _, h, d = q.shape
-    s, hkv = k_cache.shape[1], k_cache.shape[2]
-    g = h // hkv
-    qs = (q / math.sqrt(d)).reshape(b, hkv, g, d)
-    logits = torch.empty((b, hkv, g, s), dtype=torch.float32, device=q.device)
-    for i in range(b):
-        _bmm_f32(qs[i], k_cache[i].permute(1, 2, 0), logits[i])
-    if softcap > 0:
-        logits = torch.tanh(logits / softcap) * softcap
-    kpos = torch.arange(s, device=q.device)
-    mask = kpos <= t
-    if window:
-        mask &= kpos > t - window
-    logits = torch.where(mask, logits, _NEG)
-    p = torch.softmax(logits, dim=-1).to(v_cache.dtype)
-    o = torch.empty((b, hkv, g, d), dtype=torch.float32, device=q.device)
-    for i in range(b):
-        _bmm_f32(p[i], v_cache[i].transpose(0, 1), o[i])
-    return o.reshape(b, 1, h, d).to(q.dtype)
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    logits, mask = _gqa_logits(q, k_cache, kpos, t, window, softcap)
+    p = torch.softmax(torch.where(mask, logits, _NEG), dim=-1).to(v_cache.dtype)
+    return _gqa_values(p, v_cache).reshape(b, 1, h, d).to(q.dtype)
+
+
+class _SeqBlocks:
+    """This rank's block of a DTensor cache (B, S, ...) cut on its positions
+    over the mesh dims ``dims`` (major to minor, DTensor's order of a dim
+    cut on several): ``start``, the global position of its first slot, and
+    the softmax across the blocks of those dims.  ``start`` follows
+    DTensor's chunk rule on the global S: each mesh dim cuts what the
+    dims before it left into chunks of ceil(len / n), so the last blocks of
+    an S the cut does not divide are shorter or empty."""
+
+    def __init__(self, cache, dims, s_local: int):
+        mesh = cache.device_mesh
+        start, length = 0, cache.shape[1]
+        for d in dims:
+            chunk = -(-length // mesh.size(d))
+            lo = min(mesh.get_local_rank(d) * chunk, length)
+            start, length = start + lo, min(chunk, length - lo)
+        if length != s_local:
+            raise ValueError(f"a block of {s_local} positions where DTensor's chunks of "
+                             f"{cache.shape[1]} give {length}")
+        self.start = start
+        self.groups = [(mesh.get_group(d), mesh.size(d)) for d in dims]
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        for group, n in self.groups:
+            x = PT.all_reduce(x, group, n, op=op)
+        return x
+
+    def softmax(self, logits: torch.Tensor, mask: torch.Tensor, values) -> torch.Tensor:
+        """softmax over every rank's keys of ``logits`` (..., S_block), fp32,
+        then times the values: ``values(p)`` gives the block's products
+        (..., Dv) of unnormalised weights p.  An all-reduce MAX of the row
+        maxima, then one all-reduce SUM of the products and the weights'
+        sums, in fp32.  A rank whose keys are all masked, or that holds no
+        slot, adds exactly 0 (its weights are exp(-1e30 - max) = 0)."""
+        masked = torch.where(mask, logits, _NEG)
+        local = (masked.amax(-1, keepdim=True) if masked.shape[-1]
+                 else masked.new_full((*masked.shape[:-1], 1), _NEG))
+        p = torch.exp(masked - self._reduce(local, dist.ReduceOp.MAX))
+        both = self._reduce(torch.cat([values(p), p.sum(-1, keepdim=True)], dim=-1),
+                            dist.ReduceOp.SUM)
+        return both[..., :-1] / both[..., -1:]
+
+
+def _block_update(cache: torch.Tensor, kv: torch.Tensor, t, start: int) -> None:
+    """A cache block (B, S_block, ...) of positions [start, start +
+    S_block): slot t - start <- kv (B, 1, ...) where t falls in the block,
+    else the block unchanged.  The test is on the device: a device
+    position is never read back."""
+    n = cache.shape[1]
+    if n == 0:  # an empty block (an S the cut does not divide)
+        return
+    pos = _position(t, cache.device).reshape(1) - start
+    slot = pos.clamp(0, n - 1)
+    inside = ((pos >= 0) & (pos < n)).reshape((1,) * kv.dim())
+    cache.index_copy_(1, slot, torch.where(inside, kv.to(cache.dtype),
+                                           cache.index_select(1, slot)))
+
+
+def _seq_dims(placements) -> list:
+    """The mesh dims that cut a cache (B, S, ...) on its positions."""
+    return [i for i, pl in enumerate(placements) if pl == Shard(1)]
 
 
 def _decode_sharded(q, k, v, k_cache, v_cache, t, window: int, softcap: float):
     """One decode step's cache write and attention on DTensors, each rank on
-    its own block under ``local_map``: the rank writes slot t of its block
-    of the caches in place and runs :func:`decode_attention` on its block
-    of q against it.  No cache is gathered and no DTensor meets an ``out=``
-    op (DTensor has no strategy for ``index_copy_`` nor for ``bmm.out``).
+    its own block under ``local_map``.  No cache is gathered and no
+    DTensor meets an ``out=`` op (DTensor has no strategy for
+    ``index_copy_`` nor for ``bmm.out``).
 
-    The caches' placements (batch, and kv heads over "model") are the
-    step's: q, k and v are redistributed to them.  A q head's kv head is
-    in the rank's block, since the GQA groups are contiguous and q's heads
-    are cut as the kv heads are.  A cache cut on its sequence (a batch too
-    small for the data axis) needs a softmax across ranks and is not taken
-    here (``gqa_apply`` leaves it to DTensor)."""
+    The caches' placements (batch, kv heads over "model", or positions: a
+    batch too small for the data axis) are the step's: q, k and v are
+    redistributed to them, whole where the caches are cut on positions.  A
+    q head's kv head is in the rank's block, since the GQA groups are
+    contiguous and q's heads are cut as the kv heads are.  On a cache cut
+    on batch / heads the rank writes slot t of its block in place and runs
+    :func:`decode_attention` there.  On a cache cut on positions the rank
+    writes slot t only where t falls in its block (:func:`_block_update`),
+    attends on its block with the keys' global positions (mask, window and
+    softcap as ``decode_attention``'s), and the ranks combine their
+    partial softmaxes (:meth:`_SeqBlocks.softmax`)."""
     from torch.distributed.tensor.experimental import local_map
 
+    mesh = k_cache.device_mesh
     cp = tuple(k_cache.placements)
+    seq = _seq_dims(cp)
+    qp = tuple(Replicate() if i in seq else pl for i, pl in enumerate(cp))
 
     def body(ql, kl, vl, kcl, vcl):
-        _cache_update(kcl, kl, t)
-        _cache_update(vcl, vl, t)
-        return decode_attention(ql, kcl, vcl, t, window=window, softcap=softcap)
+        if not seq:
+            _cache_update(kcl, kl, t)
+            _cache_update(vcl, vl, t)
+            return decode_attention(ql, kcl, vcl, t, window=window, softcap=softcap)
+        blocks = _SeqBlocks(k_cache, seq, kcl.shape[1])
+        _block_update(kcl, kl, t, blocks.start)
+        _block_update(vcl, vl, t, blocks.start)
+        kpos = blocks.start + torch.arange(kcl.shape[1], device=ql.device)
+        logits, mask = _gqa_logits(ql, kcl, kpos, t, window, softcap)
+        o = blocks.softmax(logits, mask, lambda p: _gqa_values(p.to(vcl.dtype), vcl))
+        b, _, h, d = ql.shape
+        return o.reshape(b, 1, h, d).to(ql.dtype)
 
-    q, k, v = (x.redistribute(placements=cp) for x in (q, k, v))
-    return local_map(body, out_placements=list(cp), in_placements=(cp,) * 5,
-                     device_mesh=k_cache.device_mesh)(q, k, v, k_cache, v_cache)
+    q, k, v = (x.redistribute(placements=qp) for x in (q, k, v))
+    return local_map(body, out_placements=list(qp), in_placements=(qp,) * 3 + (cp,) * 2,
+                     device_mesh=mesh)(q, k, v, k_cache, v_cache)
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, stack=()) -> dict:
@@ -407,8 +504,7 @@ def gqa_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
         new_kv = (k, v)
     else:
         kc, vc = kv_cache
-        if isinstance(kc, DTensor) and Shard(1) not in kc.placements:
-            # a mesh's decode step (the dry-run), the cache cut on batch / heads
+        if isinstance(kc, DTensor):  # a mesh's decode step
             o = _decode_sharded(q, k, v, kc, vc, t, window, cfg.logit_softcap)
         else:
             _cache_update(kc, k, t)
@@ -473,6 +569,36 @@ MLA_AXES = {"w_dq": ("embed", "q_lora"), "q_norm": ("q_lora",),
             "w_uv": ("kv_lora", "heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
 
 
+def _mla_logits(q_nope: torch.Tensor, q_rope: torch.Tensor, ckv_cache: torch.Tensor,
+                krope_cache: torch.Tensor, w_uk: torch.Tensor, kpos: torch.Tensor, t):
+    """MLA's absorbed fp32 logits (B, H, S) over latent caches whose slots
+    hold positions ``kpos`` (S,), scaled, and the mask (S,) of positions
+    <= t."""
+    b, _, h, dn = q_nope.shape
+    s, dr = krope_cache.shape[1], krope_cache.shape[2]
+    # (H, B, dn) @ (H, dn, kvr) -> (B, H, kvr)
+    q_abs = torch.bmm(q_nope[:, 0].transpose(0, 1), w_uk.permute(1, 2, 0)).transpose(0, 1)
+    logits = torch.empty((b, h, s), dtype=torch.float32, device=q_nope.device)
+    rope = torch.empty_like(logits)
+    _bmm_f32(q_abs, ckv_cache.transpose(1, 2), logits)
+    _bmm_f32(q_rope[:, 0], krope_cache.transpose(1, 2), rope)
+    return (logits + rope) * (1.0 / math.sqrt(dn + dr)), kpos <= t
+
+
+def _mla_latent(probs: torch.Tensor, ckv_cache: torch.Tensor) -> torch.Tensor:
+    """(B, H, S) weights (the cache's dtype) . ckv (B, S, kvr) -> (B, H,
+    kvr), fp32."""
+    o_lat = torch.empty(probs.shape[:2] + ckv_cache.shape[2:], dtype=torch.float32,
+                        device=probs.device)
+    _bmm_f32(probs, ckv_cache, o_lat)
+    return o_lat
+
+
+def _mla_out(o_lat: torch.Tensor, w_uv: torch.Tensor) -> torch.Tensor:
+    """(H, B, kvr) @ (H, kvr, dv) -> (B, H, dv), fp32."""
+    return torch.bmm(o_lat.transpose(0, 1), w_uv.float().transpose(0, 1)).transpose(0, 1)
+
+
 def mla_decode_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
                          ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
                          w_uk: torch.Tensor, w_uv: torch.Tensor, t) -> torch.Tensor:
@@ -488,23 +614,62 @@ def mla_decode_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
     (``_bmm_f32``), and P is rounded to the cache dtype for P . ckv (fp32
     accumulation), which JAX keeps in fp32, as ``decode_attention`` does.
     """
-    b, _, h, dn = q_nope.shape
-    s, dr = krope_cache.shape[1], krope_cache.shape[2]
-    # (H, B, dn) @ (H, dn, kvr) -> (B, H, kvr)
-    q_abs = torch.bmm(q_nope[:, 0].transpose(0, 1), w_uk.permute(1, 2, 0)).transpose(0, 1)
-    logits = torch.empty((b, h, s), dtype=torch.float32, device=q_nope.device)
-    rope = torch.empty_like(logits)
-    _bmm_f32(q_abs, ckv_cache.transpose(1, 2), logits)
-    _bmm_f32(q_rope[:, 0], krope_cache.transpose(1, 2), rope)
-    logits = (logits + rope) * (1.0 / math.sqrt(dn + dr))
-    kpos = torch.arange(s, device=q_nope.device)
-    logits = torch.where(kpos <= t, logits, _NEG)
-    probs = torch.softmax(logits, dim=-1).to(ckv_cache.dtype)
-    o_lat = torch.empty((b, h, ckv_cache.shape[2]), dtype=torch.float32,
-                        device=q_nope.device)
-    _bmm_f32(probs, ckv_cache, o_lat)
-    # (H, B, kvr) @ (H, kvr, dv) -> (B, H, dv), fp32
-    return torch.bmm(o_lat.transpose(0, 1), w_uv.float().transpose(0, 1)).transpose(0, 1)
+    kpos = torch.arange(krope_cache.shape[1], device=q_nope.device)
+    logits, mask = _mla_logits(q_nope, q_rope, ckv_cache, krope_cache, w_uk, kpos, t)
+    probs = torch.softmax(torch.where(mask, logits, _NEG), dim=-1).to(ckv_cache.dtype)
+    return _mla_out(_mla_latent(probs, ckv_cache), w_uv)
+
+
+def _mla_decode_sharded(q_nope, q_rope, c_kv, k_rope, ckv_cache, krope_cache,
+                        w_uk, w_uv, t) -> torch.Tensor:
+    """MLA's decode step on DTensors, each rank on its own block under
+    ``local_map``, as :func:`_decode_sharded` for GQA: no cache is
+    gathered and no DTensor meets an ``out=`` op.
+
+    The latent caches (B, S, kvr) and (B, S, dr) are cut on batch (or, a
+    batch too small for the data axis, on positions); q's heads and w_uk /
+    w_uv are cut on heads where w_uk is (over "model", the step's
+    placements), and whole on a mesh dim that cuts the caches.  The new
+    latent entries c_kv / k_rope (B, 1, ...) follow the caches' batch cut.
+    A cache cut on batch: the rank writes slot t of its block and runs
+    :func:`mla_decode_attention` there; cut on positions: the block write
+    and the softmax across ranks of ``_decode_sharded``, on the latent
+    products before w_uv.  Returns o (B, H, dv) fp32, cut on batch and
+    heads as q."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ckv_cache.device_mesh
+    cp = tuple(ckv_cache.placements)
+    if any(pl.is_shard() and pl.dim > 1 for pl in cp):
+        raise NotImplementedError(f"a latent cache cut on its features: {cp}")
+    seq = _seq_dims(cp)
+    heads = [isinstance(w_uk, DTensor) and w_uk.placements[i] == Shard(1) and cp[i] == Replicate()
+             for i in range(len(cp))]
+    batch = [pl == Shard(0) for pl in cp]
+    qp = tuple(Shard(0) if bt else Shard(2) if hd else Replicate()
+               for bt, hd in zip(batch, heads))
+    wp = tuple(Shard(1) if hd else Replicate() for hd in heads)
+    lp = tuple(Shard(0) if bt else Replicate() for bt in batch)
+    op = tuple(Shard(0) if bt else Shard(1) if hd else Replicate()
+               for bt, hd in zip(batch, heads))
+
+    def body(qn, qr, ckl, krl, ckc, krc, wuk, wuv):
+        if not seq:
+            _cache_update(ckc, ckl, t)
+            _cache_update(krc, krl, t)
+            return mla_decode_attention(qn, qr, ckc, krc, wuk, wuv, t)
+        blocks = _SeqBlocks(ckv_cache, seq, ckc.shape[1])
+        _block_update(ckc, ckl, t, blocks.start)
+        _block_update(krc, krl, t, blocks.start)
+        kpos = blocks.start + torch.arange(ckc.shape[1], device=qn.device)
+        logits, mask = _mla_logits(qn, qr, ckc, krc, wuk, kpos, t)
+        o_lat = blocks.softmax(logits, mask, lambda p: _mla_latent(p.to(ckc.dtype), ckc))
+        return _mla_out(o_lat, wuv)
+
+    return local_map(body, out_placements=list(op),
+                     in_placements=(qp, qp, lp, lp, cp, cp, wp, wp),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q_nope, q_rope, c_kv, k_rope, ckv_cache, krope_cache, w_uk, w_uv)
 
 
 def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -520,7 +685,8 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     latent cache (B, S, kvr), (B, S, dr).
     Decode (cache (ckv, krope), t): slot t of both caches is written in
     place (an int or a device position) and ``mla_decode_attention``
-    scores in the latent space; the caches are returned.
+    scores in the latent space (on DTensor caches each rank on its block:
+    ``_mla_decode_sharded``); the caches are returned.
     """
     b, s, _ = x.shape
     h = cfg.num_heads
@@ -541,10 +707,14 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         o = blocked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, mode=mode)
         return _linear(o, p["wo"], k_dims=2), (c_kv, k_rope)
     ckv_cache, krope_cache = cache
-    _cache_update(ckv_cache, c_kv, t)
-    _cache_update(krope_cache, k_rope, t)
-    o = mla_decode_attention(q_nope, q_rope, ckv_cache, krope_cache, p["w_uk"],
-                             p["w_uv"], t)
+    if isinstance(ckv_cache, DTensor):  # a mesh's decode step
+        o = _mla_decode_sharded(q_nope, q_rope, c_kv, k_rope, ckv_cache, krope_cache,
+                                p["w_uk"], p["w_uv"], t)
+    else:
+        _cache_update(ckv_cache, c_kv, t)
+        _cache_update(krope_cache, k_rope, t)
+        o = mla_decode_attention(q_nope, q_rope, ckv_cache, krope_cache, p["w_uk"],
+                                 p["w_uv"], t)
     return _linear(o.to(x.dtype)[:, None], p["wo"], k_dims=2), (ckv_cache, krope_cache)
 
 

@@ -48,6 +48,7 @@ import torch.nn.functional as Fn
 
 from repro_torch import params as P
 from repro_torch.core import scatter_gather as sg
+from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import compat
 from repro_torch.runtime import partitioning as PT
@@ -89,8 +90,15 @@ def _expert_ffn(slots: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     """slots: (E, N, D) -> (E, N, D) through each expert's own gated MLP
     (``jax.nn.gelu`` is the tanh form)."""
     e, d = slots.shape[0], slots.shape[-1]
-    h = torch.bmm(slots, p["wi"].reshape(e, d, -1))
-    h = h.reshape(*h.shape[:2], 2, -1)
+    wi = p["wi"]  # (E, D, 2, F)
+    if L._late_cut(wi, 2) is None:
+        h = torch.bmm(slots, wi.reshape(e, d, -1)).reshape(e, -1, 2, wi.shape[-1])
+    else:
+        # cut on F (a mesh whose "model" axis the experts do not divide:
+        # Mixtral's 8 on 16): F goes first before (F, 2) is flattened, as
+        # ``layers._linear`` does, so the flat weight stays cut on its columns
+        h = torch.bmm(slots, wi.movedim(3, 2).reshape(e, d, -1))
+        h = h.reshape(e, -1, wi.shape[-1], 2).movedim(3, 2)
     gate, up = h[..., 0, :], h[..., 1, :]
     act = Fn.silu(gate) if cfg.mlp_type != "geglu" else Fn.gelu(gate, approximate="tanh")
     return torch.bmm(act.mul_(up), p["wo"])  # in place: one (E, N, F) buffer less

@@ -95,11 +95,18 @@ in-edges from the plan, its rows of the eigenvector and the plan).  A
 tenant that shares layouts gets the plan built once there when the batch
 has none.  A bucket whose padded node rows do not divide the axis runs
 whole on every rank (JAX's replicated fallback).  Every rank returns the
-whole batch's output.  Under a mesh of several ranks the executor runs
-every forward eagerly on the card, whatever the backend: a gloo
-collective cannot be captured into a CUDA graph, and a rank's window of
-the plan is read back to the host (``core.message_passing.owned_edges``),
-which a capture refuses; a 1-rank mesh captures as without a mesh.
+whole batch's output.  A rank's window of the plan has the plan's length
+and starts at a device offset (``core.message_passing.owned_edges``), so
+the sharded forward reads nothing back to the host.  On the card an NCCL
+mesh captures its forwards as one rank does (:func:`captures`): each rank
+runs the eager warm forward, which makes the communicator, before its
+capture, and every rank captures the same signatures in the same order.
+A CUDA graph that captured NCCL collectives must be gone before its
+communicator is (``destroy_process_group`` hung while one lived): an
+executor is freed, graphs and all, with its last reference (no reference
+cycle holds it).  A gloo mesh of several ranks runs every forward eagerly
+(a gloo collective cannot be captured into a CUDA graph); a failed capture
+raises.
 :attr:`Executor.captured` says which.  Each timed run's seconds are the
 slowest rank's (an all-reduce of the measured time), so every rank's
 stream scheduler sees one timeline and takes the same flushes, sheds and
@@ -413,9 +420,9 @@ class Executor:
 
     @property
     def captured(self) -> bool:
-        """Whether forwards run as CUDA graphs: on the card, unless a mesh
-        of several ranks makes every forward eager."""
-        return self.device.type == "cuda" and self.ranks == 1
+        """Whether forwards run as CUDA graphs (:func:`captures`)."""
+        return captures(self.device.type, self.ranks,
+                        "none" if self.mesh is None else self.mesh.backend)
 
     def _slowest(self, seconds: float) -> float:
         """The largest of every rank's ``seconds`` (itself on one rank)."""
@@ -435,14 +442,10 @@ class Executor:
         """Context under which forwards run: the executor's mesh and rules
         installed (``runtime.use_mesh`` / ``active_rules``); a null context
         without a mesh."""
-        if self.mesh is None:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        stack.enter_context(RC.use_mesh(self.mesh))
-        stack.enter_context(PT.active_rules(self.rules))
-        return stack
+        return _mesh_scope(self.mesh, self.rules)
 
-    def _constrain_graph(self, g: G.Graph, eigvec, layout, share_layout: bool):
+    @staticmethod
+    def _constrain_graph(g: G.Graph, eigvec, layout, share_layout: bool):
         """-> this rank's (graph, eigvec, layout) under the active mesh, or
         the inputs as they are when the bucket's node rows stay whole.
         JAX constrains the graph's rows and the plan's in two methods; here
@@ -456,11 +459,17 @@ class Executor:
         return MP.shard_inputs(g, eigvec, layout, shard)
 
     def _sharded(self, fn: Callable, share_layout: bool) -> Callable:
-        """``fn`` run on this rank's part of each batch, under the mesh."""
+        """``fn`` run on this rank's part of each batch, under the mesh.  The
+        closure holds the mesh and rules, not the executor: an executor
+        held by its own program records would outlive its last reference
+        until the cycle collector ran, and its CUDA graphs with it, at a
+        different moment on each rank, past ``destroy_process_group``."""
+        mesh, rules = self.mesh, self.rules
+
         def run(params, g, eigvec, layout):
-            with self._mesh_scope():
-                return fn(params, *self._constrain_graph(g, eigvec, layout,
-                                                         share_layout))
+            with _mesh_scope(mesh, rules):
+                return fn(params, *Executor._constrain_graph(g, eigvec, layout,
+                                                             share_layout))
 
         return run
 
@@ -705,9 +714,9 @@ class Executor:
         graph's static buffers, replay, clone the output, and return a
         :class:`PendingRun` at once; a batch in pinned host memory is
         copied without blocking, and the pending run holds it until the
-        harvest.  Where the executor does not capture (the CPU, a mesh of
-        several ranks) the forward runs eagerly here, outside the dispatch census
-        (its warm counted it).  The in-flight window is
+        harvest.  Where the executor does not capture (the CPU, a gloo mesh
+        of several ranks) the forward runs eagerly here, outside the
+        dispatch census (its warm counted it).  The in-flight window is
         the caller's to bound."""
         tenant = self.tenant(model)
         cb = self._program(tenant, p.bucket_key, p.num_graphs)
@@ -770,6 +779,26 @@ class Executor:
         if self._mi is not None:
             self._mi.eigvec_cache.inc(result="miss")
         return vec
+
+
+def _mesh_scope(mesh, rules):
+    """The context of a forward on ``mesh`` under ``rules``
+    (``runtime.use_mesh`` and ``active_rules``); a null context without a
+    mesh."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(RC.use_mesh(mesh))
+    stack.enter_context(PT.active_rules(rules))
+    return stack
+
+
+def captures(device_type: str, ranks: int, backend: str) -> bool:
+    """Whether an executor on ``device_type`` whose forwards span ``ranks``
+    ranks over ``backend`` runs them as CUDA graphs: on the card, on one
+    rank or on an NCCL mesh; a gloo mesh of several ranks runs eagerly (a
+    gloo collective cannot be captured)."""
+    return device_type == "cuda" and (ranks == 1 or backend == "nccl")
 
 
 class PendingRun:

@@ -155,13 +155,14 @@ def test_xla_flags_file_is_not_taken(capsys):
 
 def test_gnn_mesh_serves_on_two_cpu_ranks(capfd):
     """``--gnn-mesh 2`` starts two gloo ranks and serves batched; rank 0
-    alone prints the latency line, with the mesh and its backend."""
+    alone prints the latency line, with the mesh, its backend and whether
+    it captured (gloo: eager)."""
     TS.main(["--gnn", "gin", "--batched", "--gnn-mesh", "2", "--n-graphs", "8",
              "--batch", "4", "--device", "cpu"])
     out = capfd.readouterr().out
     lines = [ln for ln in out.splitlines() if ln.startswith("gin batched(bs=4)")]
     assert len(lines) == 1, out
-    assert "8 graphs" in lines[0] and lines[0].endswith("mesh=2 backend=gloo")
+    assert "8 graphs" in lines[0] and lines[0].endswith("mesh=2 backend=gloo captured=False")
 
 
 @pytest.mark.parametrize("argv", [
