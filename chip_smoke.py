@@ -5058,8 +5058,98 @@ def train_mesh_run(case: dict, device, mesh=None, rules=None) -> dict:
                 tokens_per_s=tokens / dt, flash_launches=FA.launches - before,
                 peak_gb=(torch.cuda.max_memory_allocated(device) / 1e9
                          if device.type == "cuda" else 0.0),
-                collectives=dict(comm.counts)))
+                collectives=collectives_by_kind(comm)))
+        if case.get("profile") and device.type == "cuda":
+            # one more step on every rank (a rank that stepped once more than
+            # another would hang the world), under the profiler
+            batch = device_batch(next(data), device, mesh, rules)
+            ran = []
+            out["profile"] = step_profile(
+                lambda: ran.append(step_fn(params, opt_state, None, batch))
+                or ran[-1][3]["loss"].item())
+            params, opt_state = ran[-1][0], ran[-1][1]
+        if (case.get("capture") and device.type == "cuda"
+                and (mesh is None or mesh.backend == "nccl")):
+            out["captured"] = captured_steps(case, step_fn, params, opt_state,
+                                             lambda: device_batch(next(data), device, mesh,
+                                                                  rules), sync)
     return out
+
+
+def captured_steps(case: dict, step_fn, params, opt_state, next_batch, sync) -> dict:
+    """The step as one CUDA graph (``train.loop.CapturedStep``): its warm
+    step's loss and the capture's seconds, then ``case["steps"]`` replays
+    (loss, grad_norm, ms each) and one replay under the profiler."""
+    import torch
+    from repro_torch.train.loop import CapturedStep
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cap = CapturedStep(step_fn, params, opt_state, next_batch())
+    sync()
+    res = dict(warm_loss=cap.warm_metrics["loss"], capture_s=time.perf_counter() - t0,
+               steps=[])
+    for _ in range(case["steps"]):
+        batch = next_batch()
+        sync()
+        t0 = time.perf_counter()
+        m = cap(batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        res["steps"].append(dict(loss=loss, grad_norm=gnorm,
+                                 ms=(time.perf_counter() - t0) * 1e3))
+    batch = next_batch()
+    res["profile"] = step_profile(lambda: cap(batch)["loss"].item())
+    return res
+
+
+def collectives_by_kind(comm) -> dict:
+    """{kind: [count, bytes, wire bytes]} of a ``CollectiveRecorder``'s
+    step: bytes the larger of each call's input and output buffers, wire
+    bytes by the dry-run's ring model (``roofline.wire_bytes``)."""
+    out = {kind: [c, b, 0.0] for kind, (c, b) in comm.counts.items()}
+    for r in comm.records:
+        kind = r["op"].replace("-", "_")
+        if kind in out:
+            out[kind][2] += r["wire_bytes"]
+    return out
+
+
+def step_profile(fn) -> dict:
+    """One call of ``fn`` (a mesh train step, ending at a host read) in one
+    ``torch.profiler`` session: its wall ms, the device kernels' count and
+    the union of their intervals, NCCL's kernels' count and summed time,
+    and the idle share (1 - union / wall).  One session only: on a mesh
+    every rank must run the step as often as the others; a session that
+    lost its device records gives None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    return dict(wall_ms=wall_ms, kernels=len(kernels), busy_ms=busy / 1e3,
+                nccl_kernels=len(nccl),
+                nccl_ms=sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
+                idle_share=max(0.0, 1.0 - busy / 1e3 / wall_ms))
 
 
 def train_mesh_rank(out_dir: str, device, step) -> dict:
@@ -5117,6 +5207,23 @@ def flash_block_times(device) -> dict:
                 bound_by=bound_by)
 
 
+def captured_note(cap: dict) -> str:
+    """A captured run's figures (``captured_steps``) for a report line."""
+    return (f"warm step loss {cap['warm_loss']:.5f}, capture {cap['capture_s']:.1f} s, "
+            f"replays: losses " + " / ".join(f"{st['loss']:.5f}" for st in cap["steps"])
+            + ", ms " + ", ".join(f"{st['ms']:.1f}" for st in cap["steps"]) + "; "
+            + profile_note(cap.get("profile")))
+
+
+def profile_note(prof) -> str:
+    """A profiled step's figures (``step_profile``) for a report line."""
+    if prof is None:
+        return "profiled step: not measured (the session lost its device records)"
+    return (f"profiled step {prof['wall_ms']:.1f} ms wall, {prof['kernels']} kernels busy "
+            f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}), NCCL "
+            f"{prof['nccl_kernels']} kernels {prof['nccl_ms']:.1f} ms")
+
+
 def steps_note(steps: list) -> str:
     """ms a step (median past the first, each step's), tokens/s, peak GB,
     flash launches and collectives of the last step."""
@@ -5126,9 +5233,10 @@ def steps_note(steps: list) -> str:
     return (f"{med('ms'):.1f} ms a step (" + ", ".join(f"{st['ms']:.0f}" for st in steps)
             + f"), {med('tokens_per_s'):.0f} tokens/s, peak "
             f"{max(st['peak_gb'] for st in steps):.2f} GB, {steps[-1]['flash_launches']} "
-            "flash launches a step, collectives a step "
-            + (", ".join(f"{k} {c}x {b / 1e6:.1f} MB" for k, (c, b) in sorted(coll.items()))
-               or "none"))
+            f"flash launches a step, {sum(c[0] for c in coll.values())} collectives a step "
+            "(buffer / ring-model wire MB) "
+            + (", ".join(f"{k} {c[0]}x {c[1] / 1e6:.1f} / {c[2] / 1e6:.1f} MB"
+                         for k, c in sorted(coll.items())) or "none"))
 
 
 def train_mesh_line(tag: str, case: dict, rank_runs: list, ref: dict, card: str) -> float:
@@ -5865,17 +5973,60 @@ def train_mesh_cards(cards: int) -> int:
     ``TRAIN_MESH_CARDS`` under both presets at B 8 x S 1024, then the
     launcher (reduced ChatGLM3-6B, ``--debug-mesh 2xM --rules fsdp``, 3
     steps) as a child, its NCCL ranks started by itself."""
+    import torch
+
     card = device_line()
     build_kernels()
     cases = train_mesh_cases(TRAIN_MESH_CARDS, (((2, cards // 2), "default"),
-                                                ((2, cards // 2), "fsdp")), batch=8)
+                                                ((2, cards // 2), "fsdp")), batch=8,
+                             profile=True, capture=True)
+    # one card at the same global batch first, freed before the ranks start
+    ref = train_mesh_run(dict(cases[0], profile=True), torch.device("cuda", 0))
+    torch.cuda.empty_cache()
+    one_ms = statistics.median(st["ms"] for st in (ref["steps"][1:] or ref["steps"]))
+    print(f"[mesh train cards {ref['tag']} one card] losses "
+          + " / ".join(f"{st['loss']:.5f}" for st in ref["steps"]) + "; "
+          + steps_note(ref["steps"]) + "; " + profile_note(ref.get("profile")) + f"; {card}")
+    one_cap = ref.get("captured")
+    if one_cap:
+        print(f"[mesh train cards {ref['tag']} one card captured] " + captured_note(one_cap)
+              + f"; {card}")
     ranks = mesh_world("nccl", cards, ROOT / "build" / "train_mesh" / "cards", "cuda",
                        job="train", cases=cases, timeout_s=TRAIN_MESH_TIMEOUT_S)
+    gaps = []
     for i, case in enumerate(cases):
+        head = f"[mesh train cards {case['tag']} 2x{cards // 2} {case['rules']}]"
         for r, res in enumerate(ranks):
-            print(f"[mesh train cards {case['tag']} 2x{cards // 2} {case['rules']}] rank {r} "
-                  f"losses " + " / ".join(f"{st['loss']:.5f}" for st in res["cases"][i]["steps"])
-                  + "; " + steps_note(res["cases"][i]["steps"]) + f"; {card}")
+            run = res["cases"][i]
+            gap = max(abs(st["loss"] - want["loss"]) / abs(want["loss"])
+                      for st, want in zip(run["steps"], ref["steps"]))
+            gaps.append((head, gap))
+            print(f"{head} rank {r} losses "
+                  + " / ".join(f"{st['loss']:.5f}" for st in run["steps"])
+                  + f" (one card's largest relative gap {gap:.2e}, limit "
+                  f"{TRAIN_MESH_RTOL[case['dtype']]:g}); " + steps_note(run["steps"]) + "; "
+                  + profile_note(run.get("profile")) + f"; {card}")
+        ms = statistics.median(st["ms"] for st in (ranks[0]["cases"][i]["steps"][1:]
+                                                   or ranks[0]["cases"][i]["steps"]))
+        print(f"{head} rank 0 {ms:.1f} ms a step against one card's {one_ms:.1f} ms at the "
+              f"same global batch (B {case['batch']} x S {TRAIN_MESH_SEQ}): "
+              f"{one_ms / ms:.3f}x one card's speed; {card}")
+        if one_cap and ranks[0]["cases"][i].get("captured"):
+            for r, res in enumerate(ranks):
+                cap = res["cases"][i]["captured"]
+                gap = max(abs(st["loss"] - want["loss"]) / abs(want["loss"])
+                          for st, want in zip(cap["steps"], one_cap["steps"]))
+                gaps.append((head + " captured", gap))
+                print(f"{head} captured rank {r} " + captured_note(cap)
+                      + f"; one card captured's largest relative loss gap {gap:.2e}; {card}")
+            cms = statistics.median(st["ms"] for st in ranks[0]["cases"][i]["captured"]["steps"])
+            one_cms = statistics.median(st["ms"] for st in one_cap["steps"])
+            print(f"{head} captured: rank 0 {cms:.1f} ms a step against one card's "
+                  f"{one_ms:.1f} eager / {one_cms:.1f} captured: {one_ms / cms:.3f}x / "
+                  f"{one_cms / cms:.3f}x one card's speed; {card}")
+    bad = [(h, g) for h, g in gaps if g > TRAIN_MESH_RTOL["bfloat16"]]
+    if bad:
+        raise AssertionError(f"four-card losses past one card's: {bad}")
     out = run_child([sys.executable, "-m", "repro_torch.launch.train", "--arch",
                      "chatglm3-6b", "--reduced", "--steps", "3", "--batch", "8", "--seq",
                      "64", "--debug-mesh", f"2x{cards // 2}", "--rules", "fsdp",

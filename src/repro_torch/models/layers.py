@@ -45,9 +45,21 @@ from repro_torch.runtime.partitioning import logical_constraint as _lc
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x = _whole_sum(x)
     xf = x.float()
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def _whole_sum(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor partial sum made whole (one all-reduce), as XLA's
+    partitioner ends a contraction before a nonlinear op: left partial, a
+    norm's square and its scaling would each all-reduce it again.  ``x``
+    itself when it is no partial sum."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return PT._Constrain.apply(x, [Replicate() if p.is_partial() else p
+                                       for p in x.placements])
+    return x
 
 
 def rms_norm_init(dim: int, stack=(), device="cpu") -> torch.Tensor:
@@ -172,8 +184,10 @@ def gather_where_batch_cut(tree, x: torch.Tensor):
     """Every DTensor leaf of ``tree`` (a layer's parameters) made whole on
     the mesh dims that cut the batch of DTensor ``x`` (its dim 0) and cut
     the leaf too: FSDP's rules put the batch and "embed" on one axis, and a
-    layer's weights are gathered when it runs (again in remat's recompute),
-    their gradients reduce-scattered back.  Left to DTensor, a step would
+    layer's weights are gathered when it runs (again in remat's recompute).
+    Their gradients stay partial sums through the backward
+    (:class:`_Gathered`); the step reduce-scatters them in buckets at its
+    end (``partitioning.reduce_gradients``).  Left to DTensor, a step would
     move activations between batch and feature cuts instead (a norm's scale
     cut on "embed" against a batch-cut x: the activations gathered).
     ``tree`` itself without a mesh or under rules that keep the batch off
@@ -190,9 +204,24 @@ def gather_where_batch_cut(tree, x: torch.Tensor):
         if not isinstance(w, DTensor):
             return w
         out = [Replicate() if b and p.is_shard() else p for b, p in zip(batch, w.placements)]
-        return w if out == list(w.placements) else w.redistribute(placements=out)
+        return w if out == list(w.placements) else _Gathered.apply(w, out)
 
     return one(tree)
+
+
+class _Gathered(torch.autograd.Function):
+    """DTensor ``w`` redistributed to ``placements`` (a gather), its
+    gradient handed back as it comes: a partial sum (or a whole value)
+    where ``w`` is cut, reduced once with the step's other gradients, not
+    a leaf at a time in the backward."""
+
+    @staticmethod
+    def forward(ctx, w, placements):
+        return w.redistribute(placements=placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 def _late_cut(w: torch.Tensor, k_dims: int):

@@ -23,9 +23,11 @@ the checkpoint manifest stores.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as Fn
 import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor, Replicate
@@ -99,9 +101,7 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.
         # the partial embeddings are summed here (indexing would gather the
         # table whole; a masked partial sum left pending cannot be summed
         # twice, as remat's recompute would)
-        e = Fn.embedding(tokens.long(), table)
-        e = e.redistribute(placements=[Replicate() if p.is_partial() else p
-                                       for p in e.placements])
+        e = L._whole_sum(Fn.embedding(tokens.long(), table))
     else:
         e = table[tokens.long()]
     return (e * math.sqrt(cfg.d_model)).to(_dt(cfg))
@@ -193,18 +193,19 @@ def chunked_ce_loss(params: dict, hidden: torch.Tensor, labels: torch.Tensor,
     """Mean cross-entropy over the weighted positions.  The logits are made
     ``cfg.loss_chunk`` positions at a time, each chunk under
     ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``): the backward pass
-    makes a chunk's (B, chunk, V) fp32 logits again instead of keeping them."""
+    makes a chunk's (B, chunk, V) fp32 logits again instead of keeping them.
+    On a mesh (DTensor ``hidden``) each rank does so on its own block
+    (:class:`_MeshCE`)."""
     s = hidden.shape[1]
     c = min(cfg.loss_chunk, s)
     head = L.gather_where_batch_cut(_head_matrix(params, cfg), hidden)
+    if isinstance(hidden, DTensor):
+        return _mesh_ce_loss(hidden, head, labels, weights, c)
 
     def chunk_loss(h, lab, w):
         logits = torch.matmul(h, head).float()
-        lse = _logsumexp(logits)
-        gold = torch.gather(logits, -1, lab.long()[..., None])
-        if isinstance(gold, DTensor):  # vocab-sharded: sum the masked picks first
-            gold = gold.redistribute(placements=lse.placements)
-        gold = gold[..., 0]
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
         return torch.sum((lse - gold) * w)
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -217,16 +218,158 @@ def chunked_ce_loss(params: dict, hidden: torch.Tensor, labels: torch.Tensor,
     return total / torch.clamp(torch.sum(weights), min=1.0)
 
 
-def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
-    """logsumexp over the last (vocab) dim.  On vocab-sharded DTensor logits
-    it is made of two reductions, a max and a sum, each a partial result
-    over the vocab shards that an all-reduce of (B, chunk) values
-    completes (``torch.logsumexp`` would gather the (B, chunk, V)
-    logits)."""
-    if not isinstance(logits, DTensor):
-        return torch.logsumexp(logits, dim=-1)
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    return (torch.log(torch.sum(torch.exp(logits - m), dim=-1, keepdim=True)) + m)[..., 0]
+def _blocks_along(mesh, dims: list, length: int) -> tuple:
+    """(start, size) of this rank's block of an axis of ``length`` cut over
+    the mesh dims ``dims`` (major to minor), by DTensor's chunk rule."""
+    start = 0
+    for d in dims:
+        chunk = -(-length // mesh.size(d))
+        lo = min(mesh.get_local_rank(d) * chunk, length)
+        start, length = start + lo, min(chunk, length - lo)
+    return start, length
+
+
+def _block_index(coord, dims: list, mesh) -> int:
+    """The index of the block that mesh coordinate ``coord`` holds of an
+    axis cut over ``dims``."""
+    i = 0
+    for d in dims:
+        i = i * mesh.size(d) + coord[d]
+    return i
+
+
+class _MeshCE(torch.autograd.Function):
+    """The chunked cross-entropy of a mesh's train step on each rank's
+    block: hidden (B, S, D) cut on its rows over some mesh dims, the head
+    (D, V) cut on its vocabulary over others (JAX's "vocab" rule), the
+    rest whole.  Each rank makes its block's fp32 logits a chunk of
+    ``chunk`` positions at a time, as the plain path does, and keeps four
+    numbers a position: the block's max, its sum of exp(logits - max), the
+    gold logit where the label falls in its vocabulary (else 0) and the
+    weight.  One all-gather of these over the world gives every rank each
+    position's logsumexp over the whole vocabulary and the loss, a whole
+    scalar.  The backward makes each chunk's logits again (remat, as the
+    plain path's checkpoint): the hidden states' gradient is a partial sum
+    over the vocabulary blocks, made whole by one all-reduce; the head's
+    is left a partial sum over the row blocks, for the step's gradient
+    buckets (``partitioning.reduce_gradients``)."""
+
+    @staticmethod
+    def forward(ctx, hidden, head, labels, weights, chunk, batch_dims, vocab_dims):
+        from repro_torch.runtime.partitioning import mesh_world_group
+
+        mesh = hidden.device_mesh
+        hl, wl = hidden.to_local(), head.to_local()
+        lab, w = labels.to_local().long(), weights.to_local().float()
+        v0, nv = _blocks_along(mesh, vocab_dims, head.shape[1])
+        b, s = lab.shape
+        stats = torch.empty((4, b, s), dtype=torch.float32, device=hl.device)
+        for c0 in range(0, s, chunk):
+            sl = slice(c0, min(c0 + chunk, s))
+            logits = torch.matmul(hl[:, sl], wl).float()
+            m = logits.amax(-1)
+            stats[0, :, sl] = m
+            stats[1, :, sl] = torch.exp(logits - m[..., None]).sum(-1)
+            idx = lab[:, sl] - v0
+            inside = (idx >= 0) & (idx < nv)
+            gold = torch.gather(logits, -1, idx.clamp(0, nv - 1)[..., None])[..., 0]
+            stats[2, :, sl] = torch.where(inside, gold, torch.zeros_like(gold))
+        stats[3] = w
+        world = mesh_world_group(mesh)
+        everyone = stats.new_empty((mesh.size() * 4, b, s))
+        dist.all_gather_into_tensor(everyone, stats, group=world)
+        everyone = everyone.view(mesh.size(), 4, b, s)
+        # each (row block, vocabulary block) once, in the world's rank order
+        coords = {}
+        for r, coord in _coordinates(mesh):
+            key = (_block_index(coord, batch_dims, mesh), _block_index(coord, vocab_dims, mesh))
+            coords.setdefault(key, r)
+        n_rows = math.prod(mesh.size(d) for d in batch_dims)
+        n_vocab = math.prod(mesh.size(d) for d in vocab_dims)
+        lse_all, total, wsum = [], torch.zeros((), dtype=torch.float32, device=hl.device), 0
+        for rb in range(n_rows):
+            part = torch.stack([everyone[coords[(rb, vb)]] for vb in range(n_vocab)])
+            top = part[:, 0].amax(0)
+            lse = torch.log((part[:, 1] * torch.exp(part[:, 0] - top)).sum(0)) + top
+            gold = part[:, 2].sum(0)
+            rw = part[0, 3]
+            total = total + torch.sum((lse - gold) * rw)
+            wsum = wsum + torch.sum(rw)
+            lse_all.append(lse)
+        denom = torch.clamp(wsum, min=1.0)
+        my_rows = _block_index(_my_coordinate(mesh), batch_dims, mesh)
+        ctx.save_for_backward(hl, wl, lab, w, lse_all[my_rows], denom)
+        ctx.meta = (chunk, v0, nv, batch_dims, vocab_dims, mesh)
+        ctx.like = [(t.placements, t.shape, t.stride()) for t in (hidden, head)]
+        return DTensor.from_local(total / denom, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Partial
+
+        hl, wl, lab, w, lse, denom = ctx.saved_tensors
+        chunk, v0, nv, batch_dims, vocab_dims, mesh = ctx.meta
+        (h_pl, h_shape, h_stride), (w_pl, w_shape, w_stride) = ctx.like
+        g = grad.to_local() if isinstance(grad, DTensor) else grad
+        scale = w * (g.float() / denom)
+        dh = torch.empty_like(hl)
+        dw = torch.zeros(wl.shape, dtype=torch.float32, device=wl.device)
+        s = lab.shape[1]
+        for c0 in range(0, s, chunk):
+            sl = slice(c0, min(c0 + chunk, s))
+            logits = torch.matmul(hl[:, sl], wl).float()
+            p = torch.exp(logits - lse[:, sl, None])
+            idx = lab[:, sl] - v0
+            inside = ((idx >= 0) & (idx < nv)).float()
+            p = p.scatter_add(-1, idx.clamp(0, nv - 1)[..., None], -inside[..., None])
+            dl = (p * scale[:, sl, None]).to(hl.dtype)
+            dh[:, sl] = torch.matmul(dl, wl.transpose(0, 1))
+            dw += torch.matmul(hl[:, sl].reshape(-1, hl.shape[-1]).transpose(0, 1),
+                               dl.reshape(-1, dl.shape[-1])).float()
+        for d in vocab_dims:
+            dist.all_reduce(dh, group=mesh.get_group(d))
+        dh = DTensor.from_local(dh, mesh, h_pl, run_check=False, shape=h_shape,
+                                stride=h_stride)
+        dwp = [Partial() if i in batch_dims else pl for i, pl in enumerate(w_pl)]
+        dw = DTensor.from_local(dw.to(wl.dtype), mesh, dwp, run_check=False,
+                                shape=w_shape, stride=w_stride)
+        return dh, dw, None, None, None, None, None
+
+
+def _coordinates(mesh) -> list:
+    """(world rank, mesh coordinate) of every rank of ``mesh``."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():  # a host table: outside the dry-run's fake mode
+        ranks = mesh.mesh.cpu().numpy()
+    return [(int(ranks[idx]), idx) for idx in itertools.product(*map(range, ranks.shape))]
+
+
+def _my_coordinate(mesh) -> tuple:
+    return tuple(mesh.get_local_rank(d) for d in range(mesh.ndim))
+
+
+def _mesh_ce_loss(hidden, head, labels, weights, chunk: int) -> torch.Tensor:
+    """:func:`chunked_ce_loss` on a mesh (``_MeshCE``): hidden whole but on
+    its rows, the head whole but on its vocabulary and on no dim that cuts
+    the rows, labels and weights cut as hidden's rows."""
+    from torch.distributed.tensor import Shard
+
+    mesh = hidden.device_mesh
+    rows = [Shard(0) if pl == Shard(0) else Replicate() for pl in hidden.placements]
+    batch_dims = [i for i, pl in enumerate(rows) if pl == Shard(0)]
+    vocab = [Shard(1) if pl == Shard(1) and i not in batch_dims else Replicate()
+             for i, pl in enumerate(head.placements)]
+    vocab_dims = [i for i, pl in enumerate(vocab) if pl == Shard(1)]
+
+    def placed(t, pls):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t if list(t.placements) == pls else t.redistribute(mesh, pls)
+
+    return _MeshCE.apply(placed(hidden, rows), placed(head, vocab), placed(labels, rows),
+                         placed(weights, rows), chunk, batch_dims, vocab_dims)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, kernel_mode: str = "auto"):

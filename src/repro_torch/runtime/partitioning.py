@@ -327,8 +327,35 @@ def constrain(x: torch.Tensor, spec, mesh: compat.Mesh) -> torch.Tensor:
     """``x`` under an already resolved ``spec``: a DTensor redistributed to
     its placements, a plain (global) tensor cut to this rank's block."""
     if _is_dtensor(x):
-        return x.redistribute(mesh.device_mesh, to_placements(spec, mesh))
+        placements = to_placements(spec, mesh)
+        if list(x.placements) == placements:
+            return x
+        if not any(p.is_partial() for p in x.placements):
+            return x.redistribute(mesh.device_mesh, placements)
+        return _Constrain.apply(x, placements)
     return compat.local_block(x, spec, mesh)
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``; on a mesh dim where it was
+    a partial sum its gradient keeps the output's placement (JAX's
+    transpose of a constraint: the gradient of a sum is whole), on every
+    other dim it goes back to the input's, as DTensor's own backward moves
+    it.  DTensor's backward would make a whole gradient partial again
+    where the forward summed, and the next contraction's backward would
+    all-reduce it once more."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = [out if inp.is_partial() else inp
+                          for inp, out in zip(x.placements, placements)]
+        return x.redistribute(placements=placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if list(grad.placements) != ctx.placements:
+            grad = grad.redistribute(placements=ctx.placements)
+        return grad, None
 
 
 def _is_dtensor(x) -> bool:
@@ -372,6 +399,134 @@ def reduce_over_world(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     out = x.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
     return out
+
+
+def mesh_world_group(device_mesh):
+    """The process group of every rank of ``device_mesh``: the default
+    group, which a train step's mesh spans (``make_mesh``)."""
+    if device_mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh of {device_mesh.size()} ranks in a world of "
+                         f"{dist.get_world_size()}: a step's mesh spans the world")
+    return dist.group.WORLD
+
+
+# a bucket's bytes at most (one parameter larger than this is a bucket alone)
+GRAD_BUCKET_BYTES = 256 << 20
+
+
+def _grad_plan(grad, param):
+    """What reduces DTensor ``grad`` to ``param``'s placements: a tuple with
+    one entry per mesh dim, None (nothing to do), ("ar",) (a partial sum
+    made whole), ("rs", d) (a partial sum cut on tensor dim d) or ("cut",
+    d) (a whole value cut on d); None for any other move (left to
+    DTensor)."""
+    plan = []
+    for i, (g, p) in enumerate(zip(grad.placements, param.placements)):
+        summed = g.is_partial() and getattr(g, "reduce_op", "sum") == "sum"
+        even = p.is_shard() and param.shape[p.dim] % param.device_mesh.size(i) == 0
+        if g == p:
+            plan.append(None)
+        elif summed and p.is_replicate():
+            plan.append(("ar",))
+        elif summed and even:
+            plan.append(("rs", p.dim))
+        elif g.is_replicate() and even:
+            plan.append(("cut", p.dim))
+        else:
+            return None
+    return tuple(plan)
+
+
+def _reduce_scatter_bucket(ts: list, dims: list, group, n: int, rank: int) -> list:
+    """Each tensor of ``ts`` summed over ``group``'s ``n`` ranks and cut in
+    ``n`` along its dim of ``dims``: one reduce-scatter of a flat buffer
+    laid out rank by rank (rank r's blocks of every tensor together)."""
+    pieces = [t.chunk(n, d) for t, d in zip(ts, dims)]
+    flat = torch.cat([p[r].reshape(-1) for r in range(n) for p in pieces])
+    out = flat.new_empty(flat.numel() // n)
+    dist.reduce_scatter_tensor(out, flat, group=group)
+    res, a = [], 0
+    for p in pieces:
+        shape = p[rank].shape
+        res.append(out[a:a + p[rank].numel()].view(shape))
+        a += p[rank].numel()
+    return res
+
+
+def _all_reduce_bucket(ts: list, group) -> list:
+    """Each tensor of ``ts`` summed over ``group``: one all-reduce of their
+    concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    dist.all_reduce(flat, group=group)
+    res, a = [], 0
+    for t in ts:
+        res.append(flat[a:a + t.numel()].view(t.shape))
+        a += t.numel()
+    return res
+
+
+def reduce_gradients(grads: list, params: list) -> list:
+    """``grads`` (DTensors, partial sums where autograd left them) at their
+    ``params``' placements, in a few flat buckets (DDP's and FSDP's, XLA's
+    combined all-reduces): the gradients that need the same collectives
+    (dtype, and on each mesh dim the same move) go into buckets of up to
+    ``GRAD_BUCKET_BYTES``, and each bucket takes one collective a mesh
+    dim: a reduce-scatter where the parameter is cut on that dim, then an
+    all-reduce over the dims where it is whole (one over the world when
+    that is every dim).  A whole gradient is cut locally.  A gradient
+    already at its placements, or a plain one, is returned as it is; any
+    other move is left to DTensor's ``redistribute``."""
+    from torch.distributed.tensor import DTensor
+
+    out = list(grads)
+    groups: Dict[tuple, list] = {}
+    for i, (g, p) in enumerate(zip(grads, params)):
+        if not (isinstance(g, DTensor) and isinstance(p, DTensor)):
+            continue
+        if tuple(g.placements) == tuple(p.placements):
+            continue
+        plan = _grad_plan(g, p)
+        if plan is None:
+            out[i] = g.redistribute(p.device_mesh, p.placements)
+            continue
+        groups.setdefault((g.dtype, tuple(op[0] if op else None for op in plan)), []).append(
+            (i, plan))
+    for (_, kinds), members in groups.items():
+        buckets, size = [[]], 0
+        for i, plan in members:
+            nbytes = grads[i].to_local().numel() * grads[i].element_size()
+            if buckets[-1] and size + nbytes > GRAD_BUCKET_BYTES:
+                buckets.append([])
+                size = 0
+            buckets[-1].append((i, plan))
+            size += nbytes
+        for bucket in buckets:
+            _reduce_bucket(bucket, kinds, grads, params, out)
+    return out
+
+
+def _reduce_bucket(bucket: list, kinds: tuple, grads: list, params: list, out: list) -> None:
+    from torch.distributed.tensor import DTensor
+
+    mesh = params[bucket[0][0]].device_mesh
+    ts = [grads[i].to_local() for i, _ in bucket]
+    for dim, kind in enumerate(kinds):
+        n, rank = mesh.size(dim), mesh.get_local_rank(dim)
+        if kind == "cut":
+            ts = [t.chunk(n, plan[dim][1])[rank] for t, (_, plan) in zip(ts, bucket)]
+        elif kind == "rs":
+            ts = _reduce_scatter_bucket(ts, [plan[dim][1] for _, plan in bucket],
+                                        mesh.get_group(dim), n, rank)
+    ar = [dim for dim, kind in enumerate(kinds) if kind == "ar"]
+    if len(ar) == mesh.ndim and len(ar) > 1:
+        ts = _all_reduce_bucket(ts, mesh_world_group(mesh))
+    else:
+        for dim in ar:
+            ts = _all_reduce_bucket(ts, mesh.get_group(dim))
+    for t, (i, _) in zip(ts, bucket):
+        p = params[i]
+        out[i] = DTensor.from_local(t, mesh, p.placements, run_check=False,
+                                    shape=p.shape, stride=p.stride())
 
 
 def local_blocks(fn: Callable, like, dims: tuple, args: tuple, in_dims: tuple,

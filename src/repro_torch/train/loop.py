@@ -22,8 +22,10 @@ redistribute the activations as JAX's sharding constraints do.  DTensor
 propagates every other op; the flash kernel runs on each rank's (batch,
 head) block under ``local_map`` (``kernels.ops``), as do the MoE dispatch
 and combine (rows) and the Mamba / RWKV-6 recurrences (batch, channels).
-Gradients come back at their parameters' placements, AdamW updates each
-rank's blocks with the global norm over every shard, and compression
+The gradients, left partial sums by the backward, are reduced once to
+their parameters' placements in a few flat buckets
+(``partitioning.reduce_gradients``); AdamW updates each rank's blocks
+with the global norm over every shard, and compression
 quantizes each block against its tensor's global amax (one all-reduce
 each for the norm and the scales); the step calls no ``compressed_psum``,
 as JAX's does not.  Checkpoints gather DTensor leaves whole and rank 0
@@ -69,7 +71,8 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, kernel_mode: str = "au
     does not reach, as JAX's ``value_and_grad``).  The leaves require grad
     only within the call.  DTensor parameters (a mesh's step, within
     :func:`mesh_scope`) get their gradients at their own placements (the
-    partial sums reduced) and plain 0-d metrics."""
+    partial sums reduced in buckets: ``partitioning.reduce_gradients``)
+    and plain 0-d metrics."""
     flat = adamw.leaves(params)
     for p in flat:
         p.requires_grad_(True)
@@ -80,8 +83,8 @@ def loss_and_grads(params, batch: dict, cfg: ModelConfig, kernel_mode: str = "au
     finally:
         for p in flat:
             p.requires_grad_(False)
-    it = iter(grads)
-    grads = adamw.tree_map(lambda p: adamw.like(next(it), p), params)
+    it = iter(PT.reduce_gradients(list(grads), flat))
+    grads = adamw.tree_map(lambda p: next(it), params)
     return (_whole(loss.detach()), {k: _whole(v.detach()) for k, v in aux.items()}, grads)
 
 
@@ -106,6 +109,50 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         return new_params, new_opt, ef, {"loss": loss, **aux, **om}
 
     return step
+
+
+class CapturedStep:
+    """A train step (:func:`make_train_step`'s, without compression)
+    replayed as one CUDA graph, on the card: without a mesh, or on a mesh
+    whose every rank has a card of its own (NCCL; gloo does not capture).
+    A replay runs no Python: DTensor's dispatch, which sets a mesh step's
+    time on four cards, costs nothing a step.
+
+    ``__init__`` runs one real step eagerly on a side stream (the warm:
+    cuBLAS, NCCL and autograd set up there; its metrics are
+    ``warm_metrics``) on ``batch``, then captures the next on a copy of
+    ``batch`` (a capture runs nothing).  Each call copies a batch into the
+    captured one, replays, carries the optimizer's step count forward and
+    returns the captured metrics tensors (read them before the next call).
+    The parameters and moments are updated in place, as the eager step
+    does; on a mesh, capture and calls run inside the step's
+    :func:`mesh_scope`."""
+
+    def __init__(self, step_fn: Callable, params, opt_state: dict, batch: dict):
+        self.params = params
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _, self.opt_state, _, warm = step_fn(params, opt_state, None, self.batch)
+            self.warm_metrics = {k: float(v) for k, v in warm.items()}
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            _, out, _, self.metrics = step_fn(params, self.opt_state, None, self.batch)
+        self._next_step = out["step"]
+
+    def __call__(self, batch: dict) -> dict:
+        for k, v in batch.items():
+            _local(self.batch[k]).copy_(_local(v))
+        self.graph.replay()
+        self.opt_state["step"].copy_(self._next_step)
+        return self.metrics
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if adamw.is_dtensor(t) else t
 
 
 def train(

@@ -1636,6 +1636,46 @@ def test_reduced_train_steps_on_card(cuda, arch):
     assert int(opt["step"]) == 2
 
 
+def test_captured_train_step_equals_eager_on_card(cuda):
+    """``train.loop.CapturedStep``: a reduced ChatGLM3-6B's step (bf16,
+    remat, the flash kernel) captured once and replayed gives the eager
+    step's losses and grad norms on the same batches, from copies of the
+    same weights, within 1e-5 relative (the same kernels on the same
+    inputs, under deterministic algorithms; the warm step's cuBLAS runs on
+    a side stream), and its optimizer step count."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import CapturedStep, device_batch, make_train_step
+
+    cfg = dataclasses.replace(get_reduced("chatglm3-6b", dtype="bfloat16", head_dim=64),
+                              remat=True)
+    data = SyntheticTokens(TokenPipelineConfig(vocab_size=cfg.vocab_size, batch=2,
+                                               seq_len=64))
+    batches = [device_batch(b, cuda) for _, b in zip(range(4), iter(data))]
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(3), cfg)
+    twin = adamw.tree_map(torch.clone, params)
+    torch.use_deterministic_algorithms(True)
+    try:
+        opt, eager = adamw.init(params), []
+        for b in batches:
+            params, opt, _, m = step(params, opt, None, b)
+            eager.append((float(m["loss"]), float(m["grad_norm"])))
+        cap = CapturedStep(step, twin, adamw.init(twin), batches[0])
+        got = [(cap.warm_metrics["loss"], cap.warm_metrics["grad_norm"])]
+        for b in batches[1:]:
+            m = cap(b)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert np.allclose(got, eager, rtol=1e-5, atol=0), (got, eager)
+    assert int(cap.opt_state["step"]) == int(opt["step"]) == 4
+
+
 # flash_attention on DTensors (the train loop's mesh branch): 2 gloo ranks
 # sharing the card, each rank's block of q (batch, heads) through the
 # kernel under local_map; argv rank, world, init, out file
