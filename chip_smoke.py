@@ -548,8 +548,9 @@ LM_PATHS = (("chatglm3-6b", {}, dict(max_batch=8, prompt_len=512, cache_len=1024
             ("jamba-v0.1-52b", dict(num_layers=8),
              dict(max_batch=4, prompt_len=1024, cache_len=1280, max_new_tokens=16),
              (512, 1024)),
-            # attention-free: no kernel on the path
-            ("rwkv6-1.6b", {},
+            # attention-free: no kernel on the path; 12 of the 24 layers
+            # (all 24: ~69 s of the run)
+            ("rwkv6-1.6b", dict(num_layers=12),
              dict(max_batch=8, prompt_len=512, cache_len=576, max_new_tokens=32),
              (256, 512)),
             # VLM: 1024 patches before the prompt; 12 of the 48 layers (all
@@ -590,10 +591,12 @@ FLASH_BWD_TIME_SHAPE = (8, 32, 16, 1024, 128)  # the train step's (kv_pad_to 16)
 FLASH_BWD_REPS = 5
 # phase 11b: ChatGLM3-6B at full width, 8 of 28 layers, B 8 x S 1024
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "chatglm3-6b", 8, 8, 1024, 6
+TRAIN_REPLAYS = 3  # then the step as one CUDA graph: the warm step, the capture, replays
 TRAIN_LOSS_TOL = 1e-2  # |loss kernel - reference| on the first batch, bf16
 TRAIN_GNORM_RTOL = 2e-2  # |grad_norm kernel - reference| / reference
 # phase 11c: the loop on a reduced ChatGLM3 (D 64: the mma instance)
 LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAIL_AT = 40, 10, 25
+LOOP_RTOL = 1e-5  # captured vs eager train(), each history row, relative
 # (K, N) of every linear the six int8 paths quantize: the encoders (9 ->
 # 100, 64, 80), GIN's edge embedding and MLP (also GIN+VN's virtual-node
 # MLPs), GCN's lin, GAT's proj, PNA's pre / post, DGN's post
@@ -3672,9 +3675,23 @@ def train_chatglm3(device) -> tuple:
     if steps[0]["loss"] != float(loss_k):
         print(f"{tag} note: step 0's loss {steps[0]['loss']!r} differs from the checked "
               f"pass's {float(loss_k)!r}")
+    later = steps[1:-1]  # past the first, and not the profiled one
+    # the same step as one CUDA graph, on from the eager steps' state
+    cap = captured_steps(dict(tag=tag, steps=TRAIN_REPLAYS), step_fn, params, opt_state,
+                         lambda: device_batch(next(data), device), torch.cuda.synchronize,
+                         device)
+    eager_ms = statistics.median(r["ms"] for r in later)
+    cap_ms = statistics.median(st["ms"] for st in cap["steps"])
+    print(f"{tag} captured (train.loop.make_runner: what train() and the launcher run on "
+          f"the card; {TRAIN_REPLAYS} replays after steps 0-{TRAIN_STEPS - 1}): "
+          + captured_note(cap) + f"; {cap_ms:.1f} ms a replay against {eager_ms:.1f} eager "
+          f"({(cap_ms / eager_ms - 1) * 100:+.1f} %); {device_line()}")
+    flash = (cap["profile"] or {}).get("flash_kernels", 2 * TRAIN_LAYERS)
+    if flash != 2 * TRAIN_LAYERS or not all(math.isfinite(st["loss"]) for st in cap["steps"]):
+        raise AssertionError(f"{tag} captured: {flash} flash kernels in a replay (expected "
+                             f"{2 * TRAIN_LAYERS}), losses {cap['steps']}")
     del params, opt_state, first
     torch.cuda.empty_cache()
-    later = steps[1:-1]  # past the first, and not the profiled one
     summary = dict(train_step=dict(
         arch=TRAIN_ARCH, layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         params=n_params, nonvocab_params=nonvocab, tokens=tokens, model_flops=model_flops,
@@ -3683,64 +3700,166 @@ def train_chatglm3(device) -> tuple:
         median_tokens_per_s=statistics.median(r["tokens_per_s"] for r in later),
         median_mfu=statistics.median(r["mfu"] for r in later),
         peak_gb=max(r["peak_gb"] for r in steps), flash_launches_per_step=2 * TRAIN_LAYERS,
-        adamw_ms=adamw_ms, steps=steps))
+        adamw_ms=adamw_ms, captured_median_ms=cap_ms, steps=steps))
     return launches, summary
 
 
+def eager_runner():
+    """Within the block every runner of ``train.runner`` is the eager one
+    (the card's comparison of a captured run with the op-by-op step)."""
+    from unittest import mock
+
+    from repro_torch.train import runner as TR
+
+    return mock.patch.object(TR, "captures", lambda device, backend="none": False)
+
+
+def runner_counts() -> tuple:
+    from repro_torch.train import runner as TR
+
+    return TR.capture_count, TR.replay_count
+
+
+def history_gap(got: list, want: list) -> float:
+    """The largest relative gap of two ``train()`` histories' metrics, row by
+    row (inf where their steps differ)."""
+    if [r["step"] for r in got] != [r["step"] for r in want]:
+        return math.inf
+    return max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) if g[k] != w[k] else 0.0
+               for g, w in zip(got, want) for k in ("loss", "ce", "aux", "grad_norm", "lr"))
+
+
+def launcher_lines(argv: list) -> tuple:
+    """``launch/train.py``'s ``main(argv)`` in this process on the card: (its
+    lines, graphs captured, replays)."""
+    import io
+
+    from repro_torch.launch import train as LT
+
+    before = runner_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        LT.main(argv)
+    after = runner_counts()
+    return buf.getvalue().splitlines(), after[0] - before[0], after[1] - before[1]
+
+
 def train_loop_phase(device) -> dict:
-    """Phase 11c; returns the loop's launch counts."""
+    """Phase 11c; returns the loop's launch counts.  ``train()`` runs its
+    steps as one CUDA graph on the card; the eager runner on the same
+    batches from the same weights (under deterministic algorithms both)
+    holds every history row within ``LOOP_RTOL``, compression off and on."""
     import shutil
 
     import torch
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_reduced
     from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import lm
     from repro_torch.optim import adamw
-    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.loop import (LoopConfig, device_batch, make_runner,
+                                        make_train_step, train)
 
     cfg = get_reduced(TRAIN_ARCH, head_dim=64, dtype="bfloat16")
     ckpt = ROOT / "build" / "train_loop"
     shutil.rmtree(ckpt, ignore_errors=True)
     data = SyntheticTokens(TokenPipelineConfig(vocab_size=cfg.vocab_size, batch=4,
                                                seq_len=64))
-    reset_launches()
-    out = train(cfg, adamw.AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=LOOP_STEPS),
-                LoopConfig(steps=LOOP_STEPS, log_every=1, ckpt_every=LOOP_CKPT_EVERY,
-                           ckpt_dir=str(ckpt), max_retries=2),
-                data, inject_failure_at=LOOP_FAIL_AT, device=device)
-    launches = read_launches()
+    opt_cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=5, total_steps=LOOP_STEPS)
+
+    def run(tag: str, compression: bool) -> dict:
+        return train(cfg, opt_cfg,
+                     LoopConfig(steps=LOOP_STEPS, log_every=1, ckpt_every=LOOP_CKPT_EVERY,
+                                ckpt_dir=str(ckpt / tag), max_retries=2,
+                                grad_compression=compression),
+                     data, inject_failure_at=LOOP_FAIL_AT, device=device)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_launches()
+        before = runner_counts()
+        out = run("captured", False)
+        launches = read_launches()
+        graphs = [a - b for a, b in zip(runner_counts(), before)]
+        with eager_runner():
+            eager = run("eager", False)
+        comp = run("captured compression", True)
+        with eager_runner():
+            comp_eager = run("eager compression", True)
+    finally:
+        torch.use_deterministic_algorithms(False)
     h = out["history"]
     failures = [e["step"] for e in out["events"] if e["event"] == "failure"]
+    restored = LOOP_FAIL_AT // LOOP_CKPT_EVERY * LOOP_CKPT_EVERY
     # each batch is new: the loss falls as the mean of the first and last 5 steps
     first5, last5 = (statistics.mean(r["loss"] for r in rs) for rs in (h[:5], h[-5:]))
     if (h[-1]["step"] != LOOP_STEPS or failures != [LOOP_FAIL_AT]
             or [r["step"] for r in h] != list(range(1, LOOP_FAIL_AT + 1)) + list(
-                range(LOOP_FAIL_AT // LOOP_CKPT_EVERY * LOOP_CKPT_EVERY + 1, LOOP_STEPS + 1))
+                range(restored + 1, LOOP_STEPS + 1))
             or not last5 < first5 or launches["flash_attention"] == 0):
         raise AssertionError(f"[train loop] history {h}, failures {failures}, launches "
                              f"{launches['flash_attention']}")
+    if graphs != [1, len(h) - 1]:
+        raise AssertionError(f"[train loop] {graphs[0]} captures and {graphs[1]} replays "
+                             f"over {len(h)} steps (expected 1 and {len(h) - 1})")
+    gaps = {"": history_gap(h, eager["history"]),
+            " compression": history_gap(comp["history"], comp_eager["history"])}
+    if max(gaps.values()) > LOOP_RTOL:
+        raise AssertionError(f"[train loop] captured vs eager histories {gaps} > {LOOP_RTOL}")
     live = {"params": out["params"], "opt": out["opt_state"]}
-    step, got = CheckpointManager(str(ckpt)).restore(template=live)
+    step, got = CheckpointManager(str(ckpt / "captured")).restore(template=live)
     same = lambda a, b: (a.device == b.device and a.dtype == b.dtype and torch.equal(
         *(t.view(torch.int16) if t.dtype == torch.bfloat16 else t for t in (a, b))))
     leaves = list(zip(adamw.leaves(got), adamw.leaves(live)))
     if step != LOOP_STEPS or not all(same(a, b) for a, b in leaves):
         raise AssertionError(f"[train loop] the restore of step {step} differs from the "
                              f"live tree")
-    child = run_child([sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                       "rwkv6-1.6b", "--reduced", "--steps", "3", "--batch", "2", "--seq",
-                       "32", "--ckpt-dir", str(ckpt / "launcher")], "the train launcher")
-    if child.splitlines()[-1] != "done":
-        raise AssertionError(f"[train loop] the launcher printed {child[-500:]}")
+    ms = lambda o: statistics.median(r["dt"] for r in o["history"][1:]) * 1e3
+    # one replay of the same runner under the profiler: the flash kernel
+    # inside the graph, as often as the capture launched it
+    params = lm.init_params(torch.Generator(device).manual_seed(0), cfg)
+    runner = make_runner(make_train_step(cfg, opt_cfg), params, adamw.init(params), None,
+                         device)
+    batches = iter(data)
+    try:
+        n0 = FA.launches
+        runner(device_batch(next(batches), device))
+        per_step = (FA.launches - n0) // 2  # the warm step and the capture
+        batch = device_batch(next(batches), device)
+        events = device_events(lambda: runner(batch)["loss"].item())
+    finally:
+        runner.close()
+    flash = sum("flash_fwd" in e.name for e in events)
+    if not flash == per_step > 0:
+        raise AssertionError(f"[train loop] {flash} flash kernels in a profiled replay, "
+                             f"{per_step} launched a step by the capture")
+    launched = []
+    for argv in (["--arch", "rwkv6-1.6b", "--reduced", "--steps", "3", "--batch", "2",
+                  "--seq", "32"],
+                 ["--arch", TRAIN_ARCH, "--reduced", "--steps", "3", "--batch", "2",
+                  "--seq", "32", "--grad-compression"]):
+        lines, caps, reps = launcher_lines(argv + ["--ckpt-dir", str(ckpt / "launcher")])
+        if lines[-1] != "done" or (caps, reps) != (1, 2) or len(lines) != 4:
+            raise AssertionError(f"[train loop] the launcher {argv}: {caps} captures, {reps} "
+                                 f"replays, printed {lines}")
+        launched.append(f"{' '.join(argv[1:2] + argv[9:])}: " + " | ".join(lines))
     shutil.rmtree(ckpt, ignore_errors=True)
-    print(f"[train loop] reduced {TRAIN_ARCH} (D 64, bf16) on the card: {LOOP_STEPS} steps, "
-          f"checkpoints every {LOOP_CKPT_EVERY}, the failure injected at step "
-          f"{LOOP_FAIL_AT} recovered from step {LOOP_FAIL_AT // LOOP_CKPT_EVERY * LOOP_CKPT_EVERY}; "
-          f"mean loss of the first 5 steps {first5:.4f}, of the last 5 {last5:.4f}; "
-          f"{launches['flash_attention']} flash launches; the restore of step {step} "
-          f"equals the live tree bit for bit on the card ({len(leaves)} leaves); the "
-          f"launcher (rwkv6-1.6b --reduced --steps 3) printed "
-          + " | ".join(child.splitlines()[-2:]))
+    print(f"[train loop] reduced {TRAIN_ARCH} (D 64, bf16) on the card through train(), "
+          f"captured: {LOOP_STEPS} steps, checkpoints every {LOOP_CKPT_EVERY}, the failure "
+          f"injected at step {LOOP_FAIL_AT} recovered from step {restored} in place "
+          f"({graphs[0]} capture, {graphs[1]} replays); mean loss of the first 5 steps "
+          f"{first5:.4f}, of the last 5 {last5:.4f}; {launches['flash_attention']} flash "
+          f"launches (the warm step and the capture); the restore of step {step} equals the "
+          f"live tree bit for bit on the card ({len(leaves)} leaves); captured vs eager "
+          f"runner under deterministic algorithms, largest relative gap of a history row "
+          f"{gaps['']:.2e} (compression {gaps[' compression']:.2e}; limit {LOOP_RTOL:g}); "
+          f"ms a step past the first (host clock to the metrics' read, deterministic "
+          f"algorithms): captured {ms(out):.2f} / eager {ms(eager):.2f}, compression "
+          f"{ms(comp):.2f} / {ms(comp_eager):.2f}; a profiled replay: {flash} flash kernels "
+          f"of {len(events)} device records; {device_line()}")
+    print("[train loop] the launcher in this process, captured (1 capture, 2 replays "
+          "each): " + "; ".join(launched))
     return launches
 
 
@@ -4739,6 +4858,7 @@ def mesh_rank_main(argv: list) -> int:
         if a.mesh_job == "train":
             res = train_mesh_rank(a.mesh_out, device, step)
             Path(a.mesh_out, f"rank{a.mesh_rank}.json").write_text(json.dumps(res))
+            gc.collect()  # graphs that captured NCCL go before their communicators
             dist.barrier()
             return 0
         if a.mesh_job == "decode":
@@ -4983,6 +5103,17 @@ TRAIN_MESH_TIMEOUT_S = 600
 # four cards (``--train-mesh-cards 4``, not part of the default run): the
 # launcher's 2x2 NCCL mesh of ChatGLM3-6B at full width, 8 layers
 TRAIN_MESH_CARDS = (("dense bf16", "chatglm3-6b", dict(num_layers=8), "bfloat16", 3),)
+# and train() itself on that mesh: at TRAIN_MESH_CARDS' cell (its one
+# checkpoint, at the end, ~21.6 GB: bf16 weights, fp32 moments), held to
+# one card's eager steps above; and a reduced ChatGLM3-6B with a failure,
+# its restore in place and compression, held to one card's train()
+TRAIN_LOOP_CARDS = (
+    dict(tag="loop full width", arch="chatglm3-6b", overrides=dict(num_layers=8),
+         dtype="bfloat16", steps=3, batch=8, seq=TRAIN_MESH_SEQ, ckpt_every=1000,
+         fail_at=None, compression=False, rules="default"),
+    dict(tag="loop reduced", arch="chatglm3-6b", overrides=dict(head_dim=64), reduced=True,
+         dtype="bfloat16", steps=8, batch=8, seq=64, ckpt_every=4, fail_at=6,
+         compression=True, rules="fsdp"))
 
 
 def train_mesh_cases(models, meshes=(((1, 1), "default"),), **extra) -> list:
@@ -5072,35 +5203,82 @@ def train_mesh_run(case: dict, device, mesh=None, rules=None) -> dict:
                 and (mesh is None or mesh.backend == "nccl")):
             out["captured"] = captured_steps(case, step_fn, params, opt_state,
                                              lambda: device_batch(next(data), device, mesh,
-                                                                  rules), sync)
+                                                                  rules), sync, device, mesh)
     return out
 
 
-def captured_steps(case: dict, step_fn, params, opt_state, next_batch, sync) -> dict:
-    """The step as one CUDA graph (``train.loop.CapturedStep``): its warm
-    step's loss and the capture's seconds, then ``case["steps"]`` replays
-    (loss, grad_norm, ms each) and one replay under the profiler."""
+def captured_steps(case: dict, step_fn, params, opt_state, next_batch, sync, device,
+                   mesh=None) -> dict:
+    """The step as one CUDA graph (``train.loop.make_runner``, the runner
+    ``train()`` and the launcher take on the card): the warm step's loss,
+    the seconds of the warm step and the capture, then ``case["steps"]``
+    replays (loss, grad_norm, ms each) and one replay under the profiler."""
     import torch
-    from repro_torch.train.loop import CapturedStep
+    from repro_torch.train import runner as TR
+    from repro_torch.train.loop import make_runner
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cap = CapturedStep(step_fn, params, opt_state, next_batch())
-    sync()
-    res = dict(warm_loss=cap.warm_metrics["loss"], capture_s=time.perf_counter() - t0,
-               steps=[])
-    for _ in range(case["steps"]):
+    run = make_runner(step_fn, params, opt_state, None, device, mesh)
+    if not isinstance(run, TR.CapturedStep):
+        raise AssertionError(f"{case['tag']}: the rule gave {type(run).__name__} on {mesh}")
+    try:
+        warm = float(run(next_batch())["loss"])
+        sync()
+        res = dict(warm_loss=warm, capture_s=time.perf_counter() - t0, steps=[])
+        for _ in range(case["steps"]):
+            batch = next_batch()
+            sync()
+            t0 = time.perf_counter()
+            m = run(batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            sync()
+            res["steps"].append(dict(loss=loss, grad_norm=gnorm,
+                                     ms=(time.perf_counter() - t0) * 1e3))
         batch = next_batch()
-        sync()
-        t0 = time.perf_counter()
-        m = cap(batch)
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        sync()
-        res["steps"].append(dict(loss=loss, grad_norm=gnorm,
-                                 ms=(time.perf_counter() - t0) * 1e3))
-    batch = next_batch()
-    res["profile"] = step_profile(lambda: cap(batch)["loss"].item())
+        res["profile"] = step_profile(lambda: run(batch)["loss"].item())
+    finally:
+        run.close()
     return res
+
+
+def train_loop_run(case: dict, device, mesh=None, rules=None) -> dict:
+    """One ``train()`` of a loop case (``train_mesh_cards``) on ``device``,
+    whole (``mesh`` None) or on ``mesh``: its history (step, loss,
+    grad_norm, ms), failure steps and the graphs it captured and replayed.
+    Its checkpoints go to a directory of the case's own under
+    ``build/train_mesh/loop``, which the caller removes."""
+    from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import LoopConfig, train
+
+    cfg = train_mesh_config(case)
+    ckpt = ROOT / "build" / "train_mesh" / "loop" / (
+        f"{case['tag']} {'mesh' if mesh is not None else 'one'}".replace(" ", "_"))
+    data = SyntheticTokens(TokenPipelineConfig(vocab_size=cfg.vocab_size,
+                                               batch=case["batch"], seq_len=case["seq"]))
+    before = runner_counts()
+    out = train(cfg, adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=case["steps"]),
+                LoopConfig(steps=case["steps"], log_every=1, ckpt_every=case["ckpt_every"],
+                           ckpt_dir=str(ckpt), grad_compression=case["compression"]),
+                data, mesh=mesh, rules=rules, inject_failure_at=case["fail_at"],
+                device=device)
+    return dict(tag=case["tag"],
+                history=[dict(step=r["step"], loss=r["loss"], grad_norm=r["grad_norm"],
+                              ms=r["dt"] * 1e3) for r in out["history"]],
+                failures=[e["step"] for e in out["events"] if e["event"] == "failure"],
+                graphs=[a - b for a, b in zip(runner_counts(), before)])
+
+
+def loop_note(run: dict) -> str:
+    """A ``train_loop_run``'s figures for a report line."""
+    h = run["history"]
+    later = h[1:] or h
+    return (f"steps {[r['step'] for r in h]}, failures {run['failures']}, "
+            f"{run['graphs'][0]} capture / {run['graphs'][1]} replays; losses "
+            + " / ".join(f"{r['loss']:.5f}" for r in h)
+            + f"; {statistics.median(r['ms'] for r in later):.1f} ms a step past the first "
+            "(" + ", ".join(f"{r['ms']:.0f}" for r in h) + ")")
 
 
 def collectives_by_kind(comm) -> dict:
@@ -5147,6 +5325,7 @@ def step_profile(fn) -> dict:
             end = b
     nccl = [e for e in kernels if "nccl" in e.name.lower()]
     return dict(wall_ms=wall_ms, kernels=len(kernels), busy_ms=busy / 1e3,
+                flash_kernels=sum("flash_fwd" in e.name for e in kernels),
                 nccl_kernels=len(nccl),
                 nccl_ms=sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
                 idle_share=max(0.0, 1.0 - busy / 1e3 / wall_ms))
@@ -5166,7 +5345,8 @@ def train_mesh_rank(out_dir: str, device, step) -> dict:
         rules = (RT.fsdp_rules if case["rules"] == "fsdp" else RT.batch_rules)(
             mesh, case.get("batch", TRAIN_MESH_BATCH))
         step(f"{case['tag']} on {mesh} {case['rules']}")
-        res["cases"].append(train_mesh_run(case, device, mesh, rules))
+        run = train_loop_run if case.get("loop") else train_mesh_run
+        res["cases"].append(run(case, device, mesh, rules))
         if device.type == "cuda":
             torch.cuda.empty_cache()
     res["launches"] = read_launches()
@@ -5220,7 +5400,8 @@ def profile_note(prof) -> str:
     if prof is None:
         return "profiled step: not measured (the session lost its device records)"
     return (f"profiled step {prof['wall_ms']:.1f} ms wall, {prof['kernels']} kernels busy "
-            f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}), NCCL "
+            f"{prof['busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}), "
+            f"{prof['flash_kernels']} flash_attention, NCCL "
             f"{prof['nccl_kernels']} kernels {prof['nccl_ms']:.1f} ms")
 
 
@@ -5624,6 +5805,8 @@ GNN_GRAD_PATHS = tuple((m, "fp32", fused) for m in ("gcn", "gin", "gin_vn", "gat
                                                          ("gin", "int8", True))
 GNN_TRAIN_STEPS = 50
 GNN_TRAIN_SKIP = 5  # steps left out of the median step time
+GNN_EXACT_STEPS = 10  # captured vs eager example, bit for bit (deterministic algorithms)
+GNN_PROFILE_KEEP = 4  # profiler sessions of a replay of the example's step
 GNN_EXAMPLES = (("torch_quickstart.py",), ("torch_serve_realtime_stream.py", "32"),
                 ("torch_large_graph_dgn.py",))
 # the wrappers of kernels/ops.py that take KernelFunction (the paths run all
@@ -5787,37 +5970,99 @@ def example_module(name: str):
 
 def train_gin_example(device, card: str) -> dict:
     """Phase 15, step 2: ``examples/torch_train_gin_molhiv.py``'s ``main``
-    for ``GNN_TRAIN_STEPS`` steps on the card, in this process."""
+    for ``GNN_TRAIN_STEPS`` steps on the card, in this process: its step as
+    one CUDA graph (one capture, a replay each later step), then the same
+    run through the eager runner for its times, then one replay of the
+    example's step under the profiler (``node_mlp`` inside the graph)."""
     import shutil
+
+    import torch
+    from repro_torch.configs.gengnn_models import get_gnn_config
+    from repro_torch.data.pipeline import MOLHIV, MoleculeStream
+    from repro_torch.gnn import init
+    from repro_torch.kernels import node_mlp as NM
+    from repro_torch.optim import adamw
+    from repro_torch.train import runner as TR
 
     ex = example_module("torch_train_gin_molhiv")
     ckpt = ROOT / "build" / "train_gin"
     shutil.rmtree(ckpt, ignore_errors=True)
-    seconds = []
+    argv = [str(GNN_TRAIN_STEPS), "--device", str(device), "--ckpt-dir", str(ckpt)]
+    seconds, eager_s = [], []
     names = {}
     reset_launches()
+    before = runner_counts()
     with grad_fn_census(names):
-        out = ex.main([str(GNN_TRAIN_STEPS), "--device", str(device), "--ckpt-dir",
-                       str(ckpt)], on_step=lambda step, s: seconds.append(s))
+        out = ex.main(argv, on_step=lambda step, s: seconds.append(s))
+    graphs = [a - b for a, b in zip(runner_counts(), before)]
     launches = read_launches()
+    with eager_runner():
+        eager = ex.main(argv, on_step=lambda step, s: eager_s.append(s))
+    # the same kernels on the same inputs: under deterministic algorithms the
+    # captured run gives the eager one's losses and weights bit for bit
+    short = [str(GNN_EXACT_STEPS), *argv[1:]]
+    torch.use_deterministic_algorithms(True)
+    try:
+        exact = ex.main(short)
+        with eager_runner():
+            exact_eager = ex.main(short)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = exact["losses"] == exact_eager["losses"] and all(
+        torch.equal(a, b) for a, b in zip(adamw.leaves(exact["params"]),
+                                          adamw.leaves(exact_eager["params"])))
     losses = out["losses"]
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
-    later = seconds[GNN_TRAIN_SKIP:]
+    later, eager_later = seconds[GNN_TRAIN_SKIP:], eager_s[GNN_TRAIN_SKIP:]
+    gap = max(abs(a - b) for a, b in zip(losses, eager["losses"]))
+    # one replay of the example's step under the profiler
+    cfg = get_gnn_config("gin")
+    params = init(torch.Generator().manual_seed(0), cfg, device)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=GNN_TRAIN_STEPS,
+                                weight_decay=0.01)
+    runner = TR.runner(ex.train_step(opt_cfg, cfg),
+                       {"params": params, "opt": adamw.init(params)}, device)
+    stream, rng = MoleculeStream(MOLHIV, seed=0), np.random.default_rng(0)
+    try:
+        n0, v0 = NM.launches, dict(NM.launches_by_variant)
+        runner(ex.make_batch(stream, rng, 0, device=device))
+        per_step = (NM.launches - n0) // 2  # the warm step and the capture
+        split = {k: (n - v0[k]) // 2 for k, n in NM.launches_by_variant.items()}
+        batch = ex.make_batch(stream, rng, 1, device=device)
+        events = device_events(lambda: runner(batch)[0].item(), keep=GNN_PROFILE_KEEP)
+    finally:
+        runner.close()
+    in_replay = sum("node_mlp_" in e.name for e in events)
+    replay_split = {k: sum(f"node_mlp_{k}" in e.name for e in events) for k in split}
     print(f"[train gin] examples/torch_train_gin_molhiv.py, GIN paper width (5 x 100), "
-          f"{GNN_TRAIN_STEPS} steps of 16 graphs (1024, 3072), AdamW: bce mean of the "
-          f"first 10 steps {first:.4f} -> last 10 {last:.4f} (step 0 {losses[0]:.4f}, "
-          f"last {losses[-1]:.4f}, acc {out['accs'][-1]:.2f}); "
-          f"{statistics.median(later) * 1e3:.3f} ms a step (median (min-max) of steps "
-          f"{GNN_TRAIN_SKIP}-{GNN_TRAIN_STEPS - 1}, CUDA events: {spread(later)}); "
-          f"node_mlp launches {launches['node_mlp']} "
-          f"({launches['node_mlp'] / GNN_TRAIN_STEPS:.0f} a step); {card}")
+          f"{GNN_TRAIN_STEPS} steps of 16 graphs (1024, 3072), AdamW, the step as one CUDA "
+          f"graph ({graphs[0]} capture, {graphs[1]} replays): bce mean of the first 10 "
+          f"steps {first:.4f} -> last 10 {last:.4f} (step 0 {losses[0]:.4f}, last "
+          f"{losses[-1]:.4f}, acc {out['accs'][-1]:.2f}); {statistics.median(later) * 1e3:.3f} "
+          f"ms a step (median (min-max) of steps {GNN_TRAIN_SKIP}-{GNN_TRAIN_STEPS - 1}, CUDA "
+          f"events around a replay and its input copies: {spread(later)}) against "
+          f"{statistics.median(eager_later) * 1e3:.3f} through the eager runner "
+          f"({spread(eager_later)}; largest loss gap {gap:.2e}, deterministic "
+          f"algorithms off); under deterministic algorithms {GNN_EXACT_STEPS} captured "
+          f"steps {'equal' if same else 'DIFFER FROM'} the eager runner's bit for bit "
+          f"(losses and weights); node_mlp launches {launches['node_mlp']} (the warm step "
+          f"and the capture: {split} a step), {in_replay} in a profiled replay "
+          f"({replay_split}) of {len(events)} device records (the largest of "
+          f"{GNN_PROFILE_KEEP} sessions); {card}")
     if not (all(np.isfinite(losses)) and last < first):
         raise AssertionError(f"[train gin]: the loss did not fall: {losses}")
+    if graphs != [1, GNN_TRAIN_STEPS - 1]:
+        raise AssertionError(f"[train gin]: {graphs} captures / replays")
     if names.get("node_mlp") != {"KernelFunctionBackward", "NoneType"}:
         raise AssertionError(f"[train gin]: node_mlp outputs {names}: every forward under "
                              "grad through KernelFunction, the accuracy's without")
-    if not launches["node_mlp"] > 0:
-        raise AssertionError("[train gin]: node_mlp never launched")
+    if not same:
+        raise AssertionError("[train gin]: the captured steps differ from the eager "
+                             "runner's under deterministic algorithms")
+    # the profiler can drop records of a session: at most the capture's
+    if not 0 < in_replay <= per_step or launches["node_mlp"] != 2 * per_step:
+        raise AssertionError(f"[train gin]: node_mlp {launches['node_mlp']} launches at the "
+                             f"warm step and capture, {in_replay} in a replay")
     return launches
 
 
@@ -5970,9 +6215,12 @@ def run_phases(device, children: dict) -> list:
 def train_mesh_cards(cards: int) -> int:
     """``--train-mesh-cards N`` (development, not the default run): phase
     13's rank code on a (2, N / 2) NCCL mesh of N cards, a card a rank, for
-    ``TRAIN_MESH_CARDS`` under both presets at B 8 x S 1024, then the
-    launcher (reduced ChatGLM3-6B, ``--debug-mesh 2xM --rules fsdp``, 3
-    steps) as a child, its NCCL ranks started by itself."""
+    ``TRAIN_MESH_CARDS`` under both presets at B 8 x S 1024 (eager steps,
+    then the runner's captured steps), ``train()`` for ``TRAIN_LOOP_CARDS``,
+    then the launcher (reduced ChatGLM3-6B, ``--debug-mesh 2xM --rules
+    fsdp``, 3 steps) as a child, its NCCL ranks started by itself."""
+    import shutil
+
     import torch
 
     card = device_line()
@@ -5991,9 +6239,34 @@ def train_mesh_cards(cards: int) -> int:
     if one_cap:
         print(f"[mesh train cards {ref['tag']} one card captured] " + captured_note(one_cap)
               + f"; {card}")
+    loops = [dict(c, loop=True, mesh=[2, cards // 2]) for c in TRAIN_LOOP_CARDS]
+    loop_dir = ROOT / "build" / "train_mesh" / "loop"
+    shutil.rmtree(loop_dir, ignore_errors=True)
+    print(f"[mesh train cards] {shutil.disk_usage(ROOT).free / 1e9:.0f} GB free on the "
+          f"checkout's disk")
+    one_loop = train_loop_run(loops[1], torch.device("cuda", 0))
+    torch.cuda.empty_cache()
+    print(f"[mesh train cards {one_loop['tag']} one card] train(): " + loop_note(one_loop)
+          + f"; {card}")
     ranks = mesh_world("nccl", cards, ROOT / "build" / "train_mesh" / "cards", "cuda",
-                       job="train", cases=cases, timeout_s=TRAIN_MESH_TIMEOUT_S)
+                       job="train", cases=cases + loops, timeout_s=TRAIN_MESH_TIMEOUT_S)
+    shutil.rmtree(loop_dir, ignore_errors=True)
     gaps = []
+    for j, case in enumerate(loops):
+        want = (one_loop["history"] if case.get("reduced") else
+                [dict(step=k + 1, loss=st["loss"]) for k, st in enumerate(ref["steps"])])
+        head = f"[mesh train cards {case['tag']} 2x{cards // 2} {case['rules']}]"
+        for r, res in enumerate(ranks):
+            run = res["cases"][len(cases) + j]
+            h = run["history"]
+            gap = (max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(h, want))
+                   if [a["step"] for a in h] == [b["step"] for b in want] else math.inf)
+            gaps.append((head, gap))
+            against = "one card's train()" if case.get("reduced") else "one card's eager steps"
+            print(f"{head} rank {r} train(): " + loop_note(run) + f"; against {against} "
+                  f"largest relative loss gap {gap:.2e}; {card}")
+            if run["graphs"] != [1, len(h) - 1]:
+                raise AssertionError(f"{head} rank {r}: {run['graphs']} captures / replays")
     for i, case in enumerate(cases):
         head = f"[mesh train cards {case['tag']} 2x{cards // 2} {case['rules']}]"
         for r, res in enumerate(ranks):

@@ -6,7 +6,10 @@ cosine decay to the end), optional int8 error-feedback gradient
 compression, and an async checkpoint every ``--ckpt-every`` steps and at
 the end.  Parameters are random (``lm.init_params`` from a generator
 seeded 0).  Prints JAX's lines, ``step N loss L (T ms)`` ten times over
-the run and at its last step, then ``done``.
+the run and at its last step, then ``done``.  The step runs as JAX's
+jitted one does, as one program: through ``train.loop.make_runner``, one
+CUDA graph on the card (step 0 eager and the capture, as JAX's step 0
+compiles; replays from step 1), op by op on the CPU and on gloo ranks.
 
 Mesh, as JAX's launcher: ``--debug-mesh DxM`` trains on a ``("data",
 "model")`` mesh of D x M ranks under ``--rules`` (``default``:
@@ -47,7 +50,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.optim import compression as comp
-from repro_torch.train.loop import device_batch, make_train_step, mesh_scope
+from repro_torch.train.loop import device_batch, make_runner, make_train_step, mesh_scope
 
 
 def _mesh_shape(text: str) -> tuple:
@@ -104,21 +107,24 @@ def main(argv=None):
     opt_state = adamw.init(params)
     ef = comp.init_error_buf(params) if args.grad_compression else None
     mgr = CheckpointManager(args.ckpt_dir, keep=3)
-    step_fn = make_train_step(cfg, opt_cfg, args.grad_compression)
+    run = make_runner(make_train_step(cfg, opt_cfg, args.grad_compression), params,
+                      opt_state, ef, device, mesh)
 
     it = iter(data)
-    with mesh_scope(mesh, rules):
-        for step in range(args.steps):
-            batch = device_batch(next(it), device, mesh, rules)
-            t0 = time.perf_counter()
-            params, opt_state, ef, metrics = step_fn(params, opt_state, ef, batch)
-            loss = float(metrics["loss"])
-            dt = time.perf_counter() - t0
-            if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
-                print(f"step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)", flush=True)
-            if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
-                mgr.save(step + 1, {"params": params, "opt": opt_state},
-                         axes_tree={"params": paxes, "opt": None})
+    try:
+        with mesh_scope(mesh, rules):
+            for step in range(args.steps):
+                batch = device_batch(next(it), device, mesh, rules)
+                t0 = time.perf_counter()
+                loss = float(run(batch)["loss"])
+                dt = time.perf_counter() - t0
+                if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
+                    print(f"step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)", flush=True)
+                if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
+                    mgr.save(step + 1, {"params": run.state["params"], "opt": run.state["opt"]},
+                             axes_tree={"params": paxes, "opt": None})
+    finally:
+        run.close()  # the graph and its pool go before the ranks' process group
     mgr.wait()
     print("done")
 

@@ -8,9 +8,15 @@ without a mesh.
     median);
   * optional int8 error-feedback gradient compression.
 
-The step runs eagerly on the parameters' device: the loss and its
-gradients by autograd (``lm.loss_fn``, the attention's forward the flash
-kernel on the card), then ``optim.adamw.update`` in place.
+The step is the loss and its gradients by autograd (``lm.loss_fn``, the
+attention's forward the flash kernel on the card), then
+``optim.adamw.update`` in place.  JAX jits it; the port runs it through a
+runner (``train.runner``): on the card, without a mesh or on an NCCL mesh,
+one CUDA graph a step (the first step eager, a real one, then the capture,
+replayed from the second on); on the CPU and on gloo ranks, op by op.  The
+graph holds the addresses of the parameters, moments, step count and
+error buffer, so a restore copies the checkpoint into those tensors and
+the graph is kept; a graph that fails raises, and is not retried.
 
 The mesh branch (``train(..., mesh=, rules=)``, JAX's ``use_mesh`` +
 ``active_rules`` around its jitted step) runs the same step on DTensors,
@@ -51,6 +57,7 @@ from repro_torch.optim import adamw
 from repro_torch.optim import compression as comp
 from repro_torch.runtime import partitioning as PT
 from repro_torch.runtime.partitioning import mesh_scope
+from repro_torch.train import runner as R
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,48 +118,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return step
 
 
-class CapturedStep:
-    """A train step (:func:`make_train_step`'s, without compression)
-    replayed as one CUDA graph, on the card: without a mesh, or on a mesh
-    whose every rank has a card of its own (NCCL; gloo does not capture).
-    A replay runs no Python: DTensor's dispatch, which sets a mesh step's
-    time on four cards, costs nothing a step.
+def make_runner(step_fn: Callable, params, opt_state: dict, ef, device, mesh=None):
+    """A runner (``train.runner``) of :func:`make_train_step`'s ``step_fn``
+    over the state {"params", "opt", "ef"} (``ef`` None without
+    compression): captured on the card without a mesh or on NCCL, eager on
+    the CPU and on gloo.  A call takes a batch and returns the metrics."""
 
-    ``__init__`` runs one real step eagerly on a side stream (the warm:
-    cuBLAS, NCCL and autograd set up there; its metrics are
-    ``warm_metrics``) on ``batch``, then captures the next on a copy of
-    ``batch`` (a capture runs nothing).  Each call copies a batch into the
-    captured one, replays, carries the optimizer's step count forward and
-    returns the captured metrics tensors (read them before the next call).
-    The parameters and moments are updated in place, as the eager step
-    does; on a mesh, capture and calls run inside the step's
-    :func:`mesh_scope`."""
+    def fn(state, batch):
+        params, opt, ef, metrics = step_fn(state["params"], state["opt"], state["ef"], batch)
+        return {"params": params, "opt": opt, "ef": ef}, metrics
 
-    def __init__(self, step_fn: Callable, params, opt_state: dict, batch: dict):
-        self.params = params
-        self.batch = {k: v.clone() for k, v in batch.items()}
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            _, self.opt_state, _, warm = step_fn(params, opt_state, None, self.batch)
-            self.warm_metrics = {k: float(v) for k, v in warm.items()}
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            _, out, _, self.metrics = step_fn(params, self.opt_state, None, self.batch)
-        self._next_step = out["step"]
-
-    def __call__(self, batch: dict) -> dict:
-        for k, v in batch.items():
-            _local(self.batch[k]).copy_(_local(v))
-        self.graph.replay()
-        self.opt_state["step"].copy_(self._next_step)
-        return self.metrics
-
-
-def _local(t: torch.Tensor) -> torch.Tensor:
-    return t.to_local() if adamw.is_dtensor(t) else t
+    return R.runner(fn, {"params": params, "opt": opt_state, "ef": ef}, device, mesh)
 
 
 def train(
@@ -194,20 +170,23 @@ def train(
     if mgr.latest_step() is not None:
         start, params, opt_state = _restore(mgr, params, opt_state, paxes, mesh, rules)
 
-    with mesh_scope(mesh, rules):
-        params, opt_state, ef, history, events = _run_loop(
-            loop_cfg, step_fn, mgr, iter(data), params, opt_state, ef, start, paxes,
-            inject_failure_at, device, mesh, rules)
+    run = make_runner(step_fn, params, opt_state, ef, device, mesh)
+    try:
+        with mesh_scope(mesh, rules):
+            history, events = _run_loop(loop_cfg, run, mgr, iter(data), start, paxes,
+                                        inject_failure_at, device, mesh, rules)
+    finally:
+        run.close()  # the graph and its pool go before the caller's process group
     mgr.wait()
-    return {"params": params, "opt_state": opt_state, "history": history,
-            "events": events, "axes": paxes}
+    return {"params": run.state["params"], "opt_state": run.state["opt"],
+            "history": history, "events": events, "axes": paxes}
 
 
-def _restore(mgr, params, opt_state, paxes, mesh, rules) -> tuple:
-    """(step, params, opt_state) of the newest checkpoint: through the
-    manager's elastic path on a mesh (the parameters by the manifest's
-    axes), the moments then placed as their parameters."""
-    step, state = mgr.restore(template={"params": params, "opt": opt_state},
+def _restore(mgr, params, opt_state, paxes, mesh, rules, step=None) -> tuple:
+    """(step, params, opt_state) of checkpoint ``step`` (default the
+    newest): through the manager's elastic path on a mesh (the parameters
+    by the manifest's axes), the moments then placed as their parameters."""
+    step, state = mgr.restore(step=step, template={"params": params, "opt": opt_state},
                               mesh=mesh, rules=rules)
     opt = state["opt"]
     moments = PT.place_tree({"m": opt["m"], "v": opt["v"]},
@@ -215,8 +194,25 @@ def _restore(mgr, params, opt_state, paxes, mesh, rules) -> tuple:
     return step, state["params"], {**moments, "step": opt["step"]}
 
 
-def _run_loop(loop_cfg, step_fn, mgr, it, params, opt_state, ef, step, paxes,
-              inject_failure_at, device, mesh=None, rules=None):
+def _rank0_latest(mgr, mesh) -> Optional[int]:
+    """The newest checkpoint's step as rank 0 sees it, on every rank of
+    ``mesh``'s process group.  Rank 0 writes the files on a thread that
+    only it waits for: another rank can look before the directory is
+    renamed and restart from an older step (or from none) while rank 0
+    restores, and their collectives then deadlock.  Every rank receives
+    the step after rank 0's wait, when the files are whole."""
+    latest = mgr.latest_step()
+    if mesh is None or mesh.device_mesh is None:
+        return latest
+    import torch.distributed as dist
+
+    box = [latest]
+    dist.broadcast_object_list(box, src=0, group=PT.mesh_world_group(mesh.device_mesh))
+    return box[0]
+
+
+def _run_loop(loop_cfg, run, mgr, it, step, paxes, inject_failure_at, device, mesh=None,
+              rules=None):
     history, events = [], []
     durations: list = []
     retries = 0
@@ -228,21 +224,24 @@ def _run_loop(loop_cfg, step_fn, mgr, it, params, opt_state, ef, step, paxes,
             if inject_failure_at is not None and step == inject_failure_at and not injected:
                 injected = True
                 raise RuntimeError("injected node failure")
-            params, opt_state, ef, metrics = step_fn(params, opt_state, ef, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = {k: float(v) for k, v in run(batch).items()}
+        except R.StepGraphError:
+            raise
         except Exception as e:  # noqa: BLE001 — any step failure triggers recovery
             retries += 1
             events.append({"step": step, "event": "failure", "error": str(e)})
             if retries > loop_cfg.max_retries:
                 raise
             mgr.wait()  # a save in flight lands first: restore the newest
-            if mgr.latest_step() is not None:
-                step, params, opt_state = _restore(mgr, params, opt_state, paxes,
-                                                   mesh, rules)
+            latest = _rank0_latest(mgr, mesh)
+            if latest is not None:
+                step, params, opt_state = _restore(mgr, run.state["params"], run.state["opt"],
+                                                   paxes, mesh, rules, latest)
+                run.load({"params": params, "opt": opt_state})
             else:  # no checkpoint yet: re-init optimizer, keep params
-                opt_state = adamw.init(params)
+                run.zero("opt")
                 step = 0
-            ef = comp.init_error_buf(params) if loop_cfg.grad_compression else None
+            run.zero("ef")
             continue
         dt = time.perf_counter() - t0
         durations.append(dt)
@@ -253,9 +252,9 @@ def _run_loop(loop_cfg, step_fn, mgr, it, params, opt_state, ef, step, paxes,
         if step % loop_cfg.log_every == 0 or step == loop_cfg.steps:
             history.append({"step": step, **metrics, "dt": dt})
         if step % loop_cfg.ckpt_every == 0 or step == loop_cfg.steps:
-            mgr.save(step, {"params": params, "opt": opt_state},
+            mgr.save(step, {"params": run.state["params"], "opt": run.state["opt"]},
                      axes_tree={"params": paxes, "opt": None}, blocking=False)
-    return params, opt_state, ef, history, events
+    return history, events
 
 
 def device_batch(batch: dict, device, mesh=None, rules=None) -> dict:

@@ -1637,19 +1637,20 @@ def test_reduced_train_steps_on_card(cuda, arch):
 
 
 def test_captured_train_step_equals_eager_on_card(cuda):
-    """``train.loop.CapturedStep``: a reduced ChatGLM3-6B's step (bf16,
-    remat, the flash kernel) captured once and replayed gives the eager
-    step's losses and grad norms on the same batches, from copies of the
-    same weights, within 1e-5 relative (the same kernels on the same
-    inputs, under deterministic algorithms; the warm step's cuBLAS runs on
-    a side stream), and its optimizer step count."""
+    """``train.loop.make_runner`` on the card: a reduced ChatGLM3-6B's step
+    (bf16, remat, the flash kernel) captured once and replayed gives the
+    eager step's losses and grad norms on the same batches, from copies of
+    the same weights, within 1e-5 relative (the same kernels on the same
+    inputs, under deterministic algorithms; the warm step, the first,
+    runs on a side stream), and its optimizer step count."""
     import dataclasses
 
     from repro_torch.configs import get_reduced
     from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
     from repro_torch.models import lm
     from repro_torch.optim import adamw
-    from repro_torch.train.loop import CapturedStep, device_batch, make_train_step
+    from repro_torch.train import runner as TR
+    from repro_torch.train.loop import device_batch, make_runner, make_train_step
 
     cfg = dataclasses.replace(get_reduced("chatglm3-6b", dtype="bfloat16", head_dim=64),
                               remat=True)
@@ -1665,15 +1666,114 @@ def test_captured_train_step_equals_eager_on_card(cuda):
         for b in batches:
             params, opt, _, m = step(params, opt, None, b)
             eager.append((float(m["loss"]), float(m["grad_norm"])))
-        cap = CapturedStep(step, twin, adamw.init(twin), batches[0])
-        got = [(cap.warm_metrics["loss"], cap.warm_metrics["grad_norm"])]
-        for b in batches[1:]:
+        cap = make_runner(step, twin, adamw.init(twin), None, cuda)
+        assert isinstance(cap, TR.CapturedStep)
+        got = []
+        for b in batches:
             m = cap(b)
             got.append((float(m["loss"]), float(m["grad_norm"])))
+        assert cap.graph is not None
     finally:
         torch.use_deterministic_algorithms(False)
     assert np.allclose(got, eager, rtol=1e-5, atol=0), (got, eager)
-    assert int(cap.opt_state["step"]) == int(opt["step"]) == 4
+    assert int(cap.state["opt"]["step"]) == int(opt["step"]) == 4
+    cap.close()
+
+
+def _eager_runner(monkeypatch):
+    """Every runner of ``train.runner`` the eager one, on the card too."""
+    from repro_torch.train import runner as TR
+
+    monkeypatch.setattr(TR, "captures", lambda device, backend="none": False)
+
+
+@pytest.mark.parametrize("compression", [False, True])
+def test_captured_train_equals_the_eager_runner_on_card(cuda, compression, monkeypatch,
+                                                         tmp_path):
+    """``train()`` on the card (one CUDA graph a step) against the eager
+    runner on the same batches from the same weights, under deterministic
+    algorithms: 12 steps, checkpoints every 4, a failure at step 10 restored
+    from step 8 in place (one capture for the run); the same steps and
+    events, every history row's loss, ce, grad_norm and lr within 1e-5
+    relative, and the last checkpoint equals the live tree bit for bit."""
+    import dataclasses
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train import runner as TR
+    from repro_torch.train.loop import LoopConfig, train
+
+    cfg = dataclasses.replace(get_reduced("chatglm3-6b", dtype="bfloat16", head_dim=64),
+                              remat=True)
+    data = SyntheticTokens(TokenPipelineConfig(vocab_size=cfg.vocab_size, batch=2,
+                                               seq_len=64))
+
+    def run(tag):
+        return train(cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=12),
+                     LoopConfig(steps=12, log_every=1, ckpt_every=4, max_retries=1,
+                                ckpt_dir=str(tmp_path / tag), grad_compression=compression),
+                     data, inject_failure_at=10, device=cuda)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = (TR.capture_count, TR.replay_count)
+        got = run("captured")
+        graphs = (TR.capture_count - before[0], TR.replay_count - before[1])
+        with monkeypatch.context() as m:
+            _eager_runner(m)
+            want = run("eager")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    steps = [h["step"] for h in got["history"]]
+    assert steps == [h["step"] for h in want["history"]] == list(range(1, 11)) + [9, 10, 11,
+                                                                                  12]
+    assert graphs == (1, len(steps) - 1)
+    failures = lambda out: [e["step"] for e in out["events"] if e["event"] == "failure"]
+    assert failures(got) == failures(want) == [10]
+    for g, w in zip(got["history"], want["history"]):
+        for k in ("loss", "ce", "grad_norm", "lr"):
+            assert abs(g[k] - w[k]) <= 1e-5 * abs(w[k]), (k, g, w)
+    live = {"params": got["params"], "opt": got["opt_state"]}
+    step, back = CheckpointManager(str(tmp_path / "captured")).restore(template=live)
+    assert step == 12
+    for a, b in zip(adamw.leaves(back), adamw.leaves(live)):
+        assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_gin_example_captured_equals_its_eager_step_on_card(cuda, monkeypatch, tmp_path):
+    """``examples/torch_train_gin_molhiv.py`` on the card, its step one CUDA
+    graph, against its eager step over 10 steps under deterministic
+    algorithms: the losses and every parameter leaf within 1e-4 of the
+    leaf's (the loss's) largest magnitude, phase 15's gradient tolerance."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.optim import adamw
+    from repro_torch.train import runner as TR
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_gin_molhiv",
+        Path(__file__).resolve().parent.parent / "examples" / "torch_train_gin_molhiv.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = (TR.capture_count, TR.replay_count)
+        got = ex.main(["10", "--ckpt-dir", str(tmp_path / "a")])
+        graphs = (TR.capture_count - before[0], TR.replay_count - before[1])
+        with monkeypatch.context() as m:
+            _eager_runner(m)
+            want = ex.main(["10", "--ckpt-dir", str(tmp_path / "b")])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert graphs == (1, 9)
+    scale = max(abs(x) for x in want["losses"])
+    assert all(abs(a - b) <= 1e-4 * scale for a, b in zip(got["losses"], want["losses"]))
+    for a, b in zip(adamw.leaves(got["params"]), adamw.leaves(want["params"])):
+        assert a.device.type == "cuda"
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), a.shape
 
 
 # flash_attention on DTensors (the train loop's mesh branch): 2 gloo ranks
